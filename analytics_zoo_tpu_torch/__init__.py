@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of analytics_zoo_tpu.
+
+The package mirrors the JAX package's structure and names, imports
+``torch``, numpy and the standard library only, and runs on the CUDA
+card unless a caller asks for the CPU (``init_nncontext(device="cpu")``,
+where every kernel wrapper runs its plain PyTorch version).
+"""
+
+from analytics_zoo_tpu_torch.common.nncontext import (
+    get_nncontext, init_nncontext, reset_nncontext)
+
+__version__ = "0.1.0"
+
+__all__ = ["get_nncontext", "init_nncontext", "reset_nncontext"]

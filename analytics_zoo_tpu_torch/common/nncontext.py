@@ -1,0 +1,94 @@
+"""Context init (port of ``analytics_zoo_tpu/common/nncontext.py``).
+
+The JAX package's context builds a device mesh; this slice serves on
+one card, so the context holds the device and a seeded root from which
+explicit ``torch.Generator`` objects are drawn. The entry point runs on
+the card unless the caller asks for the CPU: ``device=None`` resolves
+to ``cuda:0`` and raises where there is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Optional
+
+import torch
+
+from analytics_zoo_tpu_torch.common.config import ZooTpuConf
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+_lock = threading.RLock()
+_current: "NNContext | None" = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → ``cuda:0``, raising when CUDA is absent; anything else
+    is taken as given (``"cpu"`` runs the plain versions)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' to run the plain PyTorch versions")
+        return torch.device("cuda", 0)
+    return torch.device(device)
+
+
+class NNContext:
+    """Process-wide context: config, device and the generator root."""
+
+    def __init__(self, conf: ZooTpuConf, device: torch.device):
+        self.conf = conf
+        self.device = device
+        self._seeds = torch.Generator().manual_seed(conf.seed)
+        self._seed_lock = threading.Lock()
+
+    def new_generator(self) -> torch.Generator:
+        """A fresh CPU generator, seeded from the context's root (the
+        counterpart of ``next_rng_key``): the same seed gives the same
+        sequence of generators, so weights made from them repeat."""
+        with self._seed_lock:
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=self._seeds))
+        return torch.Generator().manual_seed(seed)
+
+    def __repr__(self) -> str:
+        return f"NNContext(device={self.device}, seed={self.conf.seed})"
+
+
+def init_nncontext(conf: Optional[ZooTpuConf] = None, *,
+                   seed: Optional[int] = None,
+                   device=None) -> NNContext:
+    """Create (or replace) the process-wide :class:`NNContext`.
+    ``device`` overrides ``conf.device``; both ``None`` means
+    ``cuda:0``, and raises without a CUDA device."""
+    global _current
+    conf = ZooTpuConf() if conf is None else ZooTpuConf(conf.seed,
+                                                        conf.device)
+    if seed is not None:
+        conf.seed = int(seed)
+    if device is not None:
+        conf.device = str(device)
+    ctx = NNContext(conf, resolve_device(conf.device))
+    with _lock:
+        _current = ctx
+    logger.info("Initialized %s", ctx)
+    return ctx
+
+
+def get_nncontext(create_if_missing: bool = True) -> NNContext:
+    """The current context, creating the default one if needed."""
+    with _lock:
+        if _current is not None:
+            return _current
+        if not create_if_missing:
+            raise RuntimeError("NNContext not initialized; "
+                               "call init_nncontext() first")
+        return init_nncontext()
+
+
+def reset_nncontext() -> None:
+    global _current
+    with _lock:
+        _current = None

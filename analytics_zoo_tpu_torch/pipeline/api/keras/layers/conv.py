@@ -1,0 +1,100 @@
+"""Convolution2D (port of
+``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``): NHWC
+activations, HWIO kernels, TF "SAME" or "VALID" padding.
+
+PyTorch pads symmetrically, but TF "SAME" puts the odd extra row and
+column at the high end (the stem 7x7/s2 on 224 pads (2, 3)), so an
+asymmetric SAME pads explicitly before the convolution. This layer is a
+library convolution: in the reference it lies outside any Pallas kernel
+(the stem and the unfused comparison graph).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from analytics_zoo_tpu_torch.ops import activations, initializers
+from analytics_zoo_tpu_torch.ops.conv_bn import tf_same_pads
+from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+    KerasLayer, Shape)
+
+
+def _norm_tuple(v, n, name):
+    if isinstance(v, int):
+        return (v,) * n
+    v = tuple(int(x) for x in v)
+    if len(v) != n:
+        raise ValueError(f"{name} must have length {n}, got {v}")
+    return v
+
+
+def _conv_out_len(length, k, stride, border_mode):
+    if border_mode == "same":
+        return -(-length // stride)
+    return -(-(length - k + 1) // stride)
+
+
+def pad_nchw(x, kernel, strides, border_mode, value=0.0):
+    """Pad an NCHW view for TF-style ``border_mode``; returns the padded
+    tensor and the symmetric ``padding=`` left for the op (a symmetric
+    SAME is handed to the op instead of copied)."""
+    if border_mode == "valid":
+        return x, (0, 0)
+    pt, pb, _ = tf_same_pads(x.shape[2], kernel[0], strides[0])
+    pl, pr, _ = tf_same_pads(x.shape[3], kernel[1], strides[1])
+    if (pt, pl) == (pb, pr) and value == 0.0:
+        return x, (pt, pl)
+    return F.pad(x, (pl, pr, pt, pb), value=value), (0, 0)
+
+
+class Convolution2D(KerasLayer):
+    """2-D convolution over NHWC input with an HWIO kernel (cast to the
+    input's dtype)."""
+
+    def __init__(self, nb_filter: int, nb_row: int,
+                 nb_col: Optional[int] = None, init="glorot_uniform",
+                 activation=None, border_mode: str = "valid",
+                 subsample=1, bias: bool = True, input_shape=None,
+                 name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(f"border_mode must be valid|same, "
+                             f"got {border_mode}")
+        self.nb_filter = int(nb_filter)
+        self.kernel_size = _norm_tuple(
+            nb_row if nb_col is None else (nb_row, nb_col), 2,
+            "kernel_size")
+        self.subsample = _norm_tuple(subsample, 2, "subsample")
+        self.border_mode = border_mode
+        self.kernel_init = initializers.get(init)
+        self.activation = activations.get(activation)
+        self.use_bias = bool(bias)
+
+    def build(self, generator, input_shape: Shape) -> dict:
+        params = {"kernel": self.kernel_init(
+            generator, self.kernel_size + (input_shape[-1],
+                                           self.nb_filter))}
+        if self.use_bias:
+            params["bias"] = torch.zeros((self.nb_filter,))
+        return params
+
+    def call(self, params, x, *, training=False):
+        xc, padding = pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
+                               self.subsample, self.border_mode)
+        w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(xc, w, stride=self.subsample, padding=padding)
+        y = y.permute(0, 2, 3, 1)
+        if self.use_bias:
+            y = y + params["bias"].to(y.dtype)
+        if self.activation is not None:
+            y = self.activation(y)
+        return y.contiguous()
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        out = tuple(_conv_out_len(s, k, st, self.border_mode)
+                    for s, k, st in zip(input_shape[:2], self.kernel_size,
+                                        self.subsample))
+        return out + (self.nb_filter,)

@@ -1,0 +1,263 @@
+"""Containers: functional ``Model`` and ``Sequential`` (port of
+``analytics_zoo_tpu/pipeline/api/keras/models.py``, the structural half:
+params by layer name, forward and predict; compile and fit come with
+the training slice).
+
+A container's param tree is ``{layer.name: layer params}``, the JAX
+package's layout, so a JAX param pytree loads into it as a copy
+(:mod:`analytics_zoo_tpu_torch.bridge`).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+    KerasLayer, ShapeLike, Variable, _InputLayer, collect_layers,
+    topological_order, unique_name,
+)
+
+
+def to_tensor(x, device) -> torch.Tensor:
+    """A host array or tensor as a tensor on ``device`` (dtype kept)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; bf16 (which numpy lacks) widens to
+    f32 exactly."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class KerasNet(KerasLayer):
+    """Shared container behaviour. Containers are layers, so they nest;
+    their sub-layers sit in an ``nn.ModuleDict`` keyed by layer name."""
+
+    def _canonicalize_names(self, layers: "list[KerasLayer]") -> None:
+        """Rename auto-named layers to container-scoped deterministic
+        names (``dense_1``, ``dense_2``, ... in container order), so two
+        builds of one architecture key their params alike."""
+        counters: "dict[str, int]" = {}
+        for lyr in layers:
+            prefix = type(lyr).__name__.lower()
+            counters[prefix] = counters.get(prefix, 0) + 1
+            if getattr(lyr, "_auto_named", False):
+                lyr.name = f"{prefix}_{counters[prefix]}"
+
+    def _register(self, layers: "list[KerasLayer]") -> None:
+        self.graph_layers = nn.ModuleDict({lyr.name: lyr for lyr in layers})
+
+    @property
+    def layers(self) -> "list[KerasLayer]":
+        return list(self.graph_layers.values())
+
+    # -- params -------------------------------------------------------------
+    @property
+    def initialized(self) -> bool:
+        return self._output_shape is not None
+
+    @property
+    def device(self) -> torch.device:
+        for t in itertools.chain(self.parameters(), self.buffers()):
+            return t.device
+        return torch.device("cpu")
+
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    device=None) -> dict:
+        """Build the whole param tree on the host from ``generator``
+        (default: a fresh one from the process context) and move it to
+        ``device`` (default: the context's device, the first card)."""
+        from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+        if generator is None or device is None:
+            ctx = get_nncontext()
+            generator = generator or ctx.new_generator()
+            device = ctx.device if device is None else device
+        params = self.init(generator)
+        self.to(device)
+        return params
+
+    def params(self) -> dict:
+        return {lyr.name: lyr.params() for lyr in self.layers}
+
+    def set_params(self, tree: dict) -> None:
+        extra = sorted(set(tree) - set(self.graph_layers))
+        if extra:
+            raise KeyError(f"{self.name}: params for unknown layers "
+                           f"{extra[:5]}")
+        for lyr in self.layers:
+            if lyr.name not in tree:
+                raise KeyError(f"{self.name}: no params for layer "
+                               f"{lyr.name!r}")
+            lyr.set_params(tree[lyr.name])
+
+    def load_params(self, tree: dict, device=None) -> "KerasNet":
+        """Install a param tree (tensors, or host arrays as from
+        ``jax.device_get``) by layer name, on ``device`` (default: where
+        the net's params are, or the context's device)."""
+        from analytics_zoo_tpu_torch.bridge import params_from_numpy
+        if device is None:
+            if self.initialized:
+                device = self.device
+            else:
+                from analytics_zoo_tpu_torch.common.nncontext import \
+                    get_nncontext
+                device = get_nncontext().device
+        if not self.initialized:
+            # shapes and output-shape bookkeeping come from a build
+            self.init(torch.Generator().manual_seed(0))
+        self.set_params(params_from_numpy(tree, device))
+        return self
+
+    # -- inference ----------------------------------------------------------
+    def forward(self, inputs):
+        return self.call(self.params(), inputs)
+
+    def predict(self, x, batch_size: int = 32) -> np.ndarray:
+        """Forward ``x`` (host array or tensor) in batches of
+        ``batch_size`` on the net's device; returns a host array."""
+        if not self.initialized:
+            self.init_params()
+        x = to_tensor(x, self.device)
+        with torch.inference_mode():
+            outs = [self.forward(x[i:i + batch_size])
+                    for i in range(0, x.shape[0], batch_size)]
+            return to_numpy(torch.cat(outs))
+
+    def predict_classes(self, x, batch_size: int = 32,
+                        zero_based_label: bool = True) -> np.ndarray:
+        classes = np.argmax(self.predict(x, batch_size=batch_size), axis=-1)
+        return classes if zero_based_label else classes + 1
+
+
+class Sequential(KerasNet):
+    """Linear stack of layers."""
+
+    def __init__(self, layers: Optional[Sequence[KerasLayer]] = None,
+                 name: Optional[str] = None):
+        super().__init__(name=name or unique_name("sequential"))
+        self._stack: "list[KerasLayer]" = []
+        self._register([])
+        for lyr in layers or []:
+            self.add(lyr)
+
+    def add(self, layer: KerasLayer) -> "Sequential":
+        if not isinstance(layer, KerasLayer):
+            raise TypeError(f"expected a KerasLayer, got {type(layer)}")
+        if not self._stack and layer._given_input_shape is None:
+            raise ValueError(
+                "first layer of a Sequential needs input_shape=...")
+        self._stack.append(layer)
+        self._canonicalize_names(self._stack)
+        self._register(self._stack)
+        return self
+
+    def init(self, generator: torch.Generator,
+             input_shape: Optional[ShapeLike] = None) -> dict:
+        if input_shape is None:
+            if not self._stack:
+                raise ValueError("empty Sequential")
+            input_shape = self._stack[0]._given_input_shape
+        self._build_input_shape = input_shape
+        shape = input_shape
+        for lyr in self._stack:
+            lyr.init(generator, shape)
+            shape = lyr.output_shape
+        self._output_shape = shape
+        return self.params()
+
+    def compute_output_shape(self, input_shape: ShapeLike) -> ShapeLike:
+        shape = input_shape
+        for lyr in self._stack:
+            shape = lyr.compute_output_shape(shape)
+        return shape
+
+    def call(self, params, inputs, *, training=False):
+        x = inputs
+        for lyr in self._stack:
+            x = lyr.call(params[lyr.name], x, training=training)
+        return x
+
+
+class Model(KerasNet):
+    """Functional graph model, built from ``Input(...)`` variables
+    through layer calls; a layer used at several nodes has one set of
+    params."""
+
+    def __init__(self, inputs: "Variable | Sequence[Variable]",
+                 outputs: "Variable | Sequence[Variable]",
+                 name: Optional[str] = None):
+        super().__init__(name=name or unique_name("model"))
+        self.inputs: "list[Variable]" = (
+            list(inputs) if isinstance(inputs, (list, tuple)) else [inputs])
+        self.outputs: "list[Variable]" = (
+            list(outputs) if isinstance(outputs, (list, tuple))
+            else [outputs])
+        self._order = topological_order(self.outputs)
+        for v in self.inputs:
+            if v not in self._order:
+                raise ValueError(f"input {v} is not connected to outputs")
+        graph_layers = collect_layers(self._order)
+        self._multi_out = isinstance(outputs, (list, tuple))
+        old_names = {id(lyr): lyr.name for lyr in graph_layers}
+        self._canonicalize_names(graph_layers)
+        for v in self._order:
+            if v.layer is not None and \
+                    v.name == old_names.get(id(v.layer)):
+                v.name = v.layer.name
+        self._register(graph_layers)
+
+    def init(self, generator: torch.Generator,
+             input_shape: Optional[ShapeLike] = None) -> dict:
+        """Build every layer in graph order, each at its node's input
+        shape, from one generator."""
+        del input_shape  # graph shapes come from the Input variables
+        built = set()
+        for v in self._order:
+            lyr = v.layer
+            if lyr is None or isinstance(lyr, _InputLayer) or \
+                    id(lyr) in built:
+                continue
+            in_shape: ShapeLike = ([p.shape for p in v.parents]
+                                   if len(v.parents) > 1
+                                   else v.parents[0].shape)
+            lyr.init(generator, in_shape)
+            built.add(id(lyr))
+        shapes = [v.shape for v in self.outputs]
+        self._output_shape = shapes if self._multi_out else shapes[0]
+        return self.params()
+
+    def compute_output_shape(self, input_shape: ShapeLike) -> ShapeLike:
+        shapes = [v.shape for v in self.outputs]
+        return shapes if self._multi_out else shapes[0]
+
+    def call(self, params, inputs, *, training=False):
+        xs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"model {self.name} expects "
+                             f"{len(self.inputs)} inputs, got {len(xs)}")
+        values: "dict[int, Any]" = {id(v): x
+                                    for v, x in zip(self.inputs, xs)}
+        for v in self._order:
+            if id(v) in values:
+                continue
+            lyr = v.layer
+            if lyr is None or isinstance(lyr, _InputLayer):
+                raise ValueError(
+                    f"graph input {v.name} was not fed; it must be listed "
+                    "in Model(inputs=...)")
+            args = [values[id(p)] for p in v.parents]
+            values[id(v)] = lyr.call(params[lyr.name],
+                                     args if len(args) > 1 else args[0],
+                                     training=training)
+        outs = [values[id(v)] for v in self.outputs]
+        return outs if self._multi_out else outs[0]

@@ -1,0 +1,232 @@
+"""The PyTorch port's eval conv+BN folds (``analytics_zoo_tpu_torch.ops.
+conv_bn``) against the JAX package's on the same numpy inputs.
+
+The JAX side runs as its own CPU tests run it: the Pallas kernels in
+interpret mode (the odd stride-2 extent takes its reference
+expression). The port side runs its plain versions: on CPU tensors the
+wrappers take them and launch nothing. The CUDA kernels are held
+against the plain versions on the card in
+tests/test_torch_kernels_cuda.py.
+
+Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold (one f32 product, sums
+in another order) and atol 1e-3 for the 3x3 (nine taps, the bound of
+tests/test_conv_bn.py); bf16 compares in f32 with rtol/atol 2e-2, as
+the output is rounded once to bf16 (2^-8 relative) and the two sides
+may round a value on either side of a tie.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from analytics_zoo_tpu.ops import conv_bn as jcb
+from analytics_zoo_tpu_torch.ops import conv_bn as tcb
+from analytics_zoo_tpu_torch.ops import cuda_build
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype="float32"):
+    """The same numpy values as a JAX array and a torch tensor."""
+    jdt, tdt = DTYPES[dtype]
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _f32(y):
+    if isinstance(y, torch.Tensor):
+        return y.float().numpy()
+    return np.asarray(y.astype(jnp.float32))
+
+
+def _vectors(rs, n):
+    return (rs.rand(n).astype(np.float32) + 0.5,
+            (rs.randn(n) * 0.1).astype(np.float32))
+
+
+# residual, relu_out, prologue: each on and off at least once
+FOLDS = [(False, False, False), (True, True, False), (False, True, True),
+         (True, False, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual,relu_out,prologue", FOLDS)
+def test_matmul_bn_apply_matches_jax(dtype, residual, relu_out, prologue):
+    rs = np.random.RandomState(0)
+    m, k, n = 100, 128, 256          # ragged M: the kernel masks it
+    x = rs.randn(m, k)
+    w = (rs.randn(k, n) * 0.1).astype(np.float32)
+    s, t = _vectors(rs, k)
+    os_, ot = _vectors(rs, n)
+    r = rs.randn(m, n)
+    jx, tx = _pair(x, dtype)
+    jr, tr = _pair(r, dtype)
+    kw = dict(relu_in=prologue, relu_out=relu_out)
+    jkw = dict(kw, out_scale=jnp.asarray(os_), out_shift=jnp.asarray(ot))
+    tkw = dict(kw, out_scale=torch.from_numpy(os_),
+               out_shift=torch.from_numpy(ot))
+    if prologue:
+        jkw.update(in_scale=jnp.asarray(s), in_shift=jnp.asarray(t))
+        tkw.update(in_scale=torch.from_numpy(s),
+                   in_shift=torch.from_numpy(t))
+    before = dict(tcb.launches)
+    want = jcb.matmul_bn_apply(jx, jnp.asarray(w),
+                               residual=jr if residual else None, **jkw)
+    got = tcb.matmul_bn_apply(tx, torch.from_numpy(w),
+                              residual=tr if residual else None, **tkw)
+    assert got.shape == (m, n) and got.dtype == DTYPES[dtype][1]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    # CPU tensors run the plain version: no kernel launched
+    assert tcb.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv3x3_bn_apply_matches_jax(dtype, stride, prologue):
+    rs = np.random.RandomState(1)
+    b, h, wd, cin, cout = 2, 8, 8, 64, 64
+    x = rs.randn(b, h, wd, cin)
+    w = (rs.randn(3, 3, cin, cout) * 0.1).astype(np.float32)
+    s, t = _vectors(rs, cin)
+    os_, ot = _vectors(rs, cout)
+    jx, tx = _pair(x, dtype)
+    jkw = dict(out_scale=jnp.asarray(os_), out_shift=jnp.asarray(ot),
+               relu_out=True, stride=stride, relu_in=prologue)
+    tkw = dict(out_scale=torch.from_numpy(os_),
+               out_shift=torch.from_numpy(ot), relu_out=True,
+               stride=stride, relu_in=prologue)
+    if prologue:
+        jkw.update(in_scale=jnp.asarray(s), in_shift=jnp.asarray(t))
+        tkw.update(in_scale=torch.from_numpy(s),
+                   in_shift=torch.from_numpy(t))
+    want = jcb.conv3x3_bn_apply(jx, jnp.asarray(w), **jkw)
+    got = tcb.conv3x3_bn_apply(tx, torch.from_numpy(w), **tkw)
+    assert tuple(got.shape) == (b, h // stride, wd // stride, cout)
+    tol = dict(rtol=1e-4, atol=1e-3) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
+def test_conv3x3_bn_apply_odd_stride2_extent():
+    # 7x7 at stride 2: TF SAME pads (1, 1) to a 4x4 map; the TPU takes
+    # its reference expression here, the CUDA kernel takes any extent
+    rs = np.random.RandomState(2)
+    x = rs.randn(2, 7, 7, 64)
+    w = (rs.randn(3, 3, 64, 128) * 0.1).astype(np.float32)
+    s, t = _vectors(rs, 64)
+    os_, ot = _vectors(rs, 128)
+    jx, tx = _pair(x)
+    want = jcb.conv3x3_bn_apply(
+        jx, jnp.asarray(w), in_scale=jnp.asarray(s),
+        in_shift=jnp.asarray(t), relu_in=True, out_scale=jnp.asarray(os_),
+        out_shift=jnp.asarray(ot), relu_out=True, stride=2)
+    got = tcb.conv3x3_bn_apply(
+        tx, torch.from_numpy(w), in_scale=torch.from_numpy(s),
+        in_shift=torch.from_numpy(t), relu_in=True,
+        out_scale=torch.from_numpy(os_), out_shift=torch.from_numpy(ot),
+        relu_out=True, stride=2)
+    assert tuple(got.shape) == (2, 4, 4, 128)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv1x1_bn_apply_strided_matches_jax(stride):
+    # the strided shortcut reads every other pixel (x[:, ::2, ::2])
+    rs = np.random.RandomState(3)
+    x = rs.randn(2, 8, 8, 64)
+    w = (rs.randn(1, 1, 64, 256) * 0.1).astype(np.float32)
+    os_, ot = _vectors(rs, 256)
+    r = rs.randn(2, 8 // stride, 8 // stride, 256)
+    jx, tx = _pair(x)
+    jr, tr = _pair(r)
+    want = jcb.conv1x1_bn_apply(jx, jnp.asarray(w), stride=stride,
+                                residual=jr, out_scale=jnp.asarray(os_),
+                                out_shift=jnp.asarray(ot), relu_out=True)
+    got = tcb.conv1x1_bn_apply(tx, torch.from_numpy(w), stride=stride,
+                               residual=tr, out_scale=torch.from_numpy(os_),
+                               out_shift=torch.from_numpy(ot),
+                               relu_out=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-4)
+
+
+def test_fold_dtype_rules_pinned():
+    # bf16 activations with the f32 weights the model keeps: the 1x1
+    # fold multiplies in f32 (x cast to w.dtype), the 3x3 fold in bf16
+    # (w cast to x.dtype); both accumulate in f32 and return bf16
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 4, 4, 64).astype(np.float32)).to(
+        torch.bfloat16)
+    w1 = torch.from_numpy((rs.randn(64, 64) * 0.1).astype(np.float32))
+    w3 = torch.from_numpy((rs.randn(3, 3, 64, 64) * 0.1).astype(
+        np.float32))
+    y1 = tcb.conv1x1_bn_apply(x, w1)
+    assert y1.dtype == torch.bfloat16
+    f32_product = torch.matmul(x.float().reshape(-1, 64), w1)
+    assert torch.equal(y1.reshape(-1, 64), f32_product.to(torch.bfloat16))
+    y3 = tcb.conv3x3_bn_apply(x, w3)
+    assert y3.dtype == torch.bfloat16
+    bf16_weights = tcb.conv3x3_bn_apply(x.float(),
+                                        w3.to(torch.bfloat16).float())
+    assert torch.equal(y3, bf16_weights.to(torch.bfloat16))
+    # and the JAX package follows the same rules
+    want1 = jcb.conv1x1_bn_apply(jnp.asarray(x.float().numpy(),
+                                             jnp.bfloat16),
+                                 jnp.asarray(w1.numpy()))
+    np.testing.assert_allclose(_f32(y1), _f32(want1), rtol=2e-2, atol=2e-2)
+
+
+def test_tf_same_pads():
+    assert tcb.tf_same_pads(224, 7, 2) == (2, 3, 112)   # stem
+    assert tcb.tf_same_pads(112, 3, 2) == (0, 1, 56)    # max pool
+    assert tcb.tf_same_pads(56, 3, 2) == (0, 1, 28)     # 3x3/s2
+    assert tcb.tf_same_pads(56, 3, 1) == (1, 1, 56)
+    assert tcb.tf_same_pads(7, 3, 2) == (1, 1, 4)
+    assert tcb.tf_same_pads(56, 1, 2) == (0, 0, 28)
+
+
+def test_wrappers_validate_like_jax():
+    x = torch.zeros(10, 96)
+    with pytest.raises(ValueError, match="64-multiples"):
+        tcb.matmul_bn_apply(x, torch.zeros(96, 64))
+    with pytest.raises(ValueError, match="64-multiples"):
+        jcb.matmul_bn_apply(jnp.zeros((10, 96)), jnp.zeros((96, 64)))
+    with pytest.raises(ValueError, match="stride"):
+        tcb.conv3x3_bn_apply(torch.zeros(1, 4, 4, 64),
+                             torch.zeros(3, 3, 64, 64), stride=3)
+    with pytest.raises(ValueError, match="3x3"):
+        tcb.conv3x3_bn_apply(torch.zeros(1, 4, 4, 64),
+                             torch.zeros(5, 5, 64, 64))
+    with pytest.raises(ValueError, match="64-multiples"):
+        tcb.conv3x3_bn_apply(torch.zeros(1, 4, 4, 32),
+                             torch.zeros(3, 3, 32, 64))
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        tcb.conv1x1_bn_apply(torch.zeros(1, 4, 4, 64),
+                             torch.zeros(64, 64), out_scal=None)
+
+
+def test_no_kernel_for_other_devices():
+    # neither CPU nor CUDA: no plain fallback, no kernel — raise
+    x = torch.empty(64, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tcb.matmul_bn_apply(x, torch.empty(64, 64, device="meta"))
+
+
+def test_modules_import_without_nvcc_and_build_lazily(monkeypatch):
+    # without a card, nothing loaded a kernel library; the build
+    # itself needs nvcc and says so where it is missing
+    if not torch.cuda.is_available():
+        assert cuda_build._libs == {} and tcb._fns == {}
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(cuda_build.os.path, "isfile", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.nvcc_path()
+    # the library name hashes its sources: stable across calls
+    p = cuda_build.library_path("matmul_bn_apply")
+    assert p == cuda_build.library_path("matmul_bn_apply")
+    assert p != cuda_build.library_path("conv3x3_bn_apply")
