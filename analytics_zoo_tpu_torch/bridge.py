@@ -4,7 +4,9 @@ A JAX param tree, brought to the host with ``jax.device_get``, is a
 nested dict of numpy arrays keyed by layer name. The port keeps the
 same names and layouts, so the bridge is a copy in both directions:
 ``params_to_numpy(params_from_numpy(tree))`` gives back ``tree`` bit
-for bit. This module imports no JAX.
+for bit. Optimizer state crosses too, for comparison: an Estimator's
+and an optax state's moments come out in one layout. This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -32,3 +34,69 @@ def params_to_numpy(model_or_tree):
     if isinstance(model_or_tree, dict):
         return {k: params_to_numpy(v) for k, v in model_or_tree.items()}
     return model_or_tree.detach().cpu().numpy().copy()
+
+
+def _fill(mask, leaves):
+    """The True entries of a bool tree, filled in order from ``leaves``;
+    subtrees left empty are dropped."""
+    out = {}
+    for k, v in mask.items():
+        if isinstance(v, dict):
+            sub = _fill(v, leaves)
+            if sub:
+                out[k] = sub
+        elif v:
+            out[k] = next(leaves)
+    return out
+
+
+def opt_state_to_numpy(estimator) -> dict:
+    """An Estimator's optimizer state as host arrays: ``count`` and each
+    moment (``trace`` for SGD with momentum, ``mu`` and ``nu`` for Adam)
+    as a tree shaped like the trainable part of the param tree."""
+    model = estimator.model
+    mask = model.trainable_mask(model.params())
+    out = {}
+    for key, val in estimator.opt_state.items():
+        out[key] = (np.asarray(val) if key == "count" else
+                    params_to_numpy(_fill(mask, iter(val))))
+    return out
+
+
+def _moments(tree):
+    """A moment tree with the leaves an optax mask left out (its
+    ``MaskedNode``, an empty named tuple) and emptied subtrees dropped."""
+    if isinstance(tree, dict):
+        kept = {k: _moments(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items()
+                if v is not None and not (isinstance(v, dict) and not v)}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == ():
+        return None
+    return np.asarray(tree)
+
+
+def optax_state_to_numpy(state) -> dict:
+    """The moments of an optax optimizer state brought to the host with
+    ``jax.device_get``, in :func:`opt_state_to_numpy`'s layout: the
+    first ``trace``, ``mu``, ``nu`` and ``count`` fields found, with the
+    masked-out leaves dropped. Named tuples are walked by field name, so
+    this imports neither JAX nor optax."""
+    out = {}
+
+    def walk(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f in node._fields:
+                v = getattr(node, f)
+                if f in ("trace", "mu", "nu", "count") and f not in out:
+                    out[f] = _moments(v)
+                else:
+                    walk(v)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+
+    walk(state)
+    return out

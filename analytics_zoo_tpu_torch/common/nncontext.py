@@ -1,8 +1,9 @@
 """Context init (port of ``analytics_zoo_tpu/common/nncontext.py``).
 
-The JAX package's context builds a device mesh; this slice serves on
-one card, so the context holds the device and a seeded root from which
-explicit ``torch.Generator`` objects are drawn. The entry point runs on
+The JAX package's context builds a device mesh; the port runs on one
+card, so the context holds the device, its data-parallel size (1) and a
+seeded root from which explicit ``torch.Generator`` objects are drawn
+(model init and the Estimator draw theirs from it). The entry point runs on
 the card unless the caller asks for the CPU: ``device=None`` resolves
 to ``cuda:0`` and raises where there is no CUDA device.
 """
@@ -43,6 +44,21 @@ class NNContext:
         self.device = device
         self._seeds = torch.Generator().manual_seed(conf.seed)
         self._seed_lock = threading.Lock()
+
+    @property
+    def data_parallel_size(self) -> int:
+        """Devices the batch splits over: one card (the mesh waits)."""
+        return 1
+
+    def check_batch_size(self, batch_size: int) -> int:
+        """Enforce batch divisibility over the data-parallel size, the
+        reference's ``batch_size % total_cores == 0`` rule."""
+        dp = self.data_parallel_size
+        if batch_size < 1 or batch_size % dp:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be a positive multiple "
+                f"of the data-parallel size ({dp})")
+        return batch_size
 
     def new_generator(self) -> torch.Generator:
         """A fresh CPU generator, seeded from the context's root (the

@@ -1,9 +1,9 @@
 // C entry point of the eval 3x3 SAME conv + BN fold (`conv3x3_bn_apply`
 // in analytics_zoo_tpu_torch/ops/conv_bn.py); the kernel is the KS = 3
-// instance of conv_bn_apply.cuh. The caller passes TF-SAME's low pads
+// instance of conv_bn_fwd.cuh. The caller passes TF-SAME's low pads
 // (pad_t, pad_l); any extent and stride 1 or 2 are taken.
 
-#include "conv_bn_apply.cuh"
+#include "conv_bn_fwd.cuh"
 
 extern "C" int conv3x3_bn_apply_launch(
     const void* x, const void* w, const void* in_scale,
@@ -14,6 +14,6 @@ extern "C" int conv3x3_bn_apply_launch(
   const zoo::ConvBnArgs a = zoo::make_args(
       x, w, in_scale, in_shift, out_scale, out_shift, nullptr, y, B, H, W,
       Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in, relu_in, relu_out);
-  return zoo::launch_conv_bn_apply<3>(a, x_bf16, w_bf16,
-                                      static_cast<cudaStream_t>(stream));
+  return zoo::launch_conv_bn<3, false>(
+      a, x_bf16, w_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -1,32 +1,49 @@
-// Eval-mode conv + BatchNorm fold for Hopper (sm_90a): one implicit-GEMM
-// template shared by the 1x1 fold (`matmul_bn_apply`, KS = 1) and the
-// 3x3 SAME fold (`conv3x3_bn_apply`, KS = 3).
+// Conv + BatchNorm forward for Hopper (sm_90a): one implicit-GEMM
+// template shared by the 1x1 kernels (KS = 1) and the 3x3 SAME kernels
+// (KS = 3), with two epilogues:
 //
-//   y[m, n] = relu_out?( sum_k A[m, k] * W[k, n] * os[n] + ot[n]
-//                        [+ res[m, n]] )
-//   A[m, (tap, c)] = relu_in?( affine_in? x[pixel(m, tap), c] * s[c] + t[c] )
+// - the eval fold (`matmul_bn_apply`, `conv3x3_bn_apply`):
+//     y[m, n] = relu_out?( acc[m, n] * os[n] + ot[n] [+ res[m, n]] )
+// - the training statistics (`matmul_bn`, `conv3x3_bn`):
+//     y[m, n] = acc[m, n], and per column n the partial sums
+//     sum_m (acc - sh[n]) and sum_m (acc - sh[n])^2 of this block's rows
+// where
+//   acc[m, n] = sum_k A[m, k] * W[k, n]
+//   A[m, (tap, c)] = relu_in?( affine_in? x[pixel(m, tap), c] * s[c] + t[c]
+//                              [+ in_res[m, c]] )
 //
 // Rows m are output pixels (b, oy, ox) of an NHWC activation; the
 // reduction runs over KS*KS taps times Cin channels and reads the HWIO
 // weight as a (KS*KS*Cin, N) matrix. The A-tile loader computes each
 // tap's input pixel itself and writes 0 where the tap falls outside the
 // image, so the halo is zero AFTER the prologue (affine(0) = t never
-// enters the sum). Rows past M are masked, not padded.
+// enters the sum). Rows past M are masked, not padded: they are neither
+// stored nor counted in the statistics, so no padding correction exists.
 //
-// Replaces the TPU's Pallas kernels `_apply_kernel` (1x1) and
-// `_conv3_apply_kernel` (3x3) of analytics_zoo_tpu/ops/conv_bn.py.
+// Replaces the TPU's Pallas kernels of analytics_zoo_tpu/ops/conv_bn.py:
+// `_apply_kernel` (1x1 fold), `_conv3_apply_kernel` (3x3 fold), `_kernel`
+// (the 1x1 with statistics, called by `_matmul_bn_fwd_pallas`) and
+// `_conv3_kernel` (the 3x3 with statistics).
+//
+// Statistics across blocks: the TPU carries the column sums across a
+// sequential grid; here blocks run in no order, so each block writes its
+// 64 columns' partial sums into row blockIdx.x of a (gridDim.x, 2N)
+// buffer (sums, then sums of squares), and colsum.cuh reduces the rows
+// in a fixed order. The sums come from the f32 accumulator, never from
+// the rounded y, and a run repeats bit for bit (no atomics).
 //
 // What bounds it on the H100: at ResNet-50's stage 0 (K = 64, N = 256)
-// the 1x1 fold does 2*64*256 FLOP per row against (64 + 256) * 2 bytes of
+// the 1x1 does 2*64*256 FLOP per row against (64 + 256) * 2 bytes of
 // bf16 traffic, about 51 FLOP/byte, far below the tensor cores' bf16
 // ridge of about 295 FLOP/byte, so on tensor cores it is bound by bytes.
-// With f32 weights the product runs as f32 FMA, whose ridge is about 20
+// With f32 operands the product runs as f32 FMA, whose ridge is about 20
 // FLOP/byte (67 TFLOP/s over 3.35 TB/s), and the same shapes are bound by
-// operations; so are the 3x3 folds. The design keeps every intermediate
-// out of device memory: the previous BN's apply + ReLU runs while the A
-// tile is staged into shared memory, and this BN's fold, the residual
-// add and the ReLU run on the accumulators in registers while the tile
-// is written, so each activation is read once and written once. It is a
+// operations; so are the 3x3s. The design keeps every intermediate out
+// of device memory: the previous BN's apply + ReLU (and in training the
+// deferred residual) runs while the A tile is staged into shared memory,
+// and the epilogue (this BN's fold, residual and ReLU, or the column
+// statistics) runs on the accumulators in registers while the tile is
+// written, so each activation is read once and written once. It is a
 // first, simple kernel: one 64x64 output tile per block, a K loop in
 // 32-deep slices through shared memory without double buffering.
 //
@@ -35,8 +52,9 @@
 //   accumulators; 4 warps, each a 32x32 sub-tile.
 // - f32 weights: plain f32 FMA (not TF32, which would not match the
 //   reference's full-f32 product); 256 threads, each a 4x4 sub-tile.
-// Activations (x, res, y) are f32 or bf16 independently of the weights;
-// scale and shift vectors are f32; the output has x's type.
+// Activations (x, in_res, res, y) are f32 or bf16 independently of the
+// weights; scale, shift and statistics vectors are f32; the output has
+// x's type.
 
 #pragma once
 
@@ -51,13 +69,17 @@ struct ConvBnArgs {
   const void* w;            // (KS*KS*Cin, N), compute type
   const float* in_scale;    // (Cin,), read only when affine_in
   const float* in_shift;    // (Cin,)
-  const float* out_scale;   // (N,)
+  const float* out_scale;   // (N,), fold epilogue
   const float* out_shift;   // (N,)
-  const void* res;          // (M, N), Tx, or null
+  const void* res;          // (M, N), Tx, or null: fold epilogue residual
   void* y;                  // (M, N), Tx
   int B, H, W, Cin, Ho, Wo, N;
   int stride, pad_t, pad_l;
   int affine_in, relu_in, relu_out;
+  const void* in_res = nullptr;  // (M, Cin), Tx, or null: prologue
+                                 // residual (KS = 1 only)
+  const float* sh = nullptr;     // (N,): statistics shift
+  float* partial = nullptr;      // (gridDim.x, 2N): statistics partials
 };
 
 constexpr int kBM = 64;
@@ -99,6 +121,7 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
 struct RowGeom {
   int64_t base;   // b * H
   int iy0, ix0;   // top-left input pixel of the window
+  int m;          // the row
   bool ok;        // row < M
 };
 
@@ -115,6 +138,7 @@ __device__ __forceinline__ RowGeom row_geom(const ConvBnArgs& a, int m,
   g.base = static_cast<int64_t>(b) * a.H;
   g.iy0 = oy * a.stride - a.pad_t;
   g.ix0 = ox * a.stride - a.pad_l;
+  g.m = mm;
   return g;
 }
 
@@ -145,6 +169,13 @@ __device__ __forceinline__ void load_a(const ConvBnArgs& a, const Tx* x,
     for (int j = 0; j < V; ++j)
       v[j] = fmaf(v[j], a.in_scale[c + j], a.in_shift[c + j]);
   }
+  if (KS == 1 && a.in_res != nullptr) {
+    float r[V];
+    load_vec<Tx, V>(static_cast<const Tx*>(a.in_res) +
+                        static_cast<int64_t>(g.m) * a.Cin + c, r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] += r[j];
+  }
   if (a.relu_in) {
 #pragma unroll
     for (int j = 0; j < V; ++j) v[j] = fmaxf(v[j], 0.f);
@@ -173,13 +204,42 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
         "r"(b[1]));
 }
 
+// One 16-deep step of a warp's 32x32 sub-tile: A rows arow0 .. +31 and
+// B rows (output columns) brow0 .. +31 of [row][k] shared tiles.
+template <int LDS>
+__device__ __forceinline__ void warp_mma_32x32(
+    float (&acc)[2][4][4], const __nv_bfloat16 (*As)[LDS],
+    const __nv_bfloat16 (*Bs)[LDS], int arow0, int brow0, int ks, int g,
+    int t4) {
+  uint32_t af[2][4];
+  uint32_t bf[4][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int r = arow0 + mi * 16 + g;
+    af[mi][0] = lds32(&As[r][ks + 2 * t4]);
+    af[mi][1] = lds32(&As[r + 8][ks + 2 * t4]);
+    af[mi][2] = lds32(&As[r][ks + 2 * t4 + 8]);
+    af[mi][3] = lds32(&As[r + 8][ks + 2 * t4 + 8]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int c = brow0 + ni * 8 + g;
+    bf[ni][0] = lds32(&Bs[c][ks + 2 * t4]);
+    bf[ni][1] = lds32(&Bs[c][ks + 2 * t4 + 8]);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
+}
+
 // bf16 weights: tensor cores. 128 threads; warp (wm, wn) owns rows
 // wm*32 .. +31 and columns wn*32 .. +31 of the 64x64 tile as 2 x 4
 // m16n8 fragments. Shared rows are padded to 40 halves (80 bytes) so
 // the fragment loads of a warp hit 32 distinct banks.
-template <typename Tx, int KS>
+template <typename Tx, int KS, bool kStats>
 __global__ void __launch_bounds__(128)
-    conv_bn_apply_bf16_kernel(ConvBnArgs a) {
+    conv_bn_bf16_kernel(ConvBnArgs a) {
   constexpr int kLds = kBK + 8;
   __shared__ __align__(16) __nv_bfloat16 As[kBM][kLds];
   __shared__ __align__(16) __nv_bfloat16 Bs[kBN][kLds];  // [n][k]
@@ -238,56 +298,85 @@ __global__ void __launch_bounds__(128)
     __syncthreads();
 
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[2][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        af[mi][0] = lds32(&As[r][ks + 2 * t4]);
-        af[mi][1] = lds32(&As[r + 8][ks + 2 * t4]);
-        af[mi][2] = lds32(&As[r][ks + 2 * t4 + 8]);
-        af[mi][3] = lds32(&As[r + 8][ks + 2 * t4 + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * 32 + ni * 8 + g;
-        bf[ni][0] = lds32(&Bs[c][ks + 2 * t4]);
-        bf[ni][1] = lds32(&Bs[c][ks + 2 * t4 + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-    }
+    for (int ks = 0; ks < kBK; ks += 16)
+      warp_mma_32x32<kLds>(acc, As, Bs, wm * 32, wn * 32, ks, g, t4);
     __syncthreads();
   }
 
   // epilogue in registers: fragment element (2h + e) sits at row
   // g + 8h, column 2*t4 + e of its m16n8 tile
-  const Tx* res = static_cast<const Tx*>(a.res);
   Tx* y = static_cast<Tx*>(a.y);
+  if constexpr (!kStats) {
+    const Tx* res = static_cast<const Tx*>(a.res);
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-    const float os0 = a.out_scale[col], os1 = a.out_scale[col + 1];
-    const float ot0 = a.out_shift[col], ot1 = a.out_shift[col + 1];
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
+      const float os0 = a.out_scale[col], os1 = a.out_scale[col + 1];
+      const float ot0 = a.out_shift[col], ot1 = a.out_shift[col + 1];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+      for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const int64_t off = static_cast<int64_t>(row) * a.N + col;
-        float r0 = 0.f, r1 = 0.f;
-        if (res != nullptr) {
-          r0 = to_f32(res[off]);
-          r1 = to_f32(res[off + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
+          if (row >= M) continue;
+          const int64_t off = static_cast<int64_t>(row) * a.N + col;
+          float r0 = 0.f, r1 = 0.f;
+          if (res != nullptr) {
+            r0 = to_f32(res[off]);
+            r1 = to_f32(res[off + 1]);
+          }
+          store2(y + off, epilogue(a, acc[mi][ni][2 * h], os0, ot0, r0),
+                 epilogue(a, acc[mi][ni][2 * h + 1], os1, ot1, r1));
         }
-        store2(y + off, epilogue(a, acc[mi][ni][2 * h], os0, ot0, r0),
-               epilogue(a, acc[mi][ni][2 * h + 1], os1, ot1, r1));
       }
+    }
+  } else {
+    // y, then each column's shifted sums over this thread's valid rows;
+    // the 8 lanes sharing t4 (g = 0..7) reduce by a fixed butterfly, the
+    // two row warps (wm) through shared memory in a fixed order
+    __shared__ float red[2][2][kBN];  // [wm][sum, sumsq][column]
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
+      const float sh[2] = {a.sh[col], a.sh[col + 1]};
+      float cs[2] = {0.f, 0.f};
+      float cq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
+          if (row >= M) continue;
+          const float v0 = acc[mi][ni][2 * h];
+          const float v1 = acc[mi][ni][2 * h + 1];
+          store2(y + static_cast<int64_t>(row) * a.N + col, v0, v1);
+          const float d0 = v0 - sh[0];
+          const float d1 = v1 - sh[1];
+          cs[0] += d0;
+          cq[0] += d0 * d0;
+          cs[1] += d1;
+          cq[1] += d1 * d1;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], off);
+          cq[e] += __shfl_xor_sync(0xffffffffu, cq[e], off);
+        }
+        if (g == 0) {
+          const int c = wn * 32 + ni * 8 + 2 * t4 + e;
+          red[wm][0][c] = cs[e];
+          red[wm][1][c] = cq[e];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < kBN) {
+      float* p = a.partial + static_cast<int64_t>(blockIdx.x) * 2 * a.N;
+      p[n0 + tid] = red[0][0][tid] + red[1][0][tid];
+      p[a.N + n0 + tid] = red[0][1][tid] + red[1][1][tid];
     }
   }
 }
@@ -295,9 +384,9 @@ __global__ void __launch_bounds__(128)
 // f32 weights: plain FMA. 256 threads; thread (ty, tx) owns rows
 // ty*4 .. +3 and columns tx*4 .. +3. A is staged k-major so a thread
 // reads its 4 rows as one float4.
-template <typename Tx, int KS>
+template <typename Tx, int KS, bool kStats>
 __global__ void __launch_bounds__(256)
-    conv_bn_apply_f32_kernel(ConvBnArgs a) {
+    conv_bn_f32_kernel(ConvBnArgs a) {
   __shared__ __align__(16) float As[kBK][kBM + 4];  // [k][m]
   __shared__ __align__(16) float Bs[kBK][kBN];      // [k][n]
 
@@ -349,43 +438,79 @@ __global__ void __launch_bounds__(256)
     __syncthreads();
   }
 
-  const Tx* res = static_cast<const Tx*>(a.res);
   Tx* y = static_cast<Tx*>(a.y);
+  if constexpr (!kStats) {
+    const Tx* res = static_cast<const Tx*>(a.res);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + tx * 4 + j;
-    const float os = a.out_scale[col];
-    const float ot = a.out_shift[col];
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      const float os = a.out_scale[col];
+      const float ot = a.out_shift[col];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row >= M) continue;
-      const int64_t off = static_cast<int64_t>(row) * a.N + col;
-      const float r = res != nullptr ? to_f32(res[off]) : 0.f;
-      store1(y + off, epilogue(a, acc[i][j], os, ot, r));
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + ty * 4 + i;
+        if (row >= M) continue;
+        const int64_t off = static_cast<int64_t>(row) * a.N + col;
+        const float r = res != nullptr ? to_f32(res[off]) : 0.f;
+        store1(y + off, epilogue(a, acc[i][j], os, ot, r));
+      }
+    }
+  } else {
+    // y, then per column the sums over this thread's valid rows, then
+    // over the 16 row groups (ty) through shared memory in order
+    __shared__ float red[2][16][kBN];  // [sum, sumsq][ty][column]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      const float sh = a.sh[col];
+      float cs = 0.f, cq = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + ty * 4 + i;
+        if (row >= M) continue;
+        store1(y + static_cast<int64_t>(row) * a.N + col, acc[i][j]);
+        const float d = acc[i][j] - sh;
+        cs += d;
+        cq += d * d;
+      }
+      red[0][ty][tx * 4 + j] = cs;
+      red[1][ty][tx * 4 + j] = cq;
+    }
+    __syncthreads();
+    if (tid < kBN) {
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        s += red[0][r][tid];
+        q += red[1][r][tid];
+      }
+      float* p = a.partial + static_cast<int64_t>(blockIdx.x) * 2 * a.N;
+      p[n0 + tid] = s;
+      p[a.N + n0 + tid] = q;
     }
   }
 }
 
-// Launches on `stream`; returns cudaGetLastError() so the caller can
-// raise on a refused launch. Allocates nothing.
-template <int KS>
-inline int launch_conv_bn_apply(const ConvBnArgs& a, int x_bf16,
-                                int w_bf16, cudaStream_t stream) {
+// Launches the GEMM on `stream` (grid: M tiles x N tiles); returns
+// cudaGetLastError() so the caller can raise on a refused launch.
+// Allocates nothing.
+template <int KS, bool kStats>
+inline int launch_conv_bn(const ConvBnArgs& a, int x_bf16, int w_bf16,
+                          cudaStream_t stream) {
   const int M = a.B * a.Ho * a.Wo;
   const dim3 grid((M + kBM - 1) / kBM, a.N / kBN);
   if (w_bf16) {
     if (x_bf16)
-      conv_bn_apply_bf16_kernel<__nv_bfloat16, KS>
+      conv_bn_bf16_kernel<__nv_bfloat16, KS, kStats>
           <<<grid, 128, 0, stream>>>(a);
     else
-      conv_bn_apply_bf16_kernel<float, KS><<<grid, 128, 0, stream>>>(a);
+      conv_bn_bf16_kernel<float, KS, kStats><<<grid, 128, 0, stream>>>(a);
   } else {
     if (x_bf16)
-      conv_bn_apply_f32_kernel<__nv_bfloat16, KS>
+      conv_bn_f32_kernel<__nv_bfloat16, KS, kStats>
           <<<grid, 256, 0, stream>>>(a);
     else
-      conv_bn_apply_f32_kernel<float, KS><<<grid, 256, 0, stream>>>(a);
+      conv_bn_f32_kernel<float, KS, kStats><<<grid, 256, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

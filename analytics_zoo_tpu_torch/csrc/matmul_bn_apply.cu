@@ -1,9 +1,9 @@
 // C entry point of the eval 1x1 conv + BN fold (`matmul_bn_apply` and
 // `conv1x1_bn_apply` in analytics_zoo_tpu_torch/ops/conv_bn.py); the
-// kernel is the KS = 1 instance of conv_bn_apply.cuh. A strided 1x1
+// kernel is the KS = 1 instance of conv_bn_fwd.cuh. A strided 1x1
 // reads every stride-th pixel in place (no sliced copy of x).
 
-#include "conv_bn_apply.cuh"
+#include "conv_bn_fwd.cuh"
 
 extern "C" int matmul_bn_apply_launch(
     const void* x, const void* w, const void* in_scale,
@@ -14,6 +14,6 @@ extern "C" int matmul_bn_apply_launch(
   const zoo::ConvBnArgs a = zoo::make_args(
       x, w, in_scale, in_shift, out_scale, out_shift, res, y, B, H, W, Cin,
       Ho, Wo, N, stride, 0, 0, affine_in, relu_in, relu_out);
-  return zoo::launch_conv_bn_apply<1>(a, x_bf16, w_bf16,
-                                      static_cast<cudaStream_t>(stream));
+  return zoo::launch_conv_bn<1, false>(
+      a, x_bf16, w_bf16, static_cast<cudaStream_t>(stream));
 }

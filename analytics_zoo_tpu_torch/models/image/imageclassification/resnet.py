@@ -1,32 +1,36 @@
-"""ResNet v1.5 for image classification, eval (port of
+"""ResNet v1.5 for image classification (port of
 ``analytics_zoo_tpu/models/image/imageclassification/resnet.py``).
 
 ``fused=True`` builds every bottleneck as one :class:`FusedBottleneck`,
-whose eval forward is three hand-written CUDA kernels
-(``ops.conv_bn``): the BN folds, the residual add and the ReLUs run in
-their epilogues. ``fused=False`` builds the unfused per-layer graph
-(library convs, separate BN and ReLU), the comparison path. Both keep
-the JAX package's param names, and :func:`convert_resnet_params` maps
-between them. The stem 7x7 conv and the ``fc`` Dense stay library calls
-in both, as they lie outside any kernel in the reference.
+whose convs are hand-written CUDA kernels (``ops.conv_bn``): in eval
+three folds with the BNs, the residual add and the ReLUs in their
+epilogues; in training 1x1 and 3x3 convs whose prologue applies the
+previous BN and whose epilogue reduces this BN's batch statistics, with
+the 1x1s' backward kernels too. ``fused=False`` builds the unfused
+per-layer graph (library convs, separate BN and ReLU), the comparison
+path. Both keep the JAX package's param names, and
+:func:`convert_resnet_params` maps between them. The stem 7x7 conv and
+the ``fc`` Dense stay library calls in both, as they lie outside any
+kernel in the reference.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import torch
 
 from analytics_zoo_tpu_torch.ops import initializers
 from analytics_zoo_tpu_torch.ops.conv_bn import (
-    conv1x1_bn_apply, conv3x3_bn_apply)
+    conv1x1_bn, conv1x1_bn_apply, conv3x3_bn, conv3x3_bn_apply)
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
-    TRAINING_NOT_PORTED, Input, KerasLayer, tree_leaves)
+    Input, KerasLayer, tree_leaves)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
     Activation, Add, BatchNormalization, Convolution2D, Dense,
     GlobalAveragePooling2D, MaxPooling2D)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.normalization \
-    import bn_fold
+    import bn_batch_stats, bn_fold
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
 
 
@@ -57,11 +61,18 @@ def _bottleneck(x, filters, stride=1, downsample=False, name=""):
 
 
 class FusedBottleneck(KerasLayer):
-    """v1.5 bottleneck whose eval forward is three fused conv+BN
-    kernels: c1 (1x1, bn1 + ReLU in the epilogue), c2 (3x3 at the
-    block's stride, bn2 + ReLU), c3 (1x1, bn3 + residual + ReLU); a
-    downsample shortcut is a fourth 1x1 fold (bnd). The raw conv
-    outputs never exist in device memory.
+    """v1.5 bottleneck on fused conv+BN kernels.
+
+    Eval: three folds, c1 (1x1, bn1 + ReLU in the epilogue), c2 (3x3 at
+    the block's stride, bn2 + ReLU), c3 (1x1, bn3 + residual + ReLU); a
+    downsample shortcut is a fourth 1x1 fold (bnd). The raw conv outputs
+    never exist in device memory.
+
+    Training: c1, c2 and c3 (and the shortcut) run with statistics
+    epilogues; each conv's prologue applies the previous BN's batch
+    fold + ReLU, so a normalised activation never exists in device
+    memory, and one elementwise pass applies bn3, the residual and the
+    ReLU. Same math as the unfused block.
 
     Params: ``c1/c2/c3[/down]`` HWIO kernels + ``bn1/bn2/bn3[/bnd]``
     groups of ``{gamma, beta, _state: {moving_mean, moving_var}}``, the
@@ -107,9 +118,66 @@ class FusedBottleneck(KerasLayer):
         return bn_fold(st["moving_mean"], st["moving_var"], bn["gamma"],
                        bn["beta"], self.epsilon)
 
-    def call(self, params, x, *, training=False):
+    def _bn_vectors(self, bn, ssum, ssq, count):
+        """Training ``(scale, shift, updates)`` from a conv's shifted
+        sums, through the BatchNorm scheme the unfused layer runs."""
+        mean, var, upd = bn_batch_stats(ssum, ssq, count, bn["_state"],
+                                        self.momentum)
+        scale, shift = bn_fold(mean, var, bn["gamma"], bn["beta"],
+                               self.epsilon)
+        return scale, shift, upd
+
+    def apply(self, params, x, *, training=False):
         if training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
+            return self._apply_train(params, x)
+        return self._apply_eval(params, x), {}
+
+    def call(self, params, x, *, training=False):
+        return self.apply(params, x, training=training)[0]
+
+    def _apply_train(self, params, x):
+        """Training forward (the reference's ``_apply_train`` without its
+        deferred-apply options, which ``FusedStage`` alone uses)."""
+        updates = {}
+
+        def mm(bn):
+            return params[bn]["_state"]["moving_mean"].detach()
+
+        def count(y):
+            return float(math.prod(y.shape[:-1]))
+
+        # c1: 1x1 + bn1 statistics epilogue
+        y1, s1, q1 = conv1x1_bn(x, params["c1"], stat_shift=mm("bn1"))
+        scale1, shift1, updates["bn1"] = self._bn_vectors(
+            params["bn1"], s1, q1, count(y1))
+        # c2: 3x3 at the block's stride, bn1 apply + ReLU in the
+        # prologue, bn2 statistics in the epilogue
+        y2, s2, q2 = conv3x3_bn(
+            y1, params["c2"], in_scale=scale1, in_shift=shift1,
+            relu_in=True, stat_shift=mm("bn2"), stride=self.stride)
+        scale2, shift2, updates["bn2"] = self._bn_vectors(
+            params["bn2"], s2, q2, count(y2))
+        # c3: bn2 apply + ReLU prologue, bn3 statistics epilogue
+        y3, s3, q3 = conv1x1_bn(
+            y2, params["c3"], in_scale=scale2, in_shift=shift2,
+            relu_in=True, stat_shift=mm("bn3"))
+        scale3, shift3, updates["bn3"] = self._bn_vectors(
+            params["bn3"], s3, q3, count(y3))
+        if self.downsample:
+            # the strided 1x1 shortcut reads every stride-th pixel
+            ysc, sd, qd = conv1x1_bn(x, params["down"], stride=self.stride,
+                                     stat_shift=mm("bnd"))
+            scaled, shiftd, updates["bnd"] = self._bn_vectors(
+                params["bnd"], sd, qd, count(ysc))
+            shortcut = ysc * scaled.to(ysc.dtype) + shiftd.to(ysc.dtype)
+        else:
+            shortcut = x
+        # bn3 apply + residual add + ReLU: one elementwise pass
+        out = torch.relu(y3 * scale3.to(y3.dtype) + shift3.to(y3.dtype) +
+                         shortcut.to(y3.dtype))
+        return out, updates
+
+    def _apply_eval(self, params, x):
         scale1, shift1 = self._fold(params["bn1"])
         scale2, shift2 = self._fold(params["bn2"])
         scale3, shift3 = self._fold(params["bn3"])

@@ -1,27 +1,38 @@
-"""Eval-mode conv + BatchNorm folds, with hand-written CUDA kernels.
+"""Conv + BatchNorm with hand-written CUDA kernels: the eval folds and
+the training statistics with their backward.
 
-Port of the inference half of ``analytics_zoo_tpu/ops/conv_bn.py``. In
-eval mode every BatchNorm is a known moving-stats fold, so a whole
-ResNet bottleneck runs as three fused convs whose epilogues apply the
-BN (plus the residual add and ReLU) while the output tile is written:
+Port of ``analytics_zoo_tpu/ops/conv_bn.py``. A ResNet bottleneck's
+convs run as matmuls (1x1) or implicit GEMMs (3x3) whose prologue
+applies the previous BN's folded affine + ReLU while the input tile is
+staged, and whose epilogue either applies this BN's known fold (eval)
+or reduces this BN's batch statistics from the f32 accumulator
+(training). Every TPU kernel on the path is a CUDA kernel here:
 
-- :func:`matmul_bn_apply` / :func:`conv1x1_bn_apply` replace the TPU
-  kernel ``_apply_kernel`` (``_matmul_apply``);
-- :func:`conv3x3_bn_apply` replaces ``_conv3_apply_kernel``
-  (``_conv3_apply``).
+- :func:`matmul_bn_apply` / :func:`conv1x1_bn_apply` replace
+  ``_apply_kernel`` (``_matmul_apply``), B5;
+- :func:`conv3x3_bn_apply` replaces ``_conv3_apply_kernel``, B6;
+- :func:`matmul_bn` / :func:`conv1x1_bn` replace ``_kernel``
+  (``_matmul_bn_fwd_pallas``), B1, and their backward replaces
+  ``_dx_kernel`` (B3) and ``_dw_kernel`` (B4) of ``_bwd_pallas``;
+- :func:`conv3x3_bn` replaces ``_conv3_kernel``, B2. Its backward is
+  plain PyTorch (cuDNN conv grads), as the reference's is XLA convs.
 
-Both CUDA kernels are one implicit-GEMM template
-(``csrc/conv_bn_apply.cuh``, whose header note says what bounds them on
-the H100 and what the design does about it). Each wrapper takes the
-plain PyTorch version only for tensors on the CPU; for a CUDA tensor it
-launches its kernel or raises, and counts the launch in
-:data:`launches`.
+The forward kernels are one implicit-GEMM template
+(``csrc/conv_bn_fwd.cuh``), the backward products a second
+(``csrc/conv_bn_bwd.cuh``), and every cross-block sum a fixed-order
+second pass (``csrc/colsum.cuh``); each header's note says what bounds
+its kernels on the H100 and what the design does about it. Each
+wrapper takes the plain PyTorch version only for tensors on the CPU;
+for a CUDA tensor it launches its kernel or raises, and counts the
+launch in :data:`launches`.
 
 dtype rules (the reference's): the 1x1 fold casts the prologue output
 to the WEIGHT's type and multiplies in it, so bf16 activations with f32
-weights give an f32 product; the 3x3 fold casts the weights to the
-ACTIVATION's type. Accumulation and the epilogue are f32; scale and
-shift vectors are f32; the output has the activation's type.
+weights give an f32 product; the 3x3 fold and every training kernel
+cast the weights to the ACTIVATION's type. Accumulation and the
+epilogue are f32; scale, shift and statistics vectors are f32; outputs
+have the activation's type, and so has the 1x1's dW (the cast's
+backward lifts it to the f32 master weight).
 """
 
 from __future__ import annotations
@@ -37,7 +48,8 @@ from analytics_zoo_tpu_torch.ops import cuda_build
 
 # launches of each CUDA kernel (CPU calls run the plain version and do
 # not count)
-launches = {"matmul_bn_apply": 0, "conv3x3_bn_apply": 0}
+launches = {"matmul_bn_apply": 0, "conv3x3_bn_apply": 0, "matmul_bn": 0,
+            "conv3x3_bn": 0, "matmul_bn_dx": 0, "matmul_bn_dw": 0}
 _launch_lock = threading.Lock()
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -51,6 +63,20 @@ _SIGNATURES = {
     # B, H, W, Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in,
     # relu_in, relu_out, x_bf16, w_bf16, stream
     "conv3x3_bn_apply": [_P] * 7 + [_I] * 15 + [_P],
+    # x, w, in_scale, in_shift, in_res, sh, y, partial, work, stats,
+    # B, H, W, Cin, Ho, Wo, N, stride, affine_in, relu_in, x_bf16,
+    # w_bf16, stream
+    "matmul_bn": [_P] * 10 + [_I] * 12 + [_P],
+    # x, w, in_scale, in_shift, sh, y, partial, work, stats,
+    # B, H, W, Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in, relu_in,
+    # x_bf16, w_bf16, stream
+    "conv3x3_bn": [_P] * 9 + [_I] * 14 + [_P],
+    # dy, y, x, w, s, t, r, sh, dsum, dsq, dx, dr, partial, work, dsdt,
+    # M, K, N, affine_in, relu_in, bf16, stream
+    "matmul_bn_dx": [_P] * 15 + [_I] * 6 + [_P],
+    # dy, y, x, s, t, r, sh, dsum, dsq, partial, work, dw,
+    # M, K, N, affine_in, relu_in, splits, m_chunk, bf16, stream
+    "matmul_bn_dw": [_P] * 12 + [_I] * 8 + [_P],
 }
 _fns = {}
 
@@ -77,7 +103,7 @@ def _kernel_fn(name: str):
 
 
 def build_kernels():
-    """Build both kernels' libraries now (one ``nvcc`` each, in
+    """Build every kernel's library now (one ``nvcc`` each, in
     parallel); returns the seconds each took."""
     return cuda_build.build(list(_SIGNATURES))
 
@@ -101,10 +127,14 @@ def _vec(v: Optional[torch.Tensor], n: int, fill: float,
     return v.to(device=like.device, dtype=torch.float32).contiguous()
 
 
-def _prologue(x, s, t, relu_in, affine_in):
+def _prologue(x, s, t, relu_in, affine_in, r=None):
+    """``relu_in?(affine_in?(x * s + t) [+ r])`` in f32: the residual
+    adds after the affine, before the ReLU."""
     xf = x.float()
     if affine_in:
         xf = xf * s + t
+    if r is not None:
+        xf = xf + r.float()
     if relu_in:
         xf = torch.relu(xf)
     return xf
@@ -170,19 +200,54 @@ def _device_kind(name: str, x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
-                 relu_in=False, out_scale=None, out_shift=None,
-                 relu_out=False):
-    """The 1x1 fold over NHWC ``x4``, every ``stride``-th pixel."""
-    name = "matmul_bn_apply"
+def _check_1x1(name: str, x4: torch.Tensor, w: torch.Tensor):
+    """Validate a 1x1's ``w (K, N)`` against NHWC ``x4``; returns K, N."""
     if w.dim() != 2:
         raise ValueError(f"{name}: w must be (K, N), got {tuple(w.shape)}")
     k, n = w.shape
     if k % 64 or n % 64:
         raise ValueError(f"K={k} and N={n} must be 64-multiples")
-    b, h, wd, c = x4.shape
-    if c != k:
-        raise ValueError(f"{name}: x has {c} channels, w expects {k}")
+    if x4.shape[-1] != k:
+        raise ValueError(f"{name}: x has {x4.shape[-1]} channels, w "
+                         f"expects {k}")
+    return k, n
+
+
+def _check_3x3(name: str, x: torch.Tensor, w: torch.Tensor, stride: int):
+    """Validate a 3x3's HWIO ``w`` and stride against NHWC ``x``;
+    returns Cin, Cout."""
+    if tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"kernel must be 3x3, got {tuple(w.shape[:2])}")
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    cin, cout = w.shape[2], w.shape[3]
+    if cin % 64 or cout % 64:
+        raise ValueError(f"Cin={cin} and Cout={cout} must be 64-multiples")
+    if x.dim() != 4 or x.shape[-1] != cin:
+        raise ValueError(f"{name}: x must be (B, H, W, {cin}), got "
+                         f"{tuple(x.shape)}")
+    return cin, cout
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point on the current stream of
+    ``device``; raise if the launch was refused, else count it."""
+    fn = _kernel_fn(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _count(name)
+
+
+def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
+                 relu_in=False, out_scale=None, out_shift=None,
+                 relu_out=False):
+    """The 1x1 fold over NHWC ``x4``, every ``stride``-th pixel."""
+    name = "matmul_bn_apply"
+    k, n = _check_1x1(name, x4, w)
+    b, h, wd, _ = x4.shape
     ho, wo = -(-h // stride), -(-wd // stride)
     m = b * ho * wo
     if residual is not None and residual.numel() != m * n:
@@ -208,17 +273,10 @@ def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
     y = torch.empty((b, ho, wo, n), dtype=x4.dtype, device=x4.device)
     if m == 0:
         return y
-    fn = _kernel_fn(name)
-    with torch.cuda.device(x4.device):
-        stream = torch.cuda.current_stream(x4.device).cuda_stream
-        rc = fn(_ptr(x4), _ptr(w), _ptr(s), _ptr(t), _ptr(os_), _ptr(ot),
-                _ptr(residual), _ptr(y), b, h, wd, k, ho, wo, n, stride,
-                int(affine_in), int(relu_in), int(relu_out),
-                int(x4.dtype == torch.bfloat16),
-                int(w.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(name)
+    _launch(name, x4.device, _ptr(x4), _ptr(w), _ptr(s), _ptr(t),
+            _ptr(os_), _ptr(ot), _ptr(residual), _ptr(y), b, h, wd, k, ho,
+            wo, n, stride, int(affine_in), int(relu_in), int(relu_out),
+            int(x4.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
     return y
 
 
@@ -266,16 +324,7 @@ def conv3x3_bn_apply(x: torch.Tensor, w: torch.Tensor,
     and ReLU in the epilogue. Cin and Cout multiples of 64."""
     name = "conv3x3_bn_apply"
     stride = int(stride)
-    if tuple(w.shape[:2]) != (3, 3):
-        raise ValueError(f"kernel must be 3x3, got {tuple(w.shape[:2])}")
-    if stride not in (1, 2):
-        raise ValueError(f"stride must be 1 or 2, got {stride}")
-    cin, cout = w.shape[2], w.shape[3]
-    if cin % 64 or cout % 64:
-        raise ValueError(f"Cin={cin} and Cout={cout} must be 64-multiples")
-    if x.dim() != 4 or x.shape[-1] != cin:
-        raise ValueError(f"{name}: x must be (B, H, W, {cin}), got "
-                         f"{tuple(x.shape)}")
+    cin, cout = _check_3x3(name, x, w, stride)
     affine_in = in_scale is not None or in_shift is not None
     s = _vec(in_scale, cin, 1.0, x) if affine_in else None
     t = _vec(in_shift, cin, 0.0, x) if affine_in else None
@@ -292,15 +341,392 @@ def conv3x3_bn_apply(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    fn = _kernel_fn(name)
     bf16 = int(x.dtype == torch.bfloat16)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(_ptr(x), _ptr(w), _ptr(s), _ptr(t), _ptr(os_), _ptr(ot),
-                _ptr(y), b, h, wd, cin, ho, wo, cout, stride, pt, pl,
-                int(affine_in), int(relu_in), int(relu_out), bf16, bf16,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(name)
+    _launch(name, x.device, _ptr(x), _ptr(w), _ptr(s), _ptr(t), _ptr(os_),
+            _ptr(ot), _ptr(y), b, h, wd, cin, ho, wo, cout, stride, pt, pl,
+            int(affine_in), int(relu_in), int(relu_out), bf16, bf16)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Training: conv + BN statistics (B1, B2) and the 1x1's backward (B3, B4)
+# ---------------------------------------------------------------------------
+
+def colsum_work_floats(rows: int, cols: int) -> int:
+    """Floats of scratch the fixed-order column sum (``csrc/colsum.cuh``)
+    needs to fold ``rows`` partial rows of ``cols`` values into one: the
+    intermediate rows of every pass before the last, 64 rows per fold."""
+    total, r = 0, rows
+    while True:
+        r = -(-r // 64)
+        if r == 1:
+            return total
+        total += r * cols
+
+
+def _partials(rows: int, cols: int, like: torch.Tensor):
+    """The (rows, cols) partial-sum buffer and the column sum's scratch."""
+    dev = like.device
+    return (torch.empty(rows * cols, dtype=torch.float32, device=dev),
+            torch.empty(max(1, colsum_work_floats(rows, cols)),
+                        dtype=torch.float32, device=dev))
+
+
+def _stats(acc: torch.Tensor, sh: torch.Tensor, dims):
+    d = acc - sh
+    return d.sum(dims), (d * d).sum(dims)
+
+
+def matmul_bn_ref(x, w, s, t, r, sh, relu_in, affine_in):
+    """Plain version of the 1x1 with statistics on ``x (M, K)``,
+    ``w (K, N)`` (already in x's dtype): ``acc = prologue(x).to(w.dtype)
+    @ w`` with f32 accumulation (the operands are exact in f32); returns
+    ``(acc.to(x.dtype), sum(acc - sh), sum((acc - sh)^2))``, the sums
+    over rows from the f32 accumulator, as the kernel takes them."""
+    xp = _prologue(x, s, t, relu_in, affine_in, r)
+    acc = torch.matmul(xp.to(w.dtype).float(), w.float())
+    return (acc.to(x.dtype),) + _stats(acc, sh, 0)
+
+
+def conv3x3_bn_ref(x, w, s, t, sh, relu_in, affine_in, stride):
+    """Plain version of the 3x3 SAME conv with statistics on NHWC ``x``
+    and HWIO ``w``: the prologue, zero TF-SAME padding of the normalised
+    input, a conv in x.dtype-rounded operands with f32 accumulation;
+    returns ``(acc.to(x.dtype), sum(acc - sh), sum((acc - sh)^2))``."""
+    xf = _prologue(x, s, t, relu_in, affine_in)
+    xc = xf.to(x.dtype).float().permute(0, 3, 1, 2)
+    pt, pb, _ = tf_same_pads(x.shape[1], 3, stride)
+    pl, pr, _ = tf_same_pads(x.shape[2], 3, stride)
+    xc = F.pad(xc, (pl, pr, pt, pb))
+    wc = w.to(x.dtype).float().permute(3, 2, 0, 1)
+    acc = F.conv2d(xc, wc, stride=stride).permute(0, 2, 3, 1)
+    return (acc.to(x.dtype).contiguous(),) + _stats(acc, sh, (0, 1, 2))
+
+
+def _augmented_cotangent(dy, y, sh, dsum, dsq):
+    """The statistics cotangents folded into one cotangent of y:
+    ``g = dy + dsum + 2 (y - sh) dsq`` in f32 (y feeds y, sum(y - sh)
+    and sum((y - sh)^2))."""
+    return dy.float() + dsum + 2.0 * (y.float() - sh) * dsq
+
+
+def _recompute_prologue(x, s, t, r, relu_in, affine_in):
+    """The 1x1's prologue recomputed from x: ``(xa, xp)``, before and
+    after the ReLU."""
+    xa = _prologue(x, s, t, False, affine_in, r)
+    return xa, (torch.relu(xa) if relu_in else xa)
+
+
+def matmul_bn_dx_ref(x, w, s, t, r, sh, y, dy, dsum, dsq, relu_in,
+                     affine_in):
+    """Plain version of the 1x1's dx kernel (the dx half of the
+    reference's ``_bwd_jax``) on ``x (M, K)``, ``w (K, N)`` in x's dtype:
+    ``dxp = mask(g @ W^T)`` with g rounded to x's dtype and f32
+    accumulation. Returns ``(dx, ds, dt, dr)``; ``ds``/``dt`` None
+    without ``affine_in``, ``dr`` None without ``r``."""
+    g = _augmented_cotangent(dy, y, sh, dsum, dsq)
+    xa, _ = _recompute_prologue(x, s, t, r, relu_in, affine_in)
+    dxp = torch.matmul(g.to(x.dtype).float(), w.to(x.dtype).float().t())
+    if relu_in:
+        dxp = torch.where(xa > 0, dxp, torch.zeros_like(dxp))
+    ds = dt = None
+    dx = dxp
+    if affine_in:
+        dx = dxp * s
+        ds = (dxp * x.float()).sum(0)
+        dt = dxp.sum(0)
+    dr = None if r is None else dxp.to(r.dtype)
+    return dx.to(x.dtype), ds, dt, dr
+
+
+def matmul_bn_dw_ref(x, s, t, r, sh, y, dy, dsum, dsq, relu_in,
+                     affine_in):
+    """Plain version of the 1x1's dW kernel (the dW half of ``_bwd_jax``):
+    ``prologue(x)^T @ g`` with both operands rounded to x's dtype and f32
+    accumulation, returned rounded to x's dtype (the weight's type inside
+    the custom VJP)."""
+    g = _augmented_cotangent(dy, y, sh, dsum, dsq)
+    _, xp = _recompute_prologue(x, s, t, r, relu_in, affine_in)
+    cd = x.dtype
+    return torch.matmul(xp.to(cd).float().t(), g.to(cd).float()).to(cd)
+
+
+def conv3x3_bn_bwd(x, w, s, t, sh, y, dy, dsum, dsq, relu_in, affine_in,
+                   stride):
+    """Backward of :func:`conv3x3_bn`, plain PyTorch on every device (the
+    reference's ``_conv3_vjp_bwd`` is XLA convs, no Pallas kernel): the
+    augmented cotangent, the recomputed prologue, the conv's input and
+    weight grads in x's dtype (cuDNN on the card: bf16 operands give
+    bf16 grads, one rounding more than XLA's f32 results), then the ReLU
+    mask, ``dx = dxp s`` and the ``ds``/``dt`` sums. SAME padding is
+    asymmetric at stride 2 on an even extent (0, 1), so the prologue
+    output is padded explicitly and dx cropped. Returns
+    ``(dx, dw, ds, dt)``, dw in w's dtype."""
+    h, wd = x.shape[1], x.shape[2]
+    g = _augmented_cotangent(dy, y, sh, dsum, dsq)
+    xa, xp = _recompute_prologue(x, s, t, None, relu_in, affine_in)
+    cd = x.dtype
+    pt, pb, _ = tf_same_pads(h, 3, stride)
+    pl, pr, _ = tf_same_pads(wd, 3, stride)
+    xpad = F.pad(xp.to(cd).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    wk = w.to(cd).permute(3, 2, 0, 1)
+    gi, gw, _ = torch.ops.aten.convolution_backward(
+        g.to(cd).permute(0, 3, 1, 2), xpad, wk, None, [stride, stride],
+        [0, 0], [1, 1], False, [0, 0], 1, [True, True, False])
+    dxp = gi[:, :, pt:pt + h, pl:pl + wd].permute(0, 2, 3, 1).float()
+    dw = gw.permute(2, 3, 1, 0).to(w.dtype)
+    if relu_in:
+        dxp = torch.where(xa > 0, dxp, torch.zeros_like(dxp))
+    ds = dt = None
+    dx = dxp
+    if affine_in:
+        dx = dxp * s
+        ds = (dxp * x.float()).sum((0, 1, 2))
+        dt = dxp.sum((0, 1, 2))
+    return dx.to(x.dtype), dw, ds, dt
+
+
+def _matmul_bn_fwd(x4, w, s, t, r, sh, stride, relu_in, affine_in):
+    """B1 over NHWC ``x4``, every ``stride``-th pixel, ``w (K, N)`` in
+    x's dtype, ``r (M, K)`` or None; returns ``(y (B, H', W', N), sum,
+    sumsq)``."""
+    name = "matmul_bn"
+    b, h, wd, k = x4.shape
+    n = w.shape[1]
+    ho, wo = -(-h // stride), -(-wd // stride)
+    m = b * ho * wo
+    if _device_kind(name, x4) == "cpu":
+        x2 = x4[:, ::stride, ::stride].reshape(m, k)
+        y, ssum, ssq = matmul_bn_ref(x2, w, s, t, r, sh, relu_in,
+                                     affine_in)
+        return y.reshape(b, ho, wo, n), ssum, ssq
+    _check_cuda(name, x4, w=w, in_residual=r)
+    for tname, tt in (("w", w), ("in_residual", r)):
+        if tt is not None and tt.dtype != x4.dtype:
+            raise TypeError(f"{name}: {tname} dtype {tt.dtype} != x dtype "
+                            f"{x4.dtype}")
+    y = torch.empty((b, ho, wo, n), dtype=x4.dtype, device=x4.device)
+    stats = torch.zeros(2 * n, dtype=torch.float32, device=x4.device)
+    if m:
+        tiles = -(-m // 64)
+        partial, work = _partials(tiles, 2 * n, x4)
+        bf16 = int(x4.dtype == torch.bfloat16)
+        _launch(name, x4.device, _ptr(x4), _ptr(w), _ptr(s), _ptr(t),
+                _ptr(r), _ptr(sh), _ptr(y), _ptr(partial), _ptr(work),
+                _ptr(stats), b, h, wd, k, ho, wo, n, stride,
+                int(affine_in), int(relu_in), bf16, bf16)
+    return y, stats[:n], stats[n:]
+
+
+def _matmul_bn_dx(x, w, s, t, r, sh, y, dy, dsum, dsq, relu_in,
+                  affine_in):
+    """B3 on ``x (M, K)``: ``(dx, ds, dt, dr)`` like
+    :func:`matmul_bn_dx_ref`."""
+    name = "matmul_bn_dx"
+    if _device_kind(name, x) == "cpu":
+        return matmul_bn_dx_ref(x, w, s, t, r, sh, y, dy, dsum, dsq,
+                                relu_in, affine_in)
+    _check_cuda(name, x, w=w, r=r, y=y, dy=dy)
+    m, k = x.shape
+    n = w.shape[1]
+    dx = torch.empty_like(x)
+    dr = None if r is None else torch.empty_like(r)
+    dsdt = torch.zeros(2 * k, dtype=torch.float32, device=x.device)
+    if m:
+        partial, work = _partials(-(-m // 64), 2 * k, x) if affine_in \
+            else (None, None)
+        _launch(name, x.device, _ptr(dy), _ptr(y), _ptr(x), _ptr(w),
+                _ptr(s), _ptr(t), _ptr(r), _ptr(sh), _ptr(dsum), _ptr(dsq),
+                _ptr(dx), _ptr(dr), _ptr(partial), _ptr(work), _ptr(dsdt),
+                m, k, n, int(affine_in), int(relu_in),
+                int(x.dtype == torch.bfloat16))
+    ds, dt = (dsdt[:k], dsdt[k:]) if affine_in else (None, None)
+    return dx, ds, dt, dr
+
+
+def _matmul_bn_dw(x, s, t, r, sh, y, dy, dsum, dsq, relu_in, affine_in):
+    """B4 on ``x (M, K)``, ``y``/``dy (M, N)``: dW ``(K, N)`` in x's
+    dtype, like :func:`matmul_bn_dw_ref`."""
+    name = "matmul_bn_dw"
+    if _device_kind(name, x) == "cpu":
+        return matmul_bn_dw_ref(x, s, t, r, sh, y, dy, dsum, dsq, relu_in,
+                                affine_in)
+    _check_cuda(name, x, r=r, y=y, dy=dy)
+    m, k = x.shape
+    n = y.shape[1]
+    dw = torch.zeros((k, n), dtype=torch.float32, device=x.device)
+    if m:
+        splits, chunk = dw_splits(m, k, n)
+        partial, work = _partials(splits, k * n, x)
+        _launch(name, x.device, _ptr(dy), _ptr(y), _ptr(x), _ptr(s),
+                _ptr(t), _ptr(r), _ptr(sh), _ptr(dsum), _ptr(dsq),
+                _ptr(partial), _ptr(work), _ptr(dw), m, k, n,
+                int(affine_in), int(relu_in), splits, chunk,
+                int(x.dtype == torch.bfloat16))
+    return dw.to(x.dtype)
+
+
+def dw_splits(m: int, k: int, n: int, blocks: int = 4 * 132):
+    """``(splits, rows per split)`` of B4's M reduction: enough splits
+    that the (K/64)(N/64) output tiles times the splits make about
+    ``blocks`` blocks (four per H100 SM), each split a multiple of 32
+    rows (the kernel's reduction slice)."""
+    tiles = (k // 64) * (n // 64)
+    splits = max(1, min(-(-m // 32), -(-blocks // tiles)))
+    chunk = -(-(-(-m // splits)) // 32) * 32
+    return -(-m // chunk), chunk
+
+
+def _conv3x3_bn_fwd(x, w, s, t, sh, relu_in, affine_in, stride):
+    """B2: the 3x3 SAME conv with statistics; ``w`` HWIO in any dtype
+    (cast to x's)."""
+    name = "conv3x3_bn"
+    if _device_kind(name, x) == "cpu":
+        return conv3x3_bn_ref(x, w, s, t, sh, relu_in, affine_in, stride)
+    w = w.to(x.dtype)
+    _check_cuda(name, x, w=w)
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    pt, _, ho = tf_same_pads(h, 3, stride)
+    pl, _, wo = tf_same_pads(wd, 3, stride)
+    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    stats = torch.zeros(2 * cout, dtype=torch.float32, device=x.device)
+    m = b * ho * wo
+    if m:
+        partial, work = _partials(-(-m // 64), 2 * cout, x)
+        bf16 = int(x.dtype == torch.bfloat16)
+        _launch(name, x.device, _ptr(x), _ptr(w), _ptr(s), _ptr(t),
+                _ptr(sh), _ptr(y), _ptr(partial), _ptr(work), _ptr(stats),
+                b, h, wd, cin, ho, wo, cout, stride, pt, pl,
+                int(affine_in), int(relu_in), bf16, bf16)
+    return y, stats[:cout], stats[cout:]
+
+
+class _MatmulBn(torch.autograd.Function):
+    """The 1x1 with statistics (``_matmul_bn``'s custom VJP): B1 forward,
+    B3 + B4 backward. ``stat_shift`` is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, x4, w, s, t, r, sh, stride, relu_in, affine_in):
+        y, ssum, ssq = _matmul_bn_fwd(x4, w, s, t, r, sh, stride, relu_in,
+                                      affine_in)
+        ctx.save_for_backward(x4, w, s, t, r, sh, y)
+        ctx.cfg = (stride, relu_in, affine_in)
+        return y, ssum, ssq
+
+    @staticmethod
+    def backward(ctx, dy, dsum, dsq):
+        x4, w, s, t, r, sh, y = ctx.saved_tensors
+        stride, relu_in, affine_in = ctx.cfg
+        b, h, wd, k = x4.shape
+        n = w.shape[1]
+        x2 = x4[:, ::stride, ::stride].reshape(-1, k).contiguous()
+        grads = (y.reshape(-1, n), dy.reshape(-1, n).contiguous(),
+                 dsum.float().contiguous(), dsq.float().contiguous())
+        dx2, ds, dt, dr = _matmul_bn_dx(x2, w, s, t, r, sh, *grads,
+                                        relu_in, affine_in)
+        dw = _matmul_bn_dw(x2, s, t, r, sh, *grads, relu_in, affine_in)
+        if stride == 1:
+            dx = dx2.reshape(x4.shape)
+        else:
+            # the strided 1x1 reads every stride-th pixel: its backward
+            # scatters into zeros
+            dx = torch.zeros_like(x4)
+            dx[:, ::stride, ::stride] = dx2.reshape(b, -(-h // stride),
+                                                    -(-wd // stride), k)
+        return dx, dw, ds, dt, dr, None, None, None, None
+
+
+class _Conv3x3Bn(torch.autograd.Function):
+    """The 3x3 with statistics (``_conv3``'s custom VJP): B2 forward, a
+    plain-PyTorch backward (:func:`conv3x3_bn_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, s, t, sh, stride, relu_in, affine_in):
+        y, ssum, ssq = _conv3x3_bn_fwd(x, w, s, t, sh, relu_in, affine_in,
+                                       stride)
+        ctx.save_for_backward(x, w, s, t, sh, y)
+        ctx.cfg = (stride, relu_in, affine_in)
+        return y, ssum, ssq
+
+    @staticmethod
+    def backward(ctx, dy, dsum, dsq):
+        x, w, s, t, sh, y = ctx.saved_tensors
+        stride, relu_in, affine_in = ctx.cfg
+        dx, dw, ds, dt = conv3x3_bn_bwd(x, w, s, t, sh, y, dy, dsum.float(),
+                                        dsq.float(), relu_in, affine_in,
+                                        stride)
+        return dx, dw, ds, dt, None, None, None, None
+
+
+def _matmul_bn(x4, w, stride, in_scale, in_shift, relu_in, stat_shift,
+               in_residual):
+    k, n = _check_1x1("matmul_bn", x4, w)
+    m = x4.shape[0] * -(-x4.shape[1] // stride) * -(-x4.shape[2] // stride)
+    if in_residual is not None:
+        if in_residual.numel() != m * k:
+            raise ValueError(f"in_residual must hold {(m, k)} values, got "
+                             f"{tuple(in_residual.shape)}")
+        in_residual = in_residual.reshape(m, k)
+    # shift-only callers get scale=1, not a silently dropped shift
+    affine_in = in_scale is not None or in_shift is not None
+    s = _vec(in_scale, k, 1.0, x4) if affine_in else None
+    t = _vec(in_shift, k, 0.0, x4) if affine_in else None
+    sh = _vec(stat_shift, n, 0.0, x4).detach()
+    return _MatmulBn.apply(x4, w.to(x4.dtype), s, t, in_residual, sh,
+                           stride, relu_in, affine_in)
+
+
+def matmul_bn(x: torch.Tensor, w: torch.Tensor,
+              in_scale: Optional[torch.Tensor] = None,
+              in_shift: Optional[torch.Tensor] = None,
+              relu_in: bool = False,
+              stat_shift: Optional[torch.Tensor] = None,
+              in_residual: Optional[torch.Tensor] = None):
+    """``relu_in?(x * in_scale + in_shift [+ in_residual]) @ w`` with the
+    BN-statistics epilogue, on ``x (M, K)``, ``w (K, N)``; K and N
+    multiples of 64, M arbitrary (the kernel masks the ragged edge).
+    Returns ``(y (M, N), sum (N,), sumsq (N,))``: the statistics are over
+    ``acc - stat_shift`` in f32 (pass the BN's moving mean). ``w`` is
+    cast to x's dtype. Differentiable in x, w, in_scale, in_shift and
+    in_residual; the backward takes ``(dy, dsum, dsq)``."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    m, k = x.shape
+    y, ssum, ssq = _matmul_bn(x.reshape(m, 1, 1, k), w, 1, in_scale,
+                              in_shift, relu_in, stat_shift, in_residual)
+    return y.reshape(m, -1), ssum, ssq
+
+
+def conv1x1_bn(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+               in_residual: Optional[torch.Tensor] = None, **kwargs):
+    """NHWC 1x1 conv over every ``stride``-th pixel + BN statistics, via
+    :func:`matmul_bn`. ``w``: (1, 1, C, F) or (C, F); ``in_residual``
+    (N, H', W', C) joins the prologue. Returns ``(y (N, H', W', F), sum
+    (F,), sumsq (F,))``."""
+    if w.dim() == 4:
+        w = w[0, 0]
+    return _matmul_bn(x, w, int(stride), kwargs.pop("in_scale", None),
+                      kwargs.pop("in_shift", None),
+                      kwargs.pop("relu_in", False),
+                      kwargs.pop("stat_shift", None), in_residual,
+                      **kwargs)
+
+
+def conv3x3_bn(x: torch.Tensor, w: torch.Tensor,
+               in_scale: Optional[torch.Tensor] = None,
+               in_shift: Optional[torch.Tensor] = None,
+               relu_in: bool = False,
+               stat_shift: Optional[torch.Tensor] = None,
+               stride: int = 1):
+    """Fused 3x3 SAME conv + BN statistics on NHWC ``x (B, H, W, Cin)``
+    with HWIO ``w (3, 3, Cin, Cout)``, Cin and Cout multiples of 64,
+    stride 1 or 2, any extent. Prologue and returns as
+    :func:`matmul_bn`; ``stat_shift`` is not differentiated."""
+    stride = int(stride)
+    cin, cout = _check_3x3("conv3x3_bn", x, w, stride)
+    affine_in = in_scale is not None or in_shift is not None
+    s = _vec(in_scale, cin, 1.0, x) if affine_in else None
+    t = _vec(in_shift, cin, 0.0, x) if affine_in else None
+    sh = _vec(stat_shift, cout, 0.0, x).detach()
+    return _Conv3x3Bn.apply(x, w, s, t, sh, stride, relu_in, affine_in)

@@ -1,0 +1,118 @@
+"""SGD and Adam with optax's update rules (port of
+``analytics_zoo_tpu/ops/optimizers.py``, the two methods the training
+slice uses; the schedule helpers wait).
+
+The reference builds optax transformations. Here each optimizer keeps
+its state as a dict of trees shaped like the trainable part of the
+param tree and updates the parameters in place, step for step the
+update optax computes:
+
+- ``SGD``: ``g += weight_decay * p``; with momentum
+  ``trace = g + momentum * trace`` and, with nesterov,
+  ``g = g + momentum * trace`` (else ``g = trace``); ``p -= lr * g``.
+- ``Adam``: ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2) g^2``,
+  ``p -= lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)`` and,
+  with weight decay, ``- lr * weight_decay * p`` (optax's adamw).
+
+A learning rate may be a float or a callable of the step count (0 for
+the first update), as optax's schedules are.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Union
+
+import torch
+
+ScheduleLike = Union[float, Callable[[int], float]]
+
+
+class ZooOptimizer:
+    """Base class: ``init(leaves)`` makes the state for a list of
+    parameter tensors, ``update(leaves, grads, state)`` applies one step
+    in place (under ``torch.no_grad``)."""
+
+    def __init__(self, lr: ScheduleLike = 1e-3):
+        self.lr = lr
+
+    def lr_at(self, step: int) -> float:
+        return float(self.lr(step) if callable(self.lr) else self.lr)
+
+    def init(self, leaves: List[torch.Tensor]) -> dict:
+        raise NotImplementedError
+
+    def update(self, leaves, grads, state: dict) -> None:
+        raise NotImplementedError
+
+
+def _zeros(leaves):
+    return [torch.zeros_like(p) for p in leaves]
+
+
+class SGD(ZooOptimizer):
+    def __init__(self, lr: ScheduleLike = 0.01, momentum: float = 0.0,
+                 nesterov: bool = False, weight_decay: float = 0.0):
+        super().__init__(lr)
+        self.momentum = momentum
+        self.nesterov = nesterov
+        self.weight_decay = weight_decay
+
+    def init(self, leaves):
+        state = {"count": 0}
+        if self.momentum:
+            state["trace"] = _zeros(leaves)
+        return state
+
+    @torch.no_grad()
+    def update(self, leaves, grads, state):
+        lr = self.lr_at(state["count"])
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            if self.momentum:
+                tr = state["trace"][i]
+                tr.mul_(self.momentum).add_(g)
+                g = g + self.momentum * tr if self.nesterov else tr
+            p.sub_(lr * g)
+        state["count"] += 1
+
+
+class Adam(ZooOptimizer):
+    def __init__(self, lr: ScheduleLike = 1e-3, beta_1: float = 0.9,
+                 beta_2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(lr)
+        self.beta_1, self.beta_2, self.epsilon = beta_1, beta_2, epsilon
+        self.weight_decay = weight_decay
+
+    def init(self, leaves):
+        return {"count": 0, "mu": _zeros(leaves), "nu": _zeros(leaves)}
+
+    @torch.no_grad()
+    def update(self, leaves, grads, state):
+        lr = self.lr_at(state["count"])
+        t = state["count"] + 1
+        b1, b2 = self.beta_1, self.beta_2
+        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            step = (mu / c1) / (torch.sqrt(nu / c2) + self.epsilon)
+            if self.weight_decay:
+                step = step + self.weight_decay * p
+            p.sub_(lr * step)
+        state["count"] = t
+
+
+_REGISTRY = {"sgd": SGD, "adam": Adam}
+
+
+def get(spec: "str | ZooOptimizer") -> ZooOptimizer:
+    """Resolve an optimizer by name (defaults) or pass one through."""
+    if isinstance(spec, ZooOptimizer):
+        return spec
+    key = spec.lower()
+    if key not in _REGISTRY:
+        raise ValueError(f"unknown or unported optimizer '{spec}'; known: "
+                         f"{sorted(_REGISTRY)}")
+    return _REGISTRY[key]()

@@ -11,30 +11,29 @@ contract beside PyTorch's:
 - ``init`` installs that tree as the module's state (:class:`ParamTree`:
   dicts become child modules, ``_state`` leaves buffers, the rest
   parameters), so ``.to(device)`` and ``state_dict`` work as usual;
-- ``call(params, x)`` is the pure forward on a given tree, and
-  ``forward(x)`` runs it on the layer's own.
+- ``apply(params, x, *, training) -> (out, updates)`` is the pure
+  forward on a given tree; ``updates`` holds new values for ``_state``
+  leaves (BatchNorm's moving statistics in training), which never get
+  gradients. ``call`` returns ``apply``'s output alone, and
+  ``forward(x)`` runs it on the layer's own tree.
 
 Calling a layer on graph :class:`Variable` s builds a functional graph
 (Keras ``Input`` → layer calls → ``Model``); calling it on tensors runs
-it. This slice is eval only: layers whose training forward differs
-(BatchNorm, the fused bottleneck) raise for ``training=True``.
+it. Gradients flow through ``apply`` by autograd: the Estimator marks
+the trainable leaves of the tree as requiring grad for a step.
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 Shape = Tuple[int, ...]
 ShapeLike = Union[Shape, List[Shape]]
-
-TRAINING_NOT_PORTED = (
-    "training is not ported yet: the PyTorch port serves eval only; the "
-    "train step and its backward kernels come in the next slice")
 
 _name_lock = threading.Lock()
 _name_counters: "dict[str, itertools.count]" = {}
@@ -61,7 +60,8 @@ def is_multi_shape(s) -> bool:
 class ParamTree(nn.Module):
     """A nested dict of tensors held as module state. Dict keys are
     child names; leaves under a ``"_state"`` key are buffers, the others
-    parameters (frozen: this slice serves, it does not train).
+    parameters, registered with ``requires_grad=False`` (the Estimator
+    switches it on for the trainable leaves while it takes a step).
     :meth:`tree` gives the dict back, in the original key order."""
 
     def __init__(self, tree: dict, state: bool = False):
@@ -116,13 +116,15 @@ class KerasLayer(nn.Module):
     (optional), :meth:`call` and :meth:`compute_output_shape`."""
 
     def __init__(self, input_shape: Optional[ShapeLike] = None,
-                 name: Optional[str] = None, **kwargs):
+                 name: Optional[str] = None, trainable: bool = True,
+                 **kwargs):
         super().__init__()
         if kwargs:
             raise TypeError(
                 f"{type(self).__name__}: unexpected kwargs {list(kwargs)}")
         self._auto_named = name is None
         self.name = name or unique_name(type(self).__name__.lower())
+        self.trainable = trainable
         self._given_input_shape = (
             None if input_shape is None else
             (list(map(as_shape, input_shape))
@@ -139,6 +141,23 @@ class KerasLayer(nn.Module):
 
     def call(self, params: dict, inputs, *, training: bool = False):
         raise NotImplementedError(type(self).__name__)
+
+    def apply(self, params: dict, inputs, *, training: bool = False):
+        """Forward returning ``(outputs, state_updates)``; only stateful
+        layers override it, the rest route through :meth:`call` with no
+        updates."""
+        return self.call(params, inputs, training=training), {}
+
+    def regularizers(self) -> "list[tuple[str, Callable]]":
+        """``(param_key, regularizer)`` pairs added to the train loss."""
+        return []
+
+    def regularization_loss(self, params: dict) -> torch.Tensor:
+        loss = torch.zeros(())
+        for key, reg in self.regularizers():
+            if key in params:
+                loss = loss + reg(params[key])
+        return loss
 
     def compute_output_shape(self, input_shape: ShapeLike) -> ShapeLike:
         return input_shape

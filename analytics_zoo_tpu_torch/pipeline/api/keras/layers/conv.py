@@ -37,17 +37,17 @@ def _conv_out_len(length, k, stride, border_mode):
     return -(-(length - k + 1) // stride)
 
 
-def pad_nchw(x, kernel, strides, border_mode, value=0.0):
-    """Pad an NCHW view for TF-style ``border_mode``; returns the padded
-    tensor and the symmetric ``padding=`` left for the op (a symmetric
-    SAME is handed to the op instead of copied)."""
+def pad_nchw(x, kernel, strides, border_mode):
+    """Zero-pad an NCHW view for TF-style ``border_mode``; returns the
+    padded tensor and the symmetric ``padding=`` left for the op (a
+    symmetric SAME is handed to the op instead of copied)."""
     if border_mode == "valid":
         return x, (0, 0)
     pt, pb, _ = tf_same_pads(x.shape[2], kernel[0], strides[0])
     pl, pr, _ = tf_same_pads(x.shape[3], kernel[1], strides[1])
-    if (pt, pl) == (pb, pr) and value == 0.0:
+    if (pt, pl) == (pb, pr):
         return x, (pt, pl)
-    return F.pad(x, (pl, pr, pt, pb), value=value), (0, 0)
+    return F.pad(x, (pl, pr, pt, pb)), (0, 0)
 
 
 class Convolution2D(KerasLayer):

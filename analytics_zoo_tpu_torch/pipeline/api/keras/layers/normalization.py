@@ -1,8 +1,10 @@
-"""BatchNormalization, eval mode (port of
+"""BatchNormalization (port of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/normalization.py``).
 
-Moving statistics live in ``params["_state"]``. Eval folds
-``(x - mean) * rsqrt(var + eps) * gamma + beta`` into per-channel
+Moving statistics live in ``params["_state"]``; a training forward
+returns their moving-average update through the second result of
+:meth:`BatchNormalization.apply` (the engine's contract). Both modes
+fold ``(x - mean) * rsqrt(var + eps) * gamma + beta`` into per-channel
 ``(scale, shift)`` computed in f32 and applied in ``x.dtype`` (so in
 bf16 this rounds at other places than the fused conv+BN kernels, whose
 epilogue applies the fold in f32).
@@ -10,10 +12,31 @@ epilogue applies the fold in f32).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
-    TRAINING_NOT_PORTED, KerasLayer, Shape)
+    KerasLayer, Shape)
+
+
+def bn_batch_stats(ssum, ssq, count, state, momentum):
+    """Batch mean/var from moving-mean-SHIFTED sums ``sum(x - mm)`` /
+    ``sum((x - mm)^2)`` plus the moving-average update, the one copy of
+    the scheme shared by :class:`BatchNormalization` and the fused ResNet
+    bottleneck. The shift keeps E[x^2] - E[x]^2 from cancelling when
+    |mean| >> std; the moving mean is frozen state, not differentiated."""
+    mm = state["moving_mean"].detach()
+    d_mean = ssum / count
+    d_sq = ssq / count
+    mean = d_mean + mm
+    var = torch.clamp(d_sq - torch.square(d_mean), min=0.0)
+    m = momentum
+    updates = {"_state": {
+        "moving_mean": m * state["moving_mean"] + (1 - m) * mean,
+        "moving_var": m * state["moving_var"] + (1 - m) * var,
+    }}
+    return mean, var, updates
 
 
 def bn_fold(mean, var, gamma, beta, epsilon):
@@ -51,12 +74,23 @@ class BatchNormalization(KerasLayer):
                             "moving_var": torch.ones((n,))}
         return params
 
-    def call(self, params, x, *, training=False):
-        if training:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
+    def apply(self, params, x, *, training=False):
         state = params["_state"]
+        if training:
+            # one pass over x for both sums, shifted by the moving mean
+            dims = tuple(range(x.dim() - 1))
+            xf = x.float() - state["moving_mean"].detach()
+            count = float(math.prod(x.shape[:-1]))
+            mean, var, updates = bn_batch_stats(
+                xf.sum(dims), torch.square(xf).sum(dims), count, state,
+                self.momentum)
+        else:
+            mean, var = state["moving_mean"], state["moving_var"]
+            updates = {}
         scale, shift = bn_fold(
-            state["moving_mean"], state["moving_var"],
-            params["gamma"] if self.scale else None,
+            mean, var, params["gamma"] if self.scale else None,
             params["beta"] if self.center else None, self.epsilon)
-        return x * scale.to(x.dtype) + shift.to(x.dtype)
+        return x * scale.to(x.dtype) + shift.to(x.dtype), updates
+
+    def call(self, params, x, *, training=False):
+        return self.apply(params, x, training=training)[0]

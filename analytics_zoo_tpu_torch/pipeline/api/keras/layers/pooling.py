@@ -1,15 +1,15 @@
 """MaxPooling2D and GlobalAveragePooling2D over NHWC input (port of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/pooling.py``). A SAME max
-pool pads with -inf, TF-style (3x3/s2 on 112 pads (0, 1))."""
+pool pads with -inf, TF-style (3x3/s2 on 112 pads (0, 1)), and its
+backward splits the cotangent among tied maxima (``ops.pool_grad``)."""
 
 from __future__ import annotations
 
-import torch.nn.functional as F
-
+from analytics_zoo_tpu_torch.ops import pool_grad
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     KerasLayer, Shape)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
-    _conv_out_len, _norm_tuple, pad_nchw)
+    _conv_out_len, _norm_tuple)
 
 
 class MaxPooling2D(KerasLayer):
@@ -25,11 +25,8 @@ class MaxPooling2D(KerasLayer):
         self.border_mode = border_mode
 
     def call(self, params, x, *, training=False):
-        xc, _ = pad_nchw(x.permute(0, 3, 1, 2), self.pool_size,
-                         self.strides, self.border_mode,
-                         value=float("-inf"))
-        y = F.max_pool2d(xc, self.pool_size, self.strides)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return pool_grad.maxpool2d(x, self.pool_size, self.strides,
+                                   self.border_mode)
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         out = tuple(_conv_out_len(s, k, st, self.border_mode)

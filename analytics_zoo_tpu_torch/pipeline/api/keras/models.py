@@ -1,7 +1,7 @@
 """Containers: functional ``Model`` and ``Sequential`` (port of
-``analytics_zoo_tpu/pipeline/api/keras/models.py``, the structural half:
-params by layer name, forward and predict; compile and fit come with
-the training slice).
+``analytics_zoo_tpu/pipeline/api/keras/models.py``): params by layer
+name, ``apply`` with state updates, predict, and the training surface
+(``compile``/``fit``/``evaluate``, routed to the Estimator).
 
 A container's param tree is ``{layer.name: layer params}``, the JAX
 package's layout, so a JAX param pytree loads into it as a copy
@@ -118,9 +118,69 @@ class KerasNet(KerasLayer):
         self.set_params(params_from_numpy(tree, device))
         return self
 
+    def regularization_loss(self, params: dict) -> torch.Tensor:
+        loss = torch.zeros(())
+        for lyr in self.layers:
+            loss = loss + lyr.regularization_loss(params.get(lyr.name, {}))
+        return loss
+
+    def trainable_mask(self, params: dict) -> dict:
+        """Bool tree: True where the optimizer updates. ``_state``
+        subtrees (at any depth: a fused bottleneck keeps one per BN) and
+        layers with ``trainable=False`` are masked out."""
+        def mask_layer(lyr: KerasLayer, sub: dict):
+            if isinstance(lyr, KerasNet):
+                return {inner.name: mask_layer(inner,
+                                               sub.get(inner.name, {}))
+                        for inner in lyr.layers if inner.name in sub}
+
+            def mask_sub(node, on):
+                if isinstance(node, dict):
+                    return {k: mask_sub(v, on and k != "_state")
+                            for k, v in node.items()}
+                return on
+            return mask_sub(sub, bool(lyr.trainable))
+        return {lyr.name: mask_layer(lyr, params.get(lyr.name, {}))
+                for lyr in self.layers if lyr.name in params}
+
+    def freeze(self, *layer_names: str) -> "KerasNet":
+        """Freeze named layers (all layers if no names given)."""
+        for lyr in self.layers:
+            if not layer_names or lyr.name in layer_names:
+                lyr.trainable = False
+        return self
+
+    # -- training surface (routes to the Estimator, as the reference) ------
+    def compile(self, optimizer="adam", loss="mse", metrics=None):
+        """Configure training. Weights live in the net, so re-compiling
+        keeps them (Keras semantics)."""
+        from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+        self._estimator = Estimator(self, optimizer=optimizer, loss=loss,
+                                    metrics=metrics)
+        return self
+
+    @property
+    def estimator(self):
+        est = getattr(self, "_estimator", None)
+        if est is None:
+            raise RuntimeError("call compile(...) first")
+        return est
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
+            **kwargs):
+        """Train on numpy array(s) (+ ``y``) or an ``ArrayDataset``."""
+        return self.estimator.train(x, y, batch_size=batch_size,
+                                    nb_epoch=nb_epoch, **kwargs)
+
+    def evaluate(self, x, y=None, batch_size: int = 32):
+        return self.estimator.evaluate(x, y, batch_size=batch_size)
+
     # -- inference ----------------------------------------------------------
     def forward(self, inputs):
         return self.call(self.params(), inputs)
+
+    def call(self, params, inputs, *, training=False):
+        return self.apply(params, inputs, training=training)[0]
 
     def predict(self, x, batch_size: int = 32) -> np.ndarray:
         """Forward ``x`` (host array or tensor) in batches of
@@ -181,11 +241,14 @@ class Sequential(KerasNet):
             shape = lyr.compute_output_shape(shape)
         return shape
 
-    def call(self, params, inputs, *, training=False):
+    def apply(self, params, inputs, *, training=False):
         x = inputs
+        updates: dict = {}
         for lyr in self._stack:
-            x = lyr.call(params[lyr.name], x, training=training)
-        return x
+            x, upd = lyr.apply(params[lyr.name], x, training=training)
+            if upd:
+                updates[lyr.name] = upd
+        return x, updates
 
 
 class Model(KerasNet):
@@ -240,13 +303,14 @@ class Model(KerasNet):
         shapes = [v.shape for v in self.outputs]
         return shapes if self._multi_out else shapes[0]
 
-    def call(self, params, inputs, *, training=False):
+    def apply(self, params, inputs, *, training=False):
         xs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
         if len(xs) != len(self.inputs):
             raise ValueError(f"model {self.name} expects "
                              f"{len(self.inputs)} inputs, got {len(xs)}")
         values: "dict[int, Any]" = {id(v): x
                                     for v, x in zip(self.inputs, xs)}
+        updates: dict = {}
         for v in self._order:
             if id(v) in values:
                 continue
@@ -256,8 +320,11 @@ class Model(KerasNet):
                     f"graph input {v.name} was not fed; it must be listed "
                     "in Model(inputs=...)")
             args = [values[id(p)] for p in v.parents]
-            values[id(v)] = lyr.call(params[lyr.name],
-                                     args if len(args) > 1 else args[0],
-                                     training=training)
+            values[id(v)], upd = lyr.apply(
+                params[lyr.name], args if len(args) > 1 else args[0],
+                training=training)
+            if upd:
+                # a shared layer may update at several nodes; last wins
+                updates[lyr.name] = upd
         outs = [values[id(v)] for v in self.outputs]
-        return outs if self._multi_out else outs[0]
+        return (outs if self._multi_out else outs[0]), updates

@@ -1,0 +1,310 @@
+"""Estimator: train, evaluate and predict a Keras-style net on the card
+(port of ``analytics_zoo_tpu/pipeline/estimator.py``, the single-card
+core; checkpoints, TensorBoard, profiling, gradient clipping and the
+fsdp/tp/ep modes wait).
+
+A train step is the reference's, written eagerly: the net's ``apply``
+in training mode under autograd, the loss (in f32 under the
+``mixed_bfloat16`` policy, whose inputs go to the card as bf16 while
+the params stay f32), the gradients of the trainable leaves, the
+optimizer's in-place update, then the BatchNorm state updates copied
+into the net's buffers. The weights live in the net itself
+(``model.params()``), so ``predict`` and serving see every step.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from analytics_zoo_tpu_torch.common import observability as obs
+from analytics_zoo_tpu_torch.common.nncontext import (
+    NNContext, get_nncontext)
+from analytics_zoo_tpu_torch.ops import losses as losses_lib
+from analytics_zoo_tpu_torch.ops import optimizers as optim_lib
+from analytics_zoo_tpu_torch.pipeline.api.keras.engine import tree_leaves
+
+
+# ---------------------------------------------------------------------------
+# Triggers
+# ---------------------------------------------------------------------------
+
+class Trigger:
+    """Training-control predicate (the reference's BigDL ``Trigger``
+    algebra, the everyEpoch/maxEpoch/maxIteration part)."""
+
+    def __call__(self, epoch: int, iteration: int, epoch_end: bool,
+                 **state) -> bool:
+        raise NotImplementedError
+
+
+class EveryEpoch(Trigger):
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        return epoch_end
+
+
+class MaxEpoch(Trigger):
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        return epoch >= self.n
+
+
+class MaxIteration(Trigger):
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        return iteration >= self.n
+
+
+# ---------------------------------------------------------------------------
+# In-memory dataset
+# ---------------------------------------------------------------------------
+
+class ArrayDataset:
+    """Numpy (x, y) pairs with per-epoch shuffling and fixed-size
+    batches; the trailing incomplete batch is dropped in training. The
+    shuffle is numpy's ``RandomState(seed)``, so the order is the
+    reference's exactly."""
+
+    def __init__(self, x, y=None):
+        self.x = [np.asarray(a) for a in
+                  (x if isinstance(x, (list, tuple)) else [x])]
+        self.y = None if y is None else np.asarray(y)
+        n = self.x[0].shape[0]
+        if any(a.shape[0] != n for a in self.x):
+            raise ValueError("inconsistent sample counts in x")
+        if self.y is not None and self.y.shape[0] != n:
+            raise ValueError("x and y sample counts differ")
+        self._n = n
+
+    @property
+    def num_samples(self) -> int:
+        return self._n
+
+    def iter_batches(self, batch_size: int, shuffle: bool = True,
+                     seed: int = 0, drop_last: bool = True):
+        idx = np.arange(self._n)
+        if shuffle:
+            np.random.RandomState(seed).shuffle(idx)
+        end = (self._n - self._n % batch_size) if drop_last else self._n
+        for start in range(0, end, batch_size):
+            sel = idx[start:start + batch_size]
+            xb = [a[sel] for a in self.x]
+            yield (xb[0] if len(xb) == 1 else xb,
+                   None if self.y is None else self.y[sel])
+
+
+def to_dataset(data, y=None):
+    if hasattr(data, "iter_batches"):
+        return data
+    return ArrayDataset(data, y)
+
+
+def _to_device(a, device, float_dtype=None):
+    """A host array (or list of them) as tensors on ``device``; f64 comes
+    in as f32 (the reference's default precision), and floating arrays
+    are cast to ``float_dtype`` when given."""
+    if isinstance(a, (list, tuple)):
+        return [_to_device(v, device, float_dtype) for v in a]
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype == torch.float64:
+        t = t.float()
+    t = t.to(device)
+    if float_dtype is not None and t.is_floating_point():
+        t = t.to(float_dtype)
+    return t
+
+
+def _cast_floats(x, dtype):
+    if isinstance(x, (list, tuple)):
+        return [_cast_floats(v, dtype) for v in x]
+    return x.to(dtype) if x.is_floating_point() else x
+
+
+@dataclass
+class TrainResult:
+    history: "list[dict]"
+    params: Any
+    opt_state: Any
+    step: int
+
+
+class Estimator:
+    """``train``/``evaluate``/``predict`` over a Keras-style net."""
+
+    def __init__(self, model, optimizer="adam", loss="mse",
+                 metrics: Optional[List] = None,
+                 ctx: Optional[NNContext] = None,
+                 dtype_policy: Optional[str] = None):
+        if metrics:
+            raise NotImplementedError(
+                "metrics are not ported yet; evaluate reports the loss")
+        # the reference defaults to bf16 activations on a TPU only: the
+        # port's card is not one, so float32 unless asked
+        dtype_policy = dtype_policy or "float32"
+        if dtype_policy not in ("float32", "mixed_bfloat16"):
+            raise ValueError("dtype_policy must be float32|mixed_bfloat16")
+        self.dtype_policy = dtype_policy
+        self.model = model
+        self.ctx = ctx or get_nncontext()
+        self.loss_fn = losses_lib.get(loss)
+        self.optimizer = optim_lib.get(optimizer)
+        self.opt_state: Optional[dict] = None
+        self.step = 0
+
+    # -- params ------------------------------------------------------------
+    @property
+    def params(self) -> Optional[dict]:
+        return self.model.params() if self.model.initialized else None
+
+    @params.setter
+    def params(self, tree: dict) -> None:
+        self.model.load_params(tree, device=self.ctx.device)
+
+    def trainable_leaves(self) -> "list[torch.Tensor]":
+        """The trainable param tensors, in tree order (the order of
+        every list in ``opt_state``)."""
+        params = self.model.params()
+        mask = self.model.trainable_mask(params)
+        return [p for p, on in zip(tree_leaves(params), tree_leaves(mask))
+                if on]
+
+    def _ensure_initialized(self) -> None:
+        if not self.model.initialized:
+            self.model.init_params(self.ctx.new_generator(),
+                                   device=self.ctx.device)
+        if self.opt_state is None:
+            self.opt_state = self.optimizer.init(self.trainable_leaves())
+
+    @staticmethod
+    def _merge_updates(params: dict, updates: dict) -> dict:
+        """Fold BatchNorm-style state updates into the param tree. In
+        place, where the reference returns a new tree: the leaves are
+        the net's buffers."""
+        for k, v in updates.items():
+            if isinstance(v, dict):
+                Estimator._merge_updates(params[k], v)
+            else:
+                params[k].copy_(v)
+        return params
+
+    # -- steps ---------------------------------------------------------------
+    @property
+    def _mixed(self) -> bool:
+        return self.dtype_policy == "mixed_bfloat16"
+
+    def _train_step(self, xb, yb) -> torch.Tensor:
+        dev = self.model.device
+        x = _to_device(xb, dev, torch.bfloat16 if self._mixed else None)
+        y = _to_device(yb, dev)
+        params = self.model.params()
+        leaves = self.trainable_leaves()
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                out, state_upd = self.model.apply(params, x, training=True)
+                if self._mixed:      # loss in f32 for numeric stability
+                    out = _cast_floats(out, torch.float32)
+                loss = self.loss_fn(y, out) + \
+                    self.model.regularization_loss(params)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        self.optimizer.update(leaves, grads, self.opt_state)
+        with torch.no_grad():
+            self._merge_updates(params, state_upd)
+        return loss.detach()
+
+    def _forward_eval(self, xb):
+        x = _to_device(xb, self.model.device,
+                       torch.bfloat16 if self._mixed else None)
+        out = self.model.call(self.model.params(), x, training=False)
+        return _cast_floats(out, torch.float32) if self._mixed else out
+
+    # -- API -----------------------------------------------------------------
+    def train(self, data, y=None, batch_size: int = 32, nb_epoch: int = 1,
+              end_trigger: Optional[Trigger] = None) -> TrainResult:
+        """Train for ``nb_epoch`` epochs (or until ``end_trigger``). Each
+        history entry has the epoch's mean loss, its per-step losses,
+        throughput (examples/s, host clock) and the step count."""
+        ds = to_dataset(data, y)
+        self.ctx.check_batch_size(batch_size)
+        self._ensure_initialized()
+        # per-step host wall time is dispatch to dispatch, as in the
+        # reference: no sync per step
+        step_hist = obs.histogram(
+            "zoo_tpu_train_step_seconds",
+            help="host wall time per training step (dispatch-to-dispatch)")
+        steps_total = obs.counter("zoo_tpu_train_steps_total",
+                                  help="training steps dispatched")
+        examples_total = obs.counter("zoo_tpu_train_examples_total",
+                                     help="training examples consumed")
+        history: "list[dict]" = []
+        for epoch in range(1, nb_epoch + 1):
+            pending: "list[torch.Tensor]" = []
+            stop = False
+            t0 = t_prev = time.perf_counter()
+            for xb, yb in ds.iter_batches(batch_size, shuffle=True,
+                                          seed=epoch):
+                pending.append(self._train_step(xb, yb))
+                self.step += 1
+                now = time.perf_counter()
+                step_hist.observe(now - t_prev)
+                t_prev = now
+                steps_total.inc()
+                examples_total.inc(batch_size)
+                if end_trigger is not None and end_trigger(
+                        epoch - 1, self.step, False):
+                    stop = True
+                    break
+            # one fetch per epoch, not one sync per step
+            step_losses = [float(v) for v in pending]
+            dt = max(time.perf_counter() - t0, 1e-9)
+            entry = {"epoch": epoch,
+                     "loss": float(np.mean(step_losses)) if step_losses
+                     else 0.0,
+                     "losses": step_losses,
+                     "throughput": len(pending) * batch_size / dt,
+                     "step": self.step}
+            history.append(entry)
+            if stop or (end_trigger is not None and end_trigger(
+                    epoch, self.step, True, loss=entry["loss"])):
+                break
+        return TrainResult(history, self.params, self.opt_state, self.step)
+
+    @torch.no_grad()
+    def evaluate(self, data, y=None, batch_size: int = 32
+                 ) -> "dict[str, float]":
+        """The mean loss over every sample (the tail batch included)."""
+        ds = to_dataset(data, y)
+        self._ensure_initialized()
+        total, count = 0.0, 0
+        for xb, yb in ds.iter_batches(batch_size, shuffle=False,
+                                      drop_last=False):
+            out = self._forward_eval(xb)
+            n = int(out.shape[0])
+            yt = _to_device(yb, out.device)
+            total += float(self.loss_fn(yt, out)) * n
+            count += n
+        return {"loss": total / max(count, 1)}
+
+    @torch.no_grad()
+    def predict(self, data, batch_size: int = 32) -> np.ndarray:
+        ds = to_dataset(data)
+        self._ensure_initialized()
+        outs = [self._forward_eval(xb).float().cpu().numpy()
+                for xb, _ in ds.iter_batches(batch_size, shuffle=False,
+                                             drop_last=False)]
+        return np.concatenate(outs) if outs else np.empty((0,))

@@ -12,21 +12,30 @@ script exits non-zero and prints no result line:
    CUDA versions;
 2. build: compiles the port's CUDA kernels from ``csrc/`` (one ``nvcc``
    per source, in parallel) and prints ptxas's registers and spills;
-3. kernels: every distinct shape each kernel gets on ResNet-50's eval
-   path at 224x224, batch 32, in f32 and bf16 (plus batch 1's M = 49
-   and cases with the prologue on), held against its plain PyTorch
-   version on the card, with kernel, plain, library-call and bound
-   times;
-4. main path: ``ImageClassifier("resnet-50", fused=True)`` at full
-   width with seeded random weights and distinctive BatchNorm
-   statistics, served by ``InferenceModel`` to requests from two
-   threads at batch 1, 8 and 32 in f32 and bf16; checks the kernels'
-   launch counts (36 and 16 per forward), the f32 logits against the
-   port's unfused graph (cuDNN convs) and the bf16 logits against the
-   f32 ones; times the median request at batch 1 and 32 (images/s) and
-   profiles three batch-32 requests (device time by kernel, busy
-   share);
-5. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+3. kernels: every distinct shape each kernel gets on its path, held
+   against its plain PyTorch version on the card, with kernel, plain,
+   library-call and bound times: the eval folds (B5, B6) at ResNet-50's
+   serving shapes (224x224, batch 32, plus batch 1's M = 49 and
+   prologue cases), the training kernels (B1-B4) at its train-step
+   shapes (batch 128, plus residual and ragged-M cases), in f32 and
+   bf16;
+4. serving: ``ImageClassifier("resnet-50", fused=True)`` at full width
+   with seeded random weights and distinctive BatchNorm statistics,
+   served by ``InferenceModel`` to requests from two threads at batch
+   1, 8 and 32 in f32 and bf16; checks the launch counts (36 and 16 per
+   forward), the f32 logits against the port's unfused graph (cuDNN
+   convs) and the bf16 logits against the f32 ones; times the median
+   request (images/s) and profiles three batch-32 requests;
+5. training: ``resnet50(fused=True)`` at 224x224, 1000 classes, trained
+   by ``Estimator.train`` (SGD 0.1, momentum 0.9, softmax cross
+   entropy) on seeded numpy data: one f32 step held against the port's
+   unfused graph on the same weights and batch (loss and a sample of
+   the updated weights and moving statistics), then five
+   ``mixed_bfloat16`` steps at batch 128 (launches 36/16/36/36 per
+   step, finite losses, the first bf16 loss against the f32 one), five
+   more timed (images/s, model-FLOPs MFU) and two profiled (device busy
+   share, ms per kernel per step);
+6. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
@@ -47,7 +56,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
+TRAIN_BATCH = 128
+TRAIN_STEPS = 5
 IMAGE = (224, 224, 3)
+# ResNet-50 model FLOPs per trained image: 3 x 2 x 4.09 GMAC
+TRAIN_FLOP_PER_IMAGE = 3 * 2 * 4.09e9
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -57,12 +70,30 @@ KERNELS = {
     "matmul_bn_apply": {
         "source": "analytics_zoo_tpu_torch/csrc/matmul_bn_apply.cu",
         "replaces": "analytics_zoo_tpu/ops/conv_bn.py:747",
-        "per_forward": 36},
+        "path": "serve", "per_path": 36},
     "conv3x3_bn_apply": {
         "source": "analytics_zoo_tpu_torch/csrc/conv3x3_bn_apply.cu",
         "replaces": "analytics_zoo_tpu/ops/conv_bn.py:1005",
-        "per_forward": 16},
+        "path": "serve", "per_path": 16},
+    "matmul_bn": {
+        "source": "analytics_zoo_tpu_torch/csrc/matmul_bn.cu",
+        "replaces": "analytics_zoo_tpu/ops/conv_bn.py:201",
+        "path": "train", "per_path": 36},
+    "conv3x3_bn": {
+        "source": "analytics_zoo_tpu_torch/csrc/conv3x3_bn.cu",
+        "replaces": "analytics_zoo_tpu/ops/conv_bn.py:1124",
+        "path": "train", "per_path": 16},
+    "matmul_bn_dx": {
+        "source": "analytics_zoo_tpu_torch/csrc/matmul_bn_dx.cu",
+        "replaces": "analytics_zoo_tpu/ops/conv_bn.py:518",
+        "path": "train", "per_path": 36},
+    "matmul_bn_dw": {
+        "source": "analytics_zoo_tpu_torch/csrc/matmul_bn_dw.cu",
+        "replaces": "analytics_zoo_tpu/ops/conv_bn.py:552",
+        "path": "train", "per_path": 36},
 }
+PATHS = {"serve": f"one batch-{BATCH} bf16 forward",
+         "train": f"one batch-{TRAIN_BATCH} bf16 train step"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,8 +146,8 @@ def path_shapes(model, batch):
 
 def kernel_cases(b5, b6):
     """(kernel, key, x dtype, weight dtype, prologue, launches per
-    forward) for every main-path shape in both dtypes, plus batch 1's
-    M = 49 and prologue cases (the main path runs none)."""
+    forward) for every serving-path shape in both dtypes, plus batch 1's
+    M = 49 and prologue cases (the serving path runs none)."""
     cases = []
     for dt in ("float32", "bfloat16"):
         # the model keeps f32 weights: the 1x1 fold multiplies in the
@@ -141,7 +172,7 @@ def run_case(case, gen):
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops import conv_bn as cb
-    name, key, dt, wdt, prologue, per_fwd = case
+    name, key, dt, wdt, prologue, per_path = case
     dev = torch.device("cuda")
     xdt, wdtype = getattr(torch, dt), getattr(torch, wdt)
 
@@ -216,7 +247,7 @@ def run_case(case, gen):
     err = (y.float() - ref.float()).abs().max().item()
     scale = max(1.0, ref.float().abs().max().item())
     rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": wdt,
-           "prologue": prologue, "per_forward": per_fwd,
+           "prologue": prologue, "per_path": per_path,
            "max_abs_err": err, "tol": TOL[dt] * scale,
            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
            "library_ms": time_ms(library),
@@ -225,7 +256,7 @@ def run_case(case, gen):
     rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
         else "bytes"
     print(f"  {name} {dt}/{wdt}{' prologue' if prologue else ''} "
-          f"{tuple(key)} x{per_fwd}: max|err| {err:.3e} "
+          f"{tuple(key)} x{per_path}: max|err| {err:.3e} "
           f"(tol {rec['tol']:.3e}) kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
@@ -234,17 +265,194 @@ def run_case(case, gen):
     return rec
 
 
+def train_shapes(model, batch):
+    """Distinct training-kernel shapes of one train step of a fused
+    ResNet, each with its launch count per step: 1x1 keys (B, H, W, K,
+    N, stride, prologue, residual) for B1 and its backward B3 + B4, 3x3
+    keys (B, H, W, Cin, Cout, stride) for B2 (prologue always on)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        FusedBottleneck
+    b1, b2 = collections.Counter(), collections.Counter()
+    for lyr in model.layers:
+        if not isinstance(lyr, FusedBottleneck):
+            continue
+        h, w, c = lyr.input_shape
+        f, s = lyr.filters, lyr.stride
+        ho, wo = -(-h // s), -(-w // s)
+        b1[(batch, h, w, c, f, 1, False, False)] += 1          # c1
+        b2[(batch, h, w, f, f, s)] += 1                         # c2
+        b1[(batch, ho, wo, f, 4 * f, 1, True, False)] += 1     # c3
+        if lyr.downsample:
+            b1[(batch, h, w, c, 4 * f, s, False, False)] += 1  # down
+    return b1, b2
+
+
+def train_cases(b1, b2):
+    """(kernel, key, dtype, launches per step) for every train-path shape
+    in both dtypes, plus the in_residual prologue (which only the
+    deferred stage layout runs) and ragged M (3 images at 7x7)."""
+    extra1 = [(TRAIN_BATCH, 56, 56, 256, 64, 1, True, True),
+              (3, 7, 7, 2048, 512, 1, True, True)]
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for name in ("matmul_bn", "matmul_bn_dx", "matmul_bn_dw"):
+            cases += [(name, k, dt, n) for k, n in sorted(b1.items())]
+            cases += [(name, k, dt, 0) for k in extra1]
+        cases += [("conv3x3_bn", k, dt, n) for k, n in sorted(b2.items())]
+        cases.append(("conv3x3_bn", (3, 7, 7, 512, 512, 1), dt, 0))
+    return cases
+
+
+def run_train_case(case, gen):
+    """A training kernel vs its plain version on the card: every output
+    (y and the two statistics; dx, ds, dt, dr; dW) within the dtype's
+    tolerance of max(1, max|plain|). Returns the case's record."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    name, key, dt, per_step = case
+    dev = torch.device("cuda")
+    xdt = getattr(torch, dt)
+    esize = torch.tensor([], dtype=xdt).element_size()
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen, device=dev) *
+                scale).to(dtype)
+
+    if name == "conv3x3_bn":
+        b, h, w, cin, cout, stride = key
+        x = randn(b, h, w, cin, dtype=xdt)
+        wt = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        s, t = 1.0 + randn(cin, scale=0.1), randn(cin, scale=0.1)
+        sh = randn(cout, scale=0.1)
+        pt, pb, ho = cb.tf_same_pads(h, 3, stride)
+        pl, pr, wo = cb.tf_same_pads(w, 3, stride)
+        m = b * ho * wo
+
+        def kernel():
+            return cb._conv3x3_bn_fwd(x, wt, s, t, sh, True, True, stride)
+
+        def plain():
+            return cb.conv3x3_bn_ref(x, wt, s, t, sh, True, True, stride)
+        xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous(
+            memory_format=torch.channels_last)
+        wl = wt.to(xdt).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def library():
+            return F.conv2d(xp, wl, stride=stride)
+        flops = 2.0 * m * 9 * cin * cout
+        nbytes = (b * h * w * cin + m * cout + 9 * cin * cout) * esize + \
+            4 * (2 * cin + 3 * cout)
+        outs = ("y", "sum", "sumsq")
+    else:
+        b, h, w, k, n, stride, affine, res = key
+        ho, wo = -(-h // stride), -(-w // stride)
+        m = b * ho * wo
+        x4 = randn(b, h, w, k, dtype=xdt)
+        x2 = x4[:, ::stride, ::stride].reshape(m, k).contiguous()
+        wt = randn(k, n, scale=k ** -0.5, dtype=xdt)
+        s = 1.0 + randn(k, scale=0.1) if affine else None
+        t = randn(k, scale=0.1) if affine else None
+        r = randn(m, k, dtype=xdt) if res else None
+        sh = randn(n, scale=0.1)
+        vec_bytes = 4 * (2 * k * affine + 3 * n)
+        if name == "matmul_bn":
+            def kernel():
+                return cb._matmul_bn_fwd(x4, wt, s, t, r, sh, stride,
+                                         affine, affine)
+
+            def plain():
+                y, ssum, ssq = cb.matmul_bn_ref(
+                    x4[:, ::stride, ::stride].reshape(m, k), wt, s, t, r,
+                    sh, affine, affine)
+                return y.reshape(b, ho, wo, n), ssum, ssq
+
+            def library():
+                return torch.matmul(x2, wt)
+            nbytes = (m * k * (1 + res) + m * n + k * n) * esize + vec_bytes
+            outs = ("y", "sum", "sumsq")
+        else:
+            y = randn(m, n, dtype=xdt)
+            dy = randn(m, n, dtype=xdt)
+            dsum, dsq = randn(n, scale=0.1), randn(n, scale=0.01)
+            grads = (y, dy, dsum, dsq, affine, affine)
+            g_lib = dy.contiguous()
+            if name == "matmul_bn_dx":
+                def kernel():
+                    return cb._matmul_bn_dx(x2, wt, s, t, r, sh, *grads)
+
+                def plain():
+                    return cb.matmul_bn_dx_ref(x2, wt, s, t, r, sh, *grads)
+
+                def library():
+                    return torch.matmul(g_lib, wt.t())
+                nbytes = (2 * m * n + m * k * (2 + 2 * res) + k * n) * \
+                    esize + vec_bytes + 4 * 2 * k
+                outs = ("dx", "ds", "dt", "dr")
+            else:
+                def kernel():
+                    return cb._matmul_bn_dw(x2, s, t, r, sh, *grads)
+
+                def plain():
+                    return cb.matmul_bn_dw_ref(x2, s, t, r, sh, *grads)
+
+                def library():
+                    return torch.matmul(x2.t(), g_lib)
+                nbytes = (2 * m * n + m * k * (1 + res) + k * n) * esize + \
+                    vec_bytes
+                outs = ("dw",)
+        flops = 2.0 * m * k * n
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    errs = {}
+    for oname, a, b_ in zip(outs, got, want):
+        if a is None and b_ is None:
+            continue
+        check(tuple(a.shape) == tuple(b_.shape) and a.dtype == b_.dtype,
+              f"{name} {key} {oname}: got {tuple(a.shape)} {a.dtype}, "
+              f"plain {tuple(b_.shape)} {b_.dtype}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{name} {key} {oname}: non-finite")
+        err = (a.float() - b_.float()).abs().max().item()
+        tol = TOL[dt] * max(1.0, b_.float().abs().max().item())
+        errs[oname] = (err, tol)
+        check(err <= tol, f"{name} {key} {dt} {oname}: max|err| {err} > "
+              f"{tol}")
+    rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": dt,
+           "prologue": name == "conv3x3_bn" or bool(key[6]),
+           "per_path": per_step, "errors": errs,
+           "max_abs_err": max(e for e, _ in errs.values()),
+           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "library_ms": time_ms(library),
+           "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
+           "byte_ms": nbytes / PEAK_BYTES * 1e3}
+    rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
+    rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
+        else "bytes"
+    print(f"  {name} {dt} {tuple(key)} x{per_step}: max|err| "
+          + ", ".join(f"{o} {e:.2e}/{tl:.2e}" for o, (e, tl) in errs.items())
+          + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+          f" ms ({rec['bound_by']})", flush=True)
+    return rec
+
+
 def kernels_summary(records, launches):
-    """Per kernel: its main-path launches, the worst error over every
-    case, and each time summed over one batch-32 bf16 forward's
-    launches (f32 beside it under ``by_dtype``)."""
+    """Per kernel: its path's launches, the worst error over every case,
+    and each time summed over one bf16 pass of its path (a batch-32
+    forward for the eval folds, a batch-128 train step for the training
+    kernels; f32 beside it under ``by_dtype``)."""
     out = []
     for name, meta in KERNELS.items():
         recs = [r for r in records if r["kernel"] == name]
         by_dtype = {}
         for dt in ("bfloat16", "float32"):
-            fwd = [r for r in recs if r["dtype"] == dt and r["per_forward"]]
-            sums = {k: sum(r[k] * r["per_forward"] for r in fwd)
+            on_path = [r for r in recs if r["dtype"] == dt and r["per_path"]]
+            sums = {k: sum(r[k] * r["per_path"] for r in on_path)
                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "flop_ms", "byte_ms")}
             sums["bound_by"] = "operations" if \
@@ -254,12 +462,12 @@ def kernels_summary(records, launches):
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches[name],
-            "launches_per_forward": meta["per_forward"],
+            "launches_per_path": meta["per_path"],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "times_are": f"sum over one batch-{BATCH} bf16 forward",
+            "times_are": "sum over " + PATHS[meta["path"]],
             "by_dtype": by_dtype})
     return out
 
@@ -322,9 +530,10 @@ def main_path(card, detail):
     print(f"  answered {n_fwd} requests from 2 threads; launches "
           f"{launches}", flush=True)
     for name, meta in KERNELS.items():
-        check(launches[name] == meta["per_forward"] * n_fwd,
+        want = meta["per_path"] * n_fwd if meta["path"] == "serve" else 0
+        check(launches[name] == want,
               f"{name}: {launches[name]} launches for {n_fwd} forwards, "
-              f"expected {meta['per_forward']} each")
+              f"expected {want}")
     logits = {}
     for (dt, bs, rep, _), out in zip(requests, outs):
         check(out.shape == (bs, 1000) and np.isfinite(out).all(),
@@ -372,6 +581,188 @@ def main_path(card, detail):
     detail["request_ms"] = latency
     detail["profile"] = profiles
     return launches
+
+
+def train_path(card, detail):
+    """Phase 5: train ResNet-50 through the port's entry points; returns
+    the kernels' launches over the bf16 run."""
+    import numpy as np
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        convert_resnet_params, resnet50)
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.estimator import (
+        Estimator, MaxIteration)
+
+    ctx = zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(0)
+    n = TRAIN_STEPS * TRAIN_BATCH
+    x = rs.rand(n, *IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, size=(n, 1)).astype(np.int32)
+    t0 = time.perf_counter()
+    model = resnet50(input_shape=IMAGE, classes=1000, fused=True)
+    model.init_params()
+    w0 = params_to_numpy(model)
+    print(f"  model built on {model.device} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def estimator(net, policy):
+        return Estimator(net, optimizer=SGD(lr=0.1, momentum=0.9),
+                         loss="softmax_cross_entropy", dtype_policy=policy,
+                         ctx=ctx)
+
+    def one_step(net, images):
+        est = estimator(net, "float32")
+        res = est.train(images, y, batch_size=TRAIN_BATCH,
+                        end_trigger=MaxIteration(1))
+        return res.history[-1]["losses"][0], params_to_numpy(net)
+
+    # one f32 step, fused against the unfused graph (cuDNN convs, torch
+    # BN) from the same weights on the same batch
+    loss32, fused_after = one_step(model, x)
+    ref = resnet50(input_shape=IMAGE, classes=1000, fused=False)
+    ref.init_params()
+    ref_w0 = convert_resnet_params(w0, params_to_numpy(ref))
+    ref.load_params(ref_w0)
+    loss_ref, ref_after = one_step(ref, x)
+    # the first step's gradient at random init is ill-conditioned in the
+    # early layers: the unfused graph itself moves by several percent of
+    # an update there when its input moves by 1e-6 (relative), so that
+    # movement, measured here, bounds the fused-vs-unfused difference
+    ref.load_params(ref_w0)
+    jitter = 1.0 + 1e-6 * np.random.RandomState(1).standard_normal(
+        x.shape[1:]).astype(np.float32)
+    _, ref_jitter = one_step(ref, x * jitter)
+    del ref
+    torch.cuda.empty_cache()
+    checks = {"f32_loss_vs_unfused": (abs(loss32 - loss_ref),
+                                      1e-4 * max(1.0, abs(loss_ref)))}
+    fused_as_ref = convert_resnet_params(fused_after, ref_after)
+    sample = [("stem", "kernel"), ("s0b0_c1", "kernel"),
+              ("s1b0_c2", "kernel"), ("s1b0_down", "kernel"),
+              ("s2b3_c3", "kernel"), ("s3b2_c1_bn", "gamma"),
+              ("s3b2_c3_bn", "beta"), ("fc", "kernel")]
+    for layer, leaf in sample:
+        want = ref_after[layer][leaf]
+        noise = float(np.abs(ref_jitter[layer][leaf] - want).max())
+        scale = float(np.abs(want - ref_w0[layer][leaf]).max())
+        checks[f"f32_update_{layer}/{leaf}"] = (
+            float(np.abs(fused_as_ref[layer][leaf] - want).max()),
+            max(1e-3 * scale, 2.0 * noise))
+    for layer in ("s0b0_c1_bn", "s2b0_c2_bn", "s3b2_c3_bn"):
+        for leaf in ("moving_mean", "moving_var"):
+            want = ref_after[layer]["_state"][leaf]
+            got = fused_as_ref[layer]["_state"][leaf]
+            checks[f"f32_{layer}/{leaf}"] = (
+                float(np.abs(got - want).max()),
+                1e-4 * max(1.0, float(np.abs(want).max())))
+    print(f"  f32 step 1: fused loss {loss32:.6f}, unfused {loss_ref:.6f}",
+          flush=True)
+    del ref_w0, ref_after, ref_jitter, fused_as_ref, fused_after
+
+    # the main path: mixed_bfloat16 from the same starting weights
+    model.load_params(w0)
+    est = estimator(model, "mixed_bfloat16")
+    cb.reset_launches()
+    torch.cuda.synchronize()
+    res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    launches = dict(cb.launches)
+    losses = res.history[-1]["losses"]
+    print(f"  {len(losses)} bf16 steps at batch {TRAIN_BATCH}: losses "
+          f"{[round(v, 4) for v in losses]}; launches {launches}",
+          flush=True)
+    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps taken")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    for name, meta in KERNELS.items():
+        want = meta["per_path"] * TRAIN_STEPS if meta["path"] == "train" \
+            else 0
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+              f"expected {want}")
+    checks["bf16_loss_vs_f32"] = (abs(losses[0] - loss32),
+                                  5e-2 * max(1.0, abs(loss32)))
+    for k, (err, tol) in checks.items():
+        print(f"  {k}: |err| {err:.4e} (tol {tol:.4e})", flush=True)
+    detail["train_checks"] = checks
+    bad = [k for k, (err, tol) in checks.items() if not err <= tol]
+    check(not bad, f"training checks failed: {bad}")
+    detail["train_losses"] = {"f32_fused": loss32, "f32_unfused": loss_ref,
+                              "bf16": losses}
+
+    # steady state: one more epoch, timed on the host clock around a sync
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rate = n / wall
+    mfu = rate * TRAIN_FLOP_PER_IMAGE / PEAK_FLOPS["bfloat16"]
+    print(f"  bf16 train: {wall / TRAIN_STEPS * 1e3:.1f} ms per step, "
+          f"{rate:.1f} images/s, model-FLOPs MFU {mfu:.4f} (against "
+          f"989 TFLOP/s) on {card}", flush=True)
+    detail["train"] = {"images_per_s": rate, "step_ms":
+                       wall / TRAIN_STEPS * 1e3, "mfu": mfu,
+                       "losses": res.history[-1]["losses"]}
+    detail["train"]["profile"] = profile_train_steps(est, x, y)
+    return launches
+
+
+TRAIN_KERNEL_NAMES = (
+    ("matmul_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, true>"),
+    ("conv3x3_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 3, true>"),
+    ("matmul_bn_dx", r"conv_bn_dx_"),
+    ("matmul_bn_dw", r"conv_bn_dw_"),
+    ("colsum (B1-B4 second pass)", r"colsum_kernel"),
+)
+
+
+def profile_train_steps(est, x, y, steps: int = 2) -> dict:
+    """Device time by kernel over ``steps`` bf16 train steps
+    (``torch.profiler``), the port's kernels grouped by name, and the
+    device's busy share of the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        est.train(x, y, batch_size=TRAIN_BATCH,
+                  end_trigger=MaxIteration(est.step + steps))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            kernels[evt.key] += evt.self_device_time_total
+    busy_us = sum(kernels.values())
+    by_name = collections.Counter()
+    for key, us in kernels.items():
+        group = next((g for g, pat in TRAIN_KERNEL_NAMES
+                      if re.search(pat, key)), "other")
+        by_name[group] += us
+    out = {"steps": steps, "batch": TRAIN_BATCH,
+           "wall_ms_per_step": wall_us / steps / 1e3,
+           "device_ms_per_step": busy_us / steps / 1e3,
+           "device_busy_share": busy_us / wall_us if busy_us else None,
+           "ms_per_step_by_kernel": {k: v / steps / 1e3
+                                     for k, v in by_name.most_common()},
+           "top": [(k[:90], v / steps / 1e3)
+                   for k, v in kernels.most_common(12)]}
+    print(f"  profile bf16 train: device busy "
+          f"{out['device_ms_per_step']:.3f} of "
+          f"{out['wall_ms_per_step']:.3f} ms per step (share "
+          f"{out['device_busy_share']})", flush=True)
+    for k, ms in out["ms_per_step_by_kernel"].items():
+        print(f"    {ms:9.3f} ms per step  {k}", flush=True)
+    return out
 
 
 def median_request_s(im, x, warmup: int = 3, iters: int = 10) -> float:
@@ -470,16 +861,30 @@ def main() -> int:
     check(sum(b5.values()) == 36 and sum(b6.values()) == 16,
           f"ResNet-50 has {sum(b5.values())} 1x1 and {sum(b6.values())} "
           "3x3 folds per forward, expected 36 and 16")
+    b1, b2 = train_shapes(shapes_net, TRAIN_BATCH)
+    check(sum(b1.values()) == 36 and sum(b2.values()) == 16,
+          f"ResNet-50 trains {sum(b1.values())} 1x1 and {sum(b2.values())} "
+          "3x3 convs per step, expected 36 and 16")
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = [run_case(c, gen) for c in kernel_cases(b5, b6)]
+    records += [run_train_case(c, gen) for c in train_cases(b1, b2)]
     detail["kernel_cases"] = records
     del shapes_net
+    torch.cuda.empty_cache()
 
     print("[4] main path: ResNet-50 serving", flush=True)
     cb.reset_launches()
-    launches = main_path(card, detail)
+    launches = {}
+    served = main_path(card, detail)
+    torch.cuda.empty_cache()
 
-    print("[5] summary", flush=True)
+    print("[5] main path: ResNet-50 training", flush=True)
+    trained = train_path(card, detail)
+    for name, meta in KERNELS.items():
+        launches[name] = (served if meta["path"] == "serve" else
+                          trained)[name]
+
+    print("[6] summary", flush=True)
     summary = kernels_summary(records, launches)
     detail["kernels"] = summary
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -73,10 +73,40 @@ def test_batchnorm_eval_matches_jax():
 
 
 def test_batchnorm_training_not_ported():
-    lyr = TL.BatchNormalization()
-    p = lyr.init(torch.Generator().manual_seed(0), (4,))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        lyr.call(p, torch.zeros(2, 4), training=True)
+    # training is ported now: batch statistics shifted by the moving
+    # mean, the moving-average update through apply's second result,
+    # and gradients, all against the JAX layer on the same inputs
+    rs = np.random.RandomState(9)
+    x = (rs.randn(6, 3, 3, 8) * 2 + 1).astype(np.float32)
+    c = rs.randn(6, 3, 3, 8).astype(np.float32)
+    jl = JL.BatchNormalization()
+    p = jax.device_get(jl.init(jax.random.key(0), (3, 3, 8)))
+    p["gamma"] = (rs.rand(8) + 0.5).astype(np.float32)
+    p["beta"] = rs.randn(8).astype(np.float32)
+    p["_state"]["moving_mean"] = rs.randn(8).astype(np.float32)
+    want, jupd = jl.apply(p, x, training=True)
+    jgx, jgp = jax.grad(lambda x_, p_: (jl.apply(p_, x_, training=True)[0]
+                                        * c).sum(), argnums=(0, 1))(x, p)
+    tl = TL.BatchNormalization()
+    tp = params_from_numpy(p)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    for k in ("gamma", "beta"):
+        tp[k].requires_grad_(True)
+    got, tupd = tl.apply(tp, tx, training=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    for k in ("moving_mean", "moving_var"):
+        np.testing.assert_allclose(
+            tupd["_state"][k].detach().numpy(),
+            np.asarray(jupd["_state"][k]), rtol=1e-5, atol=1e-6)
+    gx, gg, gb = torch.autograd.grad((got * torch.from_numpy(c)).sum(),
+                                     [tx, tp["gamma"], tp["beta"]])
+    for a, b in ((gx, jgx), (gg, jgp["gamma"]), (gb, jgp["beta"])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+    # eval mode makes no update, and call returns apply's output
+    assert tl.apply(tp, tx, training=False)[1] == {}
+    assert torch.equal(tl.call(tp, tx, training=True), got)
 
 
 @pytest.mark.parametrize("extent", [112 // 8, 15])

@@ -82,10 +82,25 @@ def test_fused_bottleneck_params_match_jax_layout():
 
 
 def test_training_is_not_ported():
+    # the fused bottleneck trains now: a training forward returns every
+    # BN's moving-stat update and back-propagates to every weight; the
+    # space-to-depth stem and the fused="defer" stage layout still wait
     blk = tr.FusedBottleneck(64, downsample=True)
     p = blk.init(torch.Generator().manual_seed(0), (4, 4, 64))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        blk.call(p, torch.zeros(1, 4, 4, 64), training=True)
+    x = torch.randn(2, 4, 4, 64, generator=torch.Generator().manual_seed(1))
+    leaves = [p[k] for k in ("c1", "c2", "c3", "down")] + \
+        [p[b][k] for b in ("bn1", "bn2", "bn3", "bnd")
+         for k in ("gamma", "beta")]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    out, upd = blk.apply(p, x, training=True)
+    assert tuple(out.shape) == (2, 4, 4, 256) and bool((out >= 0).all())
+    assert sorted(upd) == ["bn1", "bn2", "bn3", "bnd"]
+    for u in upd.values():
+        assert sorted(u["_state"]) == ["moving_mean", "moving_var"]
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+               for g in grads)
     with pytest.raises(NotImplementedError, match="not ported"):
         tr.resnet50(input_shape=(32, 32, 3), space_to_depth=True)
     with pytest.raises(NotImplementedError, match="not ported"):
