@@ -4,8 +4,9 @@ A JAX param tree, brought to the host with ``jax.device_get``, is a
 nested dict of numpy arrays keyed by layer name. The port keeps the
 same names and layouts, so the bridge is a copy in both directions:
 ``params_to_numpy(params_from_numpy(tree))`` gives back ``tree`` bit
-for bit. Optimizer state crosses too, for comparison: an Estimator's
-and an optax state's moments come out in one layout. This module
+for bit. Optimizer state crosses too, both ways: an Estimator's and an
+optax state's moments come out in one layout, and that layout loads
+back into an Estimator. This module
 imports no JAX.
 """
 
@@ -61,6 +62,38 @@ def opt_state_to_numpy(estimator) -> dict:
         out[key] = (np.asarray(val) if key == "count" else
                     params_to_numpy(_fill(mask, iter(val))))
     return out
+
+
+def _leaves_in_mask_order(mask, tree):
+    """The leaves of ``tree`` at the True entries of ``mask``, in the
+    mask's order."""
+    out = []
+    for k, v in mask.items():
+        if isinstance(v, dict):
+            out += _leaves_in_mask_order(v, tree.get(k, {}))
+        elif v:
+            out.append(tree[k])
+    return out
+
+
+def opt_state_from_numpy(estimator, state: dict) -> None:
+    """Load :func:`opt_state_to_numpy`'s layout (host arrays, or an
+    optax state's moments from :func:`optax_state_to_numpy`) into an
+    initialized Estimator's optimizer state, on the net's device."""
+    model = estimator.model
+    mask = model.trainable_mask(model.params())
+    dev = model.device
+    for key, val in state.items():
+        if key == "count":
+            estimator.opt_state["count"] = int(np.asarray(val))
+            continue
+        dst = estimator.opt_state[key]
+        src = _leaves_in_mask_order(mask, val)
+        if len(src) != len(dst):
+            raise ValueError(f"{key}: {len(src)} leaves for {len(dst)} "
+                             "trainable params")
+        for d, s_ in zip(dst, src):
+            d.copy_(torch.as_tensor(np.asarray(s_)).to(dev, d.dtype))
 
 
 def _moments(tree):

@@ -60,14 +60,18 @@ class NNContext:
                 f"of the data-parallel size ({dp})")
         return batch_size
 
-    def new_generator(self) -> torch.Generator:
-        """A fresh CPU generator, seeded from the context's root (the
-        counterpart of ``next_rng_key``): the same seed gives the same
-        sequence of generators, so weights made from them repeat."""
+    def next_seed(self) -> int:
+        """A fresh int seed from the context's root (the counterpart of
+        ``next_rng_key``; see ``ops/rng.py``)."""
         with self._seed_lock:
-            seed = int(torch.randint(0, 2 ** 62, (1,),
+            return int(torch.randint(0, 2 ** 62, (1,),
                                      generator=self._seeds))
-        return torch.Generator().manual_seed(seed)
+
+    def new_generator(self) -> torch.Generator:
+        """A fresh CPU generator, seeded from the context's root: the
+        same seed gives the same sequence of generators, so weights
+        made from them repeat."""
+        return torch.Generator().manual_seed(self.next_seed())
 
     def __repr__(self) -> str:
         return f"NNContext(device={self.device}, seed={self.conf.seed})"

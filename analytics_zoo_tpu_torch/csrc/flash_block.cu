@@ -1,0 +1,20 @@
+// C entry point of the flash-attention partials (`flash_block` in
+// analytics_zoo_tpu_torch/ops/flash_attention.py, B8): the partial
+// instance of flash_attn_fwd.cuh. Writes acc (B, Tq, H, D) f32
+// unnormalised and m, l (B, H, Tq) f32; `off` is the runtime causal
+// offset q_start - k_start (any int).
+
+#include "flash_attn_fwd.cuh"
+
+extern "C" int flash_block_launch(
+    const void* q, const void* k, const void* v, const void* kmask,
+    void* acc, void* m, void* l, int B, int H, int Tq, int Tk, int D,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, int causal, int off, float scale,
+    int bf16, void* stream) {
+  const zoo::flash::FwdArgs a = zoo::flash::make_fwd_args(
+      q, k, v, kmask, acc, m, l, B, H, Tq, Tk, q_sb, q_st, k_sb, k_st, v_sb,
+      v_st, causal, off, scale);
+  return zoo::flash::launch_fwd<true>(a, D, bf16,
+                                      static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,21 @@
+// C entry point of the flash-attention backward's dK and dV (B9):
+// writes dk, dv (B, Tk, H, D) in k's and v's type
+// (`flash_bwd_dkdv` in analytics_zoo_tpu_torch/ops/flash_attention.py),
+// from flash_attn_bwd.cuh. m, l and delta are (B, H, Tq) f32; strides in
+// elements; `off` the causal offset.
+
+#include "flash_attn_bwd.cuh"
+
+extern "C" int flash_bwd_dkdv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* kmask, const void* m, const void* l, const void* delta,
+    void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, long long do_sb, long long do_st,
+    int causal, int off, float scale, int bf16, void* stream) {
+  const zoo::flash::BwdArgs a = zoo::flash::make_bwd_args(
+      q, k, v, dout, kmask, m, l, delta, dq, dk, dv, B, H, Tq, Tk, q_sb,
+      q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, causal, off, scale);
+  return zoo::flash::launch_bwd<true>(a, D, bf16,
+                                        static_cast<cudaStream_t>(stream));
+}

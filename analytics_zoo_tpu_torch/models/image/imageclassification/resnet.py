@@ -127,12 +127,12 @@ class FusedBottleneck(KerasLayer):
                                self.epsilon)
         return scale, shift, upd
 
-    def apply(self, params, x, *, training=False):
+    def apply(self, params, x, *, training=False, rng=None):
         if training:
             return self._apply_train(params, x)
         return self._apply_eval(params, x), {}
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return self.apply(params, x, training=training)[0]
 
     def _apply_train(self, params, x):

@@ -1,6 +1,6 @@
 """SGD and Adam with optax's update rules (port of
-``analytics_zoo_tpu/ops/optimizers.py``, the two methods the training
-slice uses; the schedule helpers wait).
+``analytics_zoo_tpu/ops/optimizers.py``: the two methods the training
+slices use and the learning-rate schedule helpers).
 
 The reference builds optax transformations. Here each optimizer keeps
 its state as a dict of trees shaped like the trainable part of the
@@ -15,16 +15,73 @@ update optax computes:
   with weight decay, ``- lr * weight_decay * p`` (optax's adamw).
 
 A learning rate may be a float or a callable of the step count (0 for
-the first update), as optax's schedules are.
+the first update), as optax's schedules are; :func:`poly`,
+:func:`warmup`, :func:`exponential_decay` and :func:`step_decay` make
+the reference's schedules with optax's formulas, as Python floats.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Union
+import math
+from typing import Callable, List, Optional, Union
 
 import torch
 
 ScheduleLike = Union[float, Callable[[int], float]]
+
+
+# -- LR schedules -----------------------------------------------------------
+
+def _polynomial(init: float, end: float, power: float, steps: int):
+    """optax.polynomial_schedule."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac ** power + end
+    return schedule
+
+
+def poly(lr: float, power: float = 0.5, max_iteration: int = 100000,
+         end_lr: float = 0.0):
+    """BigDL ``SGD.Poly``."""
+    return _polynomial(lr, end_lr, power, max_iteration)
+
+
+def warmup(base_lr: float, warmup_iterations: int, delta: float = 0.0,
+           after: Optional[Callable[[int], float]] = None):
+    """BigDL ``SGD.Warmup``: a linear ramp from ``base_lr`` by ``delta``
+    per iteration for ``warmup_iterations``, then ``after``."""
+    ramp = _polynomial(base_lr, base_lr + delta * warmup_iterations, 1,
+                       warmup_iterations)
+    if after is None:
+        return ramp
+
+    def schedule(count):
+        if count < warmup_iterations:
+            return ramp(count)
+        return after(count - warmup_iterations)
+    return schedule
+
+
+def exponential_decay(lr: float, decay_rate: float, decay_steps: int,
+                      staircase: bool = False):
+    """optax.exponential_decay: ``lr * decay_rate ** (count /
+    decay_steps)``, floored exponent when ``staircase``."""
+    if decay_steps <= 0 or decay_rate == 0:
+        return lambda count: lr
+
+    def schedule(count):
+        if count <= 0:
+            return lr
+        p = count / decay_steps
+        return lr * decay_rate ** (math.floor(p) if staircase else p)
+    return schedule
+
+
+def step_decay(lr: float, step_size: int, gamma: float = 0.1):
+    return exponential_decay(lr, gamma, step_size, staircase=True)
 
 
 class ZooOptimizer:

@@ -139,14 +139,14 @@ class KerasLayer(nn.Module):
         del generator, input_shape
         return {}
 
-    def call(self, params: dict, inputs, *, training: bool = False):
+    def call(self, params: dict, inputs, *, training: bool = False, rng=None):
         raise NotImplementedError(type(self).__name__)
 
-    def apply(self, params: dict, inputs, *, training: bool = False):
+    def apply(self, params: dict, inputs, *, training: bool = False, rng=None):
         """Forward returning ``(outputs, state_updates)``; only stateful
         layers override it, the rest route through :meth:`call` with no
         updates."""
-        return self.call(params, inputs, training=training), {}
+        return self.call(params, inputs, training=training, rng=rng), {}
 
     def regularizers(self) -> "list[tuple[str, Callable]]":
         """``(param_key, regularizer)`` pairs added to the train loss."""
@@ -217,11 +217,31 @@ class KerasLayer(nn.Module):
             [p.shape for p in parents] if len(parents) > 1
             else parents[0].shape)
         out_shape = self.compute_output_shape(in_shape)
+        if is_multi_shape(out_shape):
+            # multi-output layer (BERT): one base node evaluating to the
+            # list, and one selector variable per output
+            base = Variable(shape=(), layer=self, parents=parents)
+            return [_TupleSelect(i).select(base, as_shape(s))
+                    for i, s in enumerate(out_shape)]
         return Variable(shape=as_shape(out_shape), layer=self,
                         parents=parents)
 
     def extra_repr(self) -> str:
         return f"name={self.name}"
+
+
+class _TupleSelect(KerasLayer):
+    """Selects output ``index`` of a multi-output layer's list."""
+
+    def __init__(self, index: int, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.index = int(index)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs[self.index]
+
+    def select(self, base: "Variable", shape: Shape) -> "Variable":
+        return Variable(shape=shape, layer=self, parents=[base])
 
 
 class _InputLayer(KerasLayer):
@@ -232,7 +252,7 @@ class _InputLayer(KerasLayer):
                          name=name or unique_name("input"))
         self._output_shape = as_shape(shape)
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return inputs
 
 

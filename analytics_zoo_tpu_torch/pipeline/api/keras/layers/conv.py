@@ -81,7 +81,7 @@ class Convolution2D(KerasLayer):
             params["bias"] = torch.zeros((self.nb_filter,))
         return params
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         xc, padding = pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
                                self.subsample, self.border_mode)
         w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)

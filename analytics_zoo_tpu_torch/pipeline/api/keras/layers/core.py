@@ -1,4 +1,4 @@
-"""Core layers: Dense, Activation, Flatten (port of
+"""Core layers: Dense, Activation, Dropout, Flatten (port of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/core.py``)."""
 
 from __future__ import annotations
@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from analytics_zoo_tpu_torch.ops import activations, initializers
+from analytics_zoo_tpu_torch.ops import activations, initializers, rng
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     KerasLayer, Shape)
 
@@ -32,7 +32,7 @@ class Dense(KerasLayer):
             params["bias"] = torch.zeros((self.output_dim,))
         return params
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         y = torch.matmul(x, params["kernel"].to(x.dtype))
         if self.use_bias:
             y = y + params["bias"].to(y.dtype)
@@ -51,14 +51,40 @@ class Activation(KerasLayer):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
         self.activation = activations.get(activation) or activations.linear
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return self.activation(x)
+
+
+class Dropout(KerasLayer):
+    """Inverted dropout. In training it draws its mask from a generator
+    built from the seed the container hands it (``ops/rng.py``)."""
+
+    def __init__(self, p: float, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.p = float(p)
+
+    def call(self, params, x, *, training=False, rng=None):
+        if not training or self.p <= 0.0:
+            return x
+        if rng is None:
+            raise ValueError(f"{self.name}: dropout needs an rng in "
+                             "training mode")
+        return dropout(x, self.p, rng)
+
+
+def dropout(x: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """``x / (1 - p)`` where a uniform draw from ``seed``'s generator is
+    below ``1 - p``, else 0."""
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=rng.generator(seed, x.device),
+                   device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Flatten(KerasLayer):
     """Flatten all non-batch dims."""
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return x.reshape(x.shape[0], -1)
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:

@@ -10,7 +10,7 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
 class Add(KerasLayer):
     """Elementwise sum of two or more inputs."""
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         xs = list(inputs)
         if len(xs) < 2:
             raise ValueError(f"{self.name}: Add needs >= 2 inputs")

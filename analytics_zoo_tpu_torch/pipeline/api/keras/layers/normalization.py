@@ -1,4 +1,4 @@
-"""BatchNormalization (port of
+"""BatchNormalization and LayerNormalization (port of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/normalization.py``).
 
 Moving statistics live in ``params["_state"]``; a training forward
@@ -13,6 +13,7 @@ epilogue applies the fold in f32).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -74,7 +75,7 @@ class BatchNormalization(KerasLayer):
                             "moving_var": torch.ones((n,))}
         return params
 
-    def apply(self, params, x, *, training=False):
+    def apply(self, params, x, *, training=False, rng=None):
         state = params["_state"]
         if training:
             # one pass over x for both sums, shifted by the moving mean
@@ -92,5 +93,48 @@ class BatchNormalization(KerasLayer):
             params["beta"] if self.center else None, self.epsilon)
         return x * scale.to(x.dtype) + shift.to(x.dtype), updates
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return self.apply(params, x, training=training)[0]
+
+
+def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
+               beta: Optional[torch.Tensor], eps: float = 1e-5
+               ) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * gamma + beta`` over the last
+    axis, rounded as JAX rounds it: mean and variance are taken in f32
+    and cast to x's type (``jnp.mean``/``jnp.var`` upcast bf16), the
+    rest runs in x's type."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True).to(x.dtype)
+    var = xf.var(-1, correction=0, keepdim=True).to(x.dtype)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma.to(y.dtype)
+    if beta is not None:
+        y = y + beta.to(y.dtype)
+    return y
+
+
+class LayerNormalization(KerasLayer):
+    """LayerNorm over the trailing axis (the internal norm of the
+    transformer layers)."""
+
+    def __init__(self, epsilon: float = 1e-5, center: bool = True,
+                 scale: bool = True, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.epsilon = float(epsilon)
+        self.center = center
+        self.scale = scale
+
+    def build(self, generator, input_shape: Shape) -> dict:
+        n = input_shape[-1]
+        params = {}
+        if self.scale:
+            params["gamma"] = torch.ones((n,))
+        if self.center:
+            params["beta"] = torch.zeros((n,))
+        return params
+
+    def call(self, params, x, *, training=False, rng=None):
+        return layer_norm(x, params.get("gamma"), params.get("beta"),
+                          self.epsilon)

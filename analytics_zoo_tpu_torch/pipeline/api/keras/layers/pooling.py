@@ -24,7 +24,7 @@ class MaxPooling2D(KerasLayer):
                              f"got {border_mode}")
         self.border_mode = border_mode
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return pool_grad.maxpool2d(x, self.pool_size, self.strides,
                                    self.border_mode)
 
@@ -36,7 +36,7 @@ class MaxPooling2D(KerasLayer):
 
 
 class GlobalAveragePooling2D(KerasLayer):
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         return x.mean(dim=(1, 2))
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from analytics_zoo_tpu_torch.ops.rng import fold_in
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     KerasLayer, ShapeLike, Variable, _InputLayer, collect_layers,
     topological_order, unique_name,
@@ -179,8 +180,8 @@ class KerasNet(KerasLayer):
     def forward(self, inputs):
         return self.call(self.params(), inputs)
 
-    def call(self, params, inputs, *, training=False):
-        return self.apply(params, inputs, training=training)[0]
+    def call(self, params, inputs, *, training=False, rng=None):
+        return self.apply(params, inputs, training=training, rng=rng)[0]
 
     def predict(self, x, batch_size: int = 32) -> np.ndarray:
         """Forward ``x`` (host array or tensor) in batches of
@@ -241,11 +242,13 @@ class Sequential(KerasNet):
             shape = lyr.compute_output_shape(shape)
         return shape
 
-    def apply(self, params, inputs, *, training=False):
+    def apply(self, params, inputs, *, training=False, rng=None):
         x = inputs
         updates: dict = {}
-        for lyr in self._stack:
-            x, upd = lyr.apply(params[lyr.name], x, training=training)
+        for i, lyr in enumerate(self._stack):
+            sub_rng = None if rng is None else fold_in(rng, i)
+            x, upd = lyr.apply(params[lyr.name], x, training=training,
+                               rng=sub_rng)
             if upd:
                 updates[lyr.name] = upd
         return x, updates
@@ -303,7 +306,7 @@ class Model(KerasNet):
         shapes = [v.shape for v in self.outputs]
         return shapes if self._multi_out else shapes[0]
 
-    def apply(self, params, inputs, *, training=False):
+    def apply(self, params, inputs, *, training=False, rng=None):
         xs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
         if len(xs) != len(self.inputs):
             raise ValueError(f"model {self.name} expects "
@@ -311,7 +314,7 @@ class Model(KerasNet):
         values: "dict[int, Any]" = {id(v): x
                                     for v, x in zip(self.inputs, xs)}
         updates: dict = {}
-        for v in self._order:
+        for i, v in enumerate(self._order):
             if id(v) in values:
                 continue
             lyr = v.layer
@@ -322,7 +325,8 @@ class Model(KerasNet):
             args = [values[id(p)] for p in v.parents]
             values[id(v)], upd = lyr.apply(
                 params[lyr.name], args if len(args) > 1 else args[0],
-                training=training)
+                training=training,
+                rng=None if rng is None else fold_in(rng, i))
             if upd:
                 # a shared layer may update at several nodes; last wins
                 updates[lyr.name] = upd

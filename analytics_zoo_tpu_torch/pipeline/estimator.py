@@ -9,7 +9,11 @@ in training mode under autograd, the loss (in f32 under the
 the params stay f32), the gradients of the trainable leaves, the
 optimizer's in-place update, then the BatchNorm state updates copied
 into the net's buffers. The weights live in the net itself
-(``model.params()``), so ``predict`` and serving see every step.
+(``model.params()``), so ``predict`` and serving see every step. Inputs
+may be one array or a list of them (BERT takes four). Each step hands
+the net a seed, ``fold_in(base, step)`` with ``base`` drawn from the
+context once per ``train`` call, from which the layers that draw noise
+(dropout) derive theirs (``ops/rng.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from analytics_zoo_tpu_torch.common import observability as obs
 from analytics_zoo_tpu_torch.common.nncontext import (
     NNContext, get_nncontext)
 from analytics_zoo_tpu_torch.ops import losses as losses_lib
+from analytics_zoo_tpu_torch.ops import metrics as metrics_lib
 from analytics_zoo_tpu_torch.ops import optimizers as optim_lib
+from analytics_zoo_tpu_torch.ops.rng import fold_in
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import tree_leaves
 
 
@@ -144,9 +150,6 @@ class Estimator:
                  metrics: Optional[List] = None,
                  ctx: Optional[NNContext] = None,
                  dtype_policy: Optional[str] = None):
-        if metrics:
-            raise NotImplementedError(
-                "metrics are not ported yet; evaluate reports the loss")
         # the reference defaults to bf16 activations on a TPU only: the
         # port's card is not one, so float32 unless asked
         dtype_policy = dtype_policy or "float32"
@@ -156,6 +159,7 @@ class Estimator:
         self.model = model
         self.ctx = ctx or get_nncontext()
         self.loss_fn = losses_lib.get(loss)
+        self.metrics = [metrics_lib.get(m) for m in (metrics or [])]
         self.optimizer = optim_lib.get(optimizer)
         self.opt_state: Optional[dict] = None
         self.step = 0
@@ -201,7 +205,8 @@ class Estimator:
     def _mixed(self) -> bool:
         return self.dtype_policy == "mixed_bfloat16"
 
-    def _train_step(self, xb, yb) -> torch.Tensor:
+    def _train_step(self, xb, yb, rng: Optional[int] = None
+                    ) -> torch.Tensor:
         dev = self.model.device
         x = _to_device(xb, dev, torch.bfloat16 if self._mixed else None)
         y = _to_device(yb, dev)
@@ -211,7 +216,8 @@ class Estimator:
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                out, state_upd = self.model.apply(params, x, training=True)
+                out, state_upd = self.model.apply(params, x, training=True,
+                                                  rng=rng)
                 if self._mixed:      # loss in f32 for numeric stability
                     out = _cast_floats(out, torch.float32)
                 loss = self.loss_fn(y, out) + \
@@ -251,6 +257,7 @@ class Estimator:
                                   help="training steps dispatched")
         examples_total = obs.counter("zoo_tpu_train_examples_total",
                                      help="training examples consumed")
+        base_rng = self.ctx.next_seed()
         history: "list[dict]" = []
         for epoch in range(1, nb_epoch + 1):
             pending: "list[torch.Tensor]" = []
@@ -258,7 +265,8 @@ class Estimator:
             t0 = t_prev = time.perf_counter()
             for xb, yb in ds.iter_batches(batch_size, shuffle=True,
                                           seed=epoch):
-                pending.append(self._train_step(xb, yb))
+                pending.append(self._train_step(
+                    xb, yb, fold_in(base_rng, self.step)))
                 self.step += 1
                 now = time.perf_counter()
                 step_hist.observe(now - t_prev)
@@ -287,18 +295,32 @@ class Estimator:
     @torch.no_grad()
     def evaluate(self, data, y=None, batch_size: int = 32
                  ) -> "dict[str, float]":
-        """The mean loss over every sample (the tail batch included)."""
+        """The mean loss and each metric over every sample (the tail
+        batch included); the sums stay on the card until the end."""
         ds = to_dataset(data, y)
         self._ensure_initialized()
+        if self.metrics and isinstance(self.model.output_shape, list):
+            raise ValueError("metrics are not supported with multi-output "
+                             "models yet; evaluate with metrics=[]")
         total, count = 0.0, 0
+        sums: "dict[str, dict]" = {m.name: {} for m in self.metrics}
         for xb, yb in ds.iter_batches(batch_size, shuffle=False,
                                       drop_last=False):
             out = self._forward_eval(xb)
             n = int(out.shape[0])
             yt = _to_device(yb, out.device)
-            total += float(self.loss_fn(yt, out)) * n
+            total = total + self.loss_fn(yt, out) * n
             count += n
-        return {"loss": total / max(count, 1)}
+            for m in self.metrics:
+                acc = sums[m.name]
+                for k, v in m.batch_stats(yt, out).items():
+                    acc[k] = acc.get(k, 0) + v
+        result = {"loss": float(total) / max(count, 1)}
+        for m in self.metrics:
+            result[m.name] = m.aggregate(
+                {k: np.asarray(torch.as_tensor(v).cpu())
+                 for k, v in sums[m.name].items()})
+        return result
 
     @torch.no_grad()
     def predict(self, data, batch_size: int = 32) -> np.ndarray:

@@ -35,8 +35,30 @@ script exits non-zero and prints no result line:
    step, finite losses, the first bf16 loss against the f32 one), five
    more timed (images/s, model-FLOPs MFU) and two profiled (device busy
    share, ms per kernel per step);
-6. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+6. BERT fine-tune: BERT-base (vocab 30522, hidden 768, 12 blocks, 12
+   heads, intermediate 3072) at T = 512 with ``remat=True`` and
+   ``attention_impl="flash"``, under Lambda(pooled) → Dropout(0.1) →
+   Dense(2, softmax), trained five steps by ``Estimator`` (Adam with
+   warm-up, sparse categorical cross entropy, accuracy) at batch 16 on
+   key-padding masks of seeded lengths, then ``evaluate`` and
+   ``predict`` over two batches: the f32 flash kernels. One f32 step is
+   held against the dense plain path (loss, every gradient); launches
+   are checked (B8 24, B9 12, B10 12 per step, B7 12 per eval batch and
+   none in training); samples/s and a profile of two steps;
+7. BERT train steps as ``bench_bert.py`` runs them: 12 blocks, batch
+   32, T = 128, params cast to bf16 inside the loss, Adam(5e-5): the
+   bf16 kernels; finite losses, the first against the f32 loss on the
+   same weights, launches, samples/s and a profile;
+8. the flash/dense crossover: fwd+bwd at B = 4, H = 16, D = 64, bf16,
+   causal, Tk from 128 to 4096 (printed only);
+9. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds the flash kernels (B7-B10) against their plain
+versions at both BERT routes' shapes in f32 and bf16, and at causal,
+cross-length, dead-row and other head-dim cases, with
+``F.scaled_dot_product_attention`` timed beside them as the library
+yardstick (never called by the port).
 
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -91,14 +113,56 @@ KERNELS = {
         "source": "analytics_zoo_tpu_torch/csrc/matmul_bn_dw.cu",
         "replaces": "analytics_zoo_tpu/ops/conv_bn.py:552",
         "path": "train", "per_path": 36},
+    "flash_fwd": {
+        "source": "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:185",
+        "path": "bert_eval", "per_path": 12},
+    "flash_block": {
+        "source": "analytics_zoo_tpu_torch/csrc/flash_block.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:544",
+        "path": "bert_train", "per_path": 24},
+    "flash_bwd_dkdv": {
+        "source": "analytics_zoo_tpu_torch/csrc/flash_bwd_dkdv.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:421",
+        "path": "bert_train", "per_path": 12},
+    "flash_bwd_dq": {
+        "source": "analytics_zoo_tpu_torch/csrc/flash_bwd_dq.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:455",
+        "path": "bert_train", "per_path": 12},
 }
+FLASH = ("flash_fwd", "flash_block", "flash_bwd_dkdv", "flash_bwd_dq")
 PATHS = {"serve": f"one batch-{BATCH} bf16 forward",
-         "train": f"one batch-{TRAIN_BATCH} bf16 train step"}
+         "train": f"one batch-{TRAIN_BATCH} bf16 train step",
+         "bert_train": "one f32 BERT-base train step (batch 16, T 512, "
+                       "remat)",
+         "bert_eval": "one f32 BERT-base eval batch (batch 16, T 512)"}
+# the path each kernel's summary times are summed over: B1-B6 bf16,
+# B7-B10 the Estimator's f32 route (bf16 beside it under by_dtype)
+HEAD_DTYPE = {name: "float32" if name in FLASH else "bfloat16"
+              for name in KERNELS}
+BERT = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+            intermediate_size=3072, n_token_types=2)
+BERT_T, BERT_BATCH, BERT_STEPS = 512, 16, 5
+BENCH_T, BENCH_BATCH = 128, 32
+DEV = "cuda"
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def reset_launches() -> None:
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    cb.reset_launches()
+    fa.reset_launches()
+
+
+def all_launches() -> dict:
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    return {**cb.launches, **fa.launches}
 
 
 def card_line() -> str:
@@ -110,11 +174,23 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around
+    ``iters`` calls, after ``warmup``. A spin kernel holds the stream
+    while the calls are enqueued (for twice the host time they took
+    once), so the events time the device's work and not the host's
+    launch cost, which dominates small kernels."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9))      # cycles at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -458,7 +534,7 @@ def kernels_summary(records, launches):
             sums["bound_by"] = "operations" if \
                 sums["flop_ms"] > sums["byte_ms"] else "bytes"
             by_dtype[dt] = sums
-        head = by_dtype["bfloat16"]
+        head = by_dtype[HEAD_DTYPE[name]]
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches[name],
@@ -468,6 +544,7 @@ def kernels_summary(records, launches):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "times_are": "sum over " + PATHS[meta["path"]],
+            "head_dtype": HEAD_DTYPE[name],
             "by_dtype": by_dtype})
     return out
 
@@ -481,7 +558,6 @@ def main_path(card, detail):
     from analytics_zoo_tpu_torch.bridge import params_to_numpy
     from analytics_zoo_tpu_torch.models.image.imageclassification import (
         ImageClassifier, convert_resnet_params)
-    from analytics_zoo_tpu_torch.ops import conv_bn as cb
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
     ctx = zoo.init_nncontext(seed=0)
@@ -519,13 +595,13 @@ def main_path(card, detail):
             for rep in range(2):
                 x = torch.from_numpy(images[bs]).to(ctx.device, dt)
                 requests.append((dt, bs, rep, x))
-    cb.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         futures = [pool.submit(im.predict, r[3]) for r in requests]
         outs = [f.result() for f in futures]
     torch.cuda.synchronize()
-    launches = dict(cb.launches)
+    launches = all_launches()
     n_fwd = len(requests)
     print(f"  answered {n_fwd} requests from 2 threads; launches "
           f"{launches}", flush=True)
@@ -593,7 +669,6 @@ def train_path(card, detail):
     from analytics_zoo_tpu_torch.bridge import params_to_numpy
     from analytics_zoo_tpu_torch.models.image.imageclassification import (
         convert_resnet_params, resnet50)
-    from analytics_zoo_tpu_torch.ops import conv_bn as cb
     from analytics_zoo_tpu_torch.ops.optimizers import SGD
     from analytics_zoo_tpu_torch.pipeline.estimator import (
         Estimator, MaxIteration)
@@ -667,11 +742,11 @@ def train_path(card, detail):
     # the main path: mixed_bfloat16 from the same starting weights
     model.load_params(w0)
     est = estimator(model, "mixed_bfloat16")
-    cb.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
     torch.cuda.synchronize()
-    launches = dict(cb.launches)
+    launches = all_launches()
     losses = res.history[-1]["losses"]
     print(f"  {len(losses)} bf16 steps at batch {TRAIN_BATCH}: losses "
           f"{[round(v, 4) for v in losses]}; launches {launches}",
@@ -722,46 +797,15 @@ TRAIN_KERNEL_NAMES = (
 
 
 def profile_train_steps(est, x, y, steps: int = 2) -> dict:
-    """Device time by kernel over ``steps`` bf16 train steps
-    (``torch.profiler``), the port's kernels grouped by name, and the
-    device's busy share of the window's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel over ``steps`` bf16 train steps, the
+    port's kernels grouped by name (:func:`profile_steps`)."""
     from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        est.train(x, y, batch_size=TRAIN_BATCH,
-                  end_trigger=MaxIteration(est.step + steps))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels = collections.Counter()
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            kernels[evt.key] += evt.self_device_time_total
-    busy_us = sum(kernels.values())
-    by_name = collections.Counter()
-    for key, us in kernels.items():
-        group = next((g for g, pat in TRAIN_KERNEL_NAMES
-                      if re.search(pat, key)), "other")
-        by_name[group] += us
-    out = {"steps": steps, "batch": TRAIN_BATCH,
-           "wall_ms_per_step": wall_us / steps / 1e3,
-           "device_ms_per_step": busy_us / steps / 1e3,
-           "device_busy_share": busy_us / wall_us if busy_us else None,
-           "ms_per_step_by_kernel": {k: v / steps / 1e3
-                                     for k, v in by_name.most_common()},
-           "top": [(k[:90], v / steps / 1e3)
-                   for k, v in kernels.most_common(12)]}
-    print(f"  profile bf16 train: device busy "
-          f"{out['device_ms_per_step']:.3f} of "
-          f"{out['wall_ms_per_step']:.3f} ms per step (share "
-          f"{out['device_busy_share']})", flush=True)
-    for k, ms in out["ms_per_step_by_kernel"].items():
-        print(f"    {ms:9.3f} ms per step  {k}", flush=True)
+    print("  profile bf16 train:", flush=True)
+    out = profile_steps(
+        lambda: est.train(x, y, batch_size=TRAIN_BATCH,
+                          end_trigger=MaxIteration(est.step + 1)),
+        steps, TRAIN_KERNEL_NAMES)
+    out["batch"] = TRAIN_BATCH
     return out
 
 
@@ -813,6 +857,556 @@ def profile_requests(im, x, n: int = 3) -> dict:
     return out
 
 
+# -- flash attention: B7-B10 against their plain versions --------------------
+
+def flash_cases():
+    """(tag, B, Tq, Tk, H, D, causal, mask, dtype, launches per path of
+    B7/B8/B9/B10, q/k/v as slices of one projection): both BERT routes'
+    shapes in f32 and bf16 (the Estimator's f32 at batch 16, T 512 with
+    padding masks; bench_bert's bf16 at batch 32, T 128 with an all-ones
+    mask), then causal, cross-length, dead-row and head-dim cases."""
+    est = (12, 24, 12, 12)
+    bench = (0, 12, 12, 12)
+    none = (0, 0, 0, 0)
+    cases = [
+        ("bert_estimator", BERT_BATCH, BERT_T, BERT_T, 12, 64, False,
+         "lengths", "float32", est, True),
+        ("bert_estimator", BERT_BATCH, BERT_T, BERT_T, 12, 64, False,
+         "lengths", "bfloat16", none, True),
+        ("bert_bench", BENCH_BATCH, BENCH_T, BENCH_T, 12, 64, False,
+         "ones", "bfloat16", bench, True),
+        ("bert_bench", BENCH_BATCH, BENCH_T, BENCH_T, 12, 64, False,
+         "ones", "float32", none, True)]
+    for dt in ("float32", "bfloat16"):
+        cases += [
+            ("causal", 2, 1024, 1024, 8, 64, True, None, dt, none, False),
+            ("cross_causal", 2, 256, 768, 8, 64, True, "lengths", dt, none,
+             False),
+            ("dead_rows", 2, 512, 256, 8, 64, True, None, dt, none, False),
+            ("d32", 2, 256, 256, 8, 32, False, "lengths", dt, none, False),
+            ("d128", 2, 256, 256, 8, 128, True, "lengths", dt, none, False),
+            ("d256", 2, 256, 256, 4, 256, False, None, dt, none, False)]
+    return cases
+
+
+def _key_mask(b, tk, kind, dev):
+    """None, all ones, or padding at the tail with lengths drawn from
+    numpy seed 0 in [128, tk] (the first sample full)."""
+    import numpy as np
+    import torch
+    if kind is None:
+        return None
+    km = torch.ones(b, tk)
+    if kind == "lengths":
+        lens = np.random.RandomState(0).randint(128, tk + 1, size=b)
+        lens[0] = tk
+        for i, n in enumerate(lens):
+            km[i, n:] = 0
+    return km.to(dev)
+
+
+def flash_err(got, want, dt):
+    """(max |got - want|, tolerance): the dtype's bound times
+    max(1, max|want|) over the finite entries; the row max of a row that
+    sees no key (-1e30) must match exactly (else its error is inf)."""
+    g, w = got.float(), want.float()
+    dead = w.abs() >= 1e29
+    if bool((g[dead] != w[dead]).any()):
+        return float("inf"), 0.0
+    live = ~dead
+    err = (g[live] - w[live]).abs().max().item() if bool(live.any()) \
+        else 0.0
+    scale = w[live].abs().max().item() if bool(live.any()) else 0.0
+    return err, TOL[dt] * max(1.0, scale)
+
+
+def run_flash_case(case, gen):
+    """B7, B8, B9 and B10 at one shape against their plain versions on
+    the card; one record per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    tag, b, tq, tk, h, d, causal, mkind, dt, per_path, strided = case
+    dev = torch.device(DEV)
+    xdt = getattr(torch, dt)
+    esize = torch.tensor([], dtype=xdt).element_size()
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(xdt)
+    if strided:          # column slices of one projection, as BERT has
+        qkv = randn(b, tq, 3 * h * d)
+        q, k, v = [t.reshape(b, tq, h, d) for t in qkv.split(h * d, -1)]
+    else:
+        q, k, v = randn(b, tq, h, d), randn(b, tk, h, d), randn(b, tk, h, d)
+    dout = randn(b, tq, h, d)
+    km = _key_mask(b, tk, mkind, dev)
+    scale = d ** -0.5
+    off = tk - tq
+    _, m, l = fa.flash_block_ref(q, k, v, km, causal, scale, off)
+    out = fa.flash_fwd_ref(q, k, v, km, causal, scale)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, dout, km, m, l, delta, causal, scale, off)
+    fns = {
+        "flash_fwd": (lambda: fa._flash_fwd(q, k, v, km, causal, scale),
+                      lambda: fa.flash_fwd_ref(q, k, v, km, causal, scale),
+                      ("out",)),
+        "flash_block": (
+            lambda: fa._block_partials(q, k, v, off, causal, scale, km),
+            lambda: fa.flash_block_ref(q, k, v, km, causal, scale, off),
+            ("acc", "m", "l")),
+        "flash_bwd_dkdv": (lambda: fa._backward("flash_bwd_dkdv", *bargs),
+                           lambda: fa.flash_bwd_dkdv_ref(*bargs),
+                           ("dk", "dv")),
+        "flash_bwd_dq": (lambda: fa._backward("flash_bwd_dq", *bargs),
+                         lambda: fa.flash_bwd_dq_ref(*bargs), ("dq",)),
+    }
+
+    # the library yardstick: SDPA on (B, H, T, D) copies with a boolean
+    # mask, forward for B7/B8, backward (fwd+bwd less fwd) for B9 + B10
+    tq_idx = torch.arange(tq, device=dev)[:, None]
+    vis = (tq_idx + off >= torch.arange(tk, device=dev)[None, :]) \
+        if causal else torch.ones(tq, tk, dtype=torch.bool, device=dev)
+    keep = vis[None] if km is None else vis[None] & (km[:, None, :] > 0)
+    pairs = int(keep.sum().item()) * (h if km is not None else b * h)
+    attn_mask = keep[:, None]
+    lq, lk, lv = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    ldo = dout.transpose(1, 2).contiguous()
+    lq_g, lk_g, lv_g = [t.clone().requires_grad_(True) for t in (lq, lk, lv)]
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(lq, lk, lv,
+                                              attn_mask=attn_mask)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(lq_g, lk_g, lv_g,
+                                           attn_mask=attn_mask)
+        o.backward(ldo)
+    lib_f = time_ms(lib_fwd)
+    lib_b = max(time_ms(lib_fwd_bwd) - lib_f, 0.0)
+
+    n_q, n_k = b * tq * h * d, b * tk * h * d
+    stats = 4 * b * h * tq
+    mask_b = 0 if km is None else 4 * b * tk
+    work = {   # (flop, bytes): each input read once, each output once
+        "flash_fwd": (4 * d * pairs, (2 * n_q + 2 * n_k) * esize + mask_b),
+        "flash_block": (4 * d * pairs, (n_q + 2 * n_k) * esize + 4 * n_q +
+                        2 * stats + mask_b),
+        "flash_bwd_dkdv": (8 * d * pairs, (2 * n_q + 4 * n_k) * esize +
+                           3 * stats + mask_b),
+        "flash_bwd_dq": (6 * d * pairs, (3 * n_q + 2 * n_k) * esize +
+                         3 * stats + mask_b),
+    }
+    records = []
+    for i, name in enumerate(FLASH):
+        kernel, plain, outs = fns[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        errs = {}
+        for oname, a, b_ in zip(outs, got, want):
+            check(tuple(a.shape) == tuple(b_.shape) and a.dtype == b_.dtype,
+                  f"{name} {tag} {oname}: got {tuple(a.shape)} {a.dtype}, "
+                  f"plain {tuple(b_.shape)} {b_.dtype}")
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"{name} {tag} {dt} {oname}: non-finite")
+            err, tol = flash_err(a, b_, dt)
+            errs[oname] = (err, tol)
+            check(err <= tol, f"{name} {tag} {dt} {oname}: max|err| {err} "
+                  f"> {tol}")
+        flops, nbytes = work[name]
+        rec = {"kernel": name, "key": [tag, b, tq, tk, h, d, causal, mkind],
+               "dtype": dt, "per_path": per_path[i], "errors": errs,
+               "max_abs_err": max(e for e, _ in errs.values()),
+               "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=3,
+                                                          warmup=1),
+               "library_ms": lib_f if i < 2 else lib_b,
+               "library_is": "SDPA forward" if i < 2 else
+               "SDPA backward (B9 and B10 together)",
+               "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
+               "byte_ms": nbytes / PEAK_BYTES * 1e3}
+        rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
+        rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
+            else "bytes"
+        print(f"  {name} {dt} {tag} ({b}, {tq}, {tk}, {h}, {d}"
+              f"{', causal' if causal else ''}{', ' + mkind if mkind else ''}"
+              f") x{per_path[i]}: max|err| "
+              + ", ".join(f"{o} {e:.2e}/{tl:.2e}" for o, (e, tl) in
+                          errs.items())
+              + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms, library {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+        records.append(rec)
+    return records
+
+
+# -- BERT ---------------------------------------------------------------------
+
+def bert_batch(n, t, vocab, seed=0, lengths=True):
+    """Sentence-pair inputs shaped as the reference's bert_finetune
+    example makes them: ids, segment ids, positions, and a key-padding
+    mask with lengths from numpy ``seed`` in [128, t] (the first sample
+    full), or all ones; labels from the first segment's mean id."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    tok = rs.randint(1, vocab, size=(n, t)).astype(np.int32)
+    seg = (np.arange(t)[None, :] >= t // 2).astype(np.int32) * \
+        np.ones((n, 1), np.int32)
+    pos = np.tile(np.arange(t, dtype=np.int32), (n, 1))
+    mask = np.ones((n, t), np.float32)
+    if lengths:
+        lens = rs.randint(128, t + 1, size=n)
+        lens[0] = t
+        for i, ln in enumerate(lens):
+            mask[i, ln:] = 0.0
+    y = (tok[:, :t // 2].mean(axis=1) > vocab / 2).astype(np.int32)[:, None]
+    return [tok, seg, pos, mask], y
+
+
+def finetune_model(impl="flash", drop=0.1):
+    """The reference example's classifier at BERT-base widths."""
+    from analytics_zoo_tpu_torch.pipeline.api import autograd as ag
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+    model = Sequential()
+    model.add(L.BERT(seq_len=BERT_T, output_all_block=False, remat=True,
+                     attention_impl=impl, hidden_p_drop=drop,
+                     embed_p_drop=drop, name="bert",
+                     input_shape=[(BERT_T,)] * 4, **BERT))
+    model.add(ag.Lambda(lambda outs: outs[1], name="take_pooled",
+                        output_shape=(BERT["hidden_size"],)))
+    model.add(L.Dropout(drop))
+    model.add(L.Dense(2, activation="softmax", name="classifier"))
+    return model
+
+
+FLASH_KERNEL_NAMES = (
+    ("flash_fwd", r"flash_fwd_\w+_kernel<\d+, false>"),
+    ("flash_block", r"flash_fwd_\w+_kernel<\d+, true>"),
+    ("flash_bwd_dkdv", r"flash_dkdv_"),
+    ("flash_bwd_dq", r"flash_dq_"),
+)
+
+
+def profile_steps(step, steps, groups):
+    """Device time by kernel over ``steps`` calls of ``step``
+    (``torch.profiler``), grouped by ``groups`` (name, regex), and the
+    device's busy share of the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            kernels[evt.key] += evt.self_device_time_total
+    busy_us = sum(kernels.values())
+    by_name = collections.Counter()
+    for key, us in kernels.items():
+        group = next((g for g, pat in groups if re.search(pat, key)),
+                     "other")
+        by_name[group] += us
+    out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+           "device_ms_per_step": busy_us / steps / 1e3,
+           "device_busy_share": busy_us / wall_us if busy_us else None,
+           "ms_per_step_by_kernel": {k: v / steps / 1e3
+                                     for k, v in by_name.most_common()},
+           "top": [(k[:90], v / steps / 1e3)
+                   for k, v in kernels.most_common(12)]}
+    print(f"  profile: device busy {out['device_ms_per_step']:.3f} of "
+          f"{out['wall_ms_per_step']:.3f} ms per step (share "
+          f"{out['device_busy_share']})", flush=True)
+    for k, ms in out["ms_per_step_by_kernel"].items():
+        print(f"    {ms:9.3f} ms per step  {k}", flush=True)
+    return out
+
+
+def bert_estimator_path(card, detail):
+    """Phase 6: fine-tune and evaluate BERT-base through the Estimator
+    (the f32 kernels); returns the launches over train + evaluate +
+    predict."""
+    import numpy as np
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.ops import losses
+    from analytics_zoo_tpu_torch.ops.optimizers import Adam, warmup
+    from analytics_zoo_tpu_torch.pipeline.estimator import (
+        Estimator, MaxIteration)
+
+    ctx = zoo.init_nncontext(seed=0)
+    n = BERT_STEPS * BERT_BATCH
+    x, y = bert_batch(n, BERT_T, BERT["vocab"])
+    t0 = time.perf_counter()
+    model = finetune_model()
+    model.init_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  BERT-base classifier ({n_params} params) built on "
+          f"{model.device} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # one f32 step with dropout 0: flash kernels against the dense plain
+    # path on the same weights and batch (loss and every gradient)
+    xb = [torch.from_numpy(a[:BERT_BATCH]).to(ctx.device) for a in x]
+    yb = torch.from_numpy(y[:BERT_BATCH]).to(ctx.device)
+
+    def loss_and_grads(net):
+        params = net.params()
+        mask = net.trainable_mask(params)
+        from analytics_zoo_tpu_torch.pipeline.api.keras.engine import \
+            tree_leaves
+        leaves = [p for p, on in zip(tree_leaves(params), tree_leaves(mask))
+                  if on]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            out, _ = net.apply(params, xb, training=True)
+            loss = losses.sparse_categorical_crossentropy(yb, out)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return loss.item(), grads
+    checks = {}
+    nets = {impl: finetune_model(impl, drop=0.0) for impl in ("flash", "xla")}
+    for net in nets.values():
+        net.init(torch.Generator().manual_seed(0))
+        net.set_params(model.params())      # shares the card's tensors
+    loss_f, g_f = loss_and_grads(nets["flash"])
+    loss_d, g_d = loss_and_grads(nets["xla"])
+    checks["f32_loss_flash_vs_dense"] = (abs(loss_f - loss_d),
+                                         1e-4 * max(1.0, abs(loss_d)))
+    worst = (0.0, "")
+    for i, (a, b) in enumerate(zip(g_f, g_d)):
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        worst = max(worst, (rel, str(i)))
+    checks["f32_grad_flash_vs_dense_worst_rel_norm"] = (worst[0], 1e-3)
+    print(f"  f32 step: flash loss {loss_f:.6f}, dense {loss_d:.6f}; "
+          f"worst gradient |g - g_dense| / |g_dense| {worst[0]:.3e} "
+          f"(leaf {worst[1]} of {len(g_d)})", flush=True)
+    del nets, g_f, g_d
+    torch.cuda.empty_cache()
+
+    est = Estimator(model, optimizer=Adam(lr=warmup(5e-5, 8, delta=(
+        5e-4 - 5e-5) / 8)), loss="sparse_categorical_crossentropy",
+        metrics=["accuracy"], ctx=ctx)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = est.train(x, y, batch_size=BERT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t
+    trained = all_launches()
+    reset_launches()
+    n_eval = 2 * BERT_BATCH
+    x_eval = [a[:n_eval] for a in x]
+    scores = est.evaluate(x_eval, y[:n_eval], batch_size=BERT_BATCH)
+    probs = est.predict(x_eval, batch_size=BERT_BATCH)
+    torch.cuda.synchronize()
+    evaluated = all_launches()
+    launches = {k: trained[k] + evaluated[k] for k in trained}
+    losses_ = res.history[-1]["losses"]
+    print(f"  {len(losses_)} f32 steps at batch {BERT_BATCH}, T {BERT_T}: "
+          f"losses {[round(v, 5) for v in losses_]} ({first_wall:.2f} s); "
+          f"evaluate {scores}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    print(f"  launches in training {dict((k, trained[k]) for k in FLASH)}, "
+          f"in evaluate + predict {dict((k, evaluated[k]) for k in FLASH)}",
+          flush=True)
+    check(len(losses_) == BERT_STEPS and all(np.isfinite(losses_)),
+          f"losses {losses_}")
+    check(probs.shape == (n_eval, 2) and np.isfinite(probs).all() and
+          np.allclose(probs.sum(-1), 1.0, atol=1e-5),
+          f"predict gave {probs.shape}")
+    check(set(scores) == {"loss", "accuracy"} and
+          np.isfinite(scores["loss"]) and 0 <= scores["accuracy"] <= 1,
+          f"evaluate gave {scores}")
+    nb = BERT["n_block"]       # B8 runs twice per block: remat
+    want_train = {"flash_fwd": 0, "flash_block": 2 * nb * BERT_STEPS,
+                  "flash_bwd_dkdv": nb * BERT_STEPS,
+                  "flash_bwd_dq": nb * BERT_STEPS}
+    want_eval = {"flash_fwd": nb * 4, "flash_block": 0,
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    for name in KERNELS:
+        check(trained[name] == want_train.get(name, 0),
+              f"{name}: {trained[name]} launches in {BERT_STEPS} steps, "
+              f"expected {want_train.get(name, 0)}")
+        check(evaluated[name] == want_eval.get(name, 0),
+              f"{name}: {evaluated[name]} launches in 2 eval + 2 predict "
+              f"batches, expected {want_eval.get(name, 0)}")
+    for k, (err, tol) in checks.items():
+        print(f"  {k}: {err:.4e} (tol {tol:.4e})", flush=True)
+    detail["bert_checks"] = checks
+    bad = [k for k, (err, tol) in checks.items() if not err <= tol]
+    check(not bad, f"BERT checks failed: {bad}")
+
+    # steady state: another epoch on the host clock around a sync
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    est.train(x, y, batch_size=BERT_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"  f32 BERT-base fine-tune: {wall / BERT_STEPS * 1e3:.1f} ms per "
+          f"step, {n / wall:.2f} samples/s on {card}", flush=True)
+    prof = profile_steps(
+        lambda: est.train([a[:BERT_BATCH] for a in x], y[:BERT_BATCH],
+                          batch_size=BERT_BATCH,
+                          end_trigger=MaxIteration(est.step + 1)),
+        2, FLASH_KERNEL_NAMES)
+    print("  evaluate, one batch:", flush=True)
+    prof_eval = profile_steps(
+        lambda: est.evaluate([a[:BERT_BATCH] for a in x], y[:BERT_BATCH],
+                             batch_size=BERT_BATCH), 2, FLASH_KERNEL_NAMES)
+    detail["bert_estimator"] = {
+        "losses": losses_, "evaluate": scores, "launches": launches,
+        "samples_per_s": n / wall, "step_ms": wall / BERT_STEPS * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "profile": prof, "profile_eval_batch": prof_eval}
+    del est, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_bench_path(card, detail):
+    """Phase 7: train steps as bench_bert.py runs them (params cast to
+    bf16 inside the loss: the bf16 kernels); returns the launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.ops.optimizers import Adam
+    from analytics_zoo_tpu_torch.ops.rng import fold_in
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+
+    ctx = zoo.init_nncontext(seed=0)
+    dev = ctx.device
+    bert = L.BERT(seq_len=BENCH_T, output_all_block=False,
+                  attention_impl="flash", input_shape=[(BENCH_T,)] * 4,
+                  **BERT)
+    gen = torch.Generator().manual_seed(0)
+    bert.init(gen)
+    bert.to(dev)
+    head_w = (torch.randn(BERT["hidden_size"], 2, generator=gen) *
+              0.02).to(dev)
+    head_b = torch.zeros(2, device=dev)
+    rs = np.random.RandomState(0)
+    tok = torch.from_numpy(rs.randint(1, BERT["vocab"], (BENCH_BATCH,
+                                                        BENCH_T))).to(dev)
+    seg = torch.zeros_like(tok)
+    pos = torch.arange(BENCH_T, device=dev).repeat(BENCH_BATCH, 1)
+    msk = torch.ones(BENCH_BATCH, BENCH_T, dtype=torch.bfloat16, device=dev)
+    yb = torch.from_numpy(rs.randint(0, 2, (BENCH_BATCH,))).to(dev)
+    leaves = [p for p in bert.parameters()] + [head_w, head_b]
+    opt = Adam(5e-5)
+    state = opt.init(leaves)
+    base = ctx.next_seed()
+
+    def loss_fn(cast, rng):
+        params = bert.params()
+        if cast:
+            params = _tree_map(params, lambda a: a.to(torch.bfloat16))
+        _, pooled = bert.call(params, [tok, seg, pos, msk], training=True,
+                              rng=rng)
+        logits = pooled.float() @ head_w + head_b
+        return F.cross_entropy(logits, yb)
+
+    with torch.no_grad():
+        loss32 = float(loss_fn(False, fold_in(base, 0)))
+
+    def step(i):
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(True, fold_in(base, i))
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        opt.update(leaves, grads, state)
+        return loss.detach()
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses_ = [step(i) for i in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = all_launches()
+    losses_ = [float(v) for v in losses_]
+    print(f"  {BERT_STEPS} bf16 steps at batch {BENCH_BATCH}, T {BENCH_T}: "
+          f"losses {[round(v, 4) for v in losses_]}, f32 loss on the same "
+          f"weights {loss32:.5f}; launches "
+          f"{dict((k, launches[k]) for k in FLASH)}", flush=True)
+    check(all(np.isfinite(losses_)), f"non-finite bf16 loss {losses_}")
+    err = abs(losses_[0] - loss32)
+    check(err <= 5e-2 * max(1.0, abs(loss32)),
+          f"bf16 loss {losses_[0]} vs f32 {loss32}")
+    nb = BERT["n_block"]
+    want = {"flash_fwd": 0, "flash_block": nb * BERT_STEPS,
+            "flash_bwd_dkdv": nb * BERT_STEPS, "flash_bwd_dq": nb * BERT_STEPS}
+    for name in KERNELS:
+        check(launches[name] == want.get(name, 0),
+              f"{name}: {launches[name]} launches in {BERT_STEPS} bf16 "
+              f"steps, expected {want.get(name, 0)}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(BERT_STEPS):
+        step(BERT_STEPS + i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rate = BERT_STEPS * BENCH_BATCH / wall
+    print(f"  bf16 bench_bert steps: {wall / BERT_STEPS * 1e3:.1f} ms per "
+          f"step, {rate:.1f} samples/s on {card}", flush=True)
+    it = iter(range(100, 200))
+    prof = profile_steps(lambda: step(next(it)), 2, FLASH_KERNEL_NAMES)
+    detail["bert_bench"] = {"losses": losses_, "f32_loss": loss32,
+                            "launches": launches, "samples_per_s": rate,
+                            "step_ms": wall / BERT_STEPS * 1e3,
+                            "profile": prof}
+    return launches
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def crossover(card, detail):
+    """Phase 8: flash vs dense fwd+bwd at the reference's crossover
+    geometry (B 4, H 16, D 64, bf16, causal), printed for PERF.md."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.attention import dot_product_attention
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for t in (128, 256, 512, 1024, 2048, 4096):
+        qkv = [(torch.randn(4, t, 16, 64, generator=gen, device=DEV)
+                ).to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+
+        def run(impl):
+            def f():
+                out = dot_product_attention(*qkv, causal=True, impl=impl)
+                out.float().sum().backward()
+            return f
+        flash = time_ms(run("flash"), iters=5, warmup=2)
+        dense = time_ms(run("xla"), iters=5, warmup=2)
+        rows.append({"tk": t, "flash_ms": flash, "dense_ms": dense,
+                     "dense_over_flash": dense / flash})
+        print(f"  Tk {t}: flash {flash:.3f} ms, dense {dense:.3f} ms "
+              f"(dense/flash {dense / flash:.2f}) on {card}", flush=True)
+        del qkv
+        torch.cuda.empty_cache()
+    detail["crossover"] = rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -823,6 +1417,7 @@ def main() -> int:
         ImageClassifier
     from analytics_zoo_tpu_torch.ops import conv_bn as cb
     from analytics_zoo_tpu_torch.ops import cuda_build
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -838,7 +1433,8 @@ def main() -> int:
 
     print("[2] build", flush=True)
     t0 = time.perf_counter()
-    built = cb.build_kernels()
+    # every library at once: one nvcc per source, all started together
+    built = cuda_build.build(list(cb._SIGNATURES) + list(fa._SIGNATURES))
     print(f"  built {built} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     detail["build_s"] = built
@@ -868,24 +1464,43 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = [run_case(c, gen) for c in kernel_cases(b5, b6)]
     records += [run_train_case(c, gen) for c in train_cases(b1, b2)]
+    for c in flash_cases():
+        records += run_flash_case(c, gen)
     detail["kernel_cases"] = records
     del shapes_net
     torch.cuda.empty_cache()
 
     print("[4] main path: ResNet-50 serving", flush=True)
-    cb.reset_launches()
     launches = {}
     served = main_path(card, detail)
     torch.cuda.empty_cache()
 
     print("[5] main path: ResNet-50 training", flush=True)
     trained = train_path(card, detail)
+    torch.cuda.empty_cache()
+
+    print("[6] main path: BERT-base fine-tune and evaluate (f32 kernels)",
+          flush=True)
+    bert_est = bert_estimator_path(card, detail)
+
+    print("[7] main path: BERT-base bench_bert steps (bf16 kernels)",
+          flush=True)
+    bert_bench = bert_bench_path(card, detail)
+    torch.cuda.empty_cache()
+
+    print("[8] flash/dense crossover (fwd+bwd, bf16, causal)", flush=True)
+    crossover(card, detail)
+
     for name, meta in KERNELS.items():
         launches[name] = (served if meta["path"] == "serve" else
-                          trained)[name]
+                          trained if meta["path"] == "train" else
+                          bert_est)[name]
 
-    print("[6] summary", flush=True)
+    print("[9] summary", flush=True)
     summary = kernels_summary(records, launches)
+    for rec in summary:
+        if rec["name"] in FLASH:
+            rec["launches_bf16_path"] = bert_bench[rec["name"]]
     detail["kernels"] = summary
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions
-on the card (``analytics_zoo_tpu_torch.ops.conv_bn``).
+on the card (``analytics_zoo_tpu_torch.ops.conv_bn`` and
+``analytics_zoo_tpu_torch.ops.flash_attention``).
 
 Every test here needs a CUDA card: it carries the ``cuda`` marker and
 skips where there is none (the card is looked for inside the fixture).
@@ -10,13 +11,18 @@ This file imports no JAX, so it runs on a machine that has none
 
 Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold and atol 1e-3 for the
 3x3 (sums in another order, TF32 off); 2e-2 wherever a bf16 operand or
-output is involved (one bf16 rounding, 2^-8 relative).
+output is involved (one bf16 rounding, 2^-8 relative). The flash
+kernels (B7-B10) are held within 1e-3 (f32) or 2e-2 (bf16) of
+max(1, max|plain|), the bounds chip_smoke.py uses: f32 sums in another
+order, and in bf16 p is rounded at the running row max on the card and
+at the final one in the plain version.
 """
 
 import pytest
 import torch
 
 from analytics_zoo_tpu_torch.ops import conv_bn as tcb
+from analytics_zoo_tpu_torch.ops import flash_attention as tfa
 
 
 @pytest.fixture
@@ -204,3 +210,165 @@ def test_fused_ops_backward_on_card_matches_cpu(cuda):
                 torch.autograd.grad(loss, [xs] + ws)]
     for a, b in zip(run(cuda), run(torch.device("cpu"))):
         _close(a, b, torch.float32)
+
+
+# -- flash attention: B7 (fwd), B8 (block partials), B9 (dK dV), B10 (dQ) ----
+
+def _flash_inputs(dt, b, tq, tk, h, d, masked, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = [(torch.randn(b, t, h, d, generator=g) * 0.5).to(dev, dt)
+                   for t in (tq, tk, tk, tq)]
+    km = None
+    if masked:
+        km = torch.ones(b, tk)
+        km[0, tk // 3:] = 0        # padding at the tail
+        km[-1, :] = 0              # a sample that is all padding
+        km = km.to(dev)
+    return q, k, v, do, km
+
+
+def _flash_close(got, want, dt):
+    # the row max of a row that sees no key (-1e30) must match exactly;
+    # the rest within the dtype's bound times max(1, max|want|) over them
+    tol = 1e-3 if dt == torch.float32 else 2e-2
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    dead = w.abs() >= 1e29
+    assert torch.equal(g[dead], w[dead])
+    g, w = g[~dead], w[~dead]
+    if w.numel():
+        scale = max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol * scale
+
+
+FLASH_CASES = [(128, 128, False, False), (128, 256, True, True),
+               (256, 128, True, False), (256, 256, False, True),
+               (256, 256, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("tq,tk,causal,masked", FLASH_CASES)
+def test_flash_kernels_match_plain_on_card(cuda, dtype, d, tq, tk, causal,
+                                           masked):
+    dt = getattr(torch, dtype)
+    q, k, v, do, km = _flash_inputs(dt, 2, tq, tk, 3, d, masked, 6, cuda)
+    scale = d ** -0.5
+    off = tk - tq
+    before = dict(tfa.launches)
+    _flash_close(tfa._flash_fwd(q, k, v, km, causal, scale),
+                 tfa.flash_fwd_ref(q, k, v, km, causal, scale), dt)
+    for off_b in (off, off - 64, tk + 64):   # B8's offset is any int
+        got = tfa._block_partials(q, k, v, off_b, causal, scale, km)
+        want = tfa.flash_block_ref(q, k, v, km, causal, scale, off_b)
+        for a, b_ in zip(got, want):
+            _flash_close(a, b_, torch.float32 if dt == torch.float32 else dt)
+    _, m, l = tfa.flash_block_ref(q, k, v, km, causal, scale, off)
+    out = tfa.flash_fwd_ref(q, k, v, km, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, km, m, l, delta, causal, scale, off)
+    for a, b_ in zip(tfa._backward("flash_bwd_dkdv", *args),
+                     tfa.flash_bwd_dkdv_ref(*args)):
+        _flash_close(a, b_, dt)
+    _flash_close(tfa._backward("flash_bwd_dq", *args),
+                 tfa.flash_bwd_dq_ref(*args), dt)
+    torch.cuda.synchronize()
+    after = dict(tfa.launches)
+    assert [after[n] - before[n] for n in
+            ("flash_fwd", "flash_block", "flash_bwd_dkdv",
+             "flash_bwd_dq")] == [1, 3, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_repeat_bit_for_bit(cuda, dtype):
+    # every block owns its output tile: no atomics, the same bits
+    dt = getattr(torch, dtype)
+    q, k, v, do, km = _flash_inputs(dt, 2, 256, 256, 4, 64, True, 7, cuda)
+    runs = []
+    for _ in range(2):
+        qs, ks, vs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tfa.flash_attention(qs, ks, vs, causal=True, key_mask=km)
+        out.backward(do)
+        with torch.no_grad():
+            o7 = tfa.flash_attention(q, k, v, causal=True, key_mask=km)
+        runs.append([out, o7, qs.grad, ks.grad, vs.grad])
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_routes_and_reads_in_place_on_card(cuda, dtype):
+    # q, k, v as column slices of one fused projection (read through
+    # their strides); grad mode runs B8 + B9 + B10, no grad B7 only
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(8)
+    b, t, h, d = 2, 256, 4, 64
+    qkv = (torch.randn(b, t, 3 * h * d, generator=g) * 0.5).to(cuda, dt)
+    qkv.requires_grad_(True)
+    q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1)]
+    before = dict(tfa.launches)
+    out = tfa.flash_attention(q, k, v)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    delta = {n: tfa.launches[n] - before[n] for n in before}
+    assert delta == {"flash_fwd": 0, "flash_block": 1, "flash_bwd_dkdv": 1,
+                     "flash_bwd_dq": 1}
+    ref_in = qkv.detach().cpu().float().requires_grad_(True)
+    rq, rk, rv = [x.reshape(b, t, h, d).to(dt)
+                  for x in ref_in.split(h * d, dim=-1)]
+    ref = tfa.flash_attention(rq, rk, rv)
+    ref.float().square().sum().backward()
+    _flash_close(out.cpu(), ref, dt)
+    _flash_close(qkv.grad.cpu().float(), ref_in.grad,
+                 torch.float32 if dt == torch.float32 else dt)
+    with torch.no_grad():
+        before = dict(tfa.launches)
+        tfa.flash_attention(q, k, v)
+        assert tfa.launches["flash_fwd"] == before["flash_fwd"] + 1
+        assert tfa.launches["flash_block"] == before["flash_block"]
+
+
+@pytest.mark.cuda
+def test_flash_dead_rows_are_zero_on_card(cuda):
+    # causal Tq > Tk: rows 0 .. Tq - Tk - 1 see no key: 0 out, 0 grad
+    q, k, v, do, _ = _flash_inputs(torch.float32, 1, 256, 128, 2, 32, False,
+                                   9, cuda)
+    qs = q.clone().requires_grad_(True)
+    out = tfa.flash_attention(qs, k, v, causal=True)
+    out.backward(do)
+    assert out[:, :128].abs().max().item() == 0.0
+    assert qs.grad[:, :128].abs().max().item() == 0.0
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v, causal=True)[:, :128].abs() \
+            .max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 128, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa._flash_fwd(q, q, q, None, False, 1.0)
+    q = torch.zeros(1, 128, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._flash_fwd(q, q, q, None, False, 1.0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_pads_other_head_dims_on_card(cuda):
+    # D = 48 is supported (D <= 256): the wrapper zero-pads the head dim
+    # to the next kernel size (64), which changes no dot product
+    g = torch.Generator().manual_seed(10)
+    q, k, v = [(torch.randn(1, 128, 2, 48, generator=g) * 0.5)
+               for _ in range(3)]
+    qs = q.to(cuda).requires_grad_(True)
+    out = tfa.flash_attention(qs, k.to(cuda), v.to(cuda), causal=True)
+    out.square().sum().backward()
+    qc = q.clone().requires_grad_(True)
+    ref = tfa.flash_attention(qc, k, v, causal=True)
+    ref.square().sum().backward()
+    _flash_close(out.cpu(), ref.detach(), torch.float32)
+    _flash_close(qs.grad.cpu(), qc.grad, torch.float32)
