@@ -30,11 +30,7 @@ def resolve_attention_impl(impl: Optional[str]) -> str:
 
 def flash_backend_ok(t: torch.Tensor) -> bool:
     """Whether "auto" may route ``t``'s attention to the kernels: a CUDA
-    tensor, or anywhere when ``ZOO_TPU_FLASH_FORCE_INTERPRET=1`` (the
-    CPU then runs the kernels' plain versions). Explicit
-    ``impl="flash"`` ignores this."""
-    if os.environ.get("ZOO_TPU_FLASH_FORCE_INTERPRET") == "1":
-        return True
+    tensor. Explicit ``impl="flash"`` ignores this."""
     return t.is_cuda
 
 

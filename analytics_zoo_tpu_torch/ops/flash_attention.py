@@ -230,11 +230,9 @@ def _check_kernel(name: str, q: torch.Tensor, tq: int, tk: int) -> int:
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
     d = q.shape[3]
-    if d not in _KERNEL_D:
-        raise ValueError(f"{name}: head dim {d} not in {_KERNEL_D}")
-    if tq % 128 or tk % 128:
-        raise ValueError(f"{name}: Tq={tq} and Tk={tk} must be "
-                         "multiples of 128")
+    if d not in _KERNEL_D or not _feasible(tq, tk, d):
+        raise ValueError(f"{name}: need Tq, Tk multiples of 128 and head "
+                         f"dim in {_KERNEL_D}; got Tq={tq} Tk={tk} D={d}")
     return d
 
 
@@ -380,17 +378,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
     b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
-    bq, bk = _heuristic_blocks(tq, tk)
-    if bq is None or bk is None or d > 256:
+    if not _feasible(tq, tk, d):
         raise ValueError(
             f"flash_attention needs Tq/Tk divisible by 128 and D <= 256; "
             f"got Tq={tq} Tk={tk} D={d} (use dot_product_attention)")
-    km = None
-    if key_mask is not None:
-        if tuple(key_mask.shape) != (b, tk):
-            raise ValueError(f"key_mask must be (B, Tk)=({b}, {tk}); got "
-                             f"{tuple(key_mask.shape)}")
-        km = key_mask.to(device=q.device, dtype=torch.float32)
+    km = _kmask(key_mask, b, tk, q)
     (q, k, v), dp = _pad_heads([q, k, v], d)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out = _Flash.apply(q, k, v, km, causal, scale)
@@ -414,8 +406,7 @@ def flash_block_partial(q: torch.Tensor, k: torch.Tensor,
     """
     d = q.shape[-1]
     tq, tk = q.shape[1], k.shape[1]
-    bq, bk = _heuristic_blocks(tq, tk)
-    if bq is None or bk is None or d > 256:
+    if not _feasible(tq, tk, d):
         raise ValueError(
             f"flash_block_partial needs Tq/Tk divisible by 128 and "
             f"D <= 256; got Tq={tq} Tk={tk} D={d}")
@@ -446,19 +437,15 @@ def supports(tq: int, tk: int, d: int, mask: Optional[torch.Tensor],
     """Whether the kernels handle this problem (else the caller takes
     the dense path): 128-divisible sequence lengths, D <= 256, and a
     mask that is absent or a pure key-padding mask (causal is native)."""
-    bq, bk = _heuristic_blocks(tq, tk)
-    if bq is None or bk is None or d > 256:
+    if not _feasible(tq, tk, d):
         return False
     if mask is None:
         return True
     return b is not None and as_key_mask(mask, b, tk) is not None
 
 
-def _heuristic_blocks(tq: int, tk: int):
-    """The reference's block choice, kept as its divisibility rule: the
-    largest of 1024/512/256/128 dividing each length, or None. The CUDA
-    kernels tile by 64 (32 for f32 at D >= 128) whatever it says."""
-    sizes = (1024, 512, 256, 128)
-    bq = next((s for s in sizes if tq % s == 0), None)
-    bk = next((s for s in sizes if tk % s == 0), None)
-    return bq, bk
+def _feasible(tq: int, tk: int, d: int) -> bool:
+    """The one shape rule of the kernels: Tq and Tk multiples of 128, D
+    at most 256 (the reference's ``_heuristic_blocks`` divisibility
+    rule; the CUDA tiles are 64 or 32 rows whatever it picked)."""
+    return tq % 128 == 0 and tk % 128 == 0 and d <= 256

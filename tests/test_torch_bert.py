@@ -9,8 +9,12 @@ The JAX flash kernels run in interpret mode; the port's run their plain
 versions (CPU tensors). Dropout is 0 on both sides in the training
 comparison, since the two frameworks draw different random numbers.
 Tolerances: forwards 1e-5·max(1, |ref|) in f32; losses 1e-5·max(1,
-|loss|), params and Adam moments 1e-4 after two steps; evaluate's loss
-1e-5 and its accuracy exactly.
+|loss|); after two steps each param leaf's update within 1e-4 of JAX's
+in norm, relative to JAX's update, and each Adam moment leaf within
+1e-4·max|JAX's| (both with no floor, since updates and moments are far
+below 1; the key bias, whose true gradient is 0, is held to staying
+below 1e-2 of the largest on both sides); evaluate's loss 1e-5 and its
+accuracy exactly.
 """
 
 import jax
@@ -63,6 +67,59 @@ def _tree_close(got, want, tol, path=""):
             _tree_close(got[k], v, tol, f"{path}/{k}")
         else:
             _close(got[k], v, tol, f"{path}/{k}")
+
+
+def _leaves(tree, path=""):
+    """(path, float64 array) per leaf; a fused qkv bias is split into its
+    query, key and value thirds."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif path.endswith("/qkv_bias"):
+        for n, part in zip("qkv", np.split(np.asarray(tree, np.float64), 3,
+                                           axis=-1)):
+            yield f"{path[:-8]}{n}_bias", part
+    else:
+        yield path, np.asarray(tree, np.float64)
+
+
+def _noise_only(path, got, want, ref):
+    """The key bias's true gradient is 0 (a softmax row is unchanged by a
+    shift), so its Adam moments and update are rounding noise on both
+    sides, which Adam, dividing by the gradient's size, can blow up to
+    any share of a step. It is held to that: both below 1e-2 of the
+    largest ``ref`` over the tree. Returns whether ``path`` is it."""
+    if not path.endswith("/k_bias"):
+        return False
+    assert max(np.abs(got).max(), np.abs(want).max()) <= 1e-2 * ref, path
+    return True
+
+
+def _updates_close(got, want, start, tol):
+    """Per leaf, the port's update against JAX's, in norm and relative
+    to JAX's: ||(got - start) - (want - start)|| <= tol * ||want - start||
+    (the key bias: :func:`_noise_only`)."""
+    g, w, s0 = (dict(_leaves(t)) for t in (got, want, start))
+    assert sorted(g) == sorted(w) == sorted(s0)
+    step = max(np.abs(w[p] - s0[p]).max() for p in w)
+    for path in w:
+        dg, dw = g[path] - s0[path], w[path] - s0[path]
+        if not _noise_only(path, dg, dw, step):
+            assert np.linalg.norm(dg - dw) <= tol * np.linalg.norm(dw), \
+                path
+
+
+def _leaves_rel_close(got, want, tol):
+    """Per leaf, max|got - want| <= tol * max|want| (no floor: Adam's
+    moments are far below 1; the key bias: :func:`_noise_only`)."""
+    g, w = dict(_leaves(got)), dict(_leaves(want))
+    assert sorted(g) == sorted(w)
+    top = max(np.abs(a).max() for a in w.values())
+    for path in w:
+        assert g[path].shape == w[path].shape, path
+        if not _noise_only(path, g[path], w[path], top):
+            assert np.abs(g[path] - w[path]).max() <= \
+                tol * np.abs(w[path]).max(), path
 
 
 def _bert(mod, **kw):
@@ -178,12 +235,13 @@ def test_bert_finetune_slice_matches_jax():
         assert res.history[-1]["losses"] == [tl]
         assert abs(tl - jl) <= 1e-5 * max(1.0, abs(jl)), i
     assert test.step == jest.step == 2
-    _tree_close(params_to_numpy(tm), jax.device_get(jest.params), 1e-4)
+    _updates_close(params_to_numpy(tm), jax.device_get(jest.params), p,
+                   1e-4)
     ts = opt_state_to_numpy(test)
     js = optax_state_to_numpy(jax.device_get(jest.opt_state))
     assert int(ts["count"]) == 2
-    _tree_close(ts["mu"], js["mu"], 1e-4)
-    _tree_close(ts["nu"], js["nu"], 1e-4)
+    _leaves_rel_close(ts["mu"], js["mu"], 1e-4)
+    _leaves_rel_close(ts["nu"], js["nu"], 1e-4)
     jscores = jest.evaluate(x, y, batch_size=b)
     tscores = test.evaluate(x, y, batch_size=b)
     assert sorted(tscores) == sorted(jscores) == ["accuracy", "loss"]

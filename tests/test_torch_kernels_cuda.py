@@ -12,10 +12,11 @@ This file imports no JAX, so it runs on a machine that has none
 Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold and atol 1e-3 for the
 3x3 (sums in another order, TF32 off); 2e-2 wherever a bf16 operand or
 output is involved (one bf16 rounding, 2^-8 relative). The flash
-kernels (B7-B10) are held within 1e-3 (f32) or 2e-2 (bf16) of
-max(1, max|plain|), the bounds chip_smoke.py uses: f32 sums in another
-order, and in bf16 p is rounded at the running row max on the card and
-at the final one in the plain version.
+kernels (B7-B10) are held within 1e-3 (f32) or 2e-2 (bf16) of each
+output's own max|plain|, with no floor (attention's outputs and
+gradients are far below 1), the bounds chip_smoke.py uses: f32 sums in
+another order, and in bf16 p is rounded at the running row max on the
+card and at the final one in the plain version.
 """
 
 import pytest
@@ -229,7 +230,7 @@ def _flash_inputs(dt, b, tq, tk, h, d, masked, seed, dev):
 
 def _flash_close(got, want, dt):
     # the row max of a row that sees no key (-1e30) must match exactly;
-    # the rest within the dtype's bound times max(1, max|want|) over them
+    # the rest within the dtype's bound times max|want| over them
     tol = 1e-3 if dt == torch.float32 else 2e-2
     assert got.shape == want.shape and got.dtype == want.dtype
     g, w = got.float(), want.float()
@@ -238,7 +239,7 @@ def _flash_close(got, want, dt):
     assert torch.equal(g[dead], w[dead])
     g, w = g[~dead], w[~dead]
     if w.numel():
-        scale = max(1.0, w.abs().max().item())
+        scale = w.abs().max().item()
         assert (g - w).abs().max().item() <= tol * scale
 
 
