@@ -6,7 +6,8 @@ same names and layouts, so the bridge is a copy in both directions:
 ``params_to_numpy(params_from_numpy(tree))`` gives back ``tree`` bit
 for bit. Optimizer state crosses too, both ways: an Estimator's and an
 optax state's moments come out in one layout, and that layout loads
-back into an Estimator. This module
+back into an Estimator. So does a paged KV cache (pages, scales, table,
+lengths), so both packages can start from one cache state. This module
 imports no JAX.
 """
 
@@ -132,4 +133,41 @@ def optax_state_to_numpy(state) -> dict:
                 walk(v)
 
     walk(state)
+    return out
+
+
+_CACHE_FIELDS = ("k_pages", "v_pages", "page_table", "seq_lens", "k_scales",
+                 "v_scales")
+
+
+def _host_to_tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: bits as int16
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def kv_cache_from_numpy(cache, device="cpu"):
+    """A paged KV cache brought to the host (the JAX package's
+    ``PagedKVCache`` after ``jax.device_get``, any object with its
+    fields, or a dict of them) → the port's ``PagedKVCache`` of tensors
+    on ``device``, dtypes kept (bf16 pages included)."""
+    from analytics_zoo_tpu_torch.ops.kv_cache import PagedKVCache
+    get = cache.get if isinstance(cache, dict) else \
+        (lambda f: getattr(cache, f, None))
+    return PagedKVCache(*(None if get(f) is None else
+                          _host_to_tensor(get(f), device)
+                          for f in _CACHE_FIELDS))
+
+
+def kv_cache_to_numpy(cache) -> dict:
+    """The port's ``PagedKVCache`` → dict of host arrays by field name
+    (bf16 pages widened to f32; absent scales as None)."""
+    out = {}
+    for f in _CACHE_FIELDS:
+        t = getattr(cache, f)
+        if t is not None and t.dtype == torch.bfloat16:
+            t = t.float()
+        out[f] = None if t is None else t.detach().cpu().numpy().copy()
     return out

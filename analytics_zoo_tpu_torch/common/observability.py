@@ -1,11 +1,21 @@
 """Telemetry core, trimmed (port of
 ``analytics_zoo_tpu/common/observability.py``).
 
-What ``InferenceModel.predict`` writes: labelled counters, fixed-bucket
-histograms and wall-time spans in one process-global, thread-safe
-registry, read back with :func:`snapshot`. The JAX package's gauges,
-Prometheus exposition, JSONL event log and trace joining are not
-ported yet. Names follow ``zoo_tpu_<area>_<what>[_<unit>]``.
+What ``InferenceModel.predict`` and the generation batcher write:
+labelled counters, gauges, fixed-bucket histograms and wall-time spans
+in one process-global, thread-safe registry, read back with
+:func:`snapshot`. The JAX package's Prometheus exposition, JSONL event
+log and trace joining are not ported yet. Names follow
+``zoo_tpu_<area>_<what>[_<unit>]``.
+
+The generation metrics (``pipeline/inference/batching.py``):
+``zoo_tpu_serving_gen_ttft_seconds`` (submit to first token),
+``zoo_tpu_serving_gen_tokens_total``, ``zoo_tpu_serving_gen_steps_total``,
+the gauges ``zoo_tpu_serving_gen_slots_active``,
+``zoo_tpu_serving_gen_free_pages`` and
+``zoo_tpu_serving_gen_queue_depth``, ``zoo_tpu_serving_errors_total``
+(``kind="gen_queue_full"``) and the ``decode/admit``, ``decode/step``
+and ``decode/retire`` spans.
 """
 
 from __future__ import annotations
@@ -61,6 +71,31 @@ class Counter:
         return self._value
 
 
+class Gauge:
+    """Point-in-time value."""
+
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float):
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0):
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0):
+        self.inc(-amount)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
 class Histogram:
     """Fixed-bucket histogram (``le`` inclusive, like Prometheus)."""
 
@@ -109,6 +144,7 @@ class _Family:
             m = self.children.get(key)
             if m is None:
                 m = (Counter() if self.mtype == "counter" else
+                     Gauge() if self.mtype == "gauge" else
                      Histogram(self.buckets or DEFAULT_BUCKETS))
                 self.children[key] = m
             return m
@@ -138,6 +174,10 @@ class MetricsRegistry:
                 labels: Optional[Dict[str, Any]] = None) -> Counter:
         return self._family(name, "counter", help).child(labels)
 
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Dict[str, Any]] = None) -> Gauge:
+        return self._family(name, "gauge", help).child(labels)
+
     def histogram(self, name: str, help: str = "",
                   labels: Optional[Dict[str, Any]] = None,
                   buckets: "Optional[Sequence[float]]" = None
@@ -147,7 +187,8 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """JSON-able dump: ``{name: {"type", "help", "values": [...]}}``
-        with a counter's ``value`` or a histogram's ``count``/``sum``."""
+        with a counter's or gauge's ``value`` or a histogram's
+        ``count``/``sum``."""
         out: "Dict[str, dict]" = {}
         with self._lock:
             fams = sorted(self._families.values(), key=lambda f: f.name)
@@ -178,6 +219,11 @@ _REGISTRY = MetricsRegistry()
 def counter(name: str, help: str = "",
             labels: Optional[Dict[str, Any]] = None) -> Counter:
     return _REGISTRY.counter(name, help, labels)
+
+
+def gauge(name: str, help: str = "",
+          labels: Optional[Dict[str, Any]] = None) -> Gauge:
+    return _REGISTRY.gauge(name, help, labels)
 
 
 def histogram(name: str, help: str = "",

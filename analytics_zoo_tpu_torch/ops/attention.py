@@ -1,6 +1,6 @@
-"""Attention ops (port of ``analytics_zoo_tpu/ops/attention.py``, the
-training entry point; decode and chunk attention wait for generation,
-``_flash_block_update`` for ring attention).
+"""Attention ops (port of ``analytics_zoo_tpu/ops/attention.py``: the
+training entry point and decode attention; chunk attention waits for
+chunked prefill, ``_flash_block_update`` for ring attention).
 
 :func:`dot_product_attention` has two interchangeable implementations:
 plain PyTorch dense attention (einsum, f32 softmax, -1e30 fill), or the
@@ -8,6 +8,8 @@ flash kernels (``impl="flash"``, or ``"auto"`` on a CUDA tensor past
 the crossover; :mod:`ops.flash_attention`), which keep the softmax
 statistics on chip instead of writing the (B, H, Tq, Tk) logits.
 ``ZOO_TPU_ATTENTION`` sets the default process-wide.
+:func:`decode_attention` is its single-query sibling for generation,
+routed the same way to the decode kernel (B11).
 """
 
 from __future__ import annotations
@@ -41,6 +43,60 @@ def flash_profitable(tk: int) -> bool:
     only with that measurement."""
     env = os.environ.get("ZOO_TPU_FLASH_MIN_T")
     return tk >= (int(env) if env is not None else 1024)
+
+
+def decode_flash_profitable(tk: int) -> bool:
+    """Whether the decode kernel beats dense single-query attention at
+    this cache length: the reference's rule, T >= 2048
+    (``ZOO_TPU_DECODE_FLASH_MIN_T`` overrides the threshold).
+    ``chip_smoke.py`` measures the H100's crossover; the constant moves
+    only with that measurement."""
+    env = os.environ.get("ZOO_TPU_DECODE_FLASH_MIN_T")
+    return tk >= (int(env) if env is not None else 2048)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     seq_lens: torch.Tensor,
+                     scale: Optional[float] = None,
+                     impl: Optional[str] = None,
+                     k_scales: Optional[torch.Tensor] = None,
+                     v_scales: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Single-query (decode-mode) attention against a cached context.
+
+    q: (S, H, D), one new token per slot; k, v: (S, T, H, D), the
+    gathered cache (``ops.kv_cache.gather_layer``); ``seq_lens`` (S,)
+    masks positions ``>= seq_lens[s]``. Returns (S, H, D); softmax in
+    f32 whatever the input type. Int8 caches pass the views still
+    quantized with their per-row scales (S, T, H), dequantized here or
+    by the kernel's wrapper. Routing: the decode kernel (B11) when T is
+    a multiple of 128, D <= 256, and ``impl="flash"`` or "auto" on a
+    CUDA tensor with T past the crossover; else dense. No causal mask:
+    the cache holds only positions the new token may see.
+    """
+    impl = resolve_attention_impl(impl)
+    d = q.shape[-1]
+    t = k.shape[1]
+    scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
+    if t % 128 == 0 and d <= 256 and (
+            impl == "flash" or (impl == "auto" and flash_backend_ok(q)
+                                and decode_flash_profitable(t))):
+        from analytics_zoo_tpu_torch.ops import flash_attention as fa
+        key_mask = torch.arange(t, device=q.device)[None, :] < \
+            seq_lens[:, None]
+        return fa.flash_decode_attention(q, k, v, key_mask, scale,
+                                         k_scales=k_scales,
+                                         v_scales=v_scales)
+    if k_scales is not None:
+        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
+        k = dequantize_rows(k, k_scales, q.dtype)
+        v = dequantize_rows(v, v_scales, q.dtype)
+    logits = torch.einsum("shd,sthd->sht", q, k).float() * scale
+    valid = torch.arange(t, device=q.device)[None, None, :] < \
+        seq_lens[:, None, None]
+    logits = logits.masked_fill(~valid, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("sht,sthd->shd", probs, v)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,

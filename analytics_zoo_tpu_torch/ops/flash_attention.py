@@ -1,9 +1,9 @@
-"""Flash attention with hand-written CUDA kernels, forward and backward
-(port of ``analytics_zoo_tpu/ops/flash_attention.py``, without the
-decode kernel and the autotuner).
+"""Flash attention with hand-written CUDA kernels, forward, backward and
+single-query decode (port of ``analytics_zoo_tpu/ops/flash_attention.py``,
+without the autotuner).
 
-Every TPU kernel of the attention family on the training path is a CUDA
-kernel here, in the public (B, T, H, D) layout:
+Every TPU kernel of the attention family is a CUDA kernel here, in the
+public (B, T, H, D) layout:
 
 - :func:`flash_attention` without grad runs ``flash_fwd``
   (``csrc/flash_fwd.cu``, replacing ``_fwd_kernel[_masked]``, B7);
@@ -15,7 +15,11 @@ kernel here, in the public (B, T, H, D) layout:
   (``csrc/flash_bwd_dkdv.cu``, ``csrc/flash_bwd_dq.cu``);
 - :func:`flash_block_partial` is ``flash_block`` alone: the
   unnormalised f32 accumulator and the row statistics m and l, at a
-  runtime q-k offset, for callers that merge partials.
+  runtime q-k offset, for callers that merge partials;
+- :func:`flash_decode_attention` runs ``flash_decode``
+  (``csrc/flash_decode.cu``, replacing ``flash_decode_attention``,
+  B11): one query row per slot against the gathered paged KV cache,
+  the decode step of generation.
 
 The two forwards share one online-softmax body (``csrc/
 flash_attn_fwd.cuh``) and the two backward kernels one header
@@ -51,7 +55,7 @@ _NEG_INF = -1e30
 # launches of each CUDA kernel (CPU calls run the plain version and do
 # not count)
 launches = {"flash_fwd": 0, "flash_block": 0, "flash_bwd_dkdv": 0,
-            "flash_bwd_dq": 0}
+            "flash_bwd_dq": 0, "flash_decode": 0}
 _launch_lock = threading.Lock()
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -72,6 +76,10 @@ _SIGNATURES = {
                       [ctypes.c_float, _I, _P],
     "flash_bwd_dq": [_P] * 11 + [_I] * 5 + [_L] * 8 + [_I] * 2 +
                     [ctypes.c_float, _I, _P],
+    # q, k, v, kmask, o, S, H, T, D, q_ss, k_ss, k_st, v_ss, v_st, scale,
+    # bf16, stream
+    "flash_decode": [_P] * 5 + [_I] * 4 + [_L] * 5 +
+                    [ctypes.c_float, _I, _P],
 }
 _fns = {}
 
@@ -83,7 +91,7 @@ def reset_launches() -> None:
 
 
 def build_kernels():
-    """Build the four kernels' libraries now (one ``nvcc`` each, in
+    """Build the five kernels' libraries now (one ``nvcc`` each, in
     parallel); returns the seconds each took."""
     return cuda_build.build(list(_SIGNATURES))
 
@@ -158,6 +166,14 @@ def flash_fwd_ref(q, k, v, key_mask, causal: bool, scale: float):
     acc, _, l = flash_block_ref(q, k, v, key_mask, causal, scale,
                                 k.shape[1] - q.shape[1])
     return _normalise(acc, l, q.dtype)
+
+
+def flash_decode_ref(q, k, v, key_mask, scale: float):
+    """Plain version of ``flash_decode``: q (S, H, D) against k, v
+    (S, T, H, D) under the (S, T) key mask, one query row per slot;
+    returns (S, H, D) in q's type. A slot with no valid key averages all
+    T keys, as the dense path does."""
+    return flash_fwd_ref(q[:, None], k, v, key_mask, False, scale)[:, 0]
 
 
 def _recompute(q, k, v, dout, key_mask, m, l, delta, causal, scale, off):
@@ -415,6 +431,63 @@ def flash_block_partial(q: torch.Tensor, k: torch.Tensor,
         acc, m, l = _block_partials(q, k, v, int(qk_offset), causal,
                                     float(scale))
     return (acc[..., :d] if dp != d else acc), m, l
+
+
+def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, key_mask: torch.Tensor,
+                           scale: float,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Single-query decode attention over a cached context (B11).
+
+    q: (S, H, D), one new token per slot; k, v: (S, T, H, D), the dense
+    page-table gather of the cache; key_mask: (S, T) 0/1 validity (1 =
+    a real cached token). Returns (S, H, D) in q's type. T must be a
+    multiple of 128 and D at most 256. Int8 caches pass the gathered
+    views still quantized with their per-row scales ``k_scales`` /
+    ``v_scales`` (S, T, H); they are dequantized here, before the
+    kernel, as the reference does. Inference only: no gradient.
+    """
+    s, h, d = q.shape
+    t = k.shape[1]
+    if t % 128 or d > 256:
+        raise ValueError(
+            f"flash_decode_attention needs T divisible by 128 and "
+            f"D <= 256; got T={t} D={d} (use decode_attention's dense "
+            f"path)")
+    if k_scales is not None:
+        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
+        k = dequantize_rows(k, k_scales, q.dtype)
+        v = dequantize_rows(v, v_scales, q.dtype)
+    scale = float(scale)
+    km = _kmask(key_mask, s, t, q)
+    name = "flash_decode"
+    if _device_kind(name, q) == "cpu":
+        return flash_decode_ref(q, k, v, km, scale)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
+    (q, k, v), dp = _pad_heads([q, k, v], d)
+    q, q_ss = _query(name, q)
+    k, (ksb, kst) = _operand(name, k, q)
+    v, (vsb, vst) = _operand(name, v, q)
+    out = torch.empty((s, h, dp), dtype=q.dtype, device=q.device)
+    _launch(name, q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(km),
+            _ptr(out), s, h, t, dp, q_ss, ksb, kst, vsb, vst, scale,
+            int(q.dtype == torch.bfloat16))
+    return out[..., :d] if dp != d else out
+
+
+def _query(name: str, q: torch.Tensor):
+    """The (S, H, D) decode query as the kernel reads it: heads at
+    stride D, the last axis contiguous, 16-byte aligned rows (else a
+    contiguous copy). Returns it and its slot stride in elements."""
+    per16 = 16 // q.element_size()
+    d = q.shape[2]
+    if (q.stride(2) != 1 or q.stride(1) != d or q.stride(0) % per16 or
+            q.data_ptr() % 16):
+        q = q.contiguous()
+    return q, q.stride(0)
 
 
 def as_key_mask(mask, b: int, tk: int):

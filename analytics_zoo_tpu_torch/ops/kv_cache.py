@@ -1,0 +1,301 @@
+"""Paged KV cache for autoregressive decode (port of
+``analytics_zoo_tpu/ops/kv_cache.py``, without the KV handoff between
+prefill and decode pools).
+
+K and V live in a fixed pool of small pages per block, ``(max_pages,
+page_size, heads, head_dim)``, allocated once; a per-slot page table
+maps logical token positions to physical pages (vLLM's PagedAttention).
+A sequence's growth writes one (heads, head_dim) row into a page it
+already owns, so no tensor ever changes shape:
+
+- :func:`init_cache` allocates the pool (zeros) and an identity table;
+- :func:`append_layer` writes one new token's K/V per slot into one
+  block's pool;
+- :func:`write_prompt_layer` writes a whole (right-padded) prompt's
+  K/V, or with ``start`` a partial chunk of it;
+- :func:`gather_layer` / :func:`length_mask` give the dense (S, T, H, D)
+  view and its key-validity mask for attention.
+
+Unlike the reference, whose arrays are immutable, the writes update the
+pools **in place** (a 1.2 GB pool cannot be copied every step) and
+return the same tensors; callers that need the old state clone it
+first. The reference drops the rows it must not write by routing them
+to an out-of-range page (``mode="drop"``); on a CUDA tensor an
+out-of-range index is a device assert, so here the inactive rows are
+filtered out before the scatter (:func:`_scatter_coords`) and nothing
+is ever written to a sentinel.
+
+Int8 pages: the pool stores int8 rows plus one f32 scale per (token,
+head), ``max|x| / 127`` over head_dim (:func:`quantize_rows`), written
+through the same coordinates as the rows; :func:`dequantize_rows`
+restores the values at the gather, before attention.
+
+:class:`PageAllocator` is the host-side free list of physical pages the
+generation engine assigns at admission and reclaims at retirement.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+
+class PagedKVCache(NamedTuple):
+    """The cache state threaded through the decode loop.
+
+    ``k_pages``/``v_pages``: (num_layers, max_pages, page_size, heads,
+    head_dim). ``page_table``: (max_slots, pages_per_slot) int32
+    physical page ids. ``seq_lens``: (max_slots,) int32 tokens cached
+    per slot (0 = free slot). ``k_scales``/``v_scales``: (num_layers,
+    max_pages, page_size, heads) f32 dequantization scales, present
+    only when the pools are int8.
+    """
+
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    page_table: torch.Tensor
+    seq_lens: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[2]
+
+    @property
+    def max_context(self) -> int:
+        return self.page_table.shape[1] * self.page_size
+
+    @property
+    def max_slots(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    def clone(self) -> "PagedKVCache":
+        """A copy whose pools and table the in-place writes of another
+        copy never touch."""
+        return PagedKVCache(*(None if t is None else t.clone()
+                              for t in self))
+
+
+def init_cache(num_layers: int, max_slots: int, max_context: int,
+               heads: int, head_dim: int, page_size: int = 16,
+               max_pages: int = 0, dtype=torch.float32,
+               device="cpu") -> PagedKVCache:
+    """Allocate the pool on ``device``. ``max_context`` rounds up to
+    whole pages; ``max_pages`` defaults to ``max_slots *
+    pages_per_slot`` (every slot can reach max_context at once), and the
+    table starts as the identity mapping."""
+    pages_per_slot = -(-int(max_context) // int(page_size))
+    max_pages = int(max_pages) or int(max_slots) * pages_per_slot
+    if max_pages < max_slots * pages_per_slot:
+        raise ValueError(
+            f"max_pages {max_pages} < max_slots*pages_per_slot "
+            f"{max_slots * pages_per_slot}; the identity table would "
+            f"alias pages")
+    shape = (num_layers, max_pages, page_size, heads, head_dim)
+    scale_shape = shape[:-1]
+    quantized = dtype == torch.int8
+    table = torch.arange(max_slots * pages_per_slot, dtype=torch.int32,
+                         device=device).reshape(max_slots, pages_per_slot)
+    return PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        page_table=table,
+        seq_lens=torch.zeros((max_slots,), dtype=torch.int32,
+                             device=device),
+        k_scales=torch.zeros(scale_shape, device=device)
+        if quantized else None,
+        v_scales=torch.zeros(scale_shape, device=device)
+        if quantized else None)
+
+
+# symmetric int8 grid: 127 (not 128), so dequantization is one multiply
+INT8_QMAX = 127.0
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V rows ``(..., heads, head_dim)`` to int8 with one f32 scale per
+    ``(..., heads)``: ``scale = max|x| / 127`` over head_dim, ``q =
+    round(x / scale)`` (half to even, as ``jnp.round``). Zero rows get
+    scale 0 and dequantize to exact zeros."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / INT8_QMAX
+    q = torch.round(xf / scale.clamp_min(1e-12)[..., None])
+    return q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows`: ``(..., H, D)`` int8 and ``(...,
+    H)`` f32 scales back to ``dtype`` values."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+Coords = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
+
+
+def _scatter_coords(page_table: torch.Tensor, positions: torch.Tensor,
+                    page_size: int, active: torch.Tensor) -> Coords:
+    """Where the active (slot, position) rows land: ``(index of the
+    active rows in positions' grid, physical page, in-page offset)``.
+    Inactive rows are filtered out here, never written anywhere; the
+    filter reads ``active`` on the host (one sync on a CUDA tensor),
+    once per write however many blocks share it."""
+    pages_per_slot = page_table.shape[1]
+    s = page_table.shape[0]
+    logical = (positions // page_size).clamp(max=pages_per_slot - 1)
+    phys = torch.gather(page_table, 1, logical.reshape(s, -1).long()
+                        ).reshape(logical.shape)
+    offset = positions % page_size
+    idx = active.nonzero(as_tuple=True)
+    return idx, phys[idx].long(), offset[idx].long()
+
+
+def _put(pages: torch.Tensor, scales: Optional[torch.Tensor],
+         coords: Coords, x: torch.Tensor) -> None:
+    """Write the rows of ``x`` at ``coords`` into ``pages`` in place,
+    quantized (with their scales) when the pool is int8."""
+    idx, phys, offset = coords
+    x = x[idx]
+    if pages.dtype == torch.int8:
+        q, s = quantize_rows(x)
+        pages[phys, offset] = q
+        scales[phys, offset] = s
+    else:
+        pages[phys, offset] = x.to(pages.dtype)
+
+
+def append_coords(page_table: torch.Tensor, seq_lens: torch.Tensor,
+                  page_size: int,
+                  active: Optional[torch.Tensor] = None) -> Coords:
+    """Coordinates of a decode step's writes: each active slot's new
+    token at position ``seq_lens[s]``, if that is inside the context."""
+    if active is None:
+        active = torch.ones_like(seq_lens, dtype=torch.bool)
+    max_ctx = page_table.shape[1] * page_size
+    active = active & (seq_lens < max_ctx)
+    return _scatter_coords(page_table, seq_lens, page_size, active)
+
+
+def append_layer(k_pages, v_pages, page_table, seq_lens, k_new, v_new,
+                 active=None, k_scales=None, v_scales=None,
+                 coords: Optional[Coords] = None):
+    """Write one decode step's K/V into one block's pool, in place.
+
+    k_pages/v_pages: (P, page, H, D); k_new/v_new: (S, H, D), the new
+    token of every slot, written at position ``seq_lens[s]``. Slots
+    with ``active == False`` are not written. ``coords`` (from
+    :func:`append_coords`) saves recomputing them for every block.
+    Returns (k_pages, v_pages), plus (k_scales, v_scales) when scale
+    pools are passed (int8 pages)."""
+    if coords is None:
+        coords = append_coords(page_table, seq_lens, k_pages.shape[1],
+                               active)
+    _put(k_pages, k_scales, coords, k_new)
+    _put(v_pages, v_scales, coords, v_new)
+    if k_scales is None:
+        return k_pages, v_pages
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def prompt_coords(page_table: torch.Tensor, prompt_lens: torch.Tensor,
+                  t: int, page_size: int,
+                  start: Optional[torch.Tensor] = None) -> Coords:
+    """Coordinates of a prompt write of width ``t``: row j of slot s
+    lands at ``start[s] + j`` when that is below ``prompt_lens[s]``
+    (the total length after the write) and inside the context."""
+    s = page_table.shape[0]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=page_table.device)[None, :].expand(s, t)
+    if start is not None:
+        positions = positions + start.to(torch.int32)[:, None]
+    max_ctx = page_table.shape[1] * page_size
+    active = (positions < prompt_lens[:, None]) & (positions < max_ctx)
+    return _scatter_coords(page_table, positions, page_size, active)
+
+
+def write_prompt_layer(k_pages, v_pages, page_table, prompt_lens, k_seq,
+                       v_seq, start=None, k_scales=None, v_scales=None,
+                       coords: Optional[Coords] = None):
+    """Write a (right-padded) prompt's K/V for one block, in place.
+
+    k_seq/v_seq: (S, T, H, D). Positions at or past ``prompt_lens[s]``
+    are not written, so pad tokens never reach a page a later admission
+    may reuse. ``start`` (S,) shifts each slot's window: row j lands at
+    ``start[s] + j``, and a slot with ``prompt_lens == 0`` is untouched.
+    Scale pools (int8) behave as in :func:`append_layer`."""
+    if coords is None:
+        coords = prompt_coords(page_table, prompt_lens, k_seq.shape[1],
+                               k_pages.shape[1], start)
+    _put(k_pages, k_scales, coords, k_seq)
+    _put(v_pages, v_scales, coords, v_seq)
+    if k_scales is None:
+        return k_pages, v_pages
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def gather_layer(pages: torch.Tensor, page_table: torch.Tensor,
+                 t_max: int) -> torch.Tensor:
+    """Page-table gather to a dense (S, t_max, ...) view of one block's
+    pool (positions past a slot's length hold stale or zero rows:
+    :func:`length_mask` owns validity). Page ids are clamped into the
+    pool, the reference's ``mode="clip"``."""
+    page_size = pages.shape[1]
+    if t_max % page_size:
+        raise ValueError(f"t_max {t_max} not a multiple of page_size "
+                         f"{page_size}")
+    n = t_max // page_size
+    ids = page_table[:, :n].long().clamp(0, pages.shape[0] - 1)
+    picked = pages[ids]                      # (S, n, page, ...)
+    return picked.reshape((page_table.shape[0], t_max) + pages.shape[2:])
+
+
+def length_mask(seq_lens: torch.Tensor, t: int) -> torch.Tensor:
+    """(S, t) bool key-validity mask: position p of slot s is a cached
+    token iff ``p < seq_lens[s]``."""
+    return torch.arange(t, dtype=torch.int32,
+                        device=seq_lens.device)[None, :] < seq_lens[:, None]
+
+
+class PageAllocator:
+    """Host-side free list over the physical page pool. Not thread-safe
+    by itself: the engine's single caller serialises access."""
+
+    def __init__(self, max_pages: int):
+        self.max_pages = int(max_pages)
+        self._free = list(range(self.max_pages - 1, -1, -1))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, n: int) -> "list[int]":
+        """Pop ``n`` physical page ids; raises MemoryError when the pool
+        cannot satisfy the request (callers check :meth:`can_alloc`)."""
+        if n > len(self._free):
+            raise MemoryError(
+                f"page pool exhausted: want {n}, have "
+                f"{len(self._free)} of {self.max_pages}")
+        if n <= 0:
+            return []
+        out = self._free[-n:][::-1]
+        del self._free[-n:]
+        return out
+
+    def free(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            if not 0 <= p < self.max_pages:
+                raise ValueError(f"bad page id {p}")
+        self._free.extend(pages)
+
+    @staticmethod
+    def pages_needed(tokens: int, page_size: int) -> int:
+        return -(-int(tokens) // int(page_size))

@@ -1,7 +1,7 @@
 """Transformer layers: MultiHeadAttention, TransformerLayer (GPT-style)
 and BERT (port of ``analytics_zoo_tpu/pipeline/api/keras/layers/
-transformer.py``; sequence and pipeline parallelism and the cached
-decode path wait).
+transformer.py``; sequence and pipeline parallelism and ``forward_chunk``
+wait).
 
 As in the reference, per-block params are stacked on a leading
 ``n_block`` axis, so the param trees bridge one to one; the depth loop
@@ -13,20 +13,32 @@ backward recomputes its activations, so its forward kernel (B8) runs
 twice per step. Dropout seeds are derived before each block and the
 generators built inside it (``ops/rng.py``), so the recompute draws
 the forward's masks again.
+
+The decode surface (``init_kv_cache``, ``prefill``, ``decode_step``,
+``generate``) runs the same ``_split_qkv`` and ``_block_tail`` as the
+full forward over a paged KV cache (``ops/kv_cache.py``), whose pools
+it updates in place. ``decode_step`` attends through
+:func:`ops.attention.decode_attention`, the decode kernel (B11) on the
+card at long contexts; ``generate``'s loop is a Python loop with the
+reference's stop rule.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from analytics_zoo_tpu_torch.ops import kv_cache as kvc
 from analytics_zoo_tpu_torch.ops.activations import gelu
-from analytics_zoo_tpu_torch.ops.attention import (dot_product_attention,
+from analytics_zoo_tpu_torch.ops.attention import (decode_attention,
+                                                   dot_product_attention,
                                                    resolve_attention_impl)
 from analytics_zoo_tpu_torch.ops.rng import fold_in
+from analytics_zoo_tpu_torch.ops.sampling import sample_tokens
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     KerasLayer, Shape, ShapeLike, is_multi_shape)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import dropout
@@ -224,10 +236,9 @@ class TransformerLayer(KerasLayer):
     def _run_blocks(self, params, h0, mask, training, rng):
         """Every block in order; returns (final, [each block's output]
         when ``output_all_block``)."""
-        blocks = params["blocks"]
         x, outs = h0, []
         for i in range(self.n_block):
-            p = {k: v[i] for k, v in blocks.items()}
+            p = self._block_params(params, i)
             seed = None if rng is None else fold_in(rng, i)
             if self.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
@@ -256,6 +267,181 @@ class TransformerLayer(KerasLayer):
         if self.output_all_block:
             return [shape] * self.n_block
         return shape
+
+    # -- decode path --------------------------------------------------------
+    # ``prefill`` runs the prompts once and caches every block's K/V;
+    # ``decode_step`` extends every slot by one token against the cache;
+    # ``generate`` loops the two. Logits are tied to ``tok_embed``. Int8
+    # caches carry scale pools that this layer only threads through.
+    # Inference only: no dropout.
+
+    def init_kv_cache(self, max_slots: int, max_context: int,
+                      page_size: int = 16, dtype=None, device=None
+                      ) -> kvc.PagedKVCache:
+        """A fresh paged cache for this stack: one pool per block, the
+        identity page table, on ``device`` (default: the context's)."""
+        if device is None:
+            from analytics_zoo_tpu_torch.common.nncontext import \
+                get_nncontext
+            device = get_nncontext().device
+        return kvc.init_cache(
+            self.n_block, int(max_slots), int(max_context), self.n_head,
+            self.hidden_size // self.n_head, page_size=int(page_size),
+            dtype=dtype or torch.float32, device=device)
+
+    @staticmethod
+    def _block_params(params, i: int) -> dict:
+        return {k: v[i] for k, v in params["blocks"].items()}
+
+    def prefill(self, params, cache: kvc.PagedKVCache, token_ids,
+                prompt_lens):
+        """Run the (right-padded) prompts once, write every block's K/V
+        into the cache and return ``(cache', logits (S, V))``, the logits
+        at each slot's last prompt position.
+
+        token_ids: (S, T) int; prompt_lens: (S,) int. Slots with
+        ``prompt_lens == 0`` are untouched, which lets the batcher admit
+        into a live batch. Pad positions sit after every real token, so
+        causality keeps them out of the real rows, and their K/V are
+        never written."""
+        dev = cache.seq_lens.device
+        token_ids = torch.as_tensor(token_ids, device=dev)
+        prompt_lens = torch.as_tensor(prompt_lens, dtype=torch.int32,
+                                      device=dev)
+        s, t = token_ids.shape
+        x = self._embed(params, token_ids)
+        ks, vs = [], []
+        for i in range(self.n_block):
+            p = self._block_params(params, i)
+            q, k, v = self._split_qkv(p, x)
+            attn = dot_product_attention(q, k, v,
+                                         causal=not self.bidirectional,
+                                         impl=self.attention_impl)
+            x = self._block_tail(p, x, attn.reshape(s, t, self.hidden_size))
+            ks.append(k)
+            vs.append(v)
+        cache = self._write_prompt_all(cache, ks, vs, prompt_lens)
+        cache = cache._replace(seq_lens=torch.where(
+            prompt_lens > 0, prompt_lens, cache.seq_lens))
+        last = x[torch.arange(s, device=dev),
+                 (prompt_lens - 1).clamp_min(0).long()]
+        return cache, last @ params["tok_embed"].to(last.dtype).T
+
+    def _write_prompt_all(self, cache, k_all, v_all, total_lens,
+                          start=None):
+        """Write each block's prompt K/V (``k_all``/``v_all``: one
+        (S, T, nh, hd) tensor per block) into its pool, in place,
+        through coordinates computed once; quantized caches write their
+        scale pools through the same ones. ``seq_lens`` is the
+        caller's to update."""
+        coords = kvc.prompt_coords(cache.page_table, total_lens,
+                                   k_all[0].shape[1], cache.page_size,
+                                   start)
+        for i, (k, v) in enumerate(zip(k_all, v_all)):
+            kvc.write_prompt_layer(
+                cache.k_pages[i], cache.v_pages[i], cache.page_table,
+                total_lens, k, v, start=start,
+                k_scales=None if cache.k_scales is None else
+                cache.k_scales[i],
+                v_scales=None if cache.v_scales is None else
+                cache.v_scales[i], coords=coords)
+        return cache
+
+    def decode_step(self, params, cache: kvc.PagedKVCache, token_ids,
+                    active=None):
+        """One decode step for every slot: consume ``token_ids`` (S,),
+        each slot's previously sampled token, at position
+        ``cache.seq_lens[s]``, append its K/V, attend over the cache and
+        return ``(cache', logits (S, V))``. Slots with ``active ==
+        False`` are frozen: nothing is written and their length does not
+        advance."""
+        dev = cache.seq_lens.device
+        token_ids = torch.as_tensor(token_ids, device=dev)
+        s = token_ids.shape[0]
+        seq_lens = cache.seq_lens
+        active = seq_lens > 0 if active is None else \
+            torch.as_tensor(active, dtype=torch.bool, device=dev)
+        pos = seq_lens.clamp(0, self.seq_len - 1).long()
+        x = F.embedding(token_ids.long(), params["tok_embed"]) + \
+            F.embedding(pos, params["pos_embed"])
+        t_max, table = cache.max_context, cache.page_table
+        lens_after = seq_lens + active.to(torch.int32)
+        coords = kvc.append_coords(table, seq_lens, cache.page_size, active)
+        for i in range(self.n_block):
+            p = self._block_params(params, i)
+            kp, vp = cache.k_pages[i], cache.v_pages[i]
+            ks = None if cache.k_scales is None else cache.k_scales[i]
+            vs = None if cache.v_scales is None else cache.v_scales[i]
+            q, k_new, v_new = self._split_qkv(p, x)
+            kvc.append_layer(kp, vp, table, seq_lens, k_new, v_new,
+                             active=active, k_scales=ks, v_scales=vs,
+                             coords=coords)
+            k_ctx = kvc.gather_layer(kp, table, t_max)
+            v_ctx = kvc.gather_layer(vp, table, t_max)
+            sk = sv = None
+            if ks is None:
+                k_ctx, v_ctx = k_ctx.to(x.dtype), v_ctx.to(x.dtype)
+            else:
+                sk = kvc.gather_layer(ks, table, t_max)
+                sv = kvc.gather_layer(vs, table, t_max)
+            attn = decode_attention(q, k_ctx, v_ctx, lens_after,
+                                    impl=self.attention_impl,
+                                    k_scales=sk, v_scales=sv)
+            x = self._block_tail(p, x, attn.reshape(s, self.hidden_size))
+        cache = cache._replace(seq_lens=lens_after)
+        return cache, x @ params["tok_embed"].to(x.dtype).T
+
+    def generate(self, params, prompts, prompt_lens=None,
+                 max_new_tokens: int = 32, *, temperature=0.0,
+                 top_k: int = 0, eos_id=None, rng=None,
+                 page_size: int = 16, cache_dtype=None):
+        """Autoregressive generation: prefill, then decode steps until
+        ``max_new_tokens`` or every slot has emitted ``eos_id``. Greedy
+        where ``temperature <= 0`` (a scalar or (S,)), else sampling
+        with optional ``top_k``; ``rng`` is an int seed (default 0),
+        step i drawing with ``fold_in(rng, i)``.
+
+        prompts: (S, T) int, right-padded to ``prompt_lens``. Returns
+        ``(tokens (S, T + max_new_tokens), lengths (S,))``: per slot,
+        ``tokens[s, :lengths[s]]`` is prompt + generation, on the
+        params' device."""
+        dev = params["tok_embed"].device
+        prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+        s, tp = prompts.shape
+        prompt_lens = torch.full((s,), tp, dtype=torch.int32, device=dev) \
+            if prompt_lens is None else torch.as_tensor(
+                prompt_lens, dtype=torch.int32, device=dev)
+        seed = 0 if rng is None else int(rng)
+        max_new = int(max_new_tokens)
+        total = tp + max_new
+        temp = temperature if isinstance(temperature, torch.Tensor) else \
+            np.array(np.broadcast_to(np.asarray(temperature, np.float32),
+                                     (s,)))
+        cache = self.init_kv_cache(s, total, page_size=page_size,
+                                   dtype=cache_dtype, device=dev)
+        cache, logits = self.prefill(params, cache, prompts, prompt_lens)
+        rows = torch.arange(s, device=dev)
+        buf = torch.zeros((s, total), dtype=torch.int32, device=dev)
+        buf[:, :tp] = prompts
+        tok = sample_tokens(fold_in(seed, 0), logits, temp, top_k)
+        buf[rows, prompt_lens.long()] = tok
+        done = tok == eos_id if eos_id is not None else \
+            torch.zeros((s,), dtype=torch.bool, device=dev)
+        n_new = torch.ones((s,), dtype=torch.int32, device=dev)
+        i = 1
+        while i < max_new and not bool(done.all()):
+            active = ~done
+            cache, logits = self.decode_step(params, cache, tok,
+                                             active=active)
+            nxt = sample_tokens(fold_in(seed, i), logits, temp, top_k)
+            pos = (prompt_lens + i).clamp(0, total - 1).long()
+            buf[rows, pos] = torch.where(active, nxt, buf[rows, pos])
+            n_new = n_new + active.to(torch.int32)
+            if eos_id is not None:
+                done = done | (active & (nxt == eos_id))
+            tok = torch.where(active, nxt, tok)
+            i += 1
+        return buf, prompt_lens + n_new
 
 
 class BERT(TransformerLayer):

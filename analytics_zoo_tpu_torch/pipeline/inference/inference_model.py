@@ -1,6 +1,6 @@
 """InferenceModel: thread-safe serving wrapper (port of the
-``load_keras_net``/``predict`` path of
-``analytics_zoo_tpu/pipeline/inference/inference_model.py``).
+``load_keras_net``/``predict`` and ``load_generator``/``generate`` paths
+of ``analytics_zoo_tpu/pipeline/inference/inference_model.py``).
 
 A pool of ``supported_concurrent_num`` slots bounds how many predicts
 run at once; the slots share one net (the reference's weight-sharing
@@ -51,6 +51,7 @@ class InferenceModel:
         self._net: Optional[KerasNet] = None
         self._queue = SlotQueue(self.supported_concurrent_num)
         self._lock = threading.Lock()
+        self._generator = None
 
     def load_keras_net(self, net: KerasNet, params=None):
         """Serve an in-memory net. ``params`` (a tree of tensors or host
@@ -100,6 +101,43 @@ class InferenceModel:
                 return to_numpy(out)
         finally:
             q.put(slot)
+
+    # -- generation (pipeline/inference/generation.py) ------------------------
+    def load_generator(self, net, params=None, **engine_kwargs):
+        """Attach an autoregressive decode engine for ``net`` (a
+        transformer stack with ``init_kv_cache / prefill / decode_step /
+        generate``), beside the predict path. ``params`` defaults to the
+        net's own, initialised from the context if it has none.
+        ``engine_kwargs`` go to :class:`GenerationEngine`
+        (``max_slots``, ``max_context``, ``page_size``, ``top_k``,
+        ``cache_dtype``, ``device``; environment defaults)."""
+        from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+        from analytics_zoo_tpu_torch.pipeline.inference.generation import \
+            GenerationEngine
+        if params is None:
+            if not net.params():
+                net.init(get_nncontext().new_generator())
+            params = net.params()
+        self._generator = GenerationEngine(net, params, **engine_kwargs)
+        return self
+
+    @property
+    def generator(self):
+        """The attached GenerationEngine, or None."""
+        return self._generator
+
+    def generate(self, prompts, max_new_tokens: int = 32, *,
+                 temperature: float = 0.0, eos_id=None):
+        """Sequential per-request generation (the baseline the
+        continuous batcher is measured against). ``prompts``: one
+        token-id list or a list of them. Returns a list of 1-D arrays of
+        newly generated ids."""
+        if self._generator is None:
+            raise RuntimeError(
+                "no generator loaded; call load_generator(net) first")
+        return self._generator.generate(
+            prompts, max_new_tokens=max_new_tokens,
+            temperature=temperature, eos_id=eos_id)
 
     @property
     def concurrent_slots_free(self) -> int:

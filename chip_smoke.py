@@ -49,18 +49,37 @@ script exits non-zero and prints no result line:
    32, T = 128, params cast to bf16 inside the loss, Adam(5e-5): the
    bf16 kernels; finite losses, the first against the f32 loss on the
    same weights, launches, samples/s and a profile;
-8. the flash/dense crossover: fwd+bwd at B = 4, H = 16, D = 64, bf16,
+8. generation: ``TransformerLayer`` at GPT-1's widths (12 blocks,
+   hidden 768, 12 heads, vocab 40990) with a 2048-token context and
+   seeded random weights, loaded by ``InferenceModel.load_generator``
+   (8 slots, 16-token pages, f32 cache), warmed, and served by
+   ``ContinuousBatcher`` to 16 greedy requests from 4 client threads
+   with staggered arrivals (prompts of 17, 200, 700 and 1500 tokens,
+   32-64 new tokens each); checks every budget, zero errors, slots and
+   pages back to full, the launches (B11 12 per decode step, B7 12 per
+   prefill at buckets >= 1024 and none below), eight teacher-forced
+   decode steps through the kernels against the dense plain path (and
+   the last against the uncached forward) within 1e-3 of max|logit|,
+   and each served stream against the engine's sequential generate
+   (a stream may part only where the top-2 margin is within that
+   bound); tokens/s, median time to first token, the median decode
+   step at 8 active slots and a profile of two steps;
+9. the flash/dense crossover: fwd+bwd at B = 4, H = 16, D = 64, bf16,
    causal, Tk from 128 to 4096 (printed only);
-9. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+10. the decode crossover: B11 against the dense decode at S 8, H 12,
+   D 64, f32, T from 128 to 4096 (printed only);
+11. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at causal,
-cross-length, dead-row and other head-dim cases, each output within
-1e-3 (f32) or 2e-2 (bf16) of its own max|plain| (no floor at 1), with
-``F.scaled_dot_product_attention`` timed beside them as the library
-yardstick (never called by the port; its backward stands on B9's row
-for the B9 + B10 pair, and B10's is null).
+cross-length, dead-row and other head-dim cases, and the decode kernel
+(B11) at the generation path's shape in f32 and bf16, with a slot that
+has no valid key, an int8 cache and head dims 32 to 256, each output
+within 1e-3 (f32) or 2e-2 (bf16) of its own max|plain| (no floor at
+1), with ``F.scaled_dot_product_attention`` timed beside them as the
+library yardstick (never called by the port; its backward stands on
+B9's row for the B9 + B10 pair, and B10's is null).
 
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -137,17 +156,34 @@ KERNELS = {
         "path": "bert_train", "per_path": 12,
         "library_is": "none alone: SDPA's backward stands on "
                       "flash_bwd_dkdv for the pair"},
+    "flash_decode": {
+        "source": "analytics_zoo_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:655",
+        "path": "generate", "per_path": 12,
+        "library_is": "SDPA with a boolean mask at (S, H, 1, T)"},
 }
 FLASH = ("flash_fwd", "flash_block", "flash_bwd_dkdv", "flash_bwd_dq")
 PATHS = {"serve": f"one batch-{BATCH} bf16 forward",
          "train": f"one batch-{TRAIN_BATCH} bf16 train step",
          "bert_train": "one f32 BERT-base train step (batch 16, T 512, "
                        "remat)",
-         "bert_eval": "one f32 BERT-base eval batch (batch 16, T 512)"}
+         "bert_eval": "one f32 BERT-base eval batch (batch 16, T 512)",
+         "generate": "one f32 GPT-1 decode step at 8 slots (T 2048, the "
+                     "path case's lengths)"}
 # the path each kernel's summary times are summed over: B1-B6 bf16,
-# B7-B10 the Estimator's f32 route (bf16 beside it under by_dtype)
-HEAD_DTYPE = {name: "float32" if name in FLASH else "bfloat16"
-              for name in KERNELS}
+# B7-B11 f32 (the Estimator's route, the generation path; bf16 beside
+# it under by_dtype)
+HEAD_DTYPE = {name: "float32" if name in FLASH + ("flash_decode",)
+              else "bfloat16" for name in KERNELS}
+# GPT-1's widths (openai-gpt) at a 2048-token context, the reference
+# TransformerLayer's defaults, served by 8 slots of 16-token pages
+GPT = dict(n_block=12, hidden_size=768, n_head=12, vocab=40990,
+           hidden_p_drop=0.0, attn_p_drop=0.0, embed_p_drop=0.0)
+GEN_T, GEN_SLOTS, GEN_PAGE = 2048, 8, 16
+GEN_PROMPTS = (17, 200, 700, 1500)
+GEN_REQUESTS, GEN_CLIENTS = 16, 4
+# the teacher-forced slots' prompt lengths (one >= 1024: bucket 2048)
+GEN_TF_LENS = (1500, 17, 200, 700, 1100, 33, 400, 1023)
 BERT = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
             intermediate_size=3072, n_token_types=2)
 BERT_T, BERT_BATCH, BERT_STEPS = 512, 16, 5
@@ -1060,6 +1096,117 @@ def run_flash_case(case, gen):
     return records
 
 
+# -- flash decode: B11 against its plain version ------------------------------
+
+def decode_lens(s, t, seed):
+    """Slot lengths from numpy ``seed`` in [1, t], the first slot 1 and
+    the second full."""
+    import numpy as np
+    lens = np.random.RandomState(seed).randint(1, t + 1, size=s)
+    lens[0], lens[1] = 1, t
+    return [int(n) for n in lens]
+
+
+def decode_cases():
+    """(tag, S, T, H, D, dtype, lengths, int8 cache, launches per decode
+    step): the path shape (8 slots, T 2048, 12 heads, D 64, f32; its
+    lengths mixed, 1 and 2048 among them) in f32 and bf16, a slot with
+    no valid key, an int8 cache, and head dims 32, 128 and 256."""
+    path = decode_lens(GEN_SLOTS, GEN_T, 0)
+    dead = [0] + path[1:]
+    cases = [("path", GEN_SLOTS, GEN_T, 12, 64, "float32", path, False, 12),
+             ("path", GEN_SLOTS, GEN_T, 12, 64, "bfloat16", path, False, 0),
+             ("no_valid_key", GEN_SLOTS, GEN_T, 12, 64, "float32", dead,
+              False, 0),
+             ("int8_cache", GEN_SLOTS, GEN_T, 12, 64, "float32", path, True,
+              0)]
+    for dt in ("float32", "bfloat16"):
+        for d, h in ((32, 16), (128, 8), (256, 4)):
+            cases.append((f"d{d}", 4, 1024, h, d, dt,
+                          [1, 1024, 0, 613], False, 0))
+    return cases
+
+
+def run_decode_case(case, gen):
+    """B11 at one shape against its plain version on the card, with
+    ``F.scaled_dot_product_attention`` timed beside it; the bound counts
+    the K and V rows a slot must read (its valid rows, or all T for a
+    slot with none), q, the mask and the output once."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    tag, s, t, h, d, dt, lens, int8, per_path = case
+    dev = torch.device(DEV)
+    xdt = getattr(torch, dt)
+    esize = torch.tensor([], dtype=xdt).element_size()
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(xdt)
+    qkv = randn(s, 3 * h * d)      # q as a column slice of the projection
+    q = qkv[:, :h * d].reshape(s, h, d)
+    k, v = randn(s, t, h, d), randn(s, t, h, d)
+    lens_t = torch.tensor(lens, device=dev)
+    km = torch.arange(t, device=dev)[None, :] < lens_t[:, None]
+    scale = d ** -0.5
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = kvc.quantize_rows(k), kvc.quantize_rows(v)
+        kw = dict(k_scales=ks, v_scales=vs)
+        kd = kvc.dequantize_rows(k, ks, xdt)
+        vd = kvc.dequantize_rows(v, vs, xdt)
+    else:
+        kd, vd = k, v
+
+    def kernel():
+        return fa.flash_decode_attention(q, k, v, km, scale, **kw)
+
+    def plain():
+        return fa.flash_decode_ref(q, kd, vd, km.float(), scale)
+    lq = q[:, :, None].contiguous()                    # (S, H, 1, D)
+    lk, lv = [x.transpose(1, 2).contiguous() for x in (kd, vd)]
+    mask = km[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (s, h, d) and got.dtype == xdt,
+          f"flash_decode {tag}: got {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got.float()).all()),
+          f"flash_decode {tag} {dt}: non-finite")
+    err, tol, scl = flash_err(got, want, dt)
+    check(err <= tol, f"flash_decode {tag} {dt}: max|err| {err} > {tol} "
+          f"(max|plain| {scl})")
+    rows = sum(n if n else t for n in lens)           # rows read per head
+    kv_bytes = 2 * rows * h * d * (1 if int8 else esize) + \
+        (2 * rows * h * 4 if int8 else 0)
+    nbytes = kv_bytes + 2 * s * h * d * esize + 4 * s * t
+    flops = 4.0 * d * rows * h
+    rec = {"kernel": "flash_decode", "key": [tag, s, t, h, d, int8],
+           "dtype": dt, "per_path": per_path, "lens": lens,
+           "errors": {"out": (err, tol)},
+           "rel_errors": {"out": err / scl if scl else 0.0},
+           "max_abs_err": err, "ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, iters=3, warmup=1),
+           "library_ms": time_ms(library),
+           "library_is": KERNELS["flash_decode"]["library_is"],
+           "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
+           "byte_ms": nbytes / PEAK_BYTES * 1e3}
+    rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
+    rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
+        else "bytes"
+    print(f"  flash_decode {dt} {tag} (S {s}, T {t}, H {h}, D {d}"
+          f"{', int8 cache' if int8 else ''}, valid rows {rows}) "
+          f"x{per_path}: max|err| {err:.2e}/{tol:.2e} (rel "
+          f"{rec['rel_errors']['out']:.2e}); kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, library "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
 # -- BERT ---------------------------------------------------------------------
 
 def bert_batch(n, t, vocab, seed=0, lengths=True):
@@ -1393,6 +1540,293 @@ def bert_bench_path(card, detail):
     return launches
 
 
+GEN_KERNEL_NAMES = (
+    ("flash_decode (B11)", r"flash_decode_kernel"),
+    ("flash_fwd (B7)", r"flash_fwd_\w+_kernel"),
+    ("cache writes (index_put)", r"index_put"),
+    ("page-table gathers", r"index_kernel|gather"),
+    ("products (cuBLAS)", r"gemm|gemv|xmma|cutlass"),
+)
+
+
+def gpt_net(impl=None):
+    """The generation model: GPT-1's widths at a 2048-token context."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer \
+        import TransformerLayer
+    return TransformerLayer(seq_len=GEN_T, attention_impl=impl, **GPT)
+
+
+def gen_requests():
+    """The served traffic from numpy seed 0: each prompt length of
+    GEN_PROMPTS four times in a shuffled order (dense and B7 prefill
+    buckets), a budget of 32-64 new tokens each, random token ids, and
+    each client's delay before each of its submits."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    reps = GEN_REQUESTS // len(GEN_PROMPTS)
+    plens = rs.permutation(np.repeat(GEN_PROMPTS, reps))
+    max_new = rs.randint(32, 65, size=GEN_REQUESTS)
+    prompts = [rs.randint(1, GPT["vocab"], size=int(n)).tolist()
+               for n in plens]
+    delays = rs.uniform(0.0, 0.3, size=GEN_REQUESTS)
+    return prompts, [int(m) for m in max_new], delays
+
+
+def teacher_forced(net, params, prompt, tokens):
+    """Logits (1, V) after ``prompt`` + ``tokens`` on a fresh one-slot
+    cache: the prefill's when ``tokens`` is empty, else the last decode
+    step's."""
+    import torch
+    dev = params["tok_embed"].device
+    cache = net.init_kv_cache(1, GEN_T, page_size=GEN_PAGE, device=dev)
+    with torch.no_grad():
+        cache, lg = net.prefill(params, cache,
+                                torch.tensor([prompt], device=dev),
+                                torch.tensor([len(prompt)], device=dev))
+        for tok in tokens:
+            cache, lg = net.decode_step(params, cache,
+                                        torch.tensor([tok], device=dev))
+    return lg
+
+
+def generation_path(card, detail):
+    """Phase 8: serve GPT-style generation through the port's entry
+    points (``InferenceModel.load_generator`` → ``ContinuousBatcher``)
+    at GPT-1's widths and a 2048-token context: B11 on every decode
+    step, B7 on prefills at buckets >= 1024. Returns the launches of
+    the serving run."""
+    import numpy as np
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        ContinuousBatcher, InferenceModel)
+
+    ctx = zoo.init_nncontext(seed=0)
+    dev = ctx.device
+    t0 = time.perf_counter()
+    net = gpt_net()
+    params = net.build(torch.Generator().manual_seed(0), (GEN_T,))
+    im = InferenceModel().load_generator(net, params, max_slots=GEN_SLOTS,
+                                         max_context=GEN_T,
+                                         page_size=GEN_PAGE)
+    eng = im.generator
+    del params
+    n_params = sum(v.numel() for v in eng.params.values()
+                   if not isinstance(v, dict)) + \
+        sum(v.numel() for v in eng.params["blocks"].values())
+    pool_gb = 2 * eng.cache.k_pages.numel() * \
+        eng.cache.k_pages.element_size() / 1e9
+    print(f"  GPT-1 widths, T {GEN_T}: {n_params} params on {eng.device}, "
+          f"KV pool {pool_gb:.3f} GB ({eng.allocator.max_pages} pages of "
+          f"{GEN_PAGE}), built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_prog = eng.warm()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"  warm: {n_prog} programs (buckets {eng.prompt_buckets} and the "
+          f"step) in {warm_s:.2f} s", flush=True)
+    check(n_prog == len(eng.prompt_buckets) + 1, f"warm ran {n_prog}")
+
+    prompts, max_new, delays = gen_requests()
+    ttft, buckets = [], []
+
+    class Batcher(ContinuousBatcher):
+        """Keeps each request's time to first token (the value the
+        batcher's TTFT histogram observes) for the median."""
+
+        def _token_out(self, e, tok, now):
+            if not e.tokens:
+                ttft.append(now - e.t_enq)
+            return super()._token_out(e, tok, now)
+
+    def admit(reqs):            # records each prefill's bucket
+        n = max(len(r[0]) for r in reqs)
+        buckets.append(next(b for b in eng.prompt_buckets if b >= n))
+        return type(eng).admit(eng, reqs)
+    eng.admit = admit
+    obs.reset_metrics()
+    cb = Batcher(eng, queue_depth=64).start()
+
+    def client(c):
+        futs = []
+        for i in range(c, GEN_REQUESTS, GEN_CLIENTS):
+            time.sleep(float(delays[i]))
+            futs.append((i, cb.submit(prompts[i],
+                                      max_new_tokens=max_new[i])))
+        return [(i, f.result(timeout=600)) for i, f in futs]
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(GEN_CLIENTS) as pool:
+        futures = [pool.submit(client, c) for c in range(GEN_CLIENTS)]
+        results = dict(r for f in futures for r in f.result())
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    launches = all_launches()
+    cb.stop()
+    del eng.admit
+    snap = obs.snapshot()
+    steps = int(snap["zoo_tpu_serving_gen_steps_total"]["values"][0]
+                ["value"])
+    errors = sum(v["value"] for v in snap.get(
+        "zoo_tpu_serving_errors_total", {"values": []})["values"])
+    n_tok = sum(len(results[i]) for i in range(GEN_REQUESTS))
+    n_b7 = sum(b >= 1024 for b in buckets)
+    print(f"  served {GEN_REQUESTS} requests from {GEN_CLIENTS} threads: "
+          f"{n_tok} tokens in {window:.3f} s ({n_tok / window:.1f} "
+          f"tokens/s), {steps} decode steps, {len(buckets)} prefills at "
+          f"buckets {buckets}; median TTFT "
+          f"{statistics.median(ttft) * 1e3:.1f} ms; errors {errors}; "
+          f"launches {launches}", flush=True)
+    for i in range(GEN_REQUESTS):
+        check(len(results[i]) == max_new[i],
+              f"request {i}: {len(results[i])} tokens, budget {max_new[i]}")
+    check(errors == 0, f"{errors} serving errors")
+    check(len(ttft) == GEN_REQUESTS, f"{len(ttft)} first tokens")
+    check(eng.slots_active == 0 and
+          eng.free_pages == eng.allocator.max_pages,
+          f"after serving: {eng.slots_active} slots active, "
+          f"{eng.free_pages} of {eng.allocator.max_pages} pages free")
+    nb = GPT["n_block"]
+    want = {"flash_decode": nb * steps, "flash_fwd": nb * n_b7}
+    check(n_b7 > 0, f"prefill buckets {buckets}: none runs B7")
+    for name in KERNELS:
+        check(launches[name] == want.get(name, 0),
+              f"{name}: {launches[name]} launches in {steps} decode steps "
+              f"and {n_b7} prefills at buckets >= 1024, expected "
+              f"{want.get(name, 0)}")
+
+    # numerics: teacher forcing through the kernels and the dense path
+    rs = np.random.RandomState(1)
+    lens = list(GEN_TF_LENS)
+    ids = torch.zeros(GEN_SLOTS, GEN_T, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = torch.from_numpy(rs.randint(1, GPT["vocab"], size=n))
+    ids, plens = ids.to(dev), torch.tensor(lens, device=dev)
+    dense_net = gpt_net("xla")
+    p = eng.params
+    checks = {}
+    with torch.no_grad():
+        reset_launches()
+        cache_k = net.init_kv_cache(GEN_SLOTS, GEN_T, page_size=GEN_PAGE,
+                                    device=dev)
+        cache_k, lg_k = net.prefill(p, cache_k, ids, plens)
+        cache_d = cache_k.clone()
+        _, lg_pd = dense_net.prefill(
+            p, dense_net.init_kv_cache(GEN_SLOTS, GEN_T, page_size=GEN_PAGE,
+                                       device=dev), ids, plens)
+        checks["prefill_B7_vs_dense"] = (
+            (lg_k - lg_pd).abs().max().item(),
+            1e-3 * lg_pd.abs().max().item())
+        tok = lg_pd.argmax(-1).to(torch.int32)
+        fed = [tok]
+        for step in range(8):
+            cache_k, lg_k = net.decode_step(p, cache_k, tok)
+            cache_d, lg_d = dense_net.decode_step(p, cache_d, tok)
+            checks[f"decode_step{step}_B11_vs_dense"] = (
+                (lg_k - lg_d).abs().max().item(),
+                1e-3 * lg_d.abs().max().item())
+            tok = lg_d.argmax(-1).to(torch.int32)
+            fed.append(tok)
+        tf_launches = all_launches()
+        prefix = torch.cat([ids[0, :lens[0]]] +
+                           [t[:1] for t in fed[:-1]])[None]
+        h = net.call(p, prefix)
+        full = h[0, -1] @ p["tok_embed"].T
+        checks["last_step_vs_uncached_forward"] = (
+            (lg_k[0] - full).abs().max().item(),
+            1e-3 * full.abs().max().item())
+    check(tf_launches["flash_decode"] == 8 * nb and
+          tf_launches["flash_fwd"] == nb,
+          f"teacher forcing launches {tf_launches}")
+    del cache_k, cache_d
+    for k, (err, tol) in checks.items():
+        print(f"  {k}: max|err| {err:.4e} (tol {tol:.4e})", flush=True)
+    bad = [k for k, (err, tol) in checks.items() if not err <= tol]
+    check(not bad, f"generation numerics failed: {bad}")
+
+    # each served greedy stream against the engine's sequential generate
+    parted = []
+    for i in range(GEN_REQUESTS):
+        ref = [int(t) for t in eng.generate(prompts[i],
+                                            max_new_tokens=max_new[i])[0]]
+        got = [int(t) for t in results[i]]
+        if got == ref:
+            continue
+        j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
+        lg = teacher_forced(net, p, prompts[i], got[:j])[0]
+        top2 = lg.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        tol = 1e-3 * lg.abs().max().item()
+        parted.append({"request": i, "step": j, "margin": margin,
+                       "tol": tol})
+        check(margin <= tol, f"request {i} parts from sequential generate "
+              f"at step {j} with top-2 margin {margin} > {tol}")
+    print(f"  {len(parted)} of {GEN_REQUESTS} served streams part from "
+          f"the sequential generate {parted}", flush=True)
+
+    # the decode step at 8 active slots: host time and a profile
+    mix = [GEN_PROMPTS[i % len(GEN_PROMPTS)] for i in range(GEN_SLOTS)]
+    admitted = eng.admit([(prompts[0][:1] * n, 64, 0.0) for n in mix])
+    active = np.zeros((GEN_SLOTS,), np.bool_)
+    for slot, _ in admitted:
+        active[slot] = True
+    for _ in range(2):
+        eng.step(active)
+    step_s = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(active)
+        step_s.append(time.perf_counter() - t0)
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"  decode step at {GEN_SLOTS} active slots (lengths {mix}): "
+          f"median {step_ms:.3f} ms on {card}", flush=True)
+    prof = profile_steps(lambda: eng.step(active), 2, GEN_KERNEL_NAMES)
+    for slot, _ in admitted:
+        eng.release(slot)
+    detail["generation"] = {
+        "tokens_per_s": n_tok / window, "window_s": window,
+        "tokens": n_tok, "decode_steps": steps, "prefill_buckets": buckets,
+        "ttft_ms": sorted(t * 1e3 for t in ttft),
+        "ttft_median_ms": statistics.median(ttft) * 1e3,
+        "step_ms_8_slots": step_ms, "step_ms_all": [t * 1e3 for t in step_s],
+        "warm_s": warm_s, "launches": launches, "checks": checks,
+        "parted": parted, "profile": prof}
+    del eng, im
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_crossover(card, detail):
+    """Phase 10: B11 against the dense plain decode (device ms, through
+    ``decode_attention``) at S 8, H 12, D 64, f32, every slot full, T
+    from 128 to 4096 (printed only)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.attention import decode_attention
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = []
+    for t in (128, 256, 512, 1024, 2048, 4096):
+        q = torch.randn(GEN_SLOTS, 12, 64, generator=gen, device=DEV)
+        k, v = [torch.randn(GEN_SLOTS, t, 12, 64, generator=gen,
+                            device=DEV) for _ in range(2)]
+        lens = torch.full((GEN_SLOTS,), t, dtype=torch.int32, device=DEV)
+        kern = time_ms(lambda: decode_attention(q, k, v, lens, impl="flash"))
+        dense = time_ms(lambda: decode_attention(q, k, v, lens, impl="xla"))
+        rows.append({"t": t, "kernel_ms": kern, "dense_ms": dense,
+                     "dense_over_kernel": dense / kern})
+        print(f"  T {t}: B11 {kern:.4f} ms, dense {dense:.4f} ms "
+              f"(dense/B11 {dense / kern:.2f}) on {card}", flush=True)
+        del q, k, v
+    detail["decode_crossover"] = rows
+
+
 def _tree_map(tree, fn):
     return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -1485,6 +1919,7 @@ def main() -> int:
     records += [run_train_case(c, gen) for c in train_cases(b1, b2)]
     for c in flash_cases():
         records += run_flash_case(c, gen)
+    records += [run_decode_case(c, gen) for c in decode_cases()]
     detail["kernel_cases"] = records
     del shapes_net
     torch.cuda.empty_cache()
@@ -1507,15 +1942,21 @@ def main() -> int:
     bert_bench = bert_bench_path(card, detail)
     torch.cuda.empty_cache()
 
-    print("[8] flash/dense crossover (fwd+bwd, bf16, causal)", flush=True)
+    print("[8] main path: GPT-style generation (paged KV cache, "
+          "continuous batcher, B11)", flush=True)
+    generated = generation_path(card, detail)
+
+    print("[9] flash/dense crossover (fwd+bwd, bf16, causal)", flush=True)
     crossover(card, detail)
 
-    for name, meta in KERNELS.items():
-        launches[name] = (served if meta["path"] == "serve" else
-                          trained if meta["path"] == "train" else
-                          bert_est)[name]
+    print("[10] decode crossover (B11 vs dense, f32)", flush=True)
+    decode_crossover(card, detail)
 
-    print("[9] summary", flush=True)
+    by_path = {"serve": served, "train": trained, "generate": generated}
+    for name, meta in KERNELS.items():
+        launches[name] = by_path.get(meta["path"], bert_est)[name]
+
+    print("[11] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if rec["name"] in FLASH:

@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels against their plain PyTorch versions
 on the card (``analytics_zoo_tpu_torch.ops.conv_bn`` and
-``analytics_zoo_tpu_torch.ops.flash_attention``).
+``analytics_zoo_tpu_torch.ops.flash_attention``, the decode kernel B11
+included).
 
 Every test here needs a CUDA card: it carries the ``cuda`` marker and
 skips where there is none (the card is looked for inside the fixture).
@@ -16,7 +17,10 @@ kernels (B7-B10) are held within 1e-3 (f32) or 2e-2 (bf16) of each
 output's own max|plain|, with no floor (attention's outputs and
 gradients are far below 1), the bounds chip_smoke.py uses: f32 sums in
 another order, and in bf16 p is rounded at the running row max on the
-card and at the final one in the plain version.
+card and at the final one in the plain version. The decode kernel (B11)
+is held to the same bounds; a decode step of a small GPT stack on the
+card to the same step on the CPU within 1e-4 of max|logit| (products
+and sums in another order through two blocks, TF32 off).
 """
 
 import pytest
@@ -317,7 +321,7 @@ def test_flash_attention_routes_and_reads_in_place_on_card(cuda, dtype):
     torch.cuda.synchronize()
     delta = {n: tfa.launches[n] - before[n] for n in before}
     assert delta == {"flash_fwd": 0, "flash_block": 1, "flash_bwd_dkdv": 1,
-                     "flash_bwd_dq": 1}
+                     "flash_bwd_dq": 1, "flash_decode": 0}
     ref_in = qkv.detach().cpu().float().requires_grad_(True)
     rq, rk, rv = [x.reshape(b, t, h, d).to(dt)
                   for x in ref_in.split(h * d, dim=-1)]
@@ -373,3 +377,119 @@ def test_flash_attention_pads_other_head_dims_on_card(cuda):
     ref.square().sum().backward()
     _flash_close(out.cpu(), ref.detach(), torch.float32)
     _flash_close(qs.grad.cpu(), qc.grad, torch.float32)
+
+
+# -- flash decode: B11 --------------------------------------------------------
+
+def _decode_inputs(dt, s, t, h, d, lens, seed, dev, strided=False):
+    """q as a column slice of a fused projection; k, v contiguous, or
+    (``strided``) the K and V halves of one (S, T, 2, H, D) buffer."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = (torch.randn(s, 3 * h * d, generator=g) * 0.5).to(dev, dt)
+    q = qkv[:, :h * d].reshape(s, h, d)
+    if strided:
+        kv = (torch.randn(s, t, 2, h, d, generator=g) * 0.5).to(dev, dt)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        k, v = [(torch.randn(s, t, h, d, generator=g) * 0.5).to(dev, dt)
+                for _ in range(2)]
+    km = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+    return q, k, v, km
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("t,lens,strided", [
+    (128, (17, 128, 1, 0), False), (512, (511, 3, 0, 300), True),
+    (2048, (1, 2048, 700, 1500), False)])
+def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, d, t, lens,
+                                                   strided):
+    # mixed lengths, a slot with no valid key (a uniform average), and
+    # q, k, v read through their strides
+    dt = getattr(torch, dtype)
+    q, k, v, km = _decode_inputs(dt, len(lens), t, 3, d, lens, 11, cuda,
+                                 strided)
+    assert strided == (not k.is_contiguous())
+    before = tfa.launches["flash_decode"]
+    got = tfa.flash_decode_attention(q, k, v, km, d ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_decode"] == before + 1
+    _flash_close(got, tfa.flash_decode_ref(q, k, v, km.float(), d ** -0.5),
+                 dt)
+    dead = [i for i, n in enumerate(lens) if n == 0]
+    for i in dead:
+        _flash_close(got[i], v[i].float().mean(0).to(dt), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_int8_cache_and_repeat_on_card(cuda, dtype):
+    # int8 views are dequantized before the kernel; the groups merge in
+    # a fixed order, so a second launch gives the same bits
+    from analytics_zoo_tpu_torch.ops import kv_cache as tkv
+    dt = getattr(torch, dtype)
+    q, k, v, km = _decode_inputs(dt, 4, 256, 2, 64, (5, 256, 0, 130), 12,
+                                 cuda)
+    (kq, ks), (vq, vs) = tkv.quantize_rows(k), tkv.quantize_rows(v)
+    got = tfa.flash_decode_attention(q, kq, vq, km, 0.125, k_scales=ks,
+                                     v_scales=vs)
+    again = tfa.flash_decode_attention(q, kq, vq, km, 0.125, k_scales=ks,
+                                       v_scales=vs)
+    want = tfa.flash_decode_ref(q, tkv.dequantize_rows(kq, ks, dt),
+                                tkv.dequantize_rows(vq, vs, dt),
+                                km.float(), 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _flash_close(got, want, dt)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, km = _decode_inputs(torch.float32, 2, 200, 2, 64, (3, 4), 13,
+                                 cuda)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        tfa.flash_decode_attention(q, k, v, km, 0.125)
+    q, k, v, km = _decode_inputs(torch.float16, 2, 128, 2, 64, (3, 4), 13,
+                                 cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_decode_attention(q, k, v, km, 0.125)
+    q, k, v, km = _decode_inputs(torch.float32, 2, 128, 2, 64, (3, 4), 13,
+                                 cuda)
+    with pytest.raises(ValueError):
+        tfa.flash_decode_attention(q, k.cpu(), v, km, 0.125)
+
+
+@pytest.mark.cuda
+def test_decode_step_through_b11_on_card_matches_cpu(cuda):
+    # a small GPT stack's prefill + decode steps on the card ("auto"
+    # routes T = 2048 to B11) against the same steps on the CPU
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer \
+        import TransformerLayer
+    net = TransformerLayer(n_block=2, hidden_size=64, n_head=2,
+                           seq_len=2048, vocab=97, hidden_p_drop=0.0,
+                           attn_p_drop=0.0, embed_p_drop=0.0)
+    from analytics_zoo_tpu_torch.bridge import params_from_numpy
+    params = net.build(torch.Generator().manual_seed(14), (2048,))
+    on = {"cpu": params, "cuda": params_from_numpy(params, cuda)}
+    g = torch.Generator().manual_seed(15)
+    ids = torch.randint(1, 97, (3, 16), generator=g)
+    plens = torch.tensor([16, 5, 9], dtype=torch.int32)
+    logits = {}
+    for dev, p in on.items():
+        cache = net.init_kv_cache(3, 2048, page_size=16, device=dev)
+        with torch.no_grad():
+            cache, lg = net.prefill(p, cache, ids.to(dev), plens.to(dev))
+            steps = [lg]
+            tok = lg.argmax(-1).to(torch.int32)
+            before = tfa.launches["flash_decode"]
+            for _ in range(3):
+                cache, lg = net.decode_step(p, cache, tok)
+                steps.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+        logits[dev] = torch.stack(steps).cpu()
+        assert tfa.launches["flash_decode"] - before == \
+            (6 if dev == "cuda" else 0)
+    scale = logits["cpu"].abs().max().item()
+    assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= \
+        1e-4 * scale
