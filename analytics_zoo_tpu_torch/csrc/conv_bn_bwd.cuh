@@ -13,7 +13,8 @@
 //     dxp = mask(g @ W^T), mask = relu_in? xa > 0 : 1
 //     dx = affine_in? dxp s : dxp;  dr = dxp;
 //     ds[k] = sum_m dxp x,  dt[k] = sum_m dxp  (per-block partials)
-// - dW kernel (replaces `_dw_kernel`):
+// - dW kernel (replaces `_dw_kernel`; f32 here, bf16 in
+//   matmul_bn_dw_sm90.cuh):
 //     dW = xp^T @ g over all M rows, f32 accumulation
 // Both products take g and xp rounded to the activation type (bf16
 // operands on the tensor cores, or f32 FMA), as the reference does; the
@@ -306,72 +307,6 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---- dW partial = xp^T @ g over one split of M: rows k, columns n -----
-
-__global__ void __launch_bounds__(128)
-    conv_bn_dw_bf16_kernel(BwdArgs a) {
-  using Tx = __nv_bfloat16;
-  constexpr int kLds = kBK + 8;
-  __shared__ __align__(16) Tx As[kBM][kLds];  // xp [k][m]
-  __shared__ __align__(16) Tx Bs[kBN][kLds];  // g [n][m]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int k0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int mb = blockIdx.z * a.m_chunk;
-  const int me = min(a.M, mb + a.m_chunk);
-
-  const int sm = tid >> 2;           // staged reduction row (m) 0 .. 31
-  const int sc = (tid & 3) * 16;     // staged columns (k or n) sc .. +15
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int m = mb; m < me; m += kBK) {
-    float xv[16], gv[16];
-    if (m + sm < me) {
-      load_xp<Tx, 16>(a, m + sm, k0 + sc, xv);
-      load_g<Tx, 16>(a, m + sm, n0 + sc, gv);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) xv[j] = gv[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      As[sc + j][sm] = __float2bfloat16(xv[j]);
-      Bs[sc + j][sm] = __float2bfloat16(gv[j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16)
-      warp_mma_32x32<kLds>(acc, As, Bs, wm * 32, wn * 32, ks, g, t4);
-    __syncthreads();
-  }
-
-  float* p = a.partial + static_cast<int64_t>(blockIdx.z) * a.K * a.N;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = k0 + wm * 32 + mi * 16 + g + 8 * h;
-        store2(p + static_cast<int64_t>(row) * a.N + col,
-               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-  }
-}
 
 __global__ void __launch_bounds__(256)
     conv_bn_dw_f32_kernel(BwdArgs a) {

@@ -23,7 +23,8 @@
 // Replaces the TPU's Pallas kernels of analytics_zoo_tpu/ops/conv_bn.py:
 // `_apply_kernel` (1x1 fold), `_conv3_apply_kernel` (3x3 fold), `_kernel`
 // (the 1x1 with statistics, called by `_matmul_bn_fwd_pallas`) and
-// `_conv3_kernel` (the 3x3 with statistics).
+// `_conv3_kernel` (the 3x3 with statistics; in f32 only: its bf16 path
+// is the wgmma kernel of conv3x3_bn_sm90.cuh).
 //
 // Statistics across blocks: the TPU carries the column sums across a
 // sequential grid; here blocks run in no order, so each block writes its

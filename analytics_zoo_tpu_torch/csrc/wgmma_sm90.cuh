@@ -1,0 +1,304 @@
+// Hopper (sm_90a) building blocks of the redesigned bf16 training
+// kernels (conv3x3_bn_sm90.cuh, matmul_bn_dw_sm90.cuh): asynchronous
+// copies into a ring of shared-memory stages, ldmatrix fragment loads,
+// warpgroup MMA (wgmma) with A in registers and B in shared memory, and
+// the augmented cotangent g of the BN-statistics backward.
+//
+// The B operand layout. Every B tile is 64 reduction rows by BN (64,
+// 128 or 256) columns of bf16, stored MN-major (columns contiguous) in
+// the canonical 128-byte-swizzled form that wgmma reads: column block
+// nb = n / 64 holds 64 rows of 128 bytes (8 KB), and the 16-byte chunk
+// j of row r sits at chunk j ^ (r % 8) of its row. The tile base is
+// 1024-byte aligned, so the swizzle is the hardware's address swizzle.
+// Its descriptor: 8-row groups 1024 bytes apart (stride byte offset),
+// 64-column blocks 8192 bytes apart (leading byte offset), and the
+// transpose flag set because B is MN-major.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace zoo {
+namespace sm90 {
+
+constexpr int kSliceRows = 64;               // reduction depth of a slice
+constexpr int kColBlockBytes = kSliceRows * 128;  // one 64-column block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros
+// (the source address is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders this thread's generic-proxy shared writes (st.shared and
+// completed cp.async) before later async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  return __bfloat1622float2(h);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Byte offset of chunk j (columns 8j .. 8j + 7) of reduction row r in a
+// B tile (see the note at the top).
+__device__ __forceinline__ uint32_t btile_offset(int r, int j) {
+  return (j >> 3) * kColBlockBytes + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma descriptor of the B tile's rows 16 kk .. 16 kk + 15 (kk = the
+// k16 step) at shared address `tile`.
+__device__ __forceinline__ uint64_t btile_desc(uint32_t tile, int kk) {
+  const uint32_t start = tile + kk * 16 * 128;
+  uint64_t d = static_cast<uint64_t>((start & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>(kColBlockBytes >> 4) << 16;  // leading: MN
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;            // stride: 8 rows
+  d |= 1ull << 62;                                        // 128B swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// scale_d 0 makes a product overwrite d instead of adding to it: the
+// first product of a tile starts the sums, so no instruction other than
+// wgmma defines the accumulators (ptxas serialises every wgmma of a
+// function where one does while a wgmma may be pending).
+//
+// Accumulator layout of m64nNk16 (per thread of a warpgroup, warp q of
+// its 4, lane = 4 g + t4): d[4i + e] sits at row 16 q + g + 8 (e / 2),
+// column 8 i + 2 t4 + e % 2. A fragment (4 registers of 2 bf16): a[0]
+// row 16 q + g, columns 2 t4, +1; a[1] row + 8; a[2] columns + 8;
+// a[3] both; the m16n8k16 layout, one warp per 16 rows.
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, bf16,
+// MN-major in shared memory: desc_b)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, bf16,
+// MN-major in shared memory: desc_b)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 256, f32) += A (64 x 16, bf16 registers) * B (16 x 256, bf16,
+// MN-major in shared memory: desc_b)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b,
+                                                 int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Pins registers in place: the compiler may not move their reads or
+// writes across this point. On the accumulators only once no wgmma is
+// in flight (after wgmma_wait<0>): ptxas serialises every wgmma of a
+// function that defines an accumulator while one is pending. On the A
+// fragments just before wgmma_fence, so that their last writes are not
+// sunk past it into the pipeline stage (which serialises them too).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
+                 "+r"(a[i][3])::"memory");
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b,
+                                           int scale_d = 1) {
+  static_assert(BN == 64 || BN == 128 || BN == 256,
+                "B tiles are 64, 128 or 256 wide");
+  if constexpr (BN == 64)
+    wgmma_m64n64k16(d, a, desc_b, scale_d);
+  else if constexpr (BN == 128)
+    wgmma_m64n128k16(d, a, desc_b, scale_d);
+  else
+    wgmma_m64n256k16(d, a, desc_b, scale_d);
+}
+
+// The augmented cotangent of the BN-statistics backward for 8
+// consecutive columns: g = (dy + dsum) + 2 (y - sh) dsq, the sums of y
+// and (y - sh)^2 folded into y's cotangent, rounded to bf16 (the
+// reference rounds g to the compute type before its products). The
+// column constants stay in registers for a block's whole loop; dsq is
+// kept doubled (2 (y - sh) dsq = (y - sh) (2 dsq) exactly), so g is one
+// add, one subtract and one fused multiply-add.
+struct GCols {
+  float dsum[8], sh[8], dsq2[8];
+
+  __device__ __forceinline__ void load(const float* dsum_, const float* sh_,
+                                       const float* dsq_, int n) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dsum[j] = dsum_[n + j];
+      sh[j] = sh_[n + j];
+      dsq2[j] = 2.f * dsq_[n + j];
+    }
+  }
+
+  // raw dy and y chunks -> the g chunk (zeros where !valid)
+  __device__ __forceinline__ uint4 g(uint4 dy, uint4 y, bool valid) const {
+    const uint32_t* dv = reinterpret_cast<const uint32_t*>(&dy);
+    const uint32_t* yv = reinterpret_cast<const uint32_t*>(&y);
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 d2 = unpack_bf16x2(dv[p]);
+      const float2 y2 = unpack_bf16x2(yv[p]);
+      const int j = 2 * p;
+      const float g0 = fmaf(y2.x - sh[j], dsq2[j], d2.x + dsum[j]);
+      const float g1 =
+          fmaf(y2.y - sh[j + 1], dsq2[j + 1], d2.y + dsum[j + 1]);
+      o[p] = valid ? pack_bf16x2(g0, g1) : 0u;
+    }
+    return out;
+  }
+};
+
+}  // namespace sm90
+}  // namespace zoo

@@ -20,7 +20,10 @@ or reduces this BN's batch statistics from the f32 accumulator
 The forward kernels are one implicit-GEMM template
 (``csrc/conv_bn_fwd.cuh``), the backward products a second
 (``csrc/conv_bn_bwd.cuh``), and every cross-block sum a fixed-order
-second pass (``csrc/colsum.cuh``); each header's note says what bounds
+second pass (``csrc/colsum.cuh``). B2 and B4 run their bf16 paths on
+Hopper's warpgroup MMA instead, fed by a ring of asynchronous copies
+(``csrc/conv3x3_bn_sm90.cuh``, ``csrc/matmul_bn_dw_sm90.cuh``); their
+f32 paths stay on the templates. Each header's note says what bounds
 its kernels on the H100 and what the design does about it. Each
 wrapper takes the plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises, and counts the
@@ -75,8 +78,8 @@ _SIGNATURES = {
     # M, K, N, affine_in, relu_in, bf16, stream
     "matmul_bn_dx": [_P] * 15 + [_I] * 6 + [_P],
     # dy, y, x, s, t, r, sh, dsum, dsq, partial, work, dw,
-    # M, K, N, affine_in, relu_in, splits, m_chunk, bf16, stream
-    "matmul_bn_dw": [_P] * 12 + [_I] * 8 + [_P],
+    # M, K, N, affine_in, relu_in, splits, m_chunk, bk, bn, bf16, stream
+    "matmul_bn_dw": [_P] * 12 + [_I] * 10 + [_P],
 }
 _fns = {}
 
@@ -554,27 +557,60 @@ def _matmul_bn_dw(x, s, t, r, sh, y, dy, dsum, dsq, relu_in, affine_in):
     _check_cuda(name, x, r=r, y=y, dy=dy)
     m, k = x.shape
     n = y.shape[1]
-    dw = torch.zeros((k, n), dtype=torch.float32, device=x.device)
-    if m:
-        splits, chunk = dw_splits(m, k, n)
+    bf16 = x.dtype == torch.bfloat16
+    if not m:
+        return torch.zeros((k, n), dtype=x.dtype, device=x.device)
+    splits, chunk = dw_splits(m, k, n, x.dtype)
+    if bf16:
+        # the kernel sums its splits straight into the bf16 dW
+        partial, work = torch.empty(splits * k * n, dtype=torch.float32,
+                                    device=x.device), None
+        dw = torch.empty((k, n), dtype=x.dtype, device=x.device)
+    else:
         partial, work = _partials(splits, k * n, x)
-        _launch(name, x.device, _ptr(dy), _ptr(y), _ptr(x), _ptr(s),
-                _ptr(t), _ptr(r), _ptr(sh), _ptr(dsum), _ptr(dsq),
-                _ptr(partial), _ptr(work), _ptr(dw), m, k, n,
-                int(affine_in), int(relu_in), splits, chunk,
-                int(x.dtype == torch.bfloat16))
+        dw = torch.zeros((k, n), dtype=torch.float32, device=x.device)
+    bk, bn = dw_tile(k, n)
+    _launch(name, x.device, _ptr(dy), _ptr(y), _ptr(x), _ptr(s), _ptr(t),
+            _ptr(r), _ptr(sh), _ptr(dsum), _ptr(dsq), _ptr(partial),
+            _ptr(work), _ptr(dw), m, k, n, int(affine_in), int(relu_in),
+            splits, chunk, bk, bn, int(bf16))
     return dw.to(x.dtype)
 
 
-def dw_splits(m: int, k: int, n: int, blocks: int = 4 * 132):
-    """``(splits, rows per split)`` of B4's M reduction: enough splits
-    that the (K/64)(N/64) output tiles times the splits make about
-    ``blocks`` blocks (four per H100 SM), each split a multiple of 32
-    rows (the kernel's reduction slice)."""
-    tiles = (k // 64) * (n // 64)
-    splits = max(1, min(-(-m // 32), -(-blocks // tiles)))
-    chunk = -(-(-(-m // splits)) // 32) * 32
+def dw_tile(k: int, n: int) -> Tuple[int, int]:
+    """B4's bf16 output tile ``(BK, BN)``, which the wgmma kernel is
+    launched with: 128 rows where K allows, else 64, and 128 columns
+    where N allows, else 64."""
+    return (128 if k % 128 == 0 else 64), (128 if n % 128 == 0 else 64)
+
+
+def dw_splits(m: int, k: int, n: int,
+              dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """``(splits, rows per split)`` of B4's M reduction, each split a
+    whole number of the kernel's reduction slices. bf16 (the wgmma
+    kernel): :func:`dw_tile`'s tiles and 64-row slices, and as many
+    splits as fill one wave of blocks on the H100's 132 SMs (two blocks
+    per SM for 64-column tiles, else one), so every block runs at once
+    and the splits stay few and large. f32 (the FMA kernel): 64x64
+    tiles, 32-row slices, about four blocks per SM."""
+    if dtype == torch.bfloat16:
+        (bk, bn), depth = dw_tile(k, n), 64
+        tiles = (k // bk) * (n // bn)
+        want = max(1, 132 * (2 if bn == 64 else 1) // tiles)
+    else:
+        depth, tiles = 32, (k // 64) * (n // 64)
+        want = -(-4 * 132 // tiles)
+    splits = max(1, min(-(-m // depth), want))
+    chunk = -(-(-(-m // splits)) // depth) * depth
     return -(-m // chunk), chunk
+
+
+def conv3x3_bn_partial_rows(m: int, dtype: torch.dtype) -> int:
+    """Rows to allocate for B2's statistics partials, one per M tile:
+    bf16 tiles have 128 or 256 rows (``csrc/conv3x3_bn_sm90.cuh`` picks),
+    so one per 128 rows covers either; f32 tiles have 64
+    (``csrc/conv_bn_fwd.cuh``)."""
+    return -(-m // (128 if dtype == torch.bfloat16 else 64))
 
 
 def _conv3x3_bn_fwd(x, w, s, t, sh, relu_in, affine_in, stride):
@@ -593,7 +629,8 @@ def _conv3x3_bn_fwd(x, w, s, t, sh, relu_in, affine_in, stride):
     stats = torch.zeros(2 * cout, dtype=torch.float32, device=x.device)
     m = b * ho * wo
     if m:
-        partial, work = _partials(-(-m // 64), 2 * cout, x)
+        partial, work = _partials(conv3x3_bn_partial_rows(m, x.dtype),
+                                  2 * cout, x)
         bf16 = int(x.dtype == torch.bfloat16)
         _launch(name, x.device, _ptr(x), _ptr(w), _ptr(s), _ptr(t),
                 _ptr(sh), _ptr(y), _ptr(partial), _ptr(work), _ptr(stats),

@@ -17,8 +17,11 @@ script exits non-zero and prints no result line:
    library-call and bound times: the eval folds (B5, B6) at ResNet-50's
    serving shapes (224x224, batch 32, plus batch 1's M = 49 and
    prologue cases), the training kernels (B1-B4) at its train-step
-   shapes (batch 128, plus residual and ragged-M cases), in f32 and
-   bf16;
+   shapes (batch 128, plus residual and ragged-M cases; B2 also at Cin
+   128 and 256 on a small ragged M and stride 2 at an odd extent, B4 at
+   K 64 / N 64 on a ragged M and K 2048 / N 512 with a residual and no
+   affine), in f32 and bf16; the build prints each wgmma kernel's
+   registers and spills;
 4. serving: ``ImageClassifier("resnet-50", fused=True)`` at full width
    with seeded random weights and distinctive BatchNorm statistics,
    served by ``InferenceModel`` to requests from two threads at batch
@@ -414,16 +417,24 @@ def train_shapes(model, batch):
 def train_cases(b1, b2):
     """(kernel, key, dtype, launches per step) for every train-path shape
     in both dtypes, plus the in_residual prologue (which only the
-    deferred stage layout runs) and ragged M (3 images at 7x7)."""
+    deferred stage layout runs) and ragged M (3 images at 7x7); for B4
+    also K 64 / N 64 at a ragged M (its smallest tile) and K 2048 /
+    N 512 with a residual and no affine; for B2 Cin 128 and 256 at a
+    small ragged M and stride 2 at an odd extent."""
     extra1 = [(TRAIN_BATCH, 56, 56, 256, 64, 1, True, True),
               (3, 7, 7, 2048, 512, 1, True, True)]
+    extra4 = [(3, 7, 7, 64, 64, 1, True, False),
+              (3, 7, 7, 2048, 512, 1, False, True)]
+    extra2 = [(3, 7, 7, 512, 512, 1), (3, 9, 9, 128, 128, 1),
+              (2, 10, 10, 256, 256, 1), (3, 7, 7, 256, 256, 2)]
     cases = []
     for dt in ("float32", "bfloat16"):
         for name in ("matmul_bn", "matmul_bn_dx", "matmul_bn_dw"):
             cases += [(name, k, dt, n) for k, n in sorted(b1.items())]
             cases += [(name, k, dt, 0) for k in extra1]
+        cases += [("matmul_bn_dw", k, dt, 0) for k in extra4]
         cases += [("conv3x3_bn", k, dt, n) for k, n in sorted(b2.items())]
-        cases.append(("conv3x3_bn", (3, 7, 7, 512, 512, 1), dt, 0))
+        cases += [("conv3x3_bn", k, dt, 0) for k in extra2]
     return cases
 
 
@@ -839,9 +850,10 @@ def train_path(card, detail):
 
 TRAIN_KERNEL_NAMES = (
     ("matmul_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, true>"),
-    ("conv3x3_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 3, true>"),
+    ("conv3x3_bn", r"conv3x3_bn(_s1)?_sm90_kernel|"
+                   r"conv_bn_f32_kernel<[^,]+, 3, true>"),
     ("matmul_bn_dx", r"conv_bn_dx_"),
-    ("matmul_bn_dw", r"conv_bn_dw_"),
+    ("matmul_bn_dw", r"matmul_bn_dw_sm90_kernel|conv_bn_dw_f32"),
     ("colsum (B1-B4 second pass)", r"colsum_kernel"),
 )
 
@@ -1276,22 +1288,28 @@ def profile_steps(step, steps, groups):
             kernels[evt.key] += evt.self_device_time_total
     busy_us = sum(kernels.values())
     by_name = collections.Counter()
+    members = collections.defaultdict(set)
     for key, us in kernels.items():
         group = next((g for g, pat in groups if re.search(pat, key)),
                      "other")
         by_name[group] += us
+        if group != "other":
+            members[group].add(key[:90])
     out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "device_ms_per_step": busy_us / steps / 1e3,
            "device_busy_share": busy_us / wall_us if busy_us else None,
            "ms_per_step_by_kernel": {k: v / steps / 1e3
                                      for k, v in by_name.most_common()},
            "top": [(k[:90], v / steps / 1e3)
-                   for k, v in kernels.most_common(12)]}
+                   for k, v in kernels.most_common(12)],
+           "kernels_by_group": {k: sorted(v) for k, v in members.items()}}
     print(f"  profile: device busy {out['device_ms_per_step']:.3f} of "
           f"{out['wall_ms_per_step']:.3f} ms per step (share "
           f"{out['device_busy_share']})", flush=True)
     for k, ms in out["ms_per_step_by_kernel"].items():
-        print(f"    {ms:9.3f} ms per step  {k}", flush=True)
+        names = "; ".join(sorted(members.get(k, ())))
+        print(f"    {ms:9.3f} ms per step  {k}"
+              + (f"  [{names}]" if names else ""), flush=True)
     return out
 
 
@@ -1901,6 +1919,15 @@ def main() -> int:
                      re.findall(r"(\d+) bytes spill stores", log))
         print(f"  {name}: registers per thread {regs}, spill stores "
               f"{spills} bytes", flush=True)
+        for entry in log.split("Compiling entry function '")[1:]:
+            fn = entry.split("'", 1)[0]
+            if "_sm90_kernel" not in fn:
+                continue
+            used = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            print(f"    {fn}: {used.group(1) if used else '?'} registers,"
+                  f" spill stores {spill.group(1) if spill else '?'} "
+                  "bytes", flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
     shapes_net = ImageClassifier("resnet-50", input_shape=IMAGE,

@@ -221,9 +221,41 @@ def test_training_wrappers_validate_like_jax():
 @pytest.mark.parametrize("m,k,n", [(401408, 64, 64), (100, 64, 128),
                                    (6272, 1024, 2048), (31, 64, 64)])
 def test_dw_splits_cover_m_in_32_row_chunks(m, k, n):
-    splits, chunk = tcb.dw_splits(m, k, n)
-    assert chunk % 32 == 0 and splits * chunk >= m > (splits - 1) * chunk
-    assert (k // 64) * (n // 64) * splits <= 4 * 132 + (k // 64) * (n // 64)
+    # f32 (the FMA kernel): 64x64 tiles, 32-row chunks, about four blocks
+    # per SM; bf16 (the wgmma kernel): dw_tile's tiles, chunks of its
+    # 64-row slices (so of 32 rows too), at most one wave of blocks (two
+    # per SM for 64-column tiles, else one) unless the tiles alone exceed
+    # it
+    for dtype in (torch.float32, torch.bfloat16):
+        splits, chunk = tcb.dw_splits(m, k, n, dtype)
+        if dtype == torch.float32:
+            (bk, bn), depth, blocks = (64, 64), 32, 4 * 132
+        else:
+            (bk, bn), depth = tcb.dw_tile(k, n), 64
+            blocks = 132 * (2 if bn == 64 else 1)
+        tiles = (k // bk) * (n // bn)
+        assert chunk % depth == 0 and chunk % 32 == 0
+        assert splits * chunk >= m > (splits - 1) * chunk
+        assert tiles * splits <= blocks + tiles
+        if dtype == torch.bfloat16:
+            assert splits == 1 or tiles * splits <= blocks
+
+
+def test_b4_tiles_and_b2_partial_rows():
+    # B4's bf16 tile follows K and N (128 where they allow, else 64); B2's
+    # statistics partials hold one row per M tile: 128 rows in bf16, 64
+    # in f32
+    assert tcb.dw_tile(64, 64) == (64, 64)
+    assert tcb.dw_tile(64, 256) == (64, 128)
+    assert tcb.dw_tile(256, 64) == (128, 64)
+    assert tcb.dw_tile(2048, 512) == (128, 128)
+    assert tcb.dw_splits(401408, 64, 64, torch.bfloat16) == (262, 1536)
+    assert tcb.dw_splits(6272, 1024, 2048, torch.bfloat16) == (1, 6272)
+    assert tcb.dw_splits(25088, 1024, 256, torch.bfloat16) == (8, 3136)
+    assert tcb.conv3x3_bn_partial_rows(401408, torch.bfloat16) == 3136
+    assert tcb.conv3x3_bn_partial_rows(147, torch.bfloat16) == 2
+    assert tcb.conv3x3_bn_partial_rows(147, torch.float32) == 3
+    assert tcb.conv3x3_bn_partial_rows(128, torch.bfloat16) == 1
 
 
 def test_colsum_work_floats():

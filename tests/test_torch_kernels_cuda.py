@@ -10,6 +10,11 @@ This file imports no JAX, so it runs on a machine that has none
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
+B2 and B4 alone (their bf16 wgmma kernels and f32 templates):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py \
+        -k "conv3x3_bn or dw"
+
 Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold and atol 1e-3 for the
 3x3 (sums in another order, TF32 off); 2e-2 wherever a bf16 operand or
 output is involved (one bf16 rounding, 2^-8 relative). The flash
@@ -22,6 +27,8 @@ is held to the same bounds; a decode step of a small GPT stack on the
 card to the same step on the CPU within 1e-4 of max|logit| (products
 and sums in another order through two blocks, TF32 off).
 """
+
+import re
 
 import pytest
 import torch
@@ -190,6 +197,110 @@ def test_training_kernels_repeat_bit_for_bit(cuda):
             False)
     assert torch.equal(tcb._matmul_bn_dw(x2, *args),
                        tcb._matmul_bn_dw(x2, *args))
+    # B2's y and statistics (bf16: the wgmma kernel, many M tiles)
+    w3 = (torch.randn(3, 3, 256, 128, generator=g) * 0.02).to(cuda)
+    s = (torch.rand(256, generator=g) + 0.5).to(cuda)
+    t = (torch.randn(256, generator=g) * 0.1).to(cuda)
+    sh3 = (torch.randn(128, generator=g) * 0.1).to(cuda)
+    a = tcb._conv3x3_bn_fwd(x, w3, s, t, sh3, True, True, 1)
+    b = tcb._conv3x3_bn_fwd(x, w3, s, t, sh3, True, True, 1)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    # B4 with the affine and a residual over several splits
+    r = torch.randn(x2.shape[0], 256, generator=g).to(cuda, torch.bfloat16)
+    y = a[0].reshape(-1, 128)
+    dy = torch.randn(x2.shape[0], 128, generator=g).to(cuda, torch.bfloat16)
+    args = (s, t, r, sh3, y, dy, sh3 * 0.5, sh3 * 0.1, True, True)
+    assert torch.equal(tcb._matmul_bn_dw(x2, *args),
+                       tcb._matmul_bn_dw(x2, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [64, 128, 256, 512])
+@pytest.mark.parametrize("b,h,w,stride", [(3, 7, 7, 1), (2, 14, 14, 1),
+                                          (2, 10, 10, 2), (3, 9, 9, 2)])
+def test_conv3x3_bn_widths_match_plain_on_card(cuda, dtype, channels, b, h,
+                                               w, stride):
+    # B2 at every ResNet width (bf16: the wgmma kernel's 64- and 128-wide
+    # tiles, f32: the FMA template) on ragged M, strides 1 and 2 at even
+    # and odd extents
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(16)
+    c = channels
+    x = torch.randn(b, h, w, c, generator=g).to(cuda, dt)
+    wt = (torch.randn(3, 3, c, c, generator=g) * (9 * c) ** -0.5).to(cuda)
+    s = (torch.rand(c, generator=g) + 0.5).to(cuda)
+    t = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    sh = (torch.randn(c, generator=g) * 0.1).to(cuda)
+    before = tcb.launches["conv3x3_bn"]
+    got = tcb._conv3x3_bn_fwd(x, wt, s, t, sh, True, True, stride)
+    want = tcb.conv3x3_bn_ref(x, wt, s, t, sh, True, True, stride)
+    torch.cuda.synchronize()
+    assert tcb.launches["conv3x3_bn"] == before + 1
+    for a, b_ in zip(got, want):
+        _close(a, b_, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(64, 64), (64, 256), (256, 64),
+                                 (1024, 256), (512, 2048), (2048, 512)])
+@pytest.mark.parametrize("affine,residual", [(True, True), (False, False),
+                                             (True, False), (False, True)])
+def test_matmul_bn_dw_tiles_match_plain_on_card(cuda, dtype, k, n, affine,
+                                                residual):
+    # B4 at each tile shape (BK and BN of 64 or 128) on a ragged M of 700
+    # rows over several splits, with and without the affine and residual
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(17)
+    m = 700
+    x = torch.randn(m, k, generator=g).to(cuda, dt)
+    s = (torch.rand(k, generator=g) + 0.5).to(cuda) if affine else None
+    t = (torch.randn(k, generator=g) * 0.1).to(cuda) if affine else None
+    r = torch.randn(m, k, generator=g).to(cuda, dt) if residual else None
+    sh = (torch.randn(n, generator=g) * 0.1).to(cuda)
+    y = torch.randn(m, n, generator=g).to(cuda, dt)
+    dy = torch.randn(m, n, generator=g).to(cuda, dt)
+    dsum = (torch.randn(n, generator=g) * 0.1).to(cuda)
+    dsq = (torch.randn(n, generator=g) * 0.01).to(cuda)
+    grads = (y, dy, dsum, dsq, affine, affine)
+    assert tcb.dw_splits(m, k, n, dt)[0] > 1
+    before = tcb.launches["matmul_bn_dw"]
+    got = tcb._matmul_bn_dw(x, s, t, r, sh, *grads)
+    torch.cuda.synchronize()
+    assert tcb.launches["matmul_bn_dw"] == before + 1
+    _close(got, tcb.matmul_bn_dw_ref(x, s, t, r, sh, *grads), dt)
+
+
+@pytest.mark.cuda
+def test_bf16_runs_the_wgmma_kernels_and_f32_the_templates(cuda):
+    # B2 and B4 dispatch by dtype: bf16 to the sm90 kernels, f32 to the
+    # FMA templates; one launch counted per call either way
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(18)
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(2, 8, 8, 64, generator=g).to(cuda, dtype)
+        w = (torch.randn(3, 3, 64, 64, generator=g) * 0.05).to(cuda)
+        sh = torch.zeros(64, device=cuda)
+        x2 = x.reshape(-1, 64)
+        dy = torch.randn(128, 64, generator=g).to(cuda, dtype)
+        before = dict(tcb.launches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tcb._conv3x3_bn_fwd(x, w, None, None, sh, False, False, 1)
+            tcb._matmul_bn_dw(x2, None, None, None, sh, x2, dy, sh, sh,
+                              False, False)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+        assert tcb.launches["conv3x3_bn"] == before["conv3x3_bn"] + 1
+        assert tcb.launches["matmul_bn_dw"] == before["matmul_bn_dw"] + 1
+    bf, f32 = names[torch.bfloat16], names[torch.float32]
+    assert re.search(r"conv3x3_bn(_s1)?_sm90_kernel", bf)
+    assert "conv_bn_f32_kernel" not in bf
+    assert "matmul_bn_dw_sm90_kernel" in bf and "conv_bn_dw_f32" not in bf
+    assert "conv_bn_f32_kernel" in f32 and "_sm90_kernel" not in f32
+    assert "conv_bn_dw_f32_kernel" in f32
 
 
 @pytest.mark.cuda
