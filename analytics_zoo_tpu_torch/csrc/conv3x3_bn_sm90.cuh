@@ -1,18 +1,21 @@
-// The training 3x3 SAME conv + BN statistics in bf16 for Hopper
-// (sm_90a): an implicit GEMM on warpgroup MMA (wgmma) fed by a ring of
-// asynchronous copies.
+// The 3x3 SAME conv + BN in bf16 for Hopper (sm_90a), training (with
+// the BN statistics) and eval (with the BN fold): an implicit GEMM on
+// warpgroup MMA (wgmma) fed by a ring of asynchronous copies.
 //
-// Replaces the TPU's Pallas kernel `_conv3_kernel` of
+// Replaces the TPU's Pallas kernels `_conv3_kernel` of
 // analytics_zoo_tpu/ops/conv_bn.py (driver `_conv3_fwd_pallas`, public
-// `conv3x3_bn`), and on this card the bf16 instance of
-// conv_bn_fwd.cuh's template, which keeps the f32 path. It computes
+// `conv3x3_bn`; B2) and `_conv3_apply_kernel` (public
+// `conv3x3_bn_apply`; B6), and on this card the bf16 instances of
+// conv_bn_fwd.cuh's template, which keeps the f32 paths. The kernels
+// take an epilogue flag: kFold = false (B2) computes
 //     acc[m, n] = sum_(tap, c) A[m, (tap, c)] W[(tap, c), n]
 //     A[m, (tap, c)] = relu_in?(affine_in?(x[pixel(m, tap), c] s[c] + t[c]))
 //                      where the tap falls inside the image, else 0
 //     y = bf16(acc); per column sum(acc - sh), sum((acc - sh)^2) over
 //     the rows m < M
 // as conv_bn_fwd.cuh does (any extent, stride 1 or 2, TF-SAME low pads,
-// ragged M; the row geometry is its row_geom).
+// ragged M; the row geometry is its row_geom); kFold = true (B6) ends
+// instead in y = bf16(relu_out?(acc os + ot)) and writes no statistics.
 //
 // What bounds it on the H100: 2 M 9 Cin Cout FLOP against the bytes of
 // x, W and y: at ResNet-50's train-step shapes (batch 128) some 29.6
@@ -61,6 +64,15 @@
 //   fixed order, one partial row per M tile (the row index is the M
 //   tile), which colsum.cuh sums in a fixed order: a launch repeats bit
 //   for bit.
+// - The eval fold (B6) serves batches of 1 to 32, M from 49 to 100,352
+//   rows, where a fixed tile would leave most SMs idle at small M: the
+//   caller picks the kernel and tile by M (`conv3x3_apply_tile` in
+//   ops/conv_bn.py, launch_fold here); its epilogue applies the fold to
+//   the f32 accumulators and stores y through the same staging. The
+//   design it replaces (mma.sync on 64x64 tiles, one synchronous stage,
+//   the prologue per tap, each activation row read per tap and the
+//   weights per 64-row tile) took 1.693 ms per bf16 batch-32 forward
+//   (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py), 5.0x cuDNN.
 // - What still holds it back (PERF.md): each block fills its ring and
 //   runs its epilogue alone, against only 9-72 slices, and the slices
 //   themselves run well below the tensor cores' rate; ptxas serialises
@@ -194,21 +206,47 @@ __device__ __forceinline__ void store_tile(const ConvBnArgs& a,
   }
 }
 
-// Four k16 A fragments (see wgmma_sm90.cuh) of a 64-channel slice stored
-// as 128-byte rows at `base` (row r's chunk j at chunk j ^ (r % 8));
-// `row` is this lane's ldmatrix row. The rows whose tap is invalid are
-// zeroed: v0 for rows g, v1 for rows g + 8.
-__device__ __forceinline__ void load_fragments(uint32_t (&af)[4][4],
-                                               uint32_t base, int row,
-                                               int lane, bool v0, bool v1) {
+// The eval fold's epilogue (B6) from the f32 accumulators of a BM x BN
+// tile: y = relu_out?(acc os + ot), staged through shared memory and
+// written in 16-byte stores; no statistics.
+template <int BN, int BM, int T>
+__device__ __forceinline__ void store_fold_tile(const ConvBnArgs& a,
+                                                const float (&acc)[BN / 2],
+                                                uint8_t* smem, int m0,
+                                                int n0, int M, int fr,
+                                                int tid) {
+  constexpr int kPitch = BN + 8;   // staged y row, in bf16
+  const int t4 = tid & 3;
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int chunk = kk * 2 + (lane >> 4);
-    sm90::ldsm_x4(base + row * 128 + ((chunk ^ (row & 7)) << 4), af[kk]);
-    af[kk][0] = v0 ? af[kk][0] : 0u;
-    af[kk][1] = v1 ? af[kk][1] : 0u;
-    af[kk][2] = v0 ? af[kk][2] : 0u;
-    af[kk][3] = v1 ? af[kk][3] : 0u;
+  for (int i = 0; i < BN / 8; ++i) {
+    const int col = 8 * i + 2 * t4;
+    const float2 os = *reinterpret_cast<const float2*>(a.out_scale + n0 +
+                                                       col);
+    const float2 ot = *reinterpret_cast<const float2*>(a.out_shift + n0 +
+                                                       col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = fmaf(acc[4 * i + 2 * h], os.x, ot.x);
+      float v1 = fmaf(acc[4 * i + 2 * h + 1], os.y, ot.y);
+      if (a.relu_out) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      *reinterpret_cast<uint32_t*>(&ys[(fr + 8 * h) * kPitch + col]) =
+          sm90::pack_bf16x2(v0, v1);
+    }
+  }
+  __syncthreads();
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y);
+  constexpr int kRowChunks = BN / 8;
+  for (int c = tid; c < BM * kRowChunks; c += T) {
+    const int r = c / kRowChunks;
+    const int j = c - r * kRowChunks;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(y + static_cast<int64_t>(m0 + r) * a.N +
+                                n0 + j * 8) =
+          *reinterpret_cast<const uint4*>(&ys[r * kPitch + j * 8]);
   }
 }
 
@@ -262,7 +300,7 @@ inline int smem_bytes(int cin) {
   return Cfg<BN>::kRingBytes + 8 * cin + 1024;
 }
 
-template <int BN>
+template <int BN, bool kFold>
 __global__ void __launch_bounds__(kThreads, (Cfg<BN>::kMinBlocks))
     conv3x3_bn_sm90_kernel(ConvBnArgs a) {
   using C = Cfg<BN>;
@@ -352,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BN>::kMinBlocks))
     const int c0 = k0 - tap * cin;
     const bool v0 = (fmask0 >> tap) & 1u;
     const bool v1 = (fmask1 >> tap) & 1u;
-    load_fragments(af, aslot, lrow, lane, v0, v1);
+    sm90::load_fragments(af, aslot, lrow, lane, v0, v1);
     if (a.affine_in || a.relu_in) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -379,7 +417,10 @@ __global__ void __launch_bounds__(kThreads, (Cfg<BN>::kMinBlocks))
 
   sm90::cp_async_wait<0>();
   __syncthreads();
-  store_tile<BN, kBM, kThreads>(a, acc, smem, m0, n0, M, fr, tid);
+  if constexpr (kFold)
+    store_fold_tile<BN, kBM, kThreads>(a, acc, smem, m0, n0, M, fr, tid);
+  else
+    store_tile<BN, kBM, kThreads>(a, acc, smem, m0, n0, M, fr, tid);
 }
 
 // ---- stride 1: one window per channel slice serves all nine taps -------
@@ -422,7 +463,7 @@ inline bool s1_fits(int cin, int w) {
                  windows(cin) * window_bytes<BN>(w);
 }
 
-template <int BN>
+template <int BN, bool kFold>
 __global__ void __launch_bounds__(S1<BN>::kThreads, S1<BN>::kMinBlocks)
     conv3x3_bn_s1_sm90_kernel(ConvBnArgs a, int win_rows, int win_bytes) {
   using P = S1<BN>;
@@ -549,7 +590,7 @@ __global__ void __launch_bounds__(S1<BN>::kThreads, S1<BN>::kMinBlocks)
       __syncthreads();
     }
     const int ky = tap / 3;
-    load_fragments(af, win + (cs & 1) * win_bytes,
+    sm90::load_fragments(af, win + (cs & 1) * win_bytes,
                    lrow + ky * a.W + (tap - 3 * ky), lane,
                    (fmask0 >> tap) & 1u, (fmask1 >> tap) & 1u);
     const uint32_t bslot = wring + (sl % S) * kW;
@@ -572,7 +613,10 @@ __global__ void __launch_bounds__(S1<BN>::kThreads, S1<BN>::kMinBlocks)
 
   sm90::cp_async_wait<0>();
   __syncthreads();
-  store_tile<BN, P::kBM, T>(a, acc, smem, m0, n0, M, fr, tid);
+  if constexpr (kFold)
+    store_fold_tile<BN, P::kBM, T>(a, acc, smem, m0, n0, M, fr, tid);
+  else
+    store_tile<BN, P::kBM, T>(a, acc, smem, m0, n0, M, fr, tid);
 }
 
 // ---- launch -------------------------------------------------------------
@@ -588,38 +632,42 @@ inline int allow_smem(K kernel, int bytes, int* allowed) {
   return 0;
 }
 
-template <int BN>
+template <int BN, bool kFold>
 inline int launch_generic(const ConvBnArgs& a, cudaStream_t stream) {
   static int allowed = 0;
   const int bytes = smem_bytes<BN>(a.Cin);
-  const int err = allow_smem(conv3x3_bn_sm90_kernel<BN>, bytes, &allowed);
+  const int err =
+      allow_smem(conv3x3_bn_sm90_kernel<BN, kFold>, bytes, &allowed);
   if (err != 0) return err;
   const int M = a.B * a.Ho * a.Wo;
   const dim3 grid((M + kBM - 1) / kBM, a.N / BN);
-  conv3x3_bn_sm90_kernel<BN><<<grid, kThreads, bytes, stream>>>(a);
+  conv3x3_bn_sm90_kernel<BN, kFold><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
+template <int BN, bool kFold>
 inline int launch_s1(const ConvBnArgs& a, cudaStream_t stream) {
   using P = S1<BN>;
   static int allowed = 0;
   const int bytes = s1_smem_bytes<BN>(a.Cin, a.W);
   const int err =
-      allow_smem(conv3x3_bn_s1_sm90_kernel<BN>, bytes, &allowed);
+      allow_smem(conv3x3_bn_s1_sm90_kernel<BN, kFold>, bytes, &allowed);
   if (err != 0) return err;
   const int M = a.B * a.Ho * a.Wo;
   const dim3 grid((M + P::kBM - 1) / P::kBM, a.N / BN);
-  conv3x3_bn_s1_sm90_kernel<BN><<<grid, P::kThreads, bytes, stream>>>(
+  conv3x3_bn_s1_sm90_kernel<BN, kFold><<<grid, P::kThreads, bytes,
+                                         stream>>>(
       a, window_rows<BN>(a.W), window_bytes<BN>(a.W));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Whether the stride-1 window kernel takes this call.
+inline bool is_s1(const ConvBnArgs& a) {
+  return a.stride == 1 && a.pad_t == 1 && a.pad_l == 1 && a.Ho == a.H &&
+         a.Wo == a.W;
+}
 inline bool takes_s1(const ConvBnArgs& a) {
-  const bool s1 = a.stride == 1 && a.pad_t == 1 && a.pad_l == 1 &&
-                  a.Ho == a.H && a.Wo == a.W;
-  if (!s1) return false;
+  if (!is_s1(a)) return false;
   return a.N % 128 == 0 ? s1_fits<128>(a.Cin, a.W)
                         : s1_fits<64>(a.Cin, a.W);
 }
@@ -641,11 +689,35 @@ inline int partial_rows(const ConvBnArgs& a) {
 // Cout allows, else 128, else 64).
 inline int launch(const ConvBnArgs& a, cudaStream_t stream) {
   if (takes_s1(a))
-    return a.N % 128 == 0 ? launch_s1<128>(a, stream)
-                          : launch_s1<64>(a, stream);
-  if (a.N % 256 == 0) return launch_generic<256>(a, stream);
-  return a.N % 128 == 0 ? launch_generic<128>(a, stream)
-                        : launch_generic<64>(a, stream);
+    return a.N % 128 == 0 ? launch_s1<128, false>(a, stream)
+                          : launch_s1<64, false>(a, stream);
+  if (a.N % 256 == 0) return launch_generic<256, false>(a, stream);
+  return a.N % 128 == 0 ? launch_generic<128, false>(a, stream)
+                        : launch_generic<64, false>(a, stream);
+}
+
+// Launches the bf16 eval fold (B6; x, w and y bf16) on the tile the
+// caller picked (`conv3x3_apply_tile` in ops/conv_bn.py, by M): window
+// != 0 the stride-1 window kernel, 256 x 128 (bn 128) or 128 x 64 (bn
+// 64) tiles, where its geometry and shared memory allow; else the
+// generic kernel, 128 x bn (256, 128 or 64). Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a tile the call cannot take.
+inline int launch_fold(const ConvBnArgs& a, int window, int bn,
+                       cudaStream_t stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.N % bn) return bad;
+  if (window) {
+    if (!is_s1(a)) return bad;
+    if (bn == 128 && s1_fits<128>(a.Cin, a.W))
+      return launch_s1<128, true>(a, stream);
+    if (bn == 64 && s1_fits<64>(a.Cin, a.W))
+      return launch_s1<64, true>(a, stream);
+    return bad;
+  }
+  if (bn == 256) return launch_generic<256, true>(a, stream);
+  if (bn == 128) return launch_generic<128, true>(a, stream);
+  if (bn == 64) return launch_generic<64, true>(a, stream);
+  return bad;
 }
 
 }  // namespace conv3_sm90

@@ -9,7 +9,8 @@
 //     xa[m, k] = affine_in? x[m, k] s[k] + t[k] : x[m, k]  [+ r[m, k]]
 //     xp[m, k] = relu_in? max(xa, 0) : xa
 // is recomputed from x (it was never stored either). Then
-// - dx kernel (replaces `_dx_kernel` of analytics_zoo_tpu/ops/conv_bn.py):
+// - dx kernel (replaces `_dx_kernel` of analytics_zoo_tpu/ops/conv_bn.py;
+//   f32 here, bf16 in matmul_bn_dx_sm90.cuh):
 //     dxp = mask(g @ W^T), mask = relu_in? xa > 0 : 1
 //     dx = affine_in? dxp s : dxp;  dr = dxp;
 //     ds[k] = sum_m dxp x,  dt[k] = sum_m dxp  (per-block partials)
@@ -32,14 +33,14 @@
 //
 // What bounds it on the H100: both products have the forward's shape
 // (2 M K N FLOP), the dx kernel reading dy, y (M, N) and x (M, K) and
-// writing dx (M, K), the dW kernel reading the same three. At stage 0
-// (K = 64, N = 256) that is about 2*64*256 FLOP per (64 + 2*256 + 64)
-// * 2 bytes per row, some 51 FLOP/byte in bf16: bound by bytes on the
-// tensor cores, by operations on the f32 FMA path. The design reads each
-// operand once per output tile and keeps g, xp and dxp in registers and
-// shared memory only; a first, simple kernel: 64x64 output tiles, 32-deep
-// slices through shared memory without double buffering, mma.sync
-// m16n8k16 bf16 (4 warps of 32x32) or f32 FMA (256 threads of 4x4).
+// writing dx (M, K), the dW kernel reading the same three. On the f32
+// FMA path (ridge about 20 FLOP/byte: 67 TFLOP/s over 3.35 TB/s) every
+// ResNet-50 shape is bound by operations. The design reads each operand
+// once per output tile and keeps g, xp and dxp in registers and shared
+// memory only; a first, simple kernel: 64x64 output tiles, 32-deep
+// slices through shared memory without double buffering, 256 threads
+// of 4x4 FMA sub-tiles. The bf16 paths run on the tensor cores in the
+// wgmma kernels of matmul_bn_dx_sm90.cuh and matmul_bn_dw_sm90.cuh.
 
 #pragma once
 
@@ -120,108 +121,6 @@ __device__ __forceinline__ void dx_element(const BwdArgs& a, int row,
 }
 
 // ---- dx = mask(g @ W^T): rows m, columns k, reduction over n ----------
-
-__global__ void __launch_bounds__(128)
-    conv_bn_dx_bf16_kernel(BwdArgs a) {
-  using Tx = __nv_bfloat16;
-  constexpr int kLds = kBK + 8;
-  __shared__ __align__(16) Tx As[kBM][kLds];  // g [m][n]
-  __shared__ __align__(16) Tx Bs[kBN][kLds];  // W [k][n]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int m0 = blockIdx.x * kBM;
-  const int k0 = blockIdx.y * kBN;
-  const Tx* w = static_cast<const Tx*>(a.w);
-
-  const int sr = tid >> 1;           // staged row (m for A, k for B)
-  const int sc = (tid & 1) * 16;     // staged columns (n) sc .. +15
-  const bool row_ok = m0 + sr < a.M;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int n0 = 0; n0 < a.N; n0 += kBK) {
-    float v[16];
-    if (row_ok) {
-      load_g<Tx, 16>(a, m0 + sr, n0 + sc, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = 0.f;
-    }
-    __align__(16) Tx hv[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) hv[j] = __float2bfloat16(v[j]);
-    *reinterpret_cast<uint4*>(&As[sr][sc]) =
-        *reinterpret_cast<const uint4*>(&hv[0]);
-    *reinterpret_cast<uint4*>(&As[sr][sc + 8]) =
-        *reinterpret_cast<const uint4*>(&hv[8]);
-    const uint4* wp = reinterpret_cast<const uint4*>(
-        w + static_cast<int64_t>(k0 + sr) * a.N + n0 + sc);
-    *reinterpret_cast<uint4*>(&Bs[sr][sc]) = wp[0];
-    *reinterpret_cast<uint4*>(&Bs[sr][sc + 8]) = wp[1];
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16)
-      warp_mma_32x32<kLds>(acc, As, Bs, wm * 32, wn * 32, ks, g, t4);
-    __syncthreads();
-  }
-
-  __shared__ float red[2][2][kBN];  // [wm][ds, dt][column]
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    float cs[2] = {0.f, 0.f};
-    float ct[2] = {0.f, 0.f};
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + mi * 16 + g + 8 * h;
-        if (row >= a.M) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float dxp, xf;
-          dx_element<Tx>(a, row, k0 + wn * 32 + ni * 8 + 2 * t4 + e,
-                         acc[mi][ni][2 * h + e], &dxp, &xf);
-          cs[e] += dxp * xf;
-          ct[e] += dxp;
-        }
-      }
-    }
-    if (a.partial != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], off);
-          ct[e] += __shfl_xor_sync(0xffffffffu, ct[e], off);
-        }
-        if (g == 0) {
-          const int c = wn * 32 + ni * 8 + 2 * t4 + e;
-          red[wm][0][c] = cs[e];
-          red[wm][1][c] = ct[e];
-        }
-      }
-    }
-  }
-  if (a.partial == nullptr) return;
-  __syncthreads();
-  if (tid < kBN) {
-    float* p = a.partial + static_cast<int64_t>(blockIdx.x) * 2 * a.K;
-    p[k0 + tid] = red[0][0][tid] + red[1][0][tid];
-    p[a.K + k0 + tid] = red[0][1][tid] + red[1][1][tid];
-  }
-}
 
 __global__ void __launch_bounds__(256)
     conv_bn_dx_f32_kernel(BwdArgs a) {

@@ -21,10 +21,10 @@
 // stored nor counted in the statistics, so no padding correction exists.
 //
 // Replaces the TPU's Pallas kernels of analytics_zoo_tpu/ops/conv_bn.py:
-// `_apply_kernel` (1x1 fold), `_conv3_apply_kernel` (3x3 fold), `_kernel`
-// (the 1x1 with statistics, called by `_matmul_bn_fwd_pallas`) and
-// `_conv3_kernel` (the 3x3 with statistics; in f32 only: its bf16 path
-// is the wgmma kernel of conv3x3_bn_sm90.cuh).
+// `_apply_kernel` (1x1 fold), `_kernel` (the 1x1 with statistics, called
+// by `_matmul_bn_fwd_pallas`), and in f32 only `_conv3_apply_kernel`
+// (3x3 fold) and `_conv3_kernel` (the 3x3 with statistics): the bf16
+// 3x3s run the wgmma kernels of conv3x3_bn_sm90.cuh.
 //
 // Statistics across blocks: the TPU carries the column sums across a
 // sequential grid; here blocks run in no order, so each block writes its
@@ -49,8 +49,9 @@
 // 32-deep slices through shared memory without double buffering.
 //
 // Two math paths, chosen by the weight (compute) type:
-// - bf16 weights: tensor cores through mma.sync m16n8k16 bf16 with f32
-//   accumulators; 4 warps, each a 32x32 sub-tile.
+// - bf16 weights (the 1x1s only): tensor cores through mma.sync
+//   m16n8k16 bf16 with f32 accumulators; 4 warps, each a 32x32
+//   sub-tile.
 // - f32 weights: plain f32 FMA (not TF32, which would not match the
 //   reference's full-f32 product); 256 threads, each a 4x4 sub-tile.
 // Activations (x, in_res, res, y) are f32 or bf16 independently of the

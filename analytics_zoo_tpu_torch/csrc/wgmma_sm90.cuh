@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the redesigned bf16 training
-// kernels (conv3x3_bn_sm90.cuh, matmul_bn_dw_sm90.cuh): asynchronous
-// copies into a ring of shared-memory stages, ldmatrix fragment loads,
-// warpgroup MMA (wgmma) with A in registers and B in shared memory, and
-// the augmented cotangent g of the BN-statistics backward.
+// Hopper (sm_90a) building blocks of the redesigned bf16 kernels
+// (conv3x3_bn_sm90.cuh, matmul_bn_dw_sm90.cuh, matmul_bn_dx_sm90.cuh):
+// asynchronous copies into a ring of shared-memory stages, ldmatrix
+// fragment loads, warpgroup MMA (wgmma) with A in registers and B in
+// shared memory, MN-major or K-major, and the augmented cotangent g of
+// the BN-statistics backward.
 //
 // The B operand layout. Every B tile is 64 reduction rows by BN (64,
 // 128 or 256) columns of bf16, stored MN-major (columns contiguous) in
@@ -12,7 +13,8 @@
 // 1024-byte aligned, so the swizzle is the hardware's address swizzle.
 // Its descriptor: 8-row groups 1024 bytes apart (stride byte offset),
 // 64-column blocks 8192 bytes apart (leading byte offset), and the
-// transpose flag set because B is MN-major.
+// transpose flag set because B is MN-major. A B operand whose reduction
+// index is the contiguous one is K-major instead (kmajor_desc below).
 
 #pragma once
 
@@ -94,6 +96,48 @@ __device__ __forceinline__ uint64_t btile_desc(uint32_t tile, int kk) {
   return d;
 }
 
+// The K-major form, for a B operand whose reduction index is the
+// contiguous one (B3's W^T: W is (K, N) with n, the reduction, along
+// rows). The tile is R rows of 64 reduction elements, 128 bytes each,
+// chunk j of row r at chunk j ^ (r % 8) (the same swizzle as the A
+// slices that ldmatrix reads), 1024-byte aligned. Its descriptor: 8-row
+// groups 1024 bytes apart (stride byte offset), the leading byte offset
+// unused (one k16 step never leaves a 128-byte row), the transpose flag
+// clear (wgmma_tile<BN, 0>); step kk starts 32 bytes further along the
+// rows, and the hardware applies the swizzle to the absolute address.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  const uint32_t start = tile + kk * 32;
+  uint64_t d = static_cast<uint64_t>((start & 0x3FFFF) >> 4);
+  d |= 1ull << 16;                                        // leading: unused
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;            // stride: 8 rows
+  d |= 1ull << 62;                                        // 128B swizzle
+  return d;
+}
+
+// Byte offset of chunk j (elements 8j .. 8j + 7) of row r in a tile of
+// 128-byte rows swizzled as above (the K-major B tile, the A slices).
+__device__ __forceinline__ uint32_t row128_offset(int r, int j) {
+  return r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+// Four k16 A fragments of a 64-element slice stored as 128-byte swizzled
+// rows at `base`; `row` is this lane's ldmatrix row (warp q of a
+// warpgroup: its row 16 q + lane % 16). The rows whose tap is invalid
+// are zeroed: v0 for rows g, v1 for rows g + 8.
+__device__ __forceinline__ void load_fragments(uint32_t (&af)[4][4],
+                                               uint32_t base, int row,
+                                               int lane, bool v0, bool v1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int chunk = kk * 2 + (lane >> 4);
+    ldsm_x4(base + row * 128 + ((chunk ^ (row & 7)) << 4), af[kk]);
+    af[kk][0] = v0 ? af[kk][0] : 0u;
+    af[kk][1] = v1 ? af[kk][1] : 0u;
+    af[kk][2] = v0 ? af[kk][2] : 0u;
+    af[kk][3] = v1 ? af[kk][3] : 0u;
+  }
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -117,6 +161,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // a[3] both; the m16n8k16 layout, one warp per 16 rows.
 // D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, bf16,
 // MN-major in shared memory: desc_b)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b,
@@ -127,7 +172,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -137,11 +182,12 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, bf16,
 // MN-major in shared memory: desc_b)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b,
@@ -154,7 +200,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -170,11 +216,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 256, f32) += A (64 x 16, bf16 registers) * B (16 x 256, bf16,
 // MN-major in shared memory: desc_b)
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b,
@@ -193,7 +240,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -223,7 +270,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(scale_d));
+        "r"(scale_d), "n"(TB));
 }
 
 // Pins registers in place: the compiler may not move their reads or
@@ -245,7 +292,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
                  "+r"(a[i][3])::"memory");
 }
 
-template <int BN>
+// TB = 1: B is MN-major (btile_desc); TB = 0: B is K-major
+// (kmajor_desc).
+template <int BN, int TB = 1>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t desc_b,
@@ -253,11 +302,11 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2],
   static_assert(BN == 64 || BN == 128 || BN == 256,
                 "B tiles are 64, 128 or 256 wide");
   if constexpr (BN == 64)
-    wgmma_m64n64k16(d, a, desc_b, scale_d);
+    wgmma_m64n64k16<TB>(d, a, desc_b, scale_d);
   else if constexpr (BN == 128)
-    wgmma_m64n128k16(d, a, desc_b, scale_d);
+    wgmma_m64n128k16<TB>(d, a, desc_b, scale_d);
   else
-    wgmma_m64n256k16(d, a, desc_b, scale_d);
+    wgmma_m64n256k16<TB>(d, a, desc_b, scale_d);
 }
 
 // The augmented cotangent of the BN-statistics backward for 8

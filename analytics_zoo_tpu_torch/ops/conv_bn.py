@@ -20,10 +20,14 @@ or reduces this BN's batch statistics from the f32 accumulator
 The forward kernels are one implicit-GEMM template
 (``csrc/conv_bn_fwd.cuh``), the backward products a second
 (``csrc/conv_bn_bwd.cuh``), and every cross-block sum a fixed-order
-second pass (``csrc/colsum.cuh``). B2 and B4 run their bf16 paths on
-Hopper's warpgroup MMA instead, fed by a ring of asynchronous copies
-(``csrc/conv3x3_bn_sm90.cuh``, ``csrc/matmul_bn_dw_sm90.cuh``); their
-f32 paths stay on the templates. Each header's note says what bounds
+second pass (``csrc/colsum.cuh``). B2, B3, B4 and B6 run their bf16
+paths on Hopper's warpgroup MMA instead, fed by a ring of asynchronous
+copies (``csrc/conv3x3_bn_sm90.cuh`` for B2 and, with its fold
+epilogue, B6; ``csrc/matmul_bn_dx_sm90.cuh``,
+``csrc/matmul_bn_dw_sm90.cuh``); their f32 paths stay on the
+templates. The bf16 tiles are picked here, where the CPU tests see
+them: :func:`dx_tile`, :func:`dw_tile` and :func:`dw_splits`, and
+:func:`conv3x3_apply_tile` by M. Each header's note says what bounds
 its kernels on the H100 and what the design does about it. Each
 wrapper takes the plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises, and counts the
@@ -56,6 +60,10 @@ launches = {"matmul_bn_apply": 0, "conv3x3_bn_apply": 0, "matmul_bn": 0,
 _launch_lock = threading.Lock()
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the H100's SMs, which the bf16 tile choices fill, and a block's
+# largest shared memory
+_SMS = 132
+_SMEM_PER_BLOCK = 232448
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, in_scale, in_shift, out_scale, out_shift, res, y,
@@ -64,8 +72,8 @@ _SIGNATURES = {
     "matmul_bn_apply": [_P] * 8 + [_I] * 13 + [_P],
     # x, w, in_scale, in_shift, out_scale, out_shift, y,
     # B, H, W, Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in,
-    # relu_in, relu_out, x_bf16, w_bf16, stream
-    "conv3x3_bn_apply": [_P] * 7 + [_I] * 15 + [_P],
+    # relu_in, relu_out, x_bf16, w_bf16, window, bn, stream
+    "conv3x3_bn_apply": [_P] * 7 + [_I] * 17 + [_P],
     # x, w, in_scale, in_shift, in_res, sh, y, partial, work, stats,
     # B, H, W, Cin, Ho, Wo, N, stride, affine_in, relu_in, x_bf16,
     # w_bf16, stream
@@ -75,8 +83,8 @@ _SIGNATURES = {
     # x_bf16, w_bf16, stream
     "conv3x3_bn": [_P] * 9 + [_I] * 14 + [_P],
     # dy, y, x, w, s, t, r, sh, dsum, dsq, dx, dr, partial, work, dsdt,
-    # M, K, N, affine_in, relu_in, bf16, stream
-    "matmul_bn_dx": [_P] * 15 + [_I] * 6 + [_P],
+    # M, K, N, affine_in, relu_in, bk, bf16, stream
+    "matmul_bn_dx": [_P] * 15 + [_I] * 7 + [_P],
     # dy, y, x, s, t, r, sh, dsum, dsq, partial, work, dw,
     # M, K, N, affine_in, relu_in, splits, m_chunk, bk, bn, bf16, stream
     "matmul_bn_dw": [_P] * 12 + [_I] * 10 + [_P],
@@ -127,7 +135,10 @@ def _vec(v: Optional[torch.Tensor], n: int, fill: float,
                           device=like.device)
     if v.shape != (n,):
         raise ValueError(f"expected a ({n},) vector, got {tuple(v.shape)}")
-    return v.to(device=like.device, dtype=torch.float32).contiguous()
+    v = v.to(device=like.device, dtype=torch.float32).contiguous()
+    # the kernels read these vectors in pairs: a view at an odd offset
+    # gets its own copy
+    return v.clone() if v.data_ptr() % 16 else v
 
 
 def _prologue(x, s, t, relu_in, affine_in, r=None):
@@ -345,10 +356,45 @@ def conv3x3_bn_apply(x: torch.Tensor, w: torch.Tensor,
     if y.numel() == 0:
         return y
     bf16 = int(x.dtype == torch.bfloat16)
+    window, bn = conv3x3_apply_tile(b, h, wd, cin, cout, stride)
     _launch(name, x.device, _ptr(x), _ptr(w), _ptr(s), _ptr(t), _ptr(os_),
             _ptr(ot), _ptr(y), b, h, wd, cin, ho, wo, cout, stride, pt, pl,
-            int(affine_in), int(relu_in), int(relu_out), bf16, bf16)
+            int(affine_in), int(relu_in), int(relu_out), bf16, bf16,
+            int(window), bn)
     return y
+
+
+def _window_smem(bn: int, cin: int, w: int) -> int:
+    """Shared memory of B2/B6's stride-1 window kernel with ``bn``-wide
+    tiles (``csrc/conv3x3_bn_sm90.cuh``: ``s1_smem_bytes``): a 5-slot
+    weight ring, one or two windows of BM + 2W + 2 pixel rows of 64
+    channels, s and t, alignment slack."""
+    bm = 256 if bn == 128 else 128
+    return (5 * 64 * bn * 2 + (2 if cin > 64 else 1) * (bm + 2 * w + 2)
+            * 128 + 8 * cin + 1024)
+
+
+def conv3x3_apply_tile(b: int, h: int, w: int, cin: int, cout: int,
+                       stride: int) -> Tuple[bool, int]:
+    """B6's bf16 kernel and tile, ``(window, bn)``, chosen by M (serving
+    runs batches of 1 to 32, so M spans 49 to 100,352 rows): the
+    stride-1 window kernel where its shared memory fits, else the
+    generic kernel; 128 columns wide (256 x 128 window tiles, 128 x 128
+    generic ones, one block per SM) where Cout allows and those tiles'
+    blocks fill at least two thirds of the SMs, else 64 (128 x 64 tiles,
+    two blocks per SM). Every kernel and width at every serving shape
+    was timed on the H100 for this rule (``scripts/conv_bn_ab.py``,
+    PERF.md): the wide tiles win once they nearly fill the card, the
+    narrow ones below that."""
+    m = b * -(-h // stride) * -(-w // stride)
+    bn = 64
+    if cout % 128 == 0:
+        bm = 256 if stride == 1 and _window_smem(128, cin, w) <= \
+            _SMEM_PER_BLOCK else 128
+        if -(-m // bm) * (cout // 128) * 3 >= 2 * _SMS:
+            bn = 128
+    return (stride == 1 and _window_smem(bn, cin, w) <= _SMEM_PER_BLOCK,
+            bn)
 
 
 # ---------------------------------------------------------------------------
@@ -536,12 +582,12 @@ def _matmul_bn_dx(x, w, s, t, r, sh, y, dy, dsum, dsq, relu_in,
     dr = None if r is None else torch.empty_like(r)
     dsdt = torch.zeros(2 * k, dtype=torch.float32, device=x.device)
     if m:
-        partial, work = _partials(-(-m // 64), 2 * k, x) if affine_in \
-            else (None, None)
+        partial, work = _partials(dx_partial_rows(m, x.dtype), 2 * k, x) \
+            if affine_in else (None, None)
         _launch(name, x.device, _ptr(dy), _ptr(y), _ptr(x), _ptr(w),
                 _ptr(s), _ptr(t), _ptr(r), _ptr(sh), _ptr(dsum), _ptr(dsq),
                 _ptr(dx), _ptr(dr), _ptr(partial), _ptr(work), _ptr(dsdt),
-                m, k, n, int(affine_in), int(relu_in),
+                m, k, n, int(affine_in), int(relu_in), dx_tile(k),
                 int(x.dtype == torch.bfloat16))
     ds, dt = (dsdt[:k], dsdt[k:]) if affine_in else (None, None)
     return dx, ds, dt, dr
@@ -577,6 +623,22 @@ def _matmul_bn_dw(x, s, t, r, sh, y, dy, dsum, dsq, relu_in, affine_in):
     return dw.to(x.dtype)
 
 
+def dx_tile(k: int) -> int:
+    """B3's bf16 tile width BK (its tiles are 128 rows by BK columns of
+    dx; ``csrc/matmul_bn_dx_sm90.cuh``): min(K, 256), so g is formed
+    once per M tile up to K 256. Narrower tiles at the late, small-M
+    shapes fill more SMs but form g more often; on the H100 they were
+    slower at every train-step shape (``scripts/conv_bn_ab.py``,
+    PERF.md), so M does not narrow it."""
+    return min(k, 256)
+
+
+def dx_partial_rows(m: int, dtype: torch.dtype) -> int:
+    """Rows of B3's ds/dt partials, one per M tile: 128-row tiles in
+    bf16, 64-row ones in f32 (``csrc/conv_bn_bwd.cuh``)."""
+    return -(-m // (128 if dtype == torch.bfloat16 else 64))
+
+
 def dw_tile(k: int, n: int) -> Tuple[int, int]:
     """B4's bf16 output tile ``(BK, BN)``, which the wgmma kernel is
     launched with: 128 rows where K allows, else 64, and 128 columns
@@ -596,10 +658,10 @@ def dw_splits(m: int, k: int, n: int,
     if dtype == torch.bfloat16:
         (bk, bn), depth = dw_tile(k, n), 64
         tiles = (k // bk) * (n // bn)
-        want = max(1, 132 * (2 if bn == 64 else 1) // tiles)
+        want = max(1, _SMS * (2 if bn == 64 else 1) // tiles)
     else:
         depth, tiles = 32, (k // 64) * (n // 64)
-        want = -(-4 * 132 // tiles)
+        want = -(-4 * _SMS // tiles)
     splits = max(1, min(-(-m // depth), want))
     chunk = -(-(-(-m // splits)) // depth) * depth
     return -(-m // chunk), chunk

@@ -28,6 +28,19 @@ def mean_squared_error(y_true, y_pred):
     return torch.mean(torch.square(y_pred - y_true))
 
 
+def mean_absolute_error(y_true, y_pred):
+    return torch.mean(torch.abs(y_pred - y_true))
+
+
+def rank_hinge(y_true, y_pred, margin: float = 1.0):
+    """Pairwise ranking hinge (KNRM text matching): batch rows alternate
+    positive, negative, positive, negative, ...; ``y_true`` is
+    ignored."""
+    scores = y_pred.reshape(-1)
+    return torch.mean(torch.clamp(margin - scores[0::2] + scores[1::2],
+                                  min=0.0))
+
+
 def categorical_crossentropy(y_true, y_pred):
     p = torch.clamp(y_pred, EPSILON, 1.0)
     return torch.mean(-torch.sum(y_true * torch.log(p), dim=-1))
@@ -50,10 +63,13 @@ def softmax_cross_entropy(y_true, y_pred):
 _REGISTRY: "dict[str, LossFn]" = {
     "mean_squared_error": mean_squared_error,
     "mse": mean_squared_error,
+    "mean_absolute_error": mean_absolute_error,
+    "mae": mean_absolute_error,
     "categorical_crossentropy": categorical_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "softmax_cross_entropy": softmax_cross_entropy,
     "sparse_categorical_crossentropy_from_logits": softmax_cross_entropy,
+    "rank_hinge": rank_hinge,
 }
 
 

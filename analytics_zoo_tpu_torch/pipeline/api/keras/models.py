@@ -31,13 +31,26 @@ def to_tensor(x, device) -> torch.Tensor:
     return x.to(device)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host array; bf16 (which numpy lacks) widens to
-    f32 exactly."""
+def to_numpy(t):
+    """A tensor (or a list of them) as a host array (or a list); bf16
+    (which numpy lacks) widens to f32 exactly."""
+    if isinstance(t, (list, tuple)):
+        return [to_numpy(v) for v in t]
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+def concat_outputs(chunks):
+    """Batches of host outputs (each an array, or a list of arrays for a
+    multi-output net) joined along the batch: one array per output."""
+    if not chunks:
+        return np.empty((0,))
+    if isinstance(chunks[0], (list, tuple)):
+        return [np.concatenate([c[i] for c in chunks])
+                for i in range(len(chunks[0]))]
+    return np.concatenate(chunks)
 
 
 class KerasNet(KerasLayer):
@@ -183,16 +196,17 @@ class KerasNet(KerasLayer):
     def call(self, params, inputs, *, training=False, rng=None):
         return self.apply(params, inputs, training=training, rng=rng)[0]
 
-    def predict(self, x, batch_size: int = 32) -> np.ndarray:
+    def predict(self, x, batch_size: int = 32):
         """Forward ``x`` (host array or tensor) in batches of
-        ``batch_size`` on the net's device; returns a host array."""
+        ``batch_size`` on the net's device; returns a host array, or one
+        per output of a multi-output net."""
         if not self.initialized:
             self.init_params()
         x = to_tensor(x, self.device)
         with torch.inference_mode():
-            outs = [self.forward(x[i:i + batch_size])
-                    for i in range(0, x.shape[0], batch_size)]
-            return to_numpy(torch.cat(outs))
+            return concat_outputs(
+                [to_numpy(self.forward(x[i:i + batch_size]))
+                 for i in range(0, x.shape[0], batch_size)])
 
     def predict_classes(self, x, batch_size: int = 32,
                         zero_based_label: bool = True) -> np.ndarray:

@@ -14,6 +14,12 @@ may be one array or a list of them (BERT takes four). Each step hands
 the net a seed, ``fold_in(base, step)`` with ``base`` drawn from the
 context once per ``train`` call, from which the layers that draw noise
 (dropout) derive theirs (``ops/rng.py``).
+
+Multi-output models follow the reference's Keras semantics: labels
+given as a list of arrays are one column per output
+(``feature.normalize_labels``), the loss sums one term per output
+(``loss`` may be a list, one per output), and ``predict`` returns one
+array per output.
 """
 
 from __future__ import annotations
@@ -28,11 +34,14 @@ import torch
 from analytics_zoo_tpu_torch.common import observability as obs
 from analytics_zoo_tpu_torch.common.nncontext import (
     NNContext, get_nncontext)
+from analytics_zoo_tpu_torch.feature.feature_set import normalize_labels
 from analytics_zoo_tpu_torch.ops import losses as losses_lib
 from analytics_zoo_tpu_torch.ops import metrics as metrics_lib
 from analytics_zoo_tpu_torch.ops import optimizers as optim_lib
 from analytics_zoo_tpu_torch.ops.rng import fold_in
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import tree_leaves
+from analytics_zoo_tpu_torch.pipeline.api.keras.models import (
+    concat_outputs, to_numpy)
 
 
 # ---------------------------------------------------------------------------
@@ -77,16 +86,20 @@ class ArrayDataset:
     """Numpy (x, y) pairs with per-epoch shuffling and fixed-size
     batches; the trailing incomplete batch is dropped in training. The
     shuffle is numpy's ``RandomState(seed)``, so the order is the
-    reference's exactly."""
+    reference's exactly. ``y`` is one label array or, for a
+    multi-output model, a list of them (:func:`normalize_labels`
+    decides); a batch then carries a list of label columns."""
 
     def __init__(self, x, y=None):
         self.x = [np.asarray(a) for a in
                   (x if isinstance(x, (list, tuple)) else [x])]
-        self.y = None if y is None else np.asarray(y)
+        y_cols, self._multi_y = normalize_labels(y)
+        self.y = (y_cols if self._multi_y
+                  else y_cols[0] if y_cols else None)
         n = self.x[0].shape[0]
         if any(a.shape[0] != n for a in self.x):
             raise ValueError("inconsistent sample counts in x")
-        if self.y is not None and self.y.shape[0] != n:
+        if any(a.shape[0] != n for a in y_cols):
             raise ValueError("x and y sample counts differ")
         self._n = n
 
@@ -103,8 +116,13 @@ class ArrayDataset:
         for start in range(0, end, batch_size):
             sel = idx[start:start + batch_size]
             xb = [a[sel] for a in self.x]
-            yield (xb[0] if len(xb) == 1 else xb,
-                   None if self.y is None else self.y[sel])
+            if self.y is None:
+                yb = None
+            elif self._multi_y:
+                yb = [a[sel] for a in self.y]
+            else:
+                yb = self.y[sel]
+            yield xb[0] if len(xb) == 1 else xb, yb
 
 
 def to_dataset(data, y=None):
@@ -135,6 +153,41 @@ def _cast_floats(x, dtype):
     return x.to(dtype) if x.is_floating_point() else x
 
 
+def _is_pairwise(loss_fn) -> bool:
+    base = getattr(loss_fn, "func", loss_fn)
+    return base is losses_lib.rank_hinge or \
+        getattr(base, "__name__", "") == "rank_hinge"
+
+
+def _apply_loss(loss_fn, y, out):
+    """Keras multi-output semantics: a list of model outputs against a
+    list of label columns sums one loss per output (``loss_fn`` may be a
+    list, one loss per output). Mixed structures (list outputs and one
+    label array, or the reverse) go to the single loss as they are: a
+    custom joint loss may unpack them."""
+    if isinstance(out, (list, tuple)) and isinstance(y, (list, tuple)):
+        fns = (list(loss_fn) if isinstance(loss_fn, (list, tuple))
+               else [loss_fn] * len(out))
+        if not (len(fns) == len(out) == len(y)):
+            raise ValueError(
+                f"multi-output mismatch: {len(out)} outputs, "
+                f"{len(y)} label columns, {len(fns)} losses")
+        total = fns[0](y[0], out[0])
+        for f, t, o in zip(fns[1:], y[1:], out[1:]):
+            total = total + f(t, o)
+        return total
+    if isinstance(loss_fn, (list, tuple)):
+        raise ValueError(
+            f"a list of {len(loss_fn)} losses needs a multi-output "
+            f"model AND a list of label columns (outputs are "
+            f"{type(out).__name__}, labels {type(y).__name__})")
+    return loss_fn(y, out)
+
+
+def _batch_dim(out) -> int:
+    return int((out[0] if isinstance(out, (list, tuple)) else out).shape[0])
+
+
 @dataclass
 class TrainResult:
     history: "list[dict]"
@@ -158,7 +211,15 @@ class Estimator:
         self.dtype_policy = dtype_policy
         self.model = model
         self.ctx = ctx or get_nncontext()
-        self.loss_fn = losses_lib.get(loss)
+        if isinstance(loss, (list, tuple)):
+            # one loss per model output; _apply_loss sums them
+            self.loss_fn = [losses_lib.get(name) for name in loss]
+            if any(_is_pairwise(f) for f in self.loss_fn):
+                raise ValueError(
+                    "rank_hinge is pairwise and not supported inside a "
+                    "multi-output loss list")
+        else:
+            self.loss_fn = losses_lib.get(loss)
         self.metrics = [metrics_lib.get(m) for m in (metrics or [])]
         self.optimizer = optim_lib.get(optimizer)
         self.opt_state: Optional[dict] = None
@@ -220,7 +281,7 @@ class Estimator:
                                                   rng=rng)
                 if self._mixed:      # loss in f32 for numeric stability
                     out = _cast_floats(out, torch.float32)
-                loss = self.loss_fn(y, out) + \
+                loss = _apply_loss(self.loss_fn, y, out) + \
                     self.model.regularization_loss(params)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
@@ -302,14 +363,25 @@ class Estimator:
         if self.metrics and isinstance(self.model.output_shape, list):
             raise ValueError("metrics are not supported with multi-output "
                              "models yet; evaluate with metrics=[]")
+        pairwise = _is_pairwise(self.loss_fn)
         total, count = 0.0, 0
         sums: "dict[str, dict]" = {m.name: {} for m in self.metrics}
         for xb, yb in ds.iter_batches(batch_size, shuffle=False,
                                       drop_last=False):
             out = self._forward_eval(xb)
-            n = int(out.shape[0])
-            yt = _to_device(yb, out.device)
-            total = total + self.loss_fn(yt, out) * n
+            n = _batch_dim(out)
+            yt = _to_device(yb, self.model.device)
+            if pairwise:
+                # the mean over (positive, negative) row pairs; an odd
+                # last row has no partner and is left out, as in the
+                # reference
+                n = n // 2
+                if n:
+                    total = total + self.loss_fn(yt[:2 * n],
+                                                 out[:2 * n]) * n
+            else:
+                # a batch-mean loss times the batch: the per-sample sum
+                total = total + _apply_loss(self.loss_fn, yt, out) * n
             count += n
             for m in self.metrics:
                 acc = sums[m.name]
@@ -323,10 +395,12 @@ class Estimator:
         return result
 
     @torch.no_grad()
-    def predict(self, data, batch_size: int = 32) -> np.ndarray:
+    def predict(self, data, batch_size: int = 32):
+        """Outputs over every sample: an array, or one array per output
+        of a multi-output model."""
         ds = to_dataset(data)
         self._ensure_initialized()
-        outs = [self._forward_eval(xb).float().cpu().numpy()
+        outs = [to_numpy(self._forward_eval(xb))
                 for xb, _ in ds.iter_batches(batch_size, shuffle=False,
                                              drop_last=False)]
-        return np.concatenate(outs) if outs else np.empty((0,))
+        return concat_outputs(outs)

@@ -20,7 +20,10 @@ script exits non-zero and prints no result line:
    shapes (batch 128, plus residual and ragged-M cases; B2 also at Cin
    128 and 256 on a small ragged M and stride 2 at an odd extent, B4 at
    K 64 / N 64 on a ragged M and K 2048 / N 512 with a residual and no
-   affine), in f32 and bf16; the build prints each wgmma kernel's
+   affine), in f32 and bf16, and B6 in bf16 at serving's batch 1 and 8
+   too; then per-shape tables of B3 (the 16 train-step shapes) and B6
+   (batch 1, 8 and 32): launches, kernel, library and bound ms, and the
+   rate against the bound's unit. The build prints each wgmma kernel's
    registers and spills;
 4. serving: ``ImageClassifier("resnet-50", fused=True)`` at full width
    with seeded random weights and distinctive BatchNorm statistics,
@@ -28,7 +31,8 @@ script exits non-zero and prints no result line:
    1, 8 and 32 in f32 and bf16; checks the launch counts (36 and 16 per
    forward), the f32 logits against the port's unfused graph (cuDNN
    convs) and the bf16 logits against the f32 ones; times the median
-   request (images/s) and profiles three batch-32 requests;
+   request (images/s) and profiles three batch-32 requests (device ms
+   per request by kernel, B5 and B6 named);
 5. training: ``resnet50(fused=True)`` at 224x224, 1000 classes, trained
    by ``Estimator.train`` (SGD 0.1, momentum 0.9, softmax cross
    entropy) on seeded numpy data: one f32 step held against the port's
@@ -274,7 +278,8 @@ def path_shapes(model, batch):
 def kernel_cases(b5, b6):
     """(kernel, key, x dtype, weight dtype, prologue, launches per
     forward) for every serving-path shape in both dtypes, plus batch 1's
-    M = 49 and prologue cases (the serving path runs none)."""
+    M = 49 and prologue cases (the serving path runs none), and B6's
+    bf16 serving shapes at batch 1 and 8."""
     cases = []
     for dt in ("float32", "bfloat16"):
         # the model keeps f32 weights: the 1x1 fold multiplies in the
@@ -285,6 +290,10 @@ def kernel_cases(b5, b6):
                   for k, n in sorted(b6.items())]
         cases.append(("matmul_bn_apply", (1, 7, 7, 2048, 512, 1, False,
                                           True), dt, "float32", False, 0))
+    # B6 at serving's other batches (its tile follows M)
+    for bs in (1, 8):
+        cases += [("conv3x3_bn_apply", (bs,) + k[1:], "bfloat16",
+                   "bfloat16", False, 0) for k in sorted(b6)]
     cases.append(("matmul_bn_apply", (BATCH, 28, 28, 512, 128, 1, True,
                                       True), "bfloat16", "bfloat16",
                   True, 0))
@@ -523,8 +532,10 @@ def run_train_case(case, gen):
 
                 def library():
                     return torch.matmul(g_lib, wt.t())
-                nbytes = (2 * m * n + m * k * (2 + 2 * res) + k * n) * \
-                    esize + vec_bytes + 4 * 2 * k
+                # x is read only for the prologue's mask and ds
+                nbytes = (2 * m * n + m * k * (1 + (affine or res) +
+                                               2 * res) + k * n) * \
+                    esize + vec_bytes + 4 * 2 * k * affine
                 outs = ("dx", "ds", "dt", "dr")
             else:
                 def kernel():
@@ -850,11 +861,16 @@ def train_path(card, detail):
 
 TRAIN_KERNEL_NAMES = (
     ("matmul_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, true>"),
-    ("conv3x3_bn", r"conv3x3_bn(_s1)?_sm90_kernel|"
+    ("conv3x3_bn", r"conv3x3_bn(_s1)?_sm90_kernel<\d+, false>|"
                    r"conv_bn_f32_kernel<[^,]+, 3, true>"),
-    ("matmul_bn_dx", r"conv_bn_dx_"),
+    ("matmul_bn_dx", r"matmul_bn_dx_sm90_kernel|conv_bn_dx_f32"),
     ("matmul_bn_dw", r"matmul_bn_dw_sm90_kernel|conv_bn_dw_f32"),
     ("colsum (B1-B4 second pass)", r"colsum_kernel"),
+)
+SERVE_KERNEL_NAMES = (
+    ("matmul_bn_apply", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, false>"),
+    ("conv3x3_bn_apply", r"conv3x3_bn(_s1)?_sm90_kernel<\d+, true>|"
+                         r"conv_bn_f32_kernel<[^,]+, 3, false>"),
 )
 
 
@@ -888,35 +904,40 @@ def median_request_s(im, x, warmup: int = 3, iters: int = 10) -> float:
 
 
 def profile_requests(im, x, n: int = 3) -> dict:
-    """Device time by kernel over ``n`` requests (``torch.profiler``)
-    and the device's busy share of the window's wall time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(n):
-            im.predict(x)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    kernels = collections.Counter()
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            kernels[evt.key[:90]] += evt.self_device_time_total
-    busy_us = sum(kernels.values())
-    out = {"requests": n, "batch": int(x.shape[0]), "dtype": str(x.dtype),
-           "wall_ms_per_request": wall_us / n / 1e3,
-           "device_ms_per_request": busy_us / n / 1e3,
-           "device_busy_share": busy_us / wall_us if busy_us else None,
-           "top": [(k, v / n / 1e3) for k, v in kernels.most_common(8)]}
-    print(f"  profile {out['dtype']} batch {out['batch']}: device busy "
-          f"{out['device_ms_per_request']:.3f} of "
-          f"{out['wall_ms_per_request']:.3f} ms per request", flush=True)
-    for k, ms in out["top"]:
-        print(f"    {ms:8.3f} ms  {k}", flush=True)
+    """Device time by kernel over ``n`` requests (``torch.profiler``),
+    the port's kernels grouped by name (:func:`profile_steps`), and the
+    device's busy share of the window's wall time."""
+    print(f"  profile {x.dtype} batch {int(x.shape[0])}, per request:",
+          flush=True)
+    out = profile_steps(lambda: im.predict(x), n, SERVE_KERNEL_NAMES)
+    out.update(batch=int(x.shape[0]), dtype=str(x.dtype))
     return out
+
+
+def shape_table(records, kernel, by):
+    """Prints one kernel's bf16 per-shape table from phase 3's records:
+    launches per path, kernel ms per launch, the library call's, the
+    bound (b: bytes, o: operations) and the rate against that bound's
+    unit; ``by`` keeps the records that belong (a dtype and batch
+    filter). Returns the rows."""
+    rows = []
+    for r in records:
+        if r["kernel"] != kernel or r["dtype"] != "bfloat16" or not by(r):
+            continue
+        flop_s = r["flop_ms"] * PEAK_FLOPS["bfloat16"] / 1e3
+        byte_s = r["byte_ms"] * PEAK_BYTES / 1e3
+        rate = (f"{byte_s / r['ms'] / 1e6:.0f} GB/s"
+                if r["bound_by"] == "bytes"
+                else f"{flop_s / r['ms'] / 1e9:.0f} TFLOP/s")
+        rows.append({"key": r["key"], "per_path": r["per_path"],
+                     "ms": r["ms"], "library_ms": r["library_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "rate": rate})
+        print(f"    {tuple(r['key'])} x{r['per_path']}: {r['ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by'][0]}), {rate}",
+              flush=True)
+    return rows
 
 
 # -- flash attention: B7-B10 against their plain versions --------------------
@@ -1948,6 +1969,17 @@ def main() -> int:
         records += run_flash_case(c, gen)
     records += [run_decode_case(c, gen) for c in decode_cases()]
     detail["kernel_cases"] = records
+    print("  B3 matmul_bn_dx per shape (bf16, train step, batch "
+          f"{TRAIN_BATCH}):", flush=True)
+    tables = {"matmul_bn_dx": shape_table(
+        records, "matmul_bn_dx", lambda r: r["per_path"] > 0)}
+    for bs in (1, 8, BATCH):
+        print(f"  B6 conv3x3_bn_apply per shape (bf16, serving batch {bs}):",
+              flush=True)
+        tables[f"conv3x3_bn_apply_b{bs}"] = shape_table(
+            records, "conv3x3_bn_apply",
+            lambda r, bs=bs: r["key"][0] == bs and not r["prologue"])
+    detail["shape_tables"] = tables
     del shapes_net
     torch.cuda.empty_cache()
 

@@ -230,3 +230,51 @@ def test_modules_import_without_nvcc_and_build_lazily(monkeypatch):
     p = cuda_build.library_path("matmul_bn_apply")
     assert p == cuda_build.library_path("matmul_bn_apply")
     assert p != cuda_build.library_path("conv3x3_bn_apply")
+
+
+def _resnet50_3x3_shapes():
+    """(H, W, Cin, Cout, stride) of every 3x3 of a ResNet-50 forward, from
+    the port's fused model (each bottleneck's c2)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        FusedBottleneck, ImageClassifier)
+    net = ImageClassifier("resnet-50", input_shape=(224, 224, 3),
+                          classes=1000, fused=True).model
+    net.init(torch.Generator().manual_seed(0))
+    shapes = [lyr.input_shape[:2] + (lyr.filters, lyr.filters, lyr.stride)
+              for lyr in net.layers if isinstance(lyr, FusedBottleneck)]
+    assert len(shapes) == 16
+    return sorted(set(shapes))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_b6_kernel_and_tile_are_legal_at_serving_shapes(monkeypatch, batch):
+    # B6's bf16 kernel and tile at every ResNet-50 3x3 of a serving
+    # forward: the window kernel only at stride 1 and where its shared
+    # memory fits, 128 or 64 columns; the generic one 256, 128 or 64;
+    # the width divides Cout; and the wrapper hands the C entry point
+    # that choice
+    launched, chosen = [], {}
+    monkeypatch.setattr(tcb, "_device_kind", lambda name, x: "cuda")
+    monkeypatch.setattr(tcb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tcb, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    for h, w, cin, cout, stride in _resnet50_3x3_shapes():
+        window, bn = tcb.conv3x3_apply_tile(batch, h, w, cin, cout, stride)
+        assert cout % bn == 0
+        if window:
+            assert stride == 1 and bn in (64, 128)
+            assert tcb._window_smem(bn, cin, w) <= tcb._SMEM_PER_BLOCK
+        else:
+            assert bn in (64, 128, 256)
+        launched.clear()
+        tcb.conv3x3_bn_apply(
+            torch.empty(batch, h, w, cin, dtype=torch.bfloat16),
+            torch.empty(3, 3, cin, cout), stride=stride)
+        assert launched[0][-2:] == (int(window), bn)
+        chosen[(h, w, cin, cout, stride)] = (window, bn)
+    # wide tiles only where their blocks nearly fill the 132 SMs: at
+    # batch 32 the 28x28 stride-1 (98 window blocks) and both early
+    # stride-2 shapes (196 and 98 generic blocks)
+    wide = {k for k, (_, bn) in chosen.items() if bn == 128}
+    assert wide == ({(28, 28, 128, 128, 1), (56, 56, 128, 128, 2),
+                     (28, 28, 256, 256, 2)} if batch == 32 else set())

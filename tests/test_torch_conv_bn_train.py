@@ -265,3 +265,59 @@ def test_colsum_work_floats():
     assert tcb.colsum_work_floats(64, 128) == 0
     assert tcb.colsum_work_floats(65, 128) == 2 * 128
     assert tcb.colsum_work_floats(6272, 128) == (98 + 2) * 128
+
+
+def _resnet50_1x1_shapes(batch=128):
+    """(M, K, N) of every 1x1 of a ResNet-50 train step at ``batch``,
+    from the port's fused model (c1, c3 and the downsample of each
+    bottleneck)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        FusedBottleneck, resnet50)
+    net = resnet50(input_shape=(224, 224, 3), classes=1000, fused=True)
+    net.init(torch.Generator().manual_seed(0))
+    shapes = []
+    for lyr in net.layers:
+        if not isinstance(lyr, FusedBottleneck):
+            continue
+        h, w, c = lyr.input_shape
+        f, s = lyr.filters, lyr.stride
+        mo = batch * -(-h // s) * -(-w // s)
+        shapes += [(batch * h * w, c, f), (mo, f, 4 * f)]
+        if lyr.downsample:
+            shapes.append((mo, c, 4 * f))
+    assert len(shapes) == 36
+    return sorted(set(shapes))
+
+
+def test_b3_tile_is_legal_at_every_train_shape(monkeypatch):
+    # B3's bf16 tile at every ResNet-50 1x1 of a batch-128 step: a
+    # multiple of 64, at most 256, dividing K: min(K, 256). The wrapper
+    # hands
+    # the C entry point that width and allocates one ds/dt partial row
+    # per M tile of the kernel (128 rows in bf16, 64 in f32)
+    launched, rows = [], []
+    real_partials = tcb._partials
+    monkeypatch.setattr(tcb, "_device_kind", lambda name, x: "cuda")
+    monkeypatch.setattr(tcb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tcb, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    monkeypatch.setattr(tcb, "_partials", lambda r, c, like: (
+        rows.append((r, c)), real_partials(1, c, like))[1])
+    for m, k, n in _resnet50_1x1_shapes():
+        bk = tcb.dx_tile(k)
+        assert bk in (64, 128, 256) and bk <= k and k % bk == 0
+        assert bk == min(k, 256)
+        for dtype, tile_rows in ((torch.bfloat16, 128), (torch.float32, 64)):
+            assert tcb.dx_partial_rows(m, dtype) == -(-m // tile_rows)
+            launched.clear()
+            rows.clear()
+            vec = torch.zeros(k)
+            tcb._matmul_bn_dx(torch.empty(m, k, dtype=dtype),
+                              torch.empty(k, n, dtype=dtype), vec, vec, None,
+                              torch.zeros(n), torch.empty(m, n, dtype=dtype),
+                              torch.empty(m, n, dtype=dtype), torch.zeros(n),
+                              torch.zeros(n), True, True)
+            assert rows == [(-(-m // tile_rows), 2 * k)]
+            assert launched[0][15:21] == (m, k, n, 1, 1, bk)
+    assert (tcb.dx_tile(64), tcb.dx_tile(128), tcb.dx_tile(512),
+            tcb.dx_tile(2048)) == (64, 128, 256, 256)

@@ -272,6 +272,168 @@ def test_matmul_bn_dw_tiles_match_plain_on_card(cuda, dtype, k, n, affine,
     _close(got, tcb.matmul_bn_dw_ref(x, s, t, r, sh, *grads), dt)
 
 
+# ResNet-50's 1x1 train-step shapes at batch 128 as B3 sees them,
+# (M, K, N): x2 is (M, K), W (K, N)
+B3_SHAPES = [(401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+             (401408, 256, 128), (100352, 256, 512), (100352, 128, 512),
+             (100352, 512, 128), (100352, 512, 256), (25088, 512, 1024),
+             (25088, 256, 1024), (25088, 1024, 256), (25088, 1024, 512),
+             (6272, 1024, 2048), (6272, 512, 2048), (6272, 2048, 512)]
+
+
+def _dx_inputs(m, k, n, affine, residual, dt, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+    x = randn(m, k, dtype=dt)
+    w = randn(k, n, scale=k ** -0.5, dtype=dt)
+    s = 1.0 + randn(k, scale=0.1) if affine else None
+    t = randn(k, scale=0.1) if affine else None
+    r = randn(m, k, dtype=dt) if residual else None
+    sh = randn(n, scale=0.1)
+    return (x, w, s, t, r, sh, randn(m, n, dtype=dt), randn(m, n, dtype=dt),
+            randn(n, scale=0.1), randn(n, scale=0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", B3_SHAPES)
+@pytest.mark.parametrize("affine,relu,residual", [
+    (True, True, False), (True, True, True), (False, False, False),
+    (False, True, True)])
+def test_matmul_bn_dx_bf16_matches_plain_at_train_shapes(cuda, m, k, n,
+                                                         affine, relu,
+                                                         residual):
+    # B3's wgmma kernel at every train-step shape (its dx_tile there),
+    # with and without the affine, the ReLU mask and the residual
+    x, w, s, t, r, sh, y, dy, dsum, dsq = _dx_inputs(
+        m, k, n, affine, residual, torch.bfloat16, cuda, 19)
+    before = tcb.launches["matmul_bn_dx"]
+    got = tcb._matmul_bn_dx(x, w, s, t, r, sh, y, dy, dsum, dsq, relu,
+                            affine)
+    want = tcb.matmul_bn_dx_ref(x, w, s, t, r, sh, y, dy, dsum, dsq, relu,
+                                affine)
+    torch.cuda.synchronize()
+    assert tcb.launches["matmul_bn_dx"] == before + 1
+    for a, b_ in zip(got, want):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            _close(a, b_, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(147, 64, 64), (147, 2048, 512),
+                                   (25088, 1024, 256), (6272, 512, 2048)])
+@pytest.mark.parametrize("bk", [None, 64, 128, 256])
+def test_matmul_bn_dx_bf16_tiles_ragged_and_repeat(cuda, monkeypatch, m, k,
+                                                   n, bk):
+    # a ragged M (3 images of 7x7), K 64 and K 2048, every tile width the
+    # kernel takes, and the same bits on a second run for dx, dr, ds, dt
+    if bk is not None:
+        if bk > k:
+            pytest.skip("the tile is wider than K")
+        monkeypatch.setattr(tcb, "dx_tile", lambda k_: bk)
+    args = _dx_inputs(m, k, n, True, True, torch.bfloat16, cuda, 20)
+    a = tcb._matmul_bn_dx(*args, True, True)
+    b = tcb._matmul_bn_dx(*args, True, True)
+    want = tcb.matmul_bn_dx_ref(*args, True, True)
+    torch.cuda.synchronize()
+    for p, q, w_ in zip(a, b, want):
+        assert torch.equal(p, q)
+        _close(p, w_, torch.bfloat16)
+
+
+# ResNet-50's 3x3 serving shapes, (H, W, Cin, Cout, stride)
+B6_SHAPES = [(56, 56, 64, 64, 1), (56, 56, 128, 128, 2),
+             (28, 28, 128, 128, 1), (28, 28, 256, 256, 2),
+             (14, 14, 256, 256, 1), (14, 14, 512, 512, 2),
+             (7, 7, 512, 512, 1)]
+
+
+def _fold_inputs(b, h, w, cin, cout, prologue, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+    x = randn(b, h, w, cin, dtype=torch.bfloat16)
+    wt = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    s = 1.0 + randn(cin, scale=0.1) if prologue else None
+    t = randn(cin, scale=0.1) if prologue else None
+    return x, wt, s, t, 1.0 + randn(cout, scale=0.1), randn(cout, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("h,w,cin,cout,stride", B6_SHAPES)
+@pytest.mark.parametrize("relu_out,prologue", [(True, False),
+                                               (False, True)])
+def test_conv3x3_bn_apply_bf16_matches_plain_at_serving_shapes(
+        cuda, batch, h, w, cin, cout, stride, relu_out, prologue):
+    # B6 on the tile conv3x3_apply_tile picks at serving's batches
+    x, wt, s, t, os_, ot = _fold_inputs(batch, h, w, cin, cout, prologue,
+                                        cuda, 21)
+    fold = dict(in_scale=s, in_shift=t, relu_in=prologue, out_scale=os_,
+                out_shift=ot, relu_out=relu_out, stride=stride)
+    before = tcb.launches["conv3x3_bn_apply"]
+    got = tcb.conv3x3_bn_apply(x, wt, **fold)
+    again = tcb.conv3x3_bn_apply(x, wt, **fold)
+    want = tcb.conv3x3_bn_apply_ref(x, wt, s, t, os_, ot, prologue,
+                                    prologue, relu_out, stride)
+    torch.cuda.synchronize()
+    assert tcb.launches["conv3x3_bn_apply"] == before + 2
+    assert torch.equal(got, again)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,bn", [(True, 128), (True, 64),
+                                       (False, 256), (False, 128),
+                                       (False, 64)])
+@pytest.mark.parametrize("b,h,w,stride", [(3, 7, 7, 1), (2, 14, 14, 1),
+                                          (2, 10, 10, 2), (3, 9, 9, 2)])
+def test_conv3x3_bn_apply_bf16_every_tile(cuda, monkeypatch, window, bn, b,
+                                          h, w, stride):
+    # each kernel and tile B6 can be given, forced, on ragged M
+    if window and stride != 1:
+        pytest.skip("the window kernel takes stride 1 only")
+    monkeypatch.setattr(tcb, "conv3x3_apply_tile",
+                        lambda *a_: (window, bn))
+    x, wt, s, t, os_, ot = _fold_inputs(b, h, w, 256, 256, True, cuda, 22)
+    got = tcb.conv3x3_bn_apply(x, wt, in_scale=s, in_shift=t, relu_in=True,
+                               out_scale=os_, out_shift=ot, relu_out=True,
+                               stride=stride)
+    want = tcb.conv3x3_bn_apply_ref(x, wt, s, t, os_, ot, True, True, True,
+                                    stride)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_dx_and_fold_run_the_wgmma_kernels(cuda):
+    # B3 and B6 dispatch by dtype: bf16 to the sm90 kernels (B6 with the
+    # fold epilogue), f32 to the FMA templates
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _dx_inputs(300, 128, 64, True, True, dtype, cuda, 23)
+        x, wt, s, t, os_, ot = _fold_inputs(2, 8, 8, 64, 64, False, cuda,
+                                            24)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tcb._matmul_bn_dx(*args, True, True)
+            tcb.conv3x3_bn_apply(x.to(dtype), wt, out_scale=os_,
+                                 out_shift=ot, relu_out=True)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    bf, f32 = names[torch.bfloat16], names[torch.float32]
+    assert "matmul_bn_dx_sm90_kernel" in bf and "conv_bn_dx_f32" not in bf
+    assert re.search(r"conv3x3_bn(_s1)?_sm90_kernel<\d+, true>", bf)
+    assert "conv_bn_bf16_kernel" not in bf
+    assert "conv_bn_dx_f32_kernel" in f32 and "_sm90_kernel" not in f32
+    assert "conv_bn_f32_kernel<float, 3, false>" in f32
+
+
 @pytest.mark.cuda
 def test_bf16_runs_the_wgmma_kernels_and_f32_the_templates(cuda):
     # B2 and B4 dispatch by dtype: bf16 to the sm90 kernels, f32 to the

@@ -127,7 +127,8 @@ def test_maxpool_layer_valid_mode_matches_jax_grad():
 
 @pytest.mark.parametrize("name", ["softmax_cross_entropy",
                                   "sparse_categorical_crossentropy",
-                                  "categorical_crossentropy", "mse"])
+                                  "categorical_crossentropy", "mse", "mae",
+                                  "rank_hinge"])
 def test_losses_match_jax(name):
     rs = np.random.RandomState(2)
     logits = rs.randn(6, 5).astype(np.float32)
