@@ -111,8 +111,12 @@ __device__ __forceinline__ void dx_element(const BwdArgs& a, int row,
                                            float* dxp_out, float* x_out) {
   const int64_t off = static_cast<int64_t>(row) * a.K + col;
   const float xf = to_f32(static_cast<const Tx*>(a.x)[off]);
-  float xa = a.affine_in ? fmaf(xf, a.s[col], a.t[col]) : xf;
-  if (a.r != nullptr) xa += to_f32(static_cast<const Tx*>(a.r)[off]);
+  // the mask's input rounded as the plain version rounds it (a product,
+  // then each sum; no fused multiply-add), so both agree on its sign
+  float xa = a.affine_in ? __fadd_rn(__fmul_rn(xf, a.s[col]), a.t[col])
+                         : xf;
+  if (a.r != nullptr)
+    xa = __fadd_rn(xa, to_f32(static_cast<const Tx*>(a.r)[off]));
   const float dxp = (a.relu_in && !(xa > 0.f)) ? 0.f : acc;
   if (a.dr != nullptr) store1(static_cast<Tx*>(a.dr) + off, dxp);
   store1(static_cast<Tx*>(a.dx) + off, a.affine_in ? dxp * a.s[col] : dxp);

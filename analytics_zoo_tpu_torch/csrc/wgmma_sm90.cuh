@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks of the redesigned bf16 kernels
-// (conv3x3_bn_sm90.cuh, matmul_bn_dw_sm90.cuh, matmul_bn_dx_sm90.cuh):
+// Hopper (sm_90a) building blocks of the redesigned kernels
+// (conv3x3_bn_sm90.cuh, matmul_bn_sm90.cuh, matmul_bn_dw_sm90.cuh,
+// matmul_bn_dx_sm90.cuh, and the tf32 product of
+// matmul_bn_apply_sm90.cuh):
 // asynchronous copies into a ring of shared-memory stages, ldmatrix
 // fragment loads, warpgroup MMA (wgmma) with A in registers and B in
 // shared memory, MN-major or K-major, and the augmented cotangent g of
@@ -51,6 +53,65 @@ __device__ __forceinline__ void cp_async_wait() {
 // completed cp.async) before later async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A transaction barrier in shared memory (mbarrier) that one arrival
+// and the bytes of bulk tensor copies (TMA) complete, one phase per use.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the arrival, announcing the bytes the phase's copies will bring
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// The box at (c0 inner, c1 outer) of a 2-D tensor map into shared
+// memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The box at (c0 inner, c1 outer) of a 2-D tensor map from shared memory
+// at src (a bulk tensor store; the part past the tensor's edge is not
+// written), in this thread's bulk group; commit, then wait until the
+// group's sources have been read (the shared memory may be written
+// again, or the block exit; the writes complete with the kernel).
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, "
+      "%2}], [%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -271,6 +332,62 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(TB));
+}
+
+// The tf32 path (B5's three-pass product, matmul_bn_apply_sm90.cuh).
+// cvt.rna rounds an f32 to tf32 (10 mantissa bits, the low 13 bits of
+// the word cleared), so the tensor cores read it exactly.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo to within 2^-22 |v|: hi = tf32(v), lo = tf32(v - hi).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 registers) * B (8 x 64, tf32,
+// K-major in shared memory: kmajor_desc over 128-byte rows of 32 tf32,
+// a k8 step 32 bytes along them). tf32 takes no transpose flags. A
+// fragment (4 registers, warp q of the warpgroup, lane = 4 g + t4):
+// a[0] row 16 q + g, column t4; a[1] row + 8; a[2] column t4 + 4; a[3]
+// both: the m16n8k8 tf32 layout. D as m64nNk16's.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Stores four 8 x 8 bf16 matrices: register j holds this lane's pair
+// (row g, columns 2 t4, 2 t4 + 1) of matrix j, and lane l gives the
+// shared address of row l % 8 of matrix l / 8 (16 bytes).
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
+                                        uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // Pins registers in place: the compiler may not move their reads or

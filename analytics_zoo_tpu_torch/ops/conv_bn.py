@@ -9,7 +9,10 @@ or reduces this BN's batch statistics from the f32 accumulator
 (training). Every TPU kernel on the path is a CUDA kernel here:
 
 - :func:`matmul_bn_apply` / :func:`conv1x1_bn_apply` replace
-  ``_apply_kernel`` (``_matmul_apply``), B5;
+  ``_apply_kernel`` (``_matmul_apply``), B5: with f32 weights an
+  f32-accurate three-pass tf32 product on wgmma
+  (``csrc/matmul_bn_apply_sm90.cuh``), with bf16 x and weights B1's
+  kernel with a fold epilogue;
 - :func:`conv3x3_bn_apply` replaces ``_conv3_apply_kernel``, B6;
 - :func:`matmul_bn` / :func:`conv1x1_bn` replace ``_kernel``
   (``_matmul_bn_fwd_pallas``), B1, and their backward replaces
@@ -17,17 +20,19 @@ or reduces this BN's batch statistics from the f32 accumulator
 - :func:`conv3x3_bn` replaces ``_conv3_kernel``, B2. Its backward is
   plain PyTorch (cuDNN conv grads), as the reference's is XLA convs.
 
-The forward kernels are one implicit-GEMM template
-(``csrc/conv_bn_fwd.cuh``), the backward products a second
-(``csrc/conv_bn_bwd.cuh``), and every cross-block sum a fixed-order
-second pass (``csrc/colsum.cuh``). B2, B3, B4 and B6 run their bf16
-paths on Hopper's warpgroup MMA instead, fed by a ring of asynchronous
-copies (``csrc/conv3x3_bn_sm90.cuh`` for B2 and, with its fold
-epilogue, B6; ``csrc/matmul_bn_dx_sm90.cuh``,
-``csrc/matmul_bn_dw_sm90.cuh``); their f32 paths stay on the
-templates. The bf16 tiles are picked here, where the CPU tests see
-them: :func:`dx_tile`, :func:`dw_tile` and :func:`dw_splits`, and
-:func:`conv3x3_apply_tile` by M. Each header's note says what bounds
+The bf16 paths of B1-B4 and B6, and B5, run on Hopper's warpgroup MMA,
+fed by rings of asynchronous copies (``csrc/matmul_bn_sm90.cuh`` for B1
+and, with its fold epilogue, B5 with bf16 x and weights;
+``csrc/matmul_bn_apply_sm90.cuh`` for B5's other dtype pairs, as
+:func:`fold_route` names them; ``csrc/conv3x3_bn_sm90.cuh`` for B2 and,
+with its fold epilogue, B6; ``csrc/matmul_bn_dx_sm90.cuh``,
+``csrc/matmul_bn_dw_sm90.cuh``). The f32 training paths and the f32 3x3
+fold run FMA templates (``csrc/conv_bn_fwd.cuh``,
+``csrc/conv_bn_bwd.cuh``), and every cross-block sum a fixed-order
+second pass (``csrc/colsum.cuh``). The bf16 tiles are picked here, where
+the CPU tests see them: :func:`fwd_tile`, :func:`dx_tile`,
+:func:`dw_tile` and :func:`dw_splits`, and :func:`conv3x3_apply_tile`
+by M. Each header's note says what bounds
 its kernels on the H100 and what the design does about it. Each
 wrapper takes the plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises, and counts the
@@ -35,8 +40,9 @@ launch in :data:`launches`.
 
 dtype rules (the reference's): the 1x1 fold casts the prologue output
 to the WEIGHT's type and multiplies in it, so bf16 activations with f32
-weights give an f32 product; the 3x3 fold and every training kernel
-cast the weights to the ACTIVATION's type. Accumulation and the
+weights give an f32 product (two or three tf32 passes, f32-accurate,
+never plain TF32); the 3x3 fold and every training kernel cast the
+weights to the ACTIVATION's type. Accumulation and the
 epilogue are f32; scale, shift and statistics vectors are f32; outputs
 have the activation's type, and so has the 1x1's dW (the cast's
 backward lifts it to the f32 master weight).
@@ -68,15 +74,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, in_scale, in_shift, out_scale, out_shift, res, y,
     # B, H, W, Cin, Ho, Wo, N, stride, affine_in, relu_in, relu_out,
-    # x_bf16, w_bf16, stream
+    # x_bf16, route (FOLD_ROUTES' index), stream
     "matmul_bn_apply": [_P] * 8 + [_I] * 13 + [_P],
     # x, w, in_scale, in_shift, out_scale, out_shift, y,
     # B, H, W, Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in,
     # relu_in, relu_out, x_bf16, w_bf16, window, bn, stream
     "conv3x3_bn_apply": [_P] * 7 + [_I] * 17 + [_P],
     # x, w, in_scale, in_shift, in_res, sh, y, partial, work, stats,
-    # B, H, W, Cin, Ho, Wo, N, stride, affine_in, relu_in, x_bf16,
-    # w_bf16, stream
+    # B, H, W, Cin, Ho, Wo, N, stride, affine_in, relu_in, bf16, bn,
+    # stream
     "matmul_bn": [_P] * 10 + [_I] * 12 + [_P],
     # x, w, in_scale, in_shift, sh, y, partial, work, stats,
     # B, H, W, Cin, Ho, Wo, N, stride, pad_t, pad_l, affine_in, relu_in,
@@ -287,11 +293,33 @@ def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
     y = torch.empty((b, ho, wo, n), dtype=x4.dtype, device=x4.device)
     if m == 0:
         return y
+    route = fold_route(x4.dtype, w.dtype, affine_in or relu_in)
     _launch(name, x4.device, _ptr(x4), _ptr(w), _ptr(s), _ptr(t),
             _ptr(os_), _ptr(ot), _ptr(residual), _ptr(y), b, h, wd, k, ho,
             wo, n, stride, int(affine_in), int(relu_in), int(relu_out),
-            int(x4.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
+            int(x4.dtype == torch.bfloat16), FOLD_ROUTES.index(route))
     return y
+
+
+# B5's kernels, by route (``csrc/matmul_bn_apply.cu``)
+FOLD_ROUTES = ("tf32x3", "tf32x2", "bf16", "tf32x1")
+
+
+def fold_route(x_dtype: torch.dtype, w_dtype: torch.dtype,
+               prologue: bool) -> str:
+    """The kernel B5 runs on the card, as the product runs in the
+    weights' type: f32 weights the f32-accurate three-pass tf32 split on
+    wgmma (``"tf32x3"``, ``csrc/matmul_bn_apply_sm90.cuh``), or its
+    two-pass instance where a bf16 x without a prologue is exact in tf32
+    (``"tf32x2"``: the dropped pass's terms are all zero); bf16 weights
+    with a bf16 x B1's wgmma kernel with the fold epilogue (``"bf16"``,
+    ``csrc/matmul_bn_sm90.cuh``), with an f32 x the tf32 kernel in one
+    pass on the bf16-rounded prologue (``"tf32x1"``: bf16 values are
+    exact in tf32)."""
+    if w_dtype == torch.bfloat16:
+        return "bf16" if x_dtype == torch.bfloat16 else "tf32x1"
+    return "tf32x2" if x_dtype == torch.bfloat16 and not prologue \
+        else "tf32x3"
 
 
 def matmul_bn_apply(x: torch.Tensor, w: torch.Tensor,
@@ -557,13 +585,14 @@ def _matmul_bn_fwd(x4, w, s, t, r, sh, stride, relu_in, affine_in):
     y = torch.empty((b, ho, wo, n), dtype=x4.dtype, device=x4.device)
     stats = torch.zeros(2 * n, dtype=torch.float32, device=x4.device)
     if m:
-        tiles = -(-m // 64)
-        partial, work = _partials(tiles, 2 * n, x4)
-        bf16 = int(x4.dtype == torch.bfloat16)
+        partial, work = _partials(matmul_bn_partial_rows(m, x4.dtype),
+                                  2 * n, x4)
         _launch(name, x4.device, _ptr(x4), _ptr(w), _ptr(s), _ptr(t),
                 _ptr(r), _ptr(sh), _ptr(y), _ptr(partial), _ptr(work),
                 _ptr(stats), b, h, wd, k, ho, wo, n, stride,
-                int(affine_in), int(relu_in), bf16, bf16)
+                int(affine_in), int(relu_in),
+                int(x4.dtype == torch.bfloat16),
+                fwd_tile(n, residual=r is not None))
     return y, stats[:n], stats[n:]
 
 
@@ -621,6 +650,29 @@ def _matmul_bn_dw(x, s, t, r, sh, y, dy, dsum, dsq, relu_in, affine_in):
             _ptr(work), _ptr(dw), m, k, n, int(affine_in), int(relu_in),
             splits, chunk, bk, bn, int(bf16))
     return dw.to(x.dtype)
+
+
+def fwd_tile(n: int, residual: bool = False) -> int:
+    """B1's bf16 tile width BN: its tiles are 128 rows by BN columns of y
+    (``csrc/matmul_bn_sm90.cuh``, one wave of blocks walking them), BN
+    the widest of 256, 128 and 64 that divides N, so x is read N / BN
+    times and the W slice once per 128 rows. Every width was timed at
+    every train-step shape on the H100 (``scripts/conv_bn_ab.py``,
+    PERF.md): the widest was best or within 1% at 14 of the 16, also
+    where its tiles number fewer than the SMs (M 6,272); narrower ones
+    won by 5-7% at two (0.04 ms of a step, no rule worth its keep). With
+    an ``in_residual`` the tile is 64 wide (its second ring slice fits
+    only there)."""
+    if residual:
+        return 64
+    return 256 if n % 256 == 0 else 128 if n % 128 == 0 else 64
+
+
+def matmul_bn_partial_rows(m: int, dtype: torch.dtype) -> int:
+    """Rows of B1's statistics partials, one per M tile: 128 rows in
+    bf16 (``csrc/matmul_bn_sm90.cuh``), 64 in f32
+    (``csrc/conv_bn_fwd.cuh``)."""
+    return -(-m // (128 if dtype == torch.bfloat16 else 64))
 
 
 def dx_tile(k: int) -> int:

@@ -15,16 +15,26 @@ script exits non-zero and prints no result line:
 3. kernels: every distinct shape each kernel gets on its path, held
    against its plain PyTorch version on the card, with kernel, plain,
    library-call and bound times: the eval folds (B5, B6) at ResNet-50's
-   serving shapes (224x224, batch 32, plus batch 1's M = 49 and
-   prologue cases), the training kernels (B1-B4) at its train-step
-   shapes (batch 128, plus residual and ragged-M cases; B2 also at Cin
-   128 and 256 on a small ragged M and stride 2 at an odd extent, B4 at
-   K 64 / N 64 on a ragged M and K 2048 / N 512 with a residual and no
-   affine), in f32 and bf16, and B6 in bf16 at serving's batch 1 and 8
-   too; then per-shape tables of B3 (the 16 train-step shapes) and B6
-   (batch 1, 8 and 32): launches, kernel, library and bound ms, and the
-   rate against the bound's unit. The build prints each wgmma kernel's
-   registers and spills;
+   serving shapes (224x224, batch 1, 8 and 32; B5 with the model's f32
+   weights in both activation dtypes, and with bf16 weights and a
+   prologue), the training kernels (B1-B4) at its train-step shapes
+   (batch 128, plus residual and ragged-M cases; B2 also at Cin 128 and
+   256 on a small ragged M and stride 2 at an odd extent, B4 at K 64 /
+   N 64 on a ragged M and K 2048 / N 512 with a residual and no
+   affine), in f32 and bf16. B5's f32 product also meets an accuracy
+   gate at every shape: against the fold in float64 from the same
+   inputs, its max|error| at most twice cuBLAS f32's (TF32 off), and
+   with a bf16 x at most twice as many elements of y rounded to bf16
+   otherwise than that fold (plain TF32 the control that must fail); its
+   bound is the least time of an f32-accurate product on this card,
+   max(bytes / 3.35 TB/s, min(FLOP / 67 TFLOP/s, p FLOP / 495 TFLOP/s))
+   with p the TF32 passes it needs (:func:`fold_passes`: 2 for a bf16 x
+   without a prologue, else 3), the term named. B1's y and statistics repeat bit for bit. Then
+   per-shape tables of B1 and B3 (the 16 train-step shapes), B5 (both
+   activation dtypes) and B6 (batch 1, 8 and 32): launches, kernel,
+   library and bound ms, and the rate against the bound's unit. The
+   build prints each wgmma kernel's registers and spills, and any
+   ptxas warning that a kernel's wgmmas are serialised;
 4. serving: ``ImageClassifier("resnet-50", fused=True)`` at full width
    with seeded random weights and distinctive BatchNorm statistics,
    served by ``InferenceModel`` to requests from two threads at batch
@@ -114,6 +124,7 @@ TRAIN_FLOP_PER_IMAGE = 3 * 2 * 4.09e9
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12     # tensor cores, tf32 (dense)
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 KERNELS = {
@@ -277,9 +288,11 @@ def path_shapes(model, batch):
 
 def kernel_cases(b5, b6):
     """(kernel, key, x dtype, weight dtype, prologue, launches per
-    forward) for every serving-path shape in both dtypes, plus batch 1's
-    M = 49 and prologue cases (the serving path runs none), and B6's
-    bf16 serving shapes at batch 1 and 8."""
+    forward) for every serving-path shape in both dtypes, B5 (both x
+    dtypes) and B6 (bf16) at serving's batch 1 and 8 too, and prologue
+    cases (the serving path runs none), B5's with bf16 weights (B1's
+    kernel with the fold epilogue for a bf16 x, the one-pass tf32 route
+    for an f32 x)."""
     cases = []
     for dt in ("float32", "bfloat16"):
         # the model keeps f32 weights: the 1x1 fold multiplies in the
@@ -288,15 +301,18 @@ def kernel_cases(b5, b6):
                   for k, n in sorted(b5.items())]
         cases += [("conv3x3_bn_apply", k, dt, dt, False, n)
                   for k, n in sorted(b6.items())]
-        cases.append(("matmul_bn_apply", (1, 7, 7, 2048, 512, 1, False,
-                                          True), dt, "float32", False, 0))
-    # B6 at serving's other batches (its tile follows M)
+    # B5 and B6 at serving's other batches (B6's tile follows M)
     for bs in (1, 8):
+        for dt in ("float32", "bfloat16"):
+            cases += [("matmul_bn_apply", (bs,) + k[1:], dt, "float32",
+                       False, 0) for k in sorted(b5)]
         cases += [("conv3x3_bn_apply", (bs,) + k[1:], "bfloat16",
                    "bfloat16", False, 0) for k in sorted(b6)]
     cases.append(("matmul_bn_apply", (BATCH, 28, 28, 512, 128, 1, True,
-                                      True), "bfloat16", "bfloat16",
-                  True, 0))
+                                      True), "float32", "float32", True, 0))
+    for dt in ("bfloat16", "float32"):
+        cases.append(("matmul_bn_apply", (BATCH, 28, 28, 512, 128, 1, True,
+                                          True), dt, "bfloat16", True, 0))
     cases.append(("conv3x3_bn_apply", (BATCH, 28, 28, 128, 128, 1),
                   "bfloat16", "bfloat16", True, 0))
     return cases
@@ -372,8 +388,16 @@ def run_case(case, gen):
         flops = 2.0 * m * 9 * cin * cout
         nbytes = (b * h * w * cin + m * cout) * x.element_size() + \
             9 * cin * cout * x.element_size()
-    # the 1x1 fold multiplies in the weights' type, the 3x3 fold in x's
-    peak = PEAK_FLOPS[wdt if name == "matmul_bn_apply" else dt]
+    # the 1x1 fold multiplies in the weights' type, the 3x3 fold in x's.
+    # An f32-accurate product's least time on this card is the smaller
+    # of f32 FMA (67 TFLOP/s) and the tf32 passes it needs (495 TFLOP/s).
+    cdt = wdt if name == "matmul_bn_apply" else dt
+    flop_ms = flops / PEAK_FLOPS[cdt] * 1e3
+    term = "bf16 tensor cores" if cdt == "bfloat16" else "f32 FMA"
+    passes = fold_passes(dt, prologue)
+    if cdt == "float32" and name == "matmul_bn_apply" and \
+            passes * flops / PEAK_TF32 < flops / PEAK_FLOPS["float32"]:
+        flop_ms, term = passes * flops / PEAK_TF32 * 1e3, f"{passes}xTF32"
     nbytes += 4 * 2 * (cout + (cin if prologue else 0))
     y, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -386,19 +410,77 @@ def run_case(case, gen):
            "prologue": prologue, "per_path": per_path,
            "max_abs_err": err, "tol": TOL[dt] * scale,
            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library),
-           "flop_ms": flops / peak * 1e3, "byte_ms": nbytes / PEAK_BYTES * 1e3}
+           "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
+           "flop_ms": flop_ms, "byte_ms": nbytes / PEAK_BYTES * 1e3}
     rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
     rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
         else "bytes"
+    rec["bound_term"] = term if rec["bound_by"] == "operations" else "bytes"
+    gate = ""
+    if name == "matmul_bn_apply" and wdt == "float32":
+        # the f32 product's accuracy gate: against the fold in float64
+        # from the same inputs, the kernel's max|error| at most twice the
+        # plain version's (cuBLAS f32, TF32 off)
+        y64 = fold64(x[:, ::stride, ::stride].reshape(m, k), w2, s, t, os_,
+                     ot, None if res is None else res.reshape(m, n),
+                     prologue, relu).reshape(b, ho, wo, n)
+        e_k = (y.double() - y64).abs().max().item()
+        e_p = (ref.double() - y64).abs().max().item()
+        rec["gate"] = {"kernel_err": e_k, "plain_err": e_p,
+                       "ratio": e_k / e_p if e_p else None}
+        gate = f", vs f64 {e_k:.3e} (cuBLAS f32 {e_p:.3e})"
+        check(e_k <= 2 * e_p, f"{name} {key} {dt}: max|err| against "
+              f"float64 {e_k} > twice cuBLAS f32's {e_p}")
+        if dt == "bfloat16":
+            # a bf16 y hides the product's error from max|error|: count
+            # the elements rounded to bf16 otherwise than the float64
+            # fold, against cuBLAS f32's count and plain TF32's (the
+            # control that must fail)
+            y16 = y64.float().to(torch.bfloat16)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = plain()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            n_k, n_p, n_t = (int((v != y16).sum().item())
+                             for v in (y, ref, tf32))
+            slack = 8 + y.numel() // 100000
+            rec["gate"].update(misrounded=n_k, plain_misrounded=n_p,
+                               tf32_misrounded=n_t)
+            gate += f", misrounded {n_k} (cuBLAS f32 {n_p}, TF32 {n_t})"
+            check(n_k <= 2 * n_p + slack and n_t > 2 * n_p + slack,
+                  f"{name} {key} {dt}: bf16 misroundings {n_k}, cuBLAS "
+                  f"f32 {n_p}, TF32 {n_t}")
     print(f"  {name} {dt}/{wdt}{' prologue' if prologue else ''} "
           f"{tuple(key)} x{per_path}: max|err| {err:.3e} "
-          f"(tol {rec['tol']:.3e}) kernel {rec['ms']:.4f} ms, plain "
+          f"(tol {rec['tol']:.3e}){gate} kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_term']})",
+          flush=True)
     check(err <= rec["tol"], f"{name} {key} {dt}: max|err| {err} > "
           f"{rec['tol']}")
     return rec
+
+
+def fold_passes(x_dtype: str, prologue: bool) -> int:
+    """TF32 passes an f32-accurate 1x1 fold product with f32 weights
+    needs: two where x is bf16 and there is no prologue (A is exact in
+    TF32, so A_lo W_hi is zero), else three (A_lo W_hi + A_hi W_lo +
+    A_hi W_hi)."""
+    return 2 if x_dtype == "bfloat16" and not prologue else 3
+
+
+def fold64(x, w, s, t, os_, ot, res, prologue, relu):
+    """The 1x1 fold in float64 from the same inputs: the accuracy
+    gate's reference for B5's f32 product."""
+    import torch
+    xd = x.double()
+    if prologue:
+        xd = torch.relu(xd * s.double() + t.double())
+    y = xd @ w.double() * os_.double() + ot.double()
+    if res is not None:
+        y = y + res.double()
+    return torch.relu(y) if relu else y
 
 
 def train_shapes(model, batch):
@@ -568,12 +650,17 @@ def run_train_case(case, gen):
         errs[oname] = (err, tol)
         check(err <= tol, f"{name} {key} {dt} {oname}: max|err| {err} > "
               f"{tol}")
+    if name == "matmul_bn":
+        # fixed-order sums: y and both statistics repeat bit for bit
+        again = kernel()
+        check(all(bool(torch.equal(a, b_)) for a, b_ in zip(got, again)),
+              f"{name} {key} {dt}: a second launch differs")
     rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": dt,
            "prologue": name == "conv3x3_bn" or bool(key[6]),
            "per_path": per_step, "errors": errs,
            "max_abs_err": max(e for e, _ in errs.values()),
            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library),
+           "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
            "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
            "byte_ms": nbytes / PEAK_BYTES * 1e3}
     rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
@@ -860,7 +947,8 @@ def train_path(card, detail):
 
 
 TRAIN_KERNEL_NAMES = (
-    ("matmul_bn", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, true>"),
+    ("matmul_bn", r"matmul_bn_sm90_kernel<\d+, false|"
+                  r"conv_bn_f32_kernel<[^,]+, 1, true>"),
     ("conv3x3_bn", r"conv3x3_bn(_s1)?_sm90_kernel<\d+, false>|"
                    r"conv_bn_f32_kernel<[^,]+, 3, true>"),
     ("matmul_bn_dx", r"matmul_bn_dx_sm90_kernel|conv_bn_dx_f32"),
@@ -868,7 +956,8 @@ TRAIN_KERNEL_NAMES = (
     ("colsum (B1-B4 second pass)", r"colsum_kernel"),
 )
 SERVE_KERNEL_NAMES = (
-    ("matmul_bn_apply", r"conv_bn_(bf16|f32)_kernel<[^,]+, 1, false>"),
+    ("matmul_bn_apply", r"matmul_bn_apply_sm90_kernel|"
+                        r"matmul_bn_sm90_kernel<\d+, true"),
     ("conv3x3_bn_apply", r"conv3x3_bn(_s1)?_sm90_kernel<\d+, true>|"
                          r"conv_bn_f32_kernel<[^,]+, 3, false>"),
 )
@@ -914,21 +1003,19 @@ def profile_requests(im, x, n: int = 3) -> dict:
     return out
 
 
-def shape_table(records, kernel, by):
-    """Prints one kernel's bf16 per-shape table from phase 3's records:
-    launches per path, kernel ms per launch, the library call's, the
-    bound (b: bytes, o: operations) and the rate against that bound's
-    unit; ``by`` keeps the records that belong (a dtype and batch
-    filter). Returns the rows."""
+def shape_table(records, kernel, by, dtype="bfloat16"):
+    """Prints one kernel's per-shape table (activations in ``dtype``)
+    from phase 3's records: launches per path, kernel ms per launch, the
+    library call's, the bound (b: bytes, o: operations) and the rate
+    against that bound's unit; ``by`` keeps the records that belong (a
+    batch filter). Returns the rows."""
     rows = []
     for r in records:
-        if r["kernel"] != kernel or r["dtype"] != "bfloat16" or not by(r):
+        if r["kernel"] != kernel or r["dtype"] != dtype or not by(r):
             continue
-        flop_s = r["flop_ms"] * PEAK_FLOPS["bfloat16"] / 1e3
-        byte_s = r["byte_ms"] * PEAK_BYTES / 1e3
-        rate = (f"{byte_s / r['ms'] / 1e6:.0f} GB/s"
+        rate = (f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s"
                 if r["bound_by"] == "bytes"
-                else f"{flop_s / r['ms'] / 1e9:.0f} TFLOP/s")
+                else f"{r['flops'] / r['ms'] / 1e9:.0f} TFLOP/s")
         rows.append({"key": r["key"], "per_path": r["per_path"],
                      "ms": r["ms"], "library_ms": r["library_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1940,6 +2027,8 @@ def main() -> int:
                      re.findall(r"(\d+) bytes spill stores", log))
         print(f"  {name}: registers per thread {regs}, spill stores "
               f"{spills} bytes", flush=True)
+        for warn in sorted(set(re.findall(r"\(C75\d\d\)[^\n]*", log))):
+            print(f"    ptxas: {warn[:160]}", flush=True)
         for entry in log.split("Compiling entry function '")[1:]:
             fn = entry.split("'", 1)[0]
             if "_sm90_kernel" not in fn:
@@ -1969,10 +2058,20 @@ def main() -> int:
         records += run_flash_case(c, gen)
     records += [run_decode_case(c, gen) for c in decode_cases()]
     detail["kernel_cases"] = records
-    print("  B3 matmul_bn_dx per shape (bf16, train step, batch "
-          f"{TRAIN_BATCH}):", flush=True)
-    tables = {"matmul_bn_dx": shape_table(
-        records, "matmul_bn_dx", lambda r: r["per_path"] > 0)}
+    tables = {}
+    for kname, label in (("matmul_bn", "B1"), ("matmul_bn_dx", "B3")):
+        print(f"  {label} {kname} per shape (bf16, train step, batch "
+              f"{TRAIN_BATCH}):", flush=True)
+        tables[kname] = shape_table(records, kname,
+                                    lambda r: r["per_path"] > 0)
+    for dt in ("bfloat16", "float32"):
+        for bs in (1, 8, BATCH):
+            print(f"  B5 matmul_bn_apply per shape ({dt} activations, f32 "
+                  f"weights, serving batch {bs}):", flush=True)
+            tables[f"matmul_bn_apply_{dt}_b{bs}"] = shape_table(
+                records, "matmul_bn_apply",
+                lambda r, bs=bs: r["key"][0] == bs and not r["prologue"]
+                and r["w_dtype"] == "float32", dt)
     for bs in (1, 8, BATCH):
         print(f"  B6 conv3x3_bn_apply per shape (bf16, serving batch {bs}):",
               flush=True)

@@ -278,3 +278,36 @@ def test_b6_kernel_and_tile_are_legal_at_serving_shapes(monkeypatch, batch):
     wide = {k for k, (_, bn) in chosen.items() if bn == 128}
     assert wide == ({(28, 28, 128, 128, 1), (56, 56, 128, 128, 2),
                      (28, 28, 256, 256, 2)} if batch == 32 else set())
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,prologue,route", [
+    (torch.float32, torch.float32, False, "tf32x3"),
+    (torch.float32, torch.float32, True, "tf32x3"),
+    (torch.bfloat16, torch.float32, False, "tf32x2"),
+    (torch.bfloat16, torch.float32, True, "tf32x3"),
+    (torch.float32, torch.bfloat16, False, "tf32x1"),
+    (torch.float32, torch.bfloat16, True, "tf32x1"),
+    (torch.bfloat16, torch.bfloat16, False, "bf16"),
+    (torch.bfloat16, torch.bfloat16, True, "bf16")])
+def test_b5_route_follows_the_weights_type(monkeypatch, x_dtype, w_dtype,
+                                           prologue, route):
+    # B5 multiplies in the weights' type: f32 weights take the
+    # f32-accurate tf32 split in three passes, or two where a bf16 x
+    # without a prologue is exact in tf32; bf16 weights take B1's kernel
+    # with the fold epilogue for a bf16 x, and the tf32 kernel in one
+    # pass for an f32 x (rounded to bf16 after the prologue, exact in
+    # tf32, as is W). The wrapper hands the C entry point x's
+    # type and that route, and the weights as they are
+    assert tcb.fold_route(x_dtype, w_dtype, prologue) == route
+    launched = []
+    monkeypatch.setattr(tcb, "_device_kind", lambda name, x: "cuda")
+    monkeypatch.setattr(tcb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tcb, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    w = torch.zeros(64, 128, dtype=w_dtype)
+    vec = torch.ones(64) if prologue else None
+    tcb.conv1x1_bn_apply(torch.zeros(2, 4, 4, 64, dtype=x_dtype), w,
+                         in_scale=vec, relu_in=prologue)
+    assert launched[0][1] == w.data_ptr()
+    assert launched[0][-2:] == (int(x_dtype == torch.bfloat16),
+                                tcb.FOLD_ROUTES.index(route))

@@ -321,3 +321,37 @@ def test_b3_tile_is_legal_at_every_train_shape(monkeypatch):
             assert launched[0][15:21] == (m, k, n, 1, 1, bk)
     assert (tcb.dx_tile(64), tcb.dx_tile(128), tcb.dx_tile(512),
             tcb.dx_tile(2048)) == (64, 128, 256, 256)
+
+
+def test_b1_tile_is_legal_at_every_train_shape(monkeypatch):
+    # B1's bf16 tile at every ResNet-50 1x1 of a batch-128 step: the
+    # widest of 256, 128 and 64 that divides N; 64 wide with an
+    # in_residual. The wrapper hands the C entry point the dtype flag and
+    # that width, and allocates
+    # one statistics partial row per M tile of the kernel (128 rows in
+    # bf16, 64 in f32)
+    launched, rows = [], []
+    real_partials = tcb._partials
+    monkeypatch.setattr(tcb, "_device_kind", lambda name, x: "cuda")
+    monkeypatch.setattr(tcb, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tcb, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    monkeypatch.setattr(tcb, "_partials", lambda r, c, like: (
+        rows.append((r, c)), real_partials(1, c, like))[1])
+    for m, k, n in _resnet50_1x1_shapes():
+        bn = tcb.fwd_tile(n)
+        assert bn == min(n, 256) and n % bn == 0
+        assert tcb.fwd_tile(n, residual=True) == 64
+        for dtype, tile_rows in ((torch.bfloat16, 128), (torch.float32, 64)):
+            assert tcb.matmul_bn_partial_rows(m, dtype) == -(-m // tile_rows)
+            launched.clear()
+            rows.clear()
+            vec = torch.zeros(k)
+            tcb._matmul_bn_fwd(torch.empty(m, 1, 1, k, dtype=dtype),
+                               torch.empty(k, n, dtype=dtype), vec, vec,
+                               None, torch.zeros(n), 1, True, True)
+            assert rows == [(-(-m // tile_rows), 2 * n)]
+            assert launched[0][10:] == (m, 1, 1, k, 1, 1, n, 1, 1, 1,
+                                        int(dtype == torch.bfloat16), bn)
+    assert [tcb.fwd_tile(n) for n in (64, 128, 512, 2048)] == \
+        [64, 128, 256, 256]

@@ -15,6 +15,11 @@ B2 and B4 alone (their bf16 wgmma kernels and f32 templates):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py \
         -k "conv3x3_bn or dw"
 
+B1 and B5 alone (the 1x1 forward kernels and their routes):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py \
+        -k "b1_ or b5_"
+
 Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold and atol 1e-3 for the
 3x3 (sums in another order, TF32 off); 2e-2 wherever a bf16 operand or
 output is involved (one bf16 rounding, 2^-8 relative). The flash
@@ -25,7 +30,12 @@ another order, and in bf16 p is rounded at the running row max on the
 card and at the final one in the plain version. The decode kernel (B11)
 is held to the same bounds; a decode step of a small GPT stack on the
 card to the same step on the CPU within 1e-4 of max|logit| (products
-and sums in another order through two blocks, TF32 off).
+and sums in another order through two blocks, TF32 off). B5's f32
+product (three tf32 passes) is also held to the fold in float64 from
+the same inputs: its max|error| at most twice that of the plain
+version, cuBLAS f32 with TF32 off; with a bf16 x, whose y is rounded
+to bf16, it must round y as cuBLAS f32 does (counted against the fold
+in float64, beside plain TF32 as the control that fails that count).
 """
 
 import re
@@ -766,3 +776,289 @@ def test_decode_step_through_b11_on_card_matches_cpu(cuda):
     scale = logits["cpu"].abs().max().item()
     assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= \
         1e-4 * scale
+
+
+# -- B1 (matmul_bn) and B5 (matmul_bn_apply): the 1x1 forward kernels ------
+
+# ResNet-50's distinct 1x1 train-step shapes at batch 128, (B, H, W, K,
+# N, stride): c1 and c3 of each stage, and the downsamples
+B1_SHAPES = [(128, 56, 56, 64, 64, 1), (128, 56, 56, 64, 256, 1),
+             (128, 56, 56, 256, 64, 1), (128, 56, 56, 256, 128, 1),
+             (128, 56, 56, 256, 512, 2), (128, 28, 28, 128, 512, 1),
+             (128, 28, 28, 512, 128, 1), (128, 28, 28, 512, 256, 1),
+             (128, 28, 28, 512, 1024, 2), (128, 14, 14, 256, 1024, 1),
+             (128, 14, 14, 1024, 256, 1), (128, 14, 14, 1024, 512, 1),
+             (128, 14, 14, 1024, 2048, 2), (128, 7, 7, 512, 2048, 1),
+             (128, 7, 7, 2048, 512, 1)]
+
+
+def _b1_inputs(b, h, w, k, n, stride, affine, residual, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+    m = b * -(-h // stride) * -(-w // stride)
+    x4 = randn(b, h, w, k, dtype=torch.bfloat16)
+    wt = randn(k, n, scale=k ** -0.5, dtype=torch.bfloat16)
+    s = 1.0 + randn(k, scale=0.1) if affine else None
+    t = randn(k, scale=0.1) if affine else None
+    r = randn(m, k, dtype=torch.bfloat16) if residual else None
+    return x4, wt, s, t, r, randn(n, scale=0.1)
+
+
+def _b1_check(x4, wt, s, t, r, sh, stride, relu, affine):
+    """B1 against its plain version (y and both statistics), launched
+    twice: one count each, and the same bits."""
+    b, h, w, k = x4.shape
+    m = b * -(-h // stride) * -(-w // stride)
+    before = tcb.launches["matmul_bn"]
+    got = tcb._matmul_bn_fwd(x4, wt, s, t, r, sh, stride, relu, affine)
+    again = tcb._matmul_bn_fwd(x4, wt, s, t, r, sh, stride, relu, affine)
+    want = tcb.matmul_bn_ref(x4[:, ::stride, ::stride].reshape(m, k), wt, s,
+                             t, r, sh, relu, affine)
+    torch.cuda.synchronize()
+    assert tcb.launches["matmul_bn"] == before + 2
+    for a, a2, b_ in zip((got[0].reshape(m, -1), got[1], got[2]),
+                         (again[0].reshape(m, -1), again[1], again[2]),
+                         want):
+        assert torch.equal(a, a2)
+        _close(a, b_, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,k,n,stride", B1_SHAPES)
+@pytest.mark.parametrize("relu,affine,residual", [
+    (True, True, False), (False, False, False), (True, True, True),
+    (False, True, False)])
+def test_b1_bf16_matches_plain_at_train_shapes(cuda, b, h, w, k, n, stride,
+                                               relu, affine, residual):
+    # B1's wgmma kernel at every train-step shape (its fwd_tile there),
+    # with and without the affine, the ReLU and the in_residual; y and
+    # the statistics repeat bit for bit
+    args = _b1_inputs(b, h, w, k, n, stride, affine, residual, cuda, 30)
+    _b1_check(*args, stride, relu, affine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [256, 128, 64])
+@pytest.mark.parametrize("b,h,w,k,n,stride,residual", [
+    (3, 7, 7, 64, 512, 1, False), (3, 7, 7, 2048, 512, 1, False),
+    (3, 7, 7, 256, 512, 2, False), (2, 9, 9, 128, 256, 2, False),
+    (3, 7, 7, 2048, 512, 1, True)])
+def test_b1_bf16_every_tile_ragged(cuda, monkeypatch, bn, b, h, w, k, n,
+                                   stride, residual):
+    # every tile width B1 can be given, forced, on ragged M (3 images of
+    # 7x7; stride 2 at an odd extent); an in_residual takes the 64-wide
+    # tile only
+    if residual and bn != 64:
+        pytest.skip("an in_residual takes the 64-wide tile")
+    monkeypatch.setattr(tcb, "fwd_tile", lambda *a_, **kw: bn)
+    args = _b1_inputs(b, h, w, k, n, stride, True, residual, cuda, 31)
+    _b1_check(*args, stride, True, True)
+
+
+# ResNet-50's distinct 1x1 serving shapes per image, (H, W, K, N,
+# stride, residual, relu): c1, c3 (with the block's residual) and the
+# downsamples
+B5_SHAPES = [(56, 56, 64, 64, 1, False, True), (56, 56, 64, 256, 1, True,
+                                                True),
+             (56, 56, 64, 256, 1, False, False),
+             (56, 56, 256, 64, 1, False, True),
+             (56, 56, 256, 128, 1, False, True),
+             (56, 56, 256, 512, 2, False, False),
+             (28, 28, 128, 512, 1, True, True),
+             (28, 28, 512, 128, 1, False, True),
+             (28, 28, 512, 256, 1, False, True),
+             (28, 28, 512, 1024, 2, False, False),
+             (14, 14, 256, 1024, 1, True, True),
+             (14, 14, 1024, 256, 1, False, True),
+             (14, 14, 1024, 512, 1, False, True),
+             (14, 14, 1024, 2048, 2, False, False),
+             (7, 7, 512, 2048, 1, True, True),
+             (7, 7, 2048, 512, 1, False, True)]
+
+
+def _b5_inputs(b, h, w, k, n, stride, residual, prologue, dt, wdt, dev,
+               seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            dtype)
+    ho, wo = -(-h // stride), -(-w // stride)
+    x = randn(b, h, w, k, dtype=dt)
+    wt = randn(k, n, scale=k ** -0.5, dtype=wdt)
+    fold = dict(in_scale=1.0 + randn(k, scale=0.1) if prologue else None,
+                in_shift=randn(k, scale=0.1) if prologue else None,
+                relu_in=prologue, out_scale=1.0 + randn(n, scale=0.1),
+                out_shift=randn(n, scale=0.1))
+    res = randn(b, ho, wo, n, dtype=dt) if residual else None
+    return x, wt, res, fold
+
+
+def _b5_plain(x, wt, stride, res, fold, relu):
+    b, h, w, k = x.shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    m, n = b * ho * wo, wt.shape[1]
+    x2 = x[:, ::stride, ::stride].reshape(m, k)
+    r2 = None if res is None else res.reshape(m, n)
+    pro = fold["relu_in"]
+    y = tcb.matmul_bn_apply_ref(x2, wt, fold["in_scale"], fold["in_shift"],
+                                fold["out_scale"], fold["out_shift"], r2,
+                                pro, pro, relu)
+    xd = x2.double()
+    if pro:
+        xd = torch.relu(xd * fold["in_scale"].double() +
+                        fold["in_shift"].double())
+    y64 = xd @ wt.double() * fold["out_scale"].double() + \
+        fold["out_shift"].double()
+    if r2 is not None:
+        y64 = y64 + r2.double()
+    return y.reshape(b, ho, wo, n), (torch.relu(y64) if relu else y64
+                                     ).reshape(b, ho, wo, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,k,n,stride,residual,relu", B5_SHAPES)
+def test_b5_f32_weights_meet_the_float64_gate(cuda, batch, dtype, h, w, k,
+                                              n, stride, residual, relu):
+    # B5 with the model's f32 weights at every serving shape and batch,
+    # in both activation dtypes, with the residual and ReLU serving runs:
+    # within the dtype's bound of the plain version, and against the fold
+    # in float64 from the same inputs no worse than twice the plain
+    # version's (cuBLAS f32, TF32 off) error
+    dt = getattr(torch, dtype)
+    x, wt, res, fold = _b5_inputs(batch, h, w, k, n, stride, residual,
+                                  False, dt, torch.float32, cuda, 32)
+    before = tcb.launches["matmul_bn_apply"]
+    got = tcb.conv1x1_bn_apply(x, wt, stride=stride, residual=res,
+                               relu_out=relu, **fold)
+    want, want64 = _b5_plain(x, wt, stride, res, fold, relu)
+    torch.cuda.synchronize()
+    assert tcb.launches["matmul_bn_apply"] == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    tol = 1e-3 if dt == torch.float32 else 2e-2
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    err = (got.double() - want64).abs().max().item()
+    err_plain = (want.double() - want64).abs().max().item()
+    assert err <= 2 * err_plain
+
+
+def _bf16_misrounded(y, y64):
+    """Elements of the bf16 ``y`` that differ from the fold in float64
+    rounded once to bf16."""
+    return int((y != y64.float().to(torch.bfloat16)).sum().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k,n,stride,residual,relu", B5_SHAPES)
+def test_b5_bf16_x_f32_weights_round_as_cublas_f32(cuda, h, w, k, n, stride,
+                                                   residual, relu):
+    # serving's route (bf16 x, f32 weights, no prologue: two tf32
+    # passes, A_hi W_hi + A_hi W_lo) at batch 32. Its y is bf16, which
+    # hides the product's error from a max|error| gate; so count the
+    # elements whose bf16 rounding differs from the float64 fold's: the
+    # kernel may misround no more than twice as many as cuBLAS f32 (TF32
+    # off), and plain TF32 (the route without its A_hi W_lo pass),
+    # misrounding many more, is the control that shows the count bites
+    x, wt, res, fold = _b5_inputs(32, h, w, k, n, stride, residual, False,
+                                  torch.bfloat16, torch.float32, cuda, 35)
+    assert tcb.fold_route(x.dtype, wt.dtype, False) == "tf32x2"
+    got = tcb.conv1x1_bn_apply(x, wt, stride=stride, residual=res,
+                               relu_out=relu, **fold)
+    want, want64 = _b5_plain(x, wt, stride, res, fold, relu)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _ = _b5_plain(x, wt, stride, res, fold, relu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    n_kernel = _bf16_misrounded(got, want64)
+    n_f32 = _bf16_misrounded(want, want64)
+    n_tf32 = _bf16_misrounded(tf32, want64)
+    slack = 8 + got.numel() // 100000
+    assert n_kernel <= 2 * n_f32 + slack, (n_kernel, n_f32, n_tf32)
+    assert n_tf32 > 2 * n_f32 + slack, (n_kernel, n_f32, n_tf32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
+                                           ("bfloat16", "float32"),
+                                           ("float32", "bfloat16"),
+                                           ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("b,h,w,k,n,stride", [(3, 7, 7, 64, 64, 1),
+                                              (3, 7, 7, 2048, 512, 1),
+                                              (2, 9, 9, 256, 128, 2),
+                                              (8, 28, 28, 128, 512, 1)])
+def test_b5_prologue_residual_and_bf16_weights(cuda, dtype, w_dtype, b, h,
+                                               w, k, n, stride):
+    # B5 with a prologue, a residual and the ReLU on ragged M and at
+    # stride 2, f32 weights (the three-pass route) and bf16 weights (B1's
+    # kernel with the fold epilogue for a bf16 x, the one-pass tf32 route
+    # for an f32 x) for either activation dtype
+    dt, wdt = getattr(torch, dtype), getattr(torch, w_dtype)
+    x, wt, res, fold = _b5_inputs(b, h, w, k, n, stride, True, True, dt,
+                                  wdt, cuda, 33)
+    got = tcb.conv1x1_bn_apply(x, wt, stride=stride, residual=res,
+                               relu_out=True, **fold)
+    want, want64 = _b5_plain(x, wt, stride, res, fold, True)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    _close(got, want, torch.float32 if "bfloat16" not in (dtype, w_dtype)
+           else torch.bfloat16)
+    if w_dtype == "float32":
+        assert (got.double() - want64).abs().max().item() <= \
+            2 * (want.double() - want64).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_b1_and_b5_reach_the_kernels_their_routes_name(cuda):
+    # which kernel each dtype pair reaches on the card: B1 in bf16 the
+    # wgmma kernel, in f32 the FMA template; B5 by fold_route: f32
+    # weights the tf32 split (two passes for a bf16 x without a
+    # prologue), bf16 weights B1's kernel with the fold epilogue (bf16
+    # x) or the tf32 kernel in one pass (f32 x); the old mma.sync 1x1
+    # kernel is gone
+    from torch.profiler import ProfilerActivity, profile
+    want = {("float32", "float32", False): ("tf32x3",
+            "matmul_bn_apply_sm90_kernel<float, float, true>"),
+            ("bfloat16", "float32", False): ("tf32x2",
+            "matmul_bn_apply_sm90_kernel<__nv_bfloat16, float, false>"),
+            ("bfloat16", "float32", True): ("tf32x3",
+            "matmul_bn_apply_sm90_kernel<__nv_bfloat16, float, true>"),
+            ("float32", "bfloat16", True): ("tf32x1",
+            "matmul_bn_apply_sm90_kernel<float, __nv_bfloat16, false>"),
+            ("bfloat16", "bfloat16", False): ("bf16",
+            "matmul_bn_sm90_kernel<64, true>")}
+    for (dtype, w_dtype, prologue), (route, kernel) in want.items():
+        dt, wdt = getattr(torch, dtype), getattr(torch, w_dtype)
+        assert tcb.fold_route(dt, wdt, prologue) == route
+        x, wt, res, fold = _b5_inputs(2, 8, 8, 64, 128, 1, True, prologue,
+                                      dt, wdt, cuda, 34)
+        # a first launch loads the kernel, which the profiler may miss
+        tcb.conv1x1_bn_apply(x, wt, residual=res, **fold)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tcb.conv1x1_bn_apply(x, wt, residual=res, **fold)
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        assert kernel in names, (dtype, w_dtype, prologue, names)
+        assert "conv_bn_bf16_kernel" not in names
+    for dtype, kernel in (("bfloat16", "matmul_bn_sm90_kernel<128, false"),
+                          ("float32", "conv_bn_f32_kernel<float, 1, true>")):
+        dt = getattr(torch, dtype)
+        x4 = torch.randn(2, 8, 8, 64, device=cuda).to(dt)
+        wt = torch.randn(64, 128, device=cuda).to(dt)
+        sh = torch.zeros(128, device=cuda)
+        tcb._matmul_bn_fwd(x4, wt, None, None, None, sh, 1, False, False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tcb._matmul_bn_fwd(x4, wt, None, None, None, sh, 1, False,
+                               False)
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        assert kernel in names and "conv_bn_bf16_kernel" not in names
