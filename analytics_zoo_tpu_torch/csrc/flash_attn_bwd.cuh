@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), FlashAttention-2 style:
+// Flash-attention backward for Hopper (sm_90a), FlashAttention-2 style,
+// at head dims 32 and 256 (64 and 128 run flash_bwd_sm90.cuh's wgmma
+// kernels, which take BwdArgs and the helpers below):
 //
 // - `flash_bwd_dkdv` (B9): one block per tile of 64 keys (32 in f32 for
 //   D >= 128), looping over the query tiles that can see them:
@@ -580,15 +582,14 @@ inline int launch_bwd_d(const BwdArgs& a, int bf16, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches B9 (kDkDv) or B10 on `stream`; returns cudaGetLastError().
+// Launches B9 (kDkDv) or B10 at D 32 or 256 (D 64 and 128 run
+// flash_bwd_sm90.cuh's kernels) on `stream`; returns cudaGetLastError().
 template <bool kDkDv>
 inline int launch_bwd(const BwdArgs& a, int D, int bf16,
                       cudaStream_t stream) {
   if ((kDkDv ? a.Tk : a.Tq) == 0 || a.B * a.H == 0) return 0;
   switch (D) {
     case 32: return launch_bwd_d<32, kDkDv>(a, bf16, stream);
-    case 64: return launch_bwd_d<64, kDkDv>(a, bf16, stream);
-    case 128: return launch_bwd_d<128, kDkDv>(a, bf16, stream);
     case 256: return launch_bwd_d<256, kDkDv>(a, bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

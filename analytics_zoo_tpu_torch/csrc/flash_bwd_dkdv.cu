@@ -1,10 +1,11 @@
 // C entry point of the flash-attention backward's dK and dV (B9):
 // writes dk, dv (B, Tk, H, D) in k's and v's type
 // (`flash_bwd_dkdv` in analytics_zoo_tpu_torch/ops/flash_attention.py),
-// from flash_attn_bwd.cuh. m, l and delta are (B, H, Tq) f32; strides in
-// elements; `off` the causal offset.
+// from flash_bwd_sm90.cuh (D 64, 128) or flash_attn_bwd.cuh (D 32,
+// 256). m, l and delta are (B, H, Tq) f32; strides in elements; `off`
+// the causal offset.
 
-#include "flash_attn_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 
 extern "C" int flash_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout,
@@ -16,6 +17,13 @@ extern "C" int flash_bwd_dkdv_launch(
   const zoo::flash::BwdArgs a = zoo::flash::make_bwd_args(
       q, k, v, dout, kmask, m, l, delta, dq, dk, dv, B, H, Tq, Tk, q_sb,
       q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, causal, off, scale);
-  return zoo::flash::launch_bwd<true>(a, D, bf16,
-                                        static_cast<cudaStream_t>(stream));
+  return zoo::fbwd::launch<true>(a, D, bf16,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// The tile an instance runs (`bwd_tile` in ops/flash_attention.py): out
+// = {1 on the wgmma route else 0, warpgroups, rows per walked tile,
+// shared-memory bytes}; returns 0, or an error for a D it does not take.
+extern "C" int flash_bwd_dkdv_config(int D, int bf16, int* out) {
+  return zoo::fbwd::config<true>(D, bf16, out);
 }

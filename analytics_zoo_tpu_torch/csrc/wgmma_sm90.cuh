@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels
 // (conv3x3_bn_sm90.cuh, matmul_bn_sm90.cuh, matmul_bn_dw_sm90.cuh,
-// matmul_bn_dx_sm90.cuh, and the tf32 product of
-// matmul_bn_apply_sm90.cuh):
+// matmul_bn_dx_sm90.cuh, the tf32 product of matmul_bn_apply_sm90.cuh,
+// and the flash-attention backward flash_bwd_sm90.cuh):
 // asynchronous copies into a ring of shared-memory stages, ldmatrix
 // fragment loads, warpgroup MMA (wgmma) with A in registers and B in
 // shared memory, MN-major or K-major, and the augmented cotangent g of
@@ -92,6 +92,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// The box at (c0, c1, c2), innermost first, of a 3-D tensor map into
+// shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16) contiguous bytes from src (16-byte aligned)
+// into shared memory at dst by one bulk copy, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// the arrival alone, for a phase that brings no bytes
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // The box at (c0 inner, c1 outer) of a 2-D tensor map from shared memory
@@ -374,6 +402,27 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 8, tf32 registers) * B (8 x 32, tf32,
+// K-major in shared memory), as wgmma_m64n64k8_tf32.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }

@@ -12,7 +12,8 @@ public (B, T, H, D) layout:
   then the normalisation ``acc / max(l, 1e-30)``, and whose backward
   computes delta = rowsum(dO * O) in f32 and runs ``flash_bwd_dkdv``
   (B9) and ``flash_bwd_dq`` (B10), FlashAttention-2's two kernels
-  (``csrc/flash_bwd_dkdv.cu``, ``csrc/flash_bwd_dq.cu``);
+  (``csrc/flash_bwd_dkdv.cu``, ``csrc/flash_bwd_dq.cu``; at D 64 and
+  128 on wgmma, :func:`bwd_route` and :func:`bwd_tile`);
 - :func:`flash_block_partial` is ``flash_block`` alone: the
   unnormalised f32 accumulator and the row statistics m and l, at a
   runtime q-k offset, for callers that merge partials;
@@ -22,8 +23,9 @@ public (B, T, H, D) layout:
   the decode step of generation.
 
 The two forwards share one online-softmax body (``csrc/
-flash_attn_fwd.cuh``) and the two backward kernels one header
-(``csrc/flash_attn_bwd.cuh``); each header's note says what bounds its
+flash_attn_fwd.cuh``) and the two backward kernels one template
+(``csrc/flash_bwd_sm90.cuh``, with ``csrc/flash_attn_bwd.cuh``'s
+kernels at D 32 and 256); each header's note says what bounds its
 kernels on the H100. Each wrapper takes its plain PyTorch version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or
 raises, and counts the launch in :data:`launches`.
@@ -51,6 +53,9 @@ import torch.nn.functional as F
 from analytics_zoo_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
+# the masked logit as an f32 holds it (the row statistics are f32), so a
+# float64 plain version subtracts m exactly where a row is all padding
+_MASKED = float(torch.tensor(_NEG_INF, dtype=torch.float32))
 
 # launches of each CUDA kernel (CPU calls run the plain version and do
 # not count)
@@ -123,10 +128,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
 # Plain versions (CPU tensors, and the card's comparisons)
 # ---------------------------------------------------------------------------
 
-def _logits(q, k, key_mask, causal, scale, off):
-    """f32 logits (B, H, Tq, Tk) masked to -1e30, the causal visibility
-    (Tq, Tk) or None, and where ds may be nonzero (or None: everywhere)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+def _logits(q, k, key_mask, causal, scale, off, compute=torch.float32):
+    """Logits (B, H, Tq, Tk) in ``compute`` (f32, or float64 for an
+    exact reference) masked to -1e30, the causal visibility (Tq, Tk) or
+    None, and where ds may be nonzero (or None: everywhere)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(compute), k.to(compute)) * \
+        scale
     tq, tk = q.shape[1], k.shape[1]
     vis = ok = None
     if causal:
@@ -138,7 +145,7 @@ def _logits(q, k, key_mask, causal, scale, off):
         keep = (key_mask > 0)[:, None, None, :]
         ok = keep if ok is None else ok & keep
     if ok is not None:
-        s = s.masked_fill(~ok, _NEG_INF)
+        s = s.masked_fill(~ok, _MASKED)
     return s, vis, ok
 
 
@@ -176,38 +183,56 @@ def flash_decode_ref(q, k, v, key_mask, scale: float):
     return flash_fwd_ref(q[:, None], k, v, key_mask, False, scale)[:, 0]
 
 
-def _recompute(q, k, v, dout, key_mask, m, l, delta, causal, scale, off):
-    """p and ds (f32, (B, H, Tq, Tk)) from the saved row statistics."""
-    s, vis, ok = _logits(q, k, key_mask, causal, scale, off)
-    p = torch.exp(s - m[..., None]) / l.clamp_min(1e-30)[..., None]
+def _recompute(q, k, v, dout, key_mask, m, l, delta, causal, scale, off,
+               compute=torch.float32):
+    """p and ds ((B, H, Tq, Tk) in ``compute``) from the saved row
+    statistics."""
+    s, vis, ok = _logits(q, k, key_mask, causal, scale, off, compute)
+    p = torch.exp(s - m.to(compute)[..., None]) / \
+        l.to(compute).clamp_min(1e-30)[..., None]
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
-    ds = p * (dp - delta[..., None]) * scale
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(compute), v.to(compute))
+    ds = p * (dp - delta.to(compute)[..., None]) * scale
     if ok is not None:
         ds = ds.masked_fill(~ok, 0.0)
     return p, ds
 
 
+def _operand_round(x, like, compute):
+    """p or ds as the products take it: rounded to a bf16 operand's
+    type (the reference's rounding), else as computed."""
+    return x if like.dtype == torch.float32 else x.to(like.dtype).to(compute)
+
+
 def flash_bwd_dkdv_ref(q, k, v, dout, key_mask, m, l, delta,
-                       causal: bool, scale: float, off: int):
+                       causal: bool, scale: float, off: int,
+                       compute=torch.float32):
     """Plain version of ``flash_bwd_dkdv``: ``(dk, dv)`` in k's and v's
-    types, p and ds rounded to the operand type (f32 sums)."""
+    types, p and ds rounded to the operand type (f32 sums). With
+    ``compute=torch.float64`` every step runs in float64 on the same
+    inputs and the results stay float64: the accuracy gate's reference
+    for the f32 kernels."""
     p, ds = _recompute(q, k, v, dout, key_mask, m, l, delta, causal,
-                       scale, off)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
-                      dout.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+                       scale, off, compute)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _operand_round(p, dout, compute),
+                      dout.to(compute))
+    dk = torch.einsum("bhqk,bqhd->bkhd", _operand_round(ds, q, compute),
+                      q.to(compute))
+    if compute == torch.float64:
+        return dk, dv
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_dq_ref(q, k, v, dout, key_mask, m, l, delta, causal: bool,
-                     scale: float, off: int):
-    """Plain version of ``flash_bwd_dq``: dq in q's type."""
+                     scale: float, off: int, compute=torch.float32):
+    """Plain version of ``flash_bwd_dq``: dq in q's type (float64 with
+    ``compute=torch.float64``, as :func:`flash_bwd_dkdv_ref`)."""
     _, ds = _recompute(q, k, v, dout, key_mask, m, l, delta, causal,
-                       scale, off)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
-    return dq.to(q.dtype)
+                       scale, off, compute)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _operand_round(ds, k, compute),
+                      k.to(compute))
+    return dq if compute == torch.float64 else dq.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -220,11 +245,14 @@ def _device_kind(name: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _operand(name: str, t: torch.Tensor, like: torch.Tensor):
+def _operand(name: str, t: torch.Tensor, like: torch.Tensor,
+             tma: bool = False):
     """A (B, T, H, D) operand the kernels read in place: heads at stride
     D, the last axis contiguous, 16-byte aligned rows (else a
-    contiguous copy). Returns the tensor and its (batch, time)
-    strides in elements."""
+    contiguous copy); with ``tma`` (the backward's tensor maps) also
+    batches that do not overlap (batch stride at least T times the time
+    stride). Returns the tensor and its (batch, time) strides in
+    elements."""
     if t.dim() != 4:
         raise ValueError(f"{name}: expected (B, T, H, D), got "
                          f"{tuple(t.shape)}")
@@ -237,7 +265,9 @@ def _operand(name: str, t: torch.Tensor, like: torch.Tensor):
     per16 = 16 // t.element_size()
     d = t.shape[3]
     if (t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % per16 or
-            t.stride(0) % per16 or t.data_ptr() % 16):
+            t.stride(0) % per16 or t.data_ptr() % 16 or
+            (tma and t.shape[0] > 1 and
+             t.stride(0) < t.shape[1] * t.stride(1))):
         t = t.contiguous()
     return t, (t.stride(0), t.stride(1))
 
@@ -307,6 +337,87 @@ def _block_partials(q, k, v, off: int, causal: bool, scale: float,
     return acc, m, l
 
 
+_SMEM_LIMIT = 232448     # a block's opt-in shared memory on the H100
+
+
+def bwd_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel B9 and B10 run for head dim ``d`` on the card: the
+    wgmma template of ``csrc/flash_bwd_sm90.cuh`` at D 64 and 128, in
+    bf16 (``"wgmma_bf16"``: one pass on the bf16 tensor cores) or f32
+    (``"wgmma_tf32x3"``: each operand split into two tf32 parts, three
+    passes, f32-accurate; never plain tf32); at D 32 and 256
+    ``csrc/flash_attn_bwd.cuh``'s kernels (``"mma_bf16"``: mma.sync on
+    64-row tiles; ``"fma_f32"``: FMA on 16 x 16 thread tiles)."""
+    bf16 = dtype == torch.bfloat16
+    if d in (64, 128):
+        return "wgmma_bf16" if bf16 else "wgmma_tf32x3"
+    return "mma_bf16" if bf16 else "fma_f32"
+
+
+def bwd_tile(name: str, d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """``(warpgroups, rows per walked tile)`` of B9 (``flash_bwd_dkdv``:
+    a block owns 64 keys per warpgroup and walks query tiles) or B10
+    (``flash_bwd_dq``: 64 query rows per warpgroup, walking key tiles)
+    on the wgmma route (``Cfg`` in ``csrc/flash_bwd_sm90.cuh``). f32 at
+    D 64: two warpgroups, which share each tile's tf32 split, and 64-row
+    tiles; f32 at D 128: one warpgroup and 32-row tiles (the split tiles
+    fit shared memory no other way); bf16: one warpgroup and 64-row
+    tiles, so that two or three blocks share an SM (faster on the H100
+    than two warpgroups in one block, PERF.md). Off that route ``(0,
+    rows)``: the old kernels' 64-row tiles (bf16) or ``f32_tile`` (f32:
+    64 up to D 64, else 32)."""
+    if name not in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        raise ValueError(f"bwd_tile: no backward kernel {name!r}")
+    f32 = dtype != torch.bfloat16
+    if bwd_route(d, dtype).startswith("wgmma"):
+        if not f32:
+            return 1, 64
+        return (2, 64) if d == 64 else (1, 32)
+    return 0, 64 if not f32 or d <= 64 else 32
+
+
+def bwd_smem(name: str, d: int, dtype: torch.dtype) -> int:
+    """Shared-memory bytes a block of B9 or B10 asks for at head dim
+    ``d`` (the layout of ``Cfg`` in ``csrc/flash_bwd_sm90.cuh``, or the
+    old kernels' ``bwd_bf16_smem``/``bwd_f32_smem``), at most
+    :data:`_SMEM_LIMIT`."""
+    wgs, rows = bwd_tile(name, d, dtype)
+    f32 = dtype != torch.bfloat16
+    if not wgs:
+        if not f32:
+            return 4 * 64 * (d + 8) * 2 + 4 * 64 * 4
+        return (4 * rows * (d + 1) + 2 * rows * (rows + 1) + 4 * rows) * 4
+    esize = 4 if f32 else 2
+    dkdv = name == "flash_bwd_dkdv"
+    resident = 2 * 64 * wgs * d * esize          # K and V, or Q and dO
+    ring = 2 * 2 * rows * d * esize              # two slots of two tiles
+    split = (6 if dkdv else 4) * rows * d * 4 if f32 else 0
+    stats = 2 * (3 * rows if dkdv else rows) * 4
+    return resident + ring + split + stats + 16 + 32 + 24 + 1024
+
+
+def bwd_config_on_card(name: str, d: int, dtype: torch.dtype):
+    """The tile the built library runs (its ``<name>_config``):
+    ``(on the wgmma route, warpgroups, rows per walked tile, shared
+    memory bytes)``, for the card tests to hold against
+    :func:`bwd_route`, :func:`bwd_tile` and :func:`bwd_smem`."""
+    fn = getattr(cuda_build.load(name), name + "_config")
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(d, int(dtype == torch.bfloat16), out)
+    if rc != 0:
+        raise ValueError(f"{name}: no kernel for head dim {d} (error {rc})")
+    return bool(out[0]), out[1], out[2], out[3]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the backward kernels copy
+    rows of the statistics and the key mask in bulk)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _backward(name, q, k, v, dout, key_mask, m, l, delta, causal, scale,
               off):
     """B9 (``flash_bwd_dkdv``: returns dk, dv) or B10 (``flash_bwd_dq``:
@@ -318,12 +429,13 @@ def _backward(name, q, k, v, dout, key_mask, m, l, delta, causal, scale,
     b, tq, h, _ = q.shape
     tk = k.shape[1]
     d = _check_kernel(name, q, tq, tk)
-    q, (qsb, qst) = _operand(name, q, q)
-    k, (ksb, kst) = _operand(name, k, q)
-    v, (vsb, vst) = _operand(name, v, q)
-    dout, (dsb, dst) = _operand(name, dout, q)
+    q, (qsb, qst) = _operand(name, q, q, tma=True)
+    k, (ksb, kst) = _operand(name, k, q, tma=True)
+    v, (vsb, vst) = _operand(name, v, q, tma=True)
+    dout, (dsb, dst) = _operand(name, dout, q, tma=True)
     km = _kmask(key_mask, b, tk, q)
-    stats = [t.to(device=q.device, dtype=torch.float32).contiguous()
+    km = None if km is None else _aligned(km)
+    stats = [_aligned(t.to(device=q.device, dtype=torch.float32))
              for t in (m, l, delta)]
     dkdv = name == "flash_bwd_dkdv"
     if dkdv:

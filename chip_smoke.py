@@ -89,14 +89,25 @@ script exits non-zero and prints no result line:
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
-versions at both BERT routes' shapes in f32 and bf16, and at causal,
+versions at both BERT routes' shapes in f32 and bf16, and at dead key
+tiles (samples of length 0, 1, 63, 64, 65, 129 and T), causal,
 cross-length, dead-row and other head-dim cases, and the decode kernel
 (B11) at the generation path's shape in f32 and bf16, with a slot that
 has no valid key, an int8 cache and head dims 32 to 256, each output
 within 1e-3 (f32) or 2e-2 (bf16) of its own max|plain| (no floor at
 1), with ``F.scaled_dot_product_attention`` timed beside them as the
 library yardstick (never called by the port; its backward stands on
-B9's row for the B9 + B10 pair, and B10's is null).
+B9's row for the B9 + B10 pair, and B10's is null). It prints the route
+and tile B9 and B10 took (``bwd_route``, ``bwd_tile``). The f32
+backward (three TF32 passes) meets an accuracy gate at every f32 case:
+against its plain version run in float64 on the same inputs, each
+output's max|error| at most twice the f32 plain version's plus one f32
+ulp of the output's max|float64|, plain TF32 the control that must
+fail; its bound is max(bytes / 3.35 TB/s, min(FLOP / 67 TFLOP/s, 3 FLOP
+/ 495 TFLOP/s)) (:func:`bwd_passes`), the term named. The build phase
+checks that the wrapper's route, tile and shared memory per head dim
+and dtype are the library's (``bwd_config_on_card``) and that the
+backward's D-64 instances spill nothing.
 
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -1034,7 +1045,8 @@ def flash_cases():
     B7/B8/B9/B10, q/k/v as slices of one projection): both BERT routes'
     shapes in f32 and bf16 (the Estimator's f32 at batch 16, T 512 with
     padding masks; bench_bert's bf16 at batch 32, T 128 with an all-ones
-    mask), then causal, cross-length, dead-row and head-dim cases."""
+    mask), then dead key tiles (samples of length 0, 1, 63, 64, 65, 129
+    and T), causal, cross-length, dead-row and head-dim cases."""
     est = (12, 24, 12, 12)
     bench = (0, 12, 12, 12)
     none = (0, 0, 0, 0)
@@ -1049,6 +1061,10 @@ def flash_cases():
          "ones", "float32", none, True)]
     for dt in ("float32", "bfloat16"):
         cases += [
+            ("dead_tiles", 7, 256, 256, 4, 64, False, "dead_tiles", dt,
+             none, False),
+            ("dead_tiles_causal", 7, 128, 256, 4, 128, True, "dead_tiles",
+             dt, none, False),
             ("causal", 2, 1024, 1024, 8, 64, True, None, dt, none, False),
             ("cross_causal", 2, 256, 768, 8, 64, True, "lengths", dt, none,
              False),
@@ -1059,17 +1075,25 @@ def flash_cases():
     return cases
 
 
+DEAD_TILE_LENS = (0, 1, 63, 64, 65, 129)
+
+
 def _key_mask(b, tk, kind, dev):
-    """None, all ones, or padding at the tail with lengths drawn from
-    numpy seed 0 in [128, tk] (the first sample full)."""
+    """None, all ones, padding at the tail with lengths drawn from numpy
+    seed 0 in [128, tk] (the first sample full), or ("dead_tiles") the
+    lengths :data:`DEAD_TILE_LENS` then tk, which leave whole key tiles
+    of the backward dead (a sample of length 0 attends uniformly)."""
     import numpy as np
     import torch
     if kind is None:
         return None
     km = torch.ones(b, tk)
-    if kind == "lengths":
-        lens = np.random.RandomState(0).randint(128, tk + 1, size=b)
-        lens[0] = tk
+    if kind in ("lengths", "dead_tiles"):
+        if kind == "lengths":
+            lens = np.random.RandomState(0).randint(128, tk + 1, size=b)
+            lens[0] = tk
+        else:
+            lens = (DEAD_TILE_LENS + (tk,) * b)[:b]
         for i, n in enumerate(lens):
             km[i, n:] = 0
     return km.to(dev)
@@ -1178,6 +1202,9 @@ def run_flash_case(case, gen):
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
+        gate = {}
+        if name in BWD and dt == "float32":
+            gate = bwd_gate(name, bargs, got, want, plain)
         errs, rel = {}, {}
         for oname, a, b_ in zip(outs, got, want):
             check(tuple(a.shape) == tuple(b_.shape) and a.dtype == b_.dtype,
@@ -1191,6 +1218,15 @@ def run_flash_case(case, gen):
             check(err <= tol, f"{name} {tag} {dt} {oname}: max|err| {err} "
                   f"> {tol} (max|plain| {scale})")
         flops, nbytes = work[name]
+        # an f32-accurate product's least time: the smaller of f32 FMA
+        # and the TF32 passes the backward's split needs
+        flop_ms = flops / PEAK_FLOPS[dt] * 1e3
+        term = "bf16 tensor cores" if dt == "bfloat16" else "f32 FMA"
+        passes = bwd_passes(dt)
+        if name in BWD and dt == "float32" and \
+                passes * flops / PEAK_TF32 < flops / PEAK_FLOPS[dt]:
+            flop_ms, term = passes * flops / PEAK_TF32 * 1e3, \
+                f"{passes}xTF32"
         rec = {"kernel": name, "key": [tag, b, tq, tk, h, d, causal, mkind],
                "dtype": dt, "per_path": per_path[i], "errors": errs,
                "rel_errors": rel,
@@ -1199,21 +1235,82 @@ def run_flash_case(case, gen):
                                                           warmup=1),
                "library_ms": (lib_f, lib_f, lib_b, None)[i],
                "library_is": KERNELS[name]["library_is"],
-               "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
+               "flops": flops, "bytes": nbytes, "flop_ms": flop_ms,
                "byte_ms": nbytes / PEAK_BYTES * 1e3}
         rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
         rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
             else "bytes"
+        rec["bound_term"] = term if rec["bound_by"] == "operations" \
+            else "bytes"
+        extra = ""
+        if name in BWD:
+            xdt = getattr(torch, dt)
+            rec["route"] = fa.bwd_route(d, xdt)
+            rec["tile"] = list(fa.bwd_tile(name, d, xdt))
+            extra = f" [{rec['route']}, tile {tuple(rec['tile'])}]"
+            if gate:
+                rec["gate"] = gate
+                extra += "; vs f64 " + ", ".join(
+                    f"{o} {g['kernel_err']:.2e} (f32 {g['plain_err']:.2e}, "
+                    f"TF32 {g['tf32_err']:.2e})" for o, g in gate.items())
         print(f"  {name} {dt} {tag} ({b}, {tq}, {tk}, {h}, {d}"
               f"{', causal' if causal else ''}{', ' + mkind if mkind else ''}"
-              f") x{per_path[i]}: max|err| "
+              f") x{per_path[i]}{extra}: max|err| "
               + ", ".join(f"{o} {e:.2e}/{tl:.2e} (rel {rel[o]:.2e})"
                           for o, (e, tl) in errs.items())
               + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
               f"ms, library {_ms(rec['library_ms'])}, bound "
-              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_term']})", flush=True)
         records.append(rec)
     return records
+
+
+BWD = ("flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def bwd_passes(dtype: str) -> int:
+    """Tensor-core passes of the backward's products: three TF32 passes
+    for f32 (hi*hi + hi*lo + lo*hi of each operand's TF32 split, an
+    f32-accurate product), one for bf16."""
+    return 3 if dtype == "float32" else 1
+
+
+def bwd_gate(name, bargs, got, want, plain):
+    """The f32 backward's accuracy gate: against the plain version run
+    in float64 on the same inputs, each output's max|error| at most twice
+    the f32 plain version's (TF32 off) plus one f32 ulp of the output's
+    max|float64| (``2^-23 max|y64|``, the slack for outputs whose f32
+    error is itself that small); plain TF32 is the control that must
+    fail. Returns the errors per output; raises if the gate fails."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    ref = fa.flash_bwd_dkdv_ref if name == "flash_bwd_dkdv" else \
+        fa.flash_bwd_dq_ref
+    want64 = ref(*bargs, compute=torch.float64)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    outs = ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)
+    if not isinstance(want64, tuple):
+        want64, tf32 = (want64,), (tf32,)
+    gate = {}
+    for o, k_, p_, t_, r_ in zip(outs, got, want, tf32, want64):
+        e_k, e_p, e_t = ((x.double() - r_).abs().max().item()
+                         for x in (k_, p_, t_))
+        slack = 2.0 ** -23 * r_.abs().max().item()
+        gate[o] = {"kernel_err": e_k, "plain_err": e_p, "tf32_err": e_t,
+                   "slack": slack, "ratio": e_k / e_p if e_p else None}
+        check(e_k <= 2 * e_p + slack,
+              f"{name} {o}: max|err| against float64 {e_k} > twice the "
+              f"f32 plain version's {e_p} + {slack}")
+        check(e_t > 2 * e_p + slack,
+              f"{name} {o}: plain TF32's error {e_t} passes the gate "
+              f"(f32 {e_p}): the gate cannot tell")
+    del want64, tf32
+    return gate
 
 
 # -- flash decode: B11 against its plain version ------------------------------
@@ -2038,6 +2135,25 @@ def main() -> int:
             print(f"    {fn}: {used.group(1) if used else '?'} registers,"
                   f" spill stores {spill.group(1) if spill else '?'} "
                   "bytes", flush=True)
+            # the D-64 instances of the backward (BERT, GPT) spill nothing
+            if re.search(r"flash_d\w*_sm90_kernelI.*Li64E", fn):
+                check(spill is not None and int(spill.group(1)) == 0,
+                      f"{fn} spills {spill.group(1) if spill else '?'} "
+                      "bytes")
+    # the backward's route and tile per head dim and dtype, the library's
+    # own answer against the wrapper's helpers
+    for name in BWD:
+        for d in (32, 64, 128, 256):
+            for dt in (torch.float32, torch.bfloat16):
+                card_cfg = fa.bwd_config_on_card(name, d, dt)
+                want = (fa.bwd_route(d, dt).startswith("wgmma"),
+                        *fa.bwd_tile(name, d, dt), fa.bwd_smem(name, d, dt))
+                print(f"  {name} D {d} {str(dt)[6:]}: route "
+                      f"{fa.bwd_route(d, dt)}, tile (warpgroups, rows) "
+                      f"{want[1:3]}, shared memory {want[3]} bytes",
+                      flush=True)
+                check(card_cfg == want, f"{name} D {d} {dt}: the library "
+                      f"runs {card_cfg}, the wrapper expects {want}")
 
     print("[3] kernels against their plain versions", flush=True)
     shapes_net = ImageClassifier("resnet-50", input_shape=IMAGE,

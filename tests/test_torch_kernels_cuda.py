@@ -20,6 +20,11 @@ B1 and B5 alone (the 1x1 forward kernels and their routes):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py \
         -k "b1_ or b5_"
 
+The flash-attention kernels alone (B7-B11):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py \
+        -k "flash"
+
 Tolerances: f32 rtol/atol 1e-4 for the 1x1 fold and atol 1e-3 for the
 3x3 (sums in another order, TF32 off); 2e-2 wherever a bf16 operand or
 output is involved (one bf16 rounding, 2^-8 relative). The flash
@@ -27,10 +32,14 @@ kernels (B7-B10) are held within 1e-3 (f32) or 2e-2 (bf16) of each
 output's own max|plain|, with no floor (attention's outputs and
 gradients are far below 1), the bounds chip_smoke.py uses: f32 sums in
 another order, and in bf16 p is rounded at the running row max on the
-card and at the final one in the plain version. The decode kernel (B11)
-is held to the same bounds; a decode step of a small GPT stack on the
-card to the same step on the CPU within 1e-4 of max|logit| (products
-and sums in another order through two blocks, TF32 off). B5's f32
+card and at the final one in the plain version. The f32 backward (B9,
+B10: three tf32 passes) is also held to its plain version run in
+float64: its max|error| at most twice the f32 plain version's plus one
+f32 ulp of the output's max, plain TF32 the control that fails. The
+decode kernel (B11) is held to the same bounds; a decode step of a
+small GPT stack on the card to the same step on the CPU within 1e-4 of
+max|logit| (products and sums in another order through two blocks,
+TF32 off). B5's f32
 product (three tf32 passes) is also held to the fold in float64 from
 the same inputs: its max|error| at most twice that of the plain
 version, cuBLAS f32 with TF32 off; with a bf16 x, whose y is rounded
@@ -618,6 +627,120 @@ def test_flash_attention_routes_and_reads_in_place_on_card(cuda, dtype):
         tfa.flash_attention(q, k, v)
         assert tfa.launches["flash_fwd"] == before["flash_fwd"] + 1
         assert tfa.launches["flash_block"] == before["flash_block"]
+
+
+def _flash_bwd_case(dt, b, tq, tk, h, d, causal, km, seed, dev):
+    """Inputs of B9/B10 with the plain forward's row statistics."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = [(torch.randn(b, t, h, d, generator=g) * 0.5).to(dev, dt)
+                   for t in (tq, tk, tk, tq)]
+    scale = d ** -0.5
+    off = tk - tq
+    _, m, l = tfa.flash_block_ref(q, k, v, km, causal, scale, off)
+    out = tfa.flash_fwd_ref(q, k, v, km, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, km, m, l, delta, causal, scale, off)
+
+
+def _flash_bwd_close(args, dt):
+    for a, b_ in zip(tfa._backward("flash_bwd_dkdv", *args),
+                     tfa.flash_bwd_dkdv_ref(*args)):
+        _flash_close(a, b_, dt)
+    _flash_close(tfa._backward("flash_bwd_dq", *args),
+                 tfa.flash_bwd_dq_ref(*args), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(256, 256), (128, 384)])
+def test_flash_bwd_dead_key_tiles_match_plain_on_card(cuda, dtype, d, causal,
+                                                      tq, tk):
+    # samples of length 0, 1, 63, 64, 65, 129 and Tk: whole 64-key tiles
+    # dead (B10 skips them; B9 skips them against query tiles with no
+    # row of m = -1e30), a sample that is all padding (its uniform p
+    # still feeds dV), causal and a cross length
+    dt = getattr(torch, dtype)
+    lens = (0, 1, 63, 64, 65, 129, tk)
+    km = torch.ones(len(lens), tk)
+    for i, n in enumerate(lens):
+        km[i, n:] = 0
+    args = _flash_bwd_case(dt, len(lens), tq, tk, 2, d, causal, km.to(cuda),
+                           21, cuda)
+    _flash_bwd_close(args, dt)
+    dk = tfa._backward("flash_bwd_dkdv", *args)[0]
+    for i, n in enumerate(lens):
+        assert float(dk[i, n:].abs().max() if n < tk else 0.0) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_bwd_dkdv", "flash_bwd_dq"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_bwd_every_route_and_tile_on_card(cuda, name, dtype, d):
+    # the library runs the route and tile the wrapper names (bwd_route,
+    # bwd_tile, bwd_smem), and each instance matches the plain version
+    # over several tiles of both sides with a padding mask
+    dt = getattr(torch, dtype)
+    assert tfa.bwd_config_on_card(name, d, dt) == (
+        tfa.bwd_route(d, dt).startswith("wgmma"), *tfa.bwd_tile(name, d, dt),
+        tfa.bwd_smem(name, d, dt))
+    km = torch.ones(2, 512)
+    km[1, 300:] = 0
+    args = _flash_bwd_case(dt, 2, 512, 512, 3, d, False, km.to(cuda), 22,
+                           cuda)
+    got = tfa._backward(name, *args)
+    want = (tfa.flash_bwd_dkdv_ref if name == "flash_bwd_dkdv" else
+            tfa.flash_bwd_dq_ref)(*args)
+    for a, b_ in zip(*[(x,) if not isinstance(x, tuple) else x
+                       for x in (got, want)]):
+        _flash_close(a, b_, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,mask", [(16, 512, "lengths"), (32, 128, "ones")])
+def test_flash_bwd_f32_within_twice_f32_error_of_float64(cuda, b, t, mask):
+    # the f32 kernels multiply in three tf32 passes: against the plain
+    # version run in float64 on the same inputs (q, k, v column slices of
+    # one projection, as BERT has them), each output's max|error| is at
+    # most twice the f32 plain version's (TF32 off) plus one f32 ulp of
+    # its max|float64|; plain TF32 is the control that fails it
+    h, d = 12, 64
+    g = torch.Generator().manual_seed(23)
+    qkv = (torch.randn(b, t, 3 * h * d, generator=g) * 0.5).to(cuda)
+    q, k, v = [x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1)]
+    do = (torch.randn(b, t, h, d, generator=g) * 0.5).to(cuda)
+    km = torch.ones(b, t)
+    if mask == "lengths":
+        lens = torch.randint(128, t + 1, (b,), generator=g)
+        lens[0] = t
+        for i, n in enumerate(lens.tolist()):
+            km[i, n:] = 0
+    km = km.to(cuda)
+    scale = d ** -0.5
+    _, m, l = tfa.flash_block_ref(q, k, v, km, False, scale, 0)
+    out = tfa.flash_fwd_ref(q, k, v, km, False, scale)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, km, m, l, delta, False, scale, 0)
+    for name, ref in (("flash_bwd_dkdv", tfa.flash_bwd_dkdv_ref),
+                      ("flash_bwd_dq", tfa.flash_bwd_dq_ref)):
+        got = tfa._backward(name, *args)
+        plain = ref(*args)
+        exact = ref(*args, compute=torch.float64)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = ref(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        outs = [x if isinstance(x, tuple) else (x,)
+                for x in (got, plain, exact, tf32)]
+        for a, p_, r, t_ in zip(*outs):
+            e_k, e_p, e_t = ((x.double() - r).abs().max().item()
+                             for x in (a, p_, t_))
+            limit = 2 * e_p + 2.0 ** -23 * r.abs().max().item()
+            assert e_k <= limit, (name, e_k, e_p)
+            assert e_t > limit, (name, e_t, e_p)
 
 
 @pytest.mark.cuda
