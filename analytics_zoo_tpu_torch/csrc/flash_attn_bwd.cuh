@@ -74,24 +74,6 @@ __device__ __forceinline__ int first_q(const BwdArgs& a, int k0) {
   return r <= 0 ? 0 : (r >= a.Tq ? a.Tq : static_cast<int>(r));
 }
 
-// One past the last key row q0 .. q0 + rows - 1 can see, in [0, Tk].
-__device__ __forceinline__ int key_end(const BwdArgs& a, int q0, int rows) {
-  if (!a.causal) return a.Tk;
-  const long long last = static_cast<long long>(q0) + rows - 1 + a.off;
-  return last < 0 ? 0
-                  : (last + 1 < a.Tk ? static_cast<int>(last + 1) : a.Tk);
-}
-
-__device__ __forceinline__ long long stat_idx(const BwdArgs& a, int b,
-                                              int h, int row) {
-  return (static_cast<long long>(b) * a.H + h) * a.Tq + row;
-}
-
-__device__ __forceinline__ long long out_idx(int b, int T, int H, int row,
-                                             int h, int D) {
-  return ((static_cast<long long>(b) * T + row) * H + h) * D;
-}
-
 // ---------------------------------------------------------------------------
 // bf16, tensor cores: 128 threads, 64-row tiles
 // ---------------------------------------------------------------------------

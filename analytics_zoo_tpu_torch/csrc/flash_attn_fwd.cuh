@@ -1,5 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a): one online-softmax body
 // shared by the two forward kernels, as `_attn_body` is shared on the TPU.
+// These kernels run at head dims 32 and 256; 64 and 128 (BERT, GPT) run
+// the wgmma template of flash_fwd_sm90.cuh, whose contract is this one
+// (`fwd_route` in ops/flash_attention.py names the route). The helpers
+// here also serve the backward (flash_attn_bwd.cuh, flash_bwd_sm90.cuh).
 //
 // - `flash_fwd` (B7) writes the normalised output
 //     o[b, i, h, :] = sum_j p[i, j] v[b, j, h, :] / sum_j p[i, j]
@@ -79,6 +83,30 @@ struct FwdArgs {
   int causal, off;
   float scale;
 };
+
+// One past the last key row q0 .. q0 + rows - 1 can see, in [0, Tk]
+// (Args: FwdArgs or BwdArgs).
+template <typename Args>
+__device__ __forceinline__ int key_end(const Args& a, int q0, int rows) {
+  if (!a.causal) return a.Tk;
+  const long long last = static_cast<long long>(q0) + rows - 1 + a.off;
+  return last < 0 ? 0
+                  : (last + 1 < a.Tk ? static_cast<int>(last + 1) : a.Tk);
+}
+
+// Where row `row`'s statistics sit in a (B, H, Tq) array.
+template <typename Args>
+__device__ __forceinline__ long long stat_idx(const Args& a, int b, int h,
+                                              int row) {
+  return (static_cast<long long>(b) * a.H + h) * a.Tq + row;
+}
+
+// Where row `row` of head h, batch b starts in a contiguous (B, T, H, D)
+// output.
+__device__ __forceinline__ long long out_idx(int b, int T, int H, int row,
+                                             int h, int D) {
+  return ((static_cast<long long>(b) * T + row) * H + h) * D;
+}
 
 // Where row r of head h, batch b starts in a strided (B, T, H, D) tensor.
 __device__ __forceinline__ long long row_off(long long sb, long long st,
@@ -557,8 +585,9 @@ inline int launch_fwd_d(const FwdArgs& a, int bf16, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the forward on `stream`; returns cudaGetLastError() so the
-// caller can raise on a refused launch (or an unsupported D, as
+// Launches the forward at D 32 or 256 (D 64 and 128 run
+// flash_fwd_sm90.cuh's kernels) on `stream`; returns cudaGetLastError()
+// so the caller can raise on a refused launch (or an unsupported D, as
 // cudaErrorInvalidValue). Allocates nothing.
 template <bool kPartial>
 inline int launch_fwd(const FwdArgs& a, int D, int bf16,
@@ -566,8 +595,6 @@ inline int launch_fwd(const FwdArgs& a, int D, int bf16,
   if (a.Tq == 0 || a.B * a.H == 0) return 0;
   switch (D) {
     case 32: return launch_fwd_d<32, kPartial>(a, bf16, stream);
-    case 64: return launch_fwd_d<64, kPartial>(a, bf16, stream);
-    case 128: return launch_fwd_d<128, kPartial>(a, bf16, stream);
     case 256: return launch_fwd_d<256, kPartial>(a, bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels
 // (conv3x3_bn_sm90.cuh, matmul_bn_sm90.cuh, matmul_bn_dw_sm90.cuh,
 // matmul_bn_dx_sm90.cuh, the tf32 product of matmul_bn_apply_sm90.cuh,
-// and the flash-attention backward flash_bwd_sm90.cuh):
+// and the flash-attention kernels of flash_fwd_sm90.cuh and
+// flash_bwd_sm90.cuh):
 // asynchronous copies into a ring of shared-memory stages, ldmatrix
 // fragment loads, warpgroup MMA (wgmma) with A in registers and B in
 // shared memory, MN-major or K-major, and the augmented cotangent g of
@@ -59,6 +60,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // and the bytes of bulk tensor copies (TMA) complete, one phase per use.
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+// a barrier whose phase completes after `count` arrivals (and their
+// transaction bytes)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {
@@ -175,11 +183,13 @@ __device__ __forceinline__ uint32_t btile_offset(int r, int j) {
 }
 
 // wgmma descriptor of the B tile's rows 16 kk .. 16 kk + 15 (kk = the
-// k16 step) at shared address `tile`.
-__device__ __forceinline__ uint64_t btile_desc(uint32_t tile, int kk) {
+// k16 step) at shared address `tile`; a tile of other than 64 reduction
+// rows has its 64-column blocks `col_block` bytes apart.
+__device__ __forceinline__ uint64_t btile_desc(
+    uint32_t tile, int kk, uint32_t col_block = kColBlockBytes) {
   const uint32_t start = tile + kk * 16 * 128;
   uint64_t d = static_cast<uint64_t>((start & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(kColBlockBytes >> 4) << 16;  // leading: MN
+  d |= static_cast<uint64_t>(col_block >> 4) << 16;       // leading: MN
   d |= static_cast<uint64_t>(1024 >> 4) << 32;            // stride: 8 rows
   d |= 1ull << 62;                                        // 128B swizzle
   return d;

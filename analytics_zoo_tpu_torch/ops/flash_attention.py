@@ -8,10 +8,12 @@ public (B, T, H, D) layout:
 - :func:`flash_attention` without grad runs ``flash_fwd``
   (``csrc/flash_fwd.cu``, replacing ``_fwd_kernel[_masked]``, B7);
 - under grad it runs :class:`_Flash`, whose forward is ``flash_block``
-  (``csrc/flash_block.cu``, replacing ``_block_kernel[_masked]``, B8)
-  then the normalisation ``acc / max(l, 1e-30)``, and whose backward
-  computes delta = rowsum(dO * O) in f32 and runs ``flash_bwd_dkdv``
-  (B9) and ``flash_bwd_dq`` (B10), FlashAttention-2's two kernels
+  (``csrc/flash_block.cu``, replacing ``_block_kernel[_masked]``, B8;
+  B7 and B8 at D 64 and 128 on wgmma, :func:`fwd_route` and
+  :func:`fwd_tile`) then the normalisation ``acc / max(l, 1e-30)``, and
+  whose backward computes delta = rowsum(dO * O) in f32 and runs
+  ``flash_bwd_dkdv`` (B9) and ``flash_bwd_dq`` (B10), FlashAttention-2's
+  two kernels
   (``csrc/flash_bwd_dkdv.cu``, ``csrc/flash_bwd_dq.cu``; at D 64 and
   128 on wgmma, :func:`bwd_route` and :func:`bwd_tile`);
 - :func:`flash_block_partial` is ``flash_block`` alone: the
@@ -22,11 +24,11 @@ public (B, T, H, D) layout:
   B11): one query row per slot against the gathered paged KV cache,
   the decode step of generation.
 
-The two forwards share one online-softmax body (``csrc/
-flash_attn_fwd.cuh``) and the two backward kernels one template
-(``csrc/flash_bwd_sm90.cuh``, with ``csrc/flash_attn_bwd.cuh``'s
-kernels at D 32 and 256); each header's note says what bounds its
-kernels on the H100. Each wrapper takes its plain PyTorch version only
+The two forwards share one template (``csrc/flash_fwd_sm90.cuh``) and
+the two backward kernels another (``csrc/flash_bwd_sm90.cuh``), with
+the pieces both use in ``csrc/flash_sm90.cuh``; at D 32 and 256 they
+run ``csrc/flash_attn_fwd.cuh``'s and ``csrc/flash_attn_bwd.cuh``'s
+kernels. Each header's note says what bounds its kernels on the H100. Each wrapper takes its plain PyTorch version only
 for tensors on the CPU; for a CUDA tensor it launches its kernel or
 raises, and counts the launch in :data:`launches`.
 
@@ -149,17 +151,28 @@ def _logits(q, k, key_mask, causal, scale, off, compute=torch.float32):
     return s, vis, ok
 
 
+def _operand_round(x, like, compute):
+    """p or ds as the products take it: rounded to a bf16 operand's
+    type (the reference's rounding), else as computed."""
+    return x if like.dtype == torch.float32 else x.to(like.dtype).to(compute)
+
+
 def flash_block_ref(q, k, v, key_mask, causal: bool, scale: float,
-                    off: int):
+                    off: int, compute=torch.float32):
     """Plain version of ``flash_block``: ``(acc (B, Tq, H, D) f32, m
     (B, H, Tq) f32, l (B, H, Tq) f32)`` with the kernel's masking rules
-    and ``p`` rounded to v's type before ``p @ v`` (f32 sums)."""
-    s, vis, _ = _logits(q, k, key_mask, causal, scale, off)
+    and ``p`` rounded to v's type before ``p @ v`` (f32 sums). With
+    ``compute=torch.float64`` every step runs in float64 on the same
+    inputs and the results stay float64 (a row that sees only padding
+    keeps m at the f32 -1e30): the accuracy gate's reference for the f32
+    kernels."""
+    s, vis, _ = _logits(q, k, key_mask, causal, scale, off, compute)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bhqk,bkhd->bqhd", _operand_round(p, v, compute),
+                       v.to(compute))
     return acc, m, p.sum(-1)
 
 
@@ -167,12 +180,15 @@ def _normalise(acc, l, dtype):
     return (acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(dtype)
 
 
-def flash_fwd_ref(q, k, v, key_mask, causal: bool, scale: float):
+def flash_fwd_ref(q, k, v, key_mask, causal: bool, scale: float,
+                  compute=torch.float32):
     """Plain version of ``flash_fwd``: the normalised output in q's type,
-    causal offset Tk - Tq."""
+    causal offset Tk - Tq (float64 with ``compute=torch.float64``, as
+    :func:`flash_block_ref`)."""
     acc, _, l = flash_block_ref(q, k, v, key_mask, causal, scale,
-                                k.shape[1] - q.shape[1])
-    return _normalise(acc, l, q.dtype)
+                                k.shape[1] - q.shape[1], compute)
+    return _normalise(acc, l, compute if compute == torch.float64 else
+                      q.dtype)
 
 
 def flash_decode_ref(q, k, v, key_mask, scale: float):
@@ -197,12 +213,6 @@ def _recompute(q, k, v, dout, key_mask, m, l, delta, causal, scale, off,
     if ok is not None:
         ds = ds.masked_fill(~ok, 0.0)
     return p, ds
-
-
-def _operand_round(x, like, compute):
-    """p or ds as the products take it: rounded to a bf16 operand's
-    type (the reference's rounding), else as computed."""
-    return x if like.dtype == torch.float32 else x.to(like.dtype).to(compute)
 
 
 def flash_bwd_dkdv_ref(q, k, v, dout, key_mask, m, l, delta,
@@ -295,46 +305,125 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _flash_fwd(q, k, v, key_mask, causal: bool, scale: float):
-    """B7: normalised output (B, Tq, H, D) in q's type."""
-    name = "flash_fwd"
+def _forward(name, q, k, v, key_mask, causal: bool, scale: float,
+             off: int):
+    """B7 (``flash_fwd``: the normalised output (B, Tq, H, D) in q's
+    type, at offset Tk - Tq) or B8 (``flash_block``: ``(acc (B, Tq, H,
+    D) f32, m (B, H, Tq) f32, l (B, H, Tq) f32)`` at causal offset
+    ``off``)."""
+    partial = name == "flash_block"
     if _device_kind(name, q) == "cpu":
+        if partial:
+            return flash_block_ref(q, k, v, key_mask, causal, scale, off)
         return flash_fwd_ref(q, k, v, key_mask, causal, scale)
     b, tq, h, _ = q.shape
     tk = k.shape[1]
     d = _check_kernel(name, q, tq, tk)
-    q, (qsb, qst) = _operand(name, q, q)
-    k, (ksb, kst) = _operand(name, k, q)
-    v, (vsb, vst) = _operand(name, v, q)
+    q, (qsb, qst) = _operand(name, q, q, tma=True)
+    k, (ksb, kst) = _operand(name, k, q, tma=True)
+    v, (vsb, vst) = _operand(name, v, q, tma=True)
     km = _kmask(key_mask, b, tk, q)
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    _launch(name, q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(km), _ptr(out),
-            b, h, tq, tk, d, qsb, qst, ksb, kst, vsb, vst, int(causal),
-            tk - tq, scale, int(q.dtype == torch.bfloat16))
-    return out
+    km = None if km is None else _aligned(km)
+    if partial:
+        outs = (torch.empty((b, tq, h, d), dtype=torch.float32,
+                            device=q.device),
+                torch.empty((b, h, tq), dtype=torch.float32, device=q.device),
+                torch.empty((b, h, tq), dtype=torch.float32, device=q.device))
+    else:
+        outs = (torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device),)
+    _launch(name, q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(km),
+            *[_ptr(t) for t in outs], b, h, tq, tk, d, qsb, qst, ksb, kst,
+            vsb, vst, int(causal), int(off), scale,
+            int(q.dtype == torch.bfloat16))
+    return outs if partial else outs[0]
+
+
+def _flash_fwd(q, k, v, key_mask, causal: bool, scale: float):
+    """B7: normalised output (B, Tq, H, D) in q's type."""
+    return _forward("flash_fwd", q, k, v, key_mask, causal, scale,
+                    k.shape[1] - q.shape[1])
 
 
 def _block_partials(q, k, v, off: int, causal: bool, scale: float,
                     key_mask=None):
     """B8: ``(acc (B, Tq, H, D) f32, m (B, H, Tq) f32, l (B, H, Tq)
     f32)`` at causal offset ``off``."""
-    name = "flash_block"
-    if _device_kind(name, q) == "cpu":
-        return flash_block_ref(q, k, v, key_mask, causal, scale, off)
-    b, tq, h, _ = q.shape
-    tk = k.shape[1]
-    d = _check_kernel(name, q, tq, tk)
-    q, (qsb, qst) = _operand(name, q, q)
-    k, (ksb, kst) = _operand(name, k, q)
-    v, (vsb, vst) = _operand(name, v, q)
-    km = _kmask(key_mask, b, tk, q)
-    acc = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    _launch(name, q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(km), _ptr(acc),
-            _ptr(m), _ptr(l), b, h, tq, tk, d, qsb, qst, ksb, kst, vsb, vst,
-            int(causal), int(off), scale, int(q.dtype == torch.bfloat16))
-    return acc, m, l
+    return _forward("flash_block", q, k, v, key_mask, causal, scale, off)
+
+
+def fwd_route(d: int, dtype: torch.dtype) -> str:
+    """The kernel B7 and B8 run for head dim ``d`` on the card: the wgmma
+    template of ``csrc/flash_fwd_sm90.cuh`` at D 64 and 128, in bf16
+    (``"wgmma_bf16"``) or f32 (``"wgmma_tf32x3"``: three tf32 passes,
+    f32-accurate; never plain tf32); at D 32 and 256
+    ``csrc/flash_attn_fwd.cuh``'s kernels (``"mma_bf16"``: mma.sync on
+    64-row tiles; ``"fma_f32"``: FMA on 16 x 16 thread tiles). The same
+    routes as the backward's (:func:`bwd_route`)."""
+    return bwd_route(d, dtype)
+
+
+def fwd_tile(name: str, d: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(consumer warpgroups, query rows per block, keys per tile)`` of
+    B7 (``flash_fwd``) or B8 (``flash_block``), one template
+    (``Tile`` in ``csrc/flash_fwd_sm90.cuh``), with a producer warp
+    beside the warpgroups. On the wgmma route: f32 at D 64 two
+    warpgroups (128 query rows, sharing each key tile's split) on 64-key
+    tiles; f32 at D 128 one warpgroup on 32-key tiles (its split tiles
+    fit shared memory no other way); bf16 one warpgroup on 64-key tiles,
+    so that two or three blocks share an SM (the fastest measured at
+    BERT's shapes, PERF.md). Off that route ``(0, rows, keys)``: the old
+    kernels' 64-row tiles (bf16) or ``f32_tile`` (f32: 64 up to D 64,
+    else 32)."""
+    if name not in ("flash_fwd", "flash_block"):
+        raise ValueError(f"fwd_tile: no forward kernel {name!r}")
+    f32 = dtype != torch.bfloat16
+    if fwd_route(d, dtype).startswith("wgmma"):
+        if not f32:
+            return 1, 64, 64
+        return (2, 128, 64) if d == 64 else (1, 64, 32)
+    t = 64 if not f32 or d <= 64 else 32
+    return 0, t, t
+
+
+def fwd_smem(name: str, d: int, dtype: torch.dtype) -> int:
+    """Shared-memory bytes a block of B7 or B8 asks for at head dim ``d``
+    (the layout of ``Cfg`` in ``csrc/flash_fwd_sm90.cuh``, or the old
+    kernels' ``fwd_bf16_smem``/``fwd_f32_smem``), at most
+    :data:`_SMEM_LIMIT`."""
+    wgs, rows, keys = fwd_tile(name, d, dtype)
+    f32 = dtype != torch.bfloat16
+    if not wgs:
+        if not f32:
+            return 3 * 64 * (d + 8) * 2 + 64 * 4
+        return (3 * rows * (d + 1) + rows * (rows + 1) + 4 * rows) * 4
+    esize = 4 if f32 else 2
+    q = (2 if f32 else 1) * rows * d * esize     # Q (f32: hi and lo)
+    ring = 2 * 2 * keys * d * esize              # two slots of K and V
+    split = 3 * keys * d * 4 if f32 else 0       # K lo, V^T hi, V^T lo
+    masks = 2 * keys * 4
+    return q + ring + split + masks + 16 + 40 + 1024
+
+
+def fwd_config_on_card(name: str, d: int, dtype: torch.dtype):
+    """The tile the built library runs (its ``<name>_config``): ``(on the
+    wgmma route, warpgroups, query rows per block, keys per tile, shared
+    memory bytes)``, for the card tests to hold against
+    :func:`fwd_route`, :func:`fwd_tile` and :func:`fwd_smem`."""
+    return _config_on_card(name, d, dtype, 5)
+
+
+def fwd_skip_dead(first_live: int, tk: int, q0: int, off: int,
+                  causal: bool) -> bool:
+    """Whether B7 and B8 skip a key tile whose keys are all padding, for
+    the block whose first query row is ``q0`` (``skip_rule`` in
+    ``csrc/flash_fwd_sm90.cuh``): only where that is exact, when the
+    sample has a live key (``first_live``, its first, below Tk) and row
+    q0 sees it (``q0 + off >= first_live`` under causal masking). Then
+    every row of the block has a real logit, so m is one and each
+    skipped entry would add exp(-1e30 - m) = 0. Otherwise (a sample of
+    length 0; rows whose visible keys are all padding, which average
+    them) the tile runs with its masks."""
+    return first_live < tk and (not causal or q0 + off >= first_live)
 
 
 _SMEM_LIMIT = 232448     # a block's opt-in shared memory on the H100
@@ -401,14 +490,18 @@ def bwd_config_on_card(name: str, d: int, dtype: torch.dtype):
     ``(on the wgmma route, warpgroups, rows per walked tile, shared
     memory bytes)``, for the card tests to hold against
     :func:`bwd_route`, :func:`bwd_tile` and :func:`bwd_smem`."""
+    return _config_on_card(name, d, dtype, 4)
+
+
+def _config_on_card(name: str, d: int, dtype: torch.dtype, n: int):
     fn = getattr(cuda_build.load(name), name + "_config")
     fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * n)()
     rc = fn(d, int(dtype == torch.bfloat16), out)
     if rc != 0:
         raise ValueError(f"{name}: no kernel for head dim {d} (error {rc})")
-    return bool(out[0]), out[1], out[2], out[3]
+    return (bool(out[0]), *out[1:])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

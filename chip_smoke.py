@@ -98,16 +98,18 @@ within 1e-3 (f32) or 2e-2 (bf16) of its own max|plain| (no floor at
 1), with ``F.scaled_dot_product_attention`` timed beside them as the
 library yardstick (never called by the port; its backward stands on
 B9's row for the B9 + B10 pair, and B10's is null). It prints the route
-and tile B9 and B10 took (``bwd_route``, ``bwd_tile``). The f32
-backward (three TF32 passes) meets an accuracy gate at every f32 case:
-against its plain version run in float64 on the same inputs, each
-output's max|error| at most twice the f32 plain version's plus one f32
-ulp of the output's max|float64|, plain TF32 the control that must
-fail; its bound is max(bytes / 3.35 TB/s, min(FLOP / 67 TFLOP/s, 3 FLOP
-/ 495 TFLOP/s)) (:func:`bwd_passes`), the term named. The build phase
-checks that the wrapper's route, tile and shared memory per head dim
-and dtype are the library's (``bwd_config_on_card``) and that the
-backward's D-64 instances spill nothing.
+and tile each flash kernel took (``fwd_route``/``fwd_tile`` for B7 and
+B8, ``bwd_route``/``bwd_tile`` for B9 and B10). Every f32 flash kernel
+(at D 64 and 128 three TF32 passes) meets an accuracy gate at every f32
+case (:func:`flash_gate`): against its plain version run in float64 on
+the same inputs, each output's max|error| (o; acc, m and l; dk, dv; dq)
+at most twice the f32 plain version's plus one f32 ulp of the output's
+max|float64|, plain TF32 the control that must fail; its bound is
+max(bytes / 3.35 TB/s, min(FLOP / 67 TFLOP/s, 3 FLOP / 495 TFLOP/s))
+(:func:`flash_passes`), the term named. The build phase checks that
+the wrapper's route, tile and shared memory per head dim and dtype are
+the library's (``fwd_config_on_card``, ``bwd_config_on_card``) and that
+the backward's D-64 instances spill nothing.
 
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -1145,6 +1147,7 @@ def run_flash_case(case, gen):
     out = fa.flash_fwd_ref(q, k, v, km, causal, scale)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     bargs = (q, k, v, dout, km, m, l, delta, causal, scale, off)
+    fargs = (q, k, v, km, causal, scale, off)
     fns = {
         "flash_fwd": (lambda: fa._flash_fwd(q, k, v, km, causal, scale),
                       lambda: fa.flash_fwd_ref(q, k, v, km, causal, scale),
@@ -1203,8 +1206,9 @@ def run_flash_case(case, gen):
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         gate = {}
-        if name in BWD and dt == "float32":
-            gate = bwd_gate(name, bargs, got, want, plain)
+        if dt == "float32":
+            gate = flash_gate(name, fargs if name in FWD else bargs, got,
+                              want, plain)
         errs, rel = {}, {}
         for oname, a, b_ in zip(outs, got, want):
             check(tuple(a.shape) == tuple(b_.shape) and a.dtype == b_.dtype,
@@ -1212,18 +1216,19 @@ def run_flash_case(case, gen):
                   f"plain {tuple(b_.shape)} {b_.dtype}")
             check(bool(torch.isfinite(a.float()).all()),
                   f"{name} {tag} {dt} {oname}: non-finite")
-            err, tol, scale = flash_err(a, b_, dt)
+            # (not `scale`: the kernels' lambdas read that after this loop)
+            err, tol, top = flash_err(a, b_, dt)
             errs[oname] = (err, tol)
-            rel[oname] = err / scale if scale else 0.0
+            rel[oname] = err / top if top else 0.0
             check(err <= tol, f"{name} {tag} {dt} {oname}: max|err| {err} "
-                  f"> {tol} (max|plain| {scale})")
+                  f"> {tol} (max|plain| {top})")
         flops, nbytes = work[name]
         # an f32-accurate product's least time: the smaller of f32 FMA
-        # and the TF32 passes the backward's split needs
+        # and the TF32 passes the kernels' split needs
         flop_ms = flops / PEAK_FLOPS[dt] * 1e3
         term = "bf16 tensor cores" if dt == "bfloat16" else "f32 FMA"
-        passes = bwd_passes(dt)
-        if name in BWD and dt == "float32" and \
+        passes = flash_passes(dt)
+        if dt == "float32" and \
                 passes * flops / PEAK_TF32 < flops / PEAK_FLOPS[dt]:
             flop_ms, term = passes * flops / PEAK_TF32 * 1e3, \
                 f"{passes}xTF32"
@@ -1242,17 +1247,19 @@ def run_flash_case(case, gen):
             else "bytes"
         rec["bound_term"] = term if rec["bound_by"] == "operations" \
             else "bytes"
-        extra = ""
+        xdt = getattr(torch, dt)
         if name in BWD:
-            xdt = getattr(torch, dt)
             rec["route"] = fa.bwd_route(d, xdt)
             rec["tile"] = list(fa.bwd_tile(name, d, xdt))
-            extra = f" [{rec['route']}, tile {tuple(rec['tile'])}]"
-            if gate:
-                rec["gate"] = gate
-                extra += "; vs f64 " + ", ".join(
-                    f"{o} {g['kernel_err']:.2e} (f32 {g['plain_err']:.2e}, "
-                    f"TF32 {g['tf32_err']:.2e})" for o, g in gate.items())
+        else:
+            rec["route"] = fa.fwd_route(d, xdt)
+            rec["tile"] = list(fa.fwd_tile(name, d, xdt))
+        extra = f" [{rec['route']}, tile {tuple(rec['tile'])}]"
+        if gate:
+            rec["gate"] = gate
+            extra += "; vs f64 " + ", ".join(
+                f"{o} {g['kernel_err']:.2e} (f32 {g['plain_err']:.2e}, "
+                f"TF32 {g['tf32_err']:.2e})" for o, g in gate.items())
         print(f"  {name} {dt} {tag} ({b}, {tq}, {tk}, {h}, {d}"
               f"{', causal' if causal else ''}{', ' + mkind if mkind else ''}"
               f") x{per_path[i]}{extra}: max|err| "
@@ -1266,41 +1273,59 @@ def run_flash_case(case, gen):
 
 
 BWD = ("flash_bwd_dkdv", "flash_bwd_dq")
+FWD = ("flash_fwd", "flash_block")
 
 
-def bwd_passes(dtype: str) -> int:
-    """Tensor-core passes of the backward's products: three TF32 passes
-    for f32 (hi*hi + hi*lo + lo*hi of each operand's TF32 split, an
-    f32-accurate product), one for bf16."""
+def flash_passes(dtype: str) -> int:
+    """Tensor-core passes of the flash kernels' products (B7-B10): three
+    TF32 passes for f32 (hi*hi + hi*lo + lo*hi of each operand's TF32
+    split, an f32-accurate product), one for bf16."""
     return 3 if dtype == "float32" else 1
 
 
-def bwd_gate(name, bargs, got, want, plain):
-    """The f32 backward's accuracy gate: against the plain version run
-    in float64 on the same inputs, each output's max|error| at most twice
-    the f32 plain version's (TF32 off) plus one f32 ulp of the output's
-    max|float64| (``2^-23 max|y64|``, the slack for outputs whose f32
-    error is itself that small); plain TF32 is the control that must
-    fail. Returns the errors per output; raises if the gate fails."""
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def flash_gate(name, args, got, want, plain):
+    """The f32 flash kernels' accuracy gate (B7-B10): against the plain
+    version run in float64 on the same inputs, each output's max|error|
+    (o; acc, m and l; dk, dv; dq) at most twice the f32 plain version's
+    (TF32 off) plus one f32 ulp of the output's max|float64|
+    (``2^-23 max|y64|``, the slack for outputs whose f32 error is itself
+    that small); plain TF32 is the control that must fail. The row max
+    of a row that sees no key (-1e30) is left out of the maxima (it
+    must match exactly, :func:`flash_err`). ``args``: B7's and B8's
+    ``(q, k, v, key_mask, causal, scale, off)``, or B9's and B10's
+    arguments. Returns the errors per output; raises if the gate
+    fails."""
     import torch
 
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
-    ref = fa.flash_bwd_dkdv_ref if name == "flash_bwd_dkdv" else \
-        fa.flash_bwd_dq_ref
-    want64 = ref(*bargs, compute=torch.float64)
+    if name == "flash_fwd":
+        want64 = fa.flash_fwd_ref(*args[:6], compute=torch.float64)
+        outs = ("out",)
+    elif name == "flash_block":
+        want64 = fa.flash_block_ref(*args, compute=torch.float64)
+        outs = ("acc", "m", "l")
+    else:
+        ref = fa.flash_bwd_dkdv_ref if name == "flash_bwd_dkdv" else \
+            fa.flash_bwd_dq_ref
+        want64 = ref(*args, compute=torch.float64)
+        outs = ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32 = plain()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    outs = ("dk", "dv") if name == "flash_bwd_dkdv" else ("dq",)
-    if not isinstance(want64, tuple):
-        want64, tf32 = (want64,), (tf32,)
     gate = {}
-    for o, k_, p_, t_, r_ in zip(outs, got, want, tf32, want64):
-        e_k, e_p, e_t = ((x.double() - r_).abs().max().item()
-                         for x in (k_, p_, t_))
-        slack = 2.0 ** -23 * r_.abs().max().item()
+    for o, k_, p_, t_, r_ in zip(outs, _outs(got), _outs(want), _outs(tf32),
+                                 _outs(want64)):
+        live = r_.abs() < 1e29
+        r_ = r_[live]
+        e_k, e_p, e_t = ((x.double()[live] - r_).abs().max().item()
+                         if r_.numel() else 0.0 for x in (k_, p_, t_))
+        slack = 2.0 ** -23 * (r_.abs().max().item() if r_.numel() else 0.0)
         gate[o] = {"kernel_err": e_k, "plain_err": e_p, "tf32_err": e_t,
                    "slack": slack, "ratio": e_k / e_p if e_p else None}
         check(e_k <= 2 * e_p + slack,
@@ -1464,9 +1489,16 @@ def finetune_model(impl="flash", drop=0.1):
     return model
 
 
+# B7 and B8 are one template (flash_fwd_sm90_kernel<T, D, partial, ..>)
+# at D 64 and 128, the old kernels (flash_fwd_<dtype>_kernel<D,
+# partial>) at D 32 and 256
+B7_KERNEL = (r"flash_fwd_sm90_kernel<\w+, \d+, false|"
+             r"flash_fwd_\w+_kernel<\d+, false>")
+B8_KERNEL = (r"flash_fwd_sm90_kernel<\w+, \d+, true|"
+             r"flash_fwd_\w+_kernel<\d+, true>")
 FLASH_KERNEL_NAMES = (
-    ("flash_fwd", r"flash_fwd_\w+_kernel<\d+, false>"),
-    ("flash_block", r"flash_fwd_\w+_kernel<\d+, true>"),
+    ("flash_fwd", B7_KERNEL),
+    ("flash_block", B8_KERNEL),
     ("flash_bwd_dkdv", r"flash_dkdv_"),
     ("flash_bwd_dq", r"flash_dq_"),
 )
@@ -1765,7 +1797,7 @@ def bert_bench_path(card, detail):
 
 GEN_KERNEL_NAMES = (
     ("flash_decode (B11)", r"flash_decode_kernel"),
-    ("flash_fwd (B7)", r"flash_fwd_\w+_kernel"),
+    ("flash_fwd (B7)", B7_KERNEL),
     ("cache writes (index_put)", r"index_put"),
     ("page-table gathers", r"index_kernel|gather"),
     ("products (cuBLAS)", r"gemm|gemv|xmma|cutlass"),
@@ -2140,17 +2172,22 @@ def main() -> int:
                 check(spill is not None and int(spill.group(1)) == 0,
                       f"{fn} spills {spill.group(1) if spill else '?'} "
                       "bytes")
-    # the backward's route and tile per head dim and dtype, the library's
-    # own answer against the wrapper's helpers
-    for name in BWD:
+    # the flash kernels' route and tile per head dim and dtype, the
+    # library's own answer against the wrapper's helpers
+    for name in FWD + BWD:
+        fwd = name in FWD
+        route, tile, smem, on_card = (
+            (fa.fwd_route, fa.fwd_tile, fa.fwd_smem, fa.fwd_config_on_card)
+            if fwd else
+            (fa.bwd_route, fa.bwd_tile, fa.bwd_smem, fa.bwd_config_on_card))
         for d in (32, 64, 128, 256):
             for dt in (torch.float32, torch.bfloat16):
-                card_cfg = fa.bwd_config_on_card(name, d, dt)
-                want = (fa.bwd_route(d, dt).startswith("wgmma"),
-                        *fa.bwd_tile(name, d, dt), fa.bwd_smem(name, d, dt))
-                print(f"  {name} D {d} {str(dt)[6:]}: route "
-                      f"{fa.bwd_route(d, dt)}, tile (warpgroups, rows) "
-                      f"{want[1:3]}, shared memory {want[3]} bytes",
+                card_cfg = on_card(name, d, dt)
+                want = (route(d, dt).startswith("wgmma"),
+                        *tile(name, d, dt), smem(name, d, dt))
+                print(f"  {name} D {d} {str(dt)[6:]}: route {route(d, dt)}, "
+                      f"tile (warpgroups, rows{', keys' if fwd else ''}) "
+                      f"{want[1:-1]}, shared memory {want[-1]} bytes",
                       flush=True)
                 check(card_cfg == want, f"{name} D {d} {dt}: the library "
                       f"runs {card_cfg}, the wrapper expects {want}")

@@ -1,32 +1,35 @@
 #!/usr/bin/env python3
-"""The flash-attention backward (B9 ``flash_bwd_dkdv``, B10
-``flash_bwd_dq``) of the PyTorch/CUDA port on the card, one checkout
-against another.
+"""The flash-attention kernels of the PyTorch/CUDA port on the card, one
+checkout against another: the backward (B9 ``flash_bwd_dkdv``, B10
+``flash_bwd_dq``) and the forward (B7 ``flash_fwd``, B8
+``flash_block``).
 
 Run from the repository root on a machine with one CUDA card, with
 another checkout (for example the parent commit, unpacked by
 ``git archive``) at DIR:
 
-    python3 scripts/flash_ab.py --base DIR [--kernels bwd,e2e]
+    python3 scripts/flash_ab.py --base DIR [--kernels bwd,fwd,e2e]
 
 Four processes run in turn: the base checkout, this one, this one
 again, the base again (each builds its own kernels from its ``csrc/``).
 Each times, in device milliseconds per launch (CUDA events,
 ``chip_smoke.time_ms``):
 
-- ``bwd`` (the default): B9 and B10 at every flash case of
-  ``chip_smoke.flash_cases`` (both BERT routes' shapes in f32 and bf16,
-  dead key tiles, causal, cross-length, dead-row and head-dim cases),
-  on inputs made from a CPU generator seeded per case, so both
-  checkouts see the same numbers; the outputs are saved and held
-  against the first base run's within the kernels' tolerance, 1e-3
-  (f32) or 2e-2 (bf16) of each output's own max|base| (the f32 bits
-  change with the product's order);
-- ``e2e``: the f32 BERT-base fine-tune step (chip_smoke phase 6's
-  model and Estimator, batch 16, T 512, padding masks) through each
-  checkout's entry points: five warm-up steps, then the mean wall ms of
-  five steps twice, and the device ms per step and per kernel over two
-  steps from ``torch.profiler`` (chip_smoke's ``profile_steps``).
+- ``bwd`` (the default) and ``fwd``: B9 and B10, or B7 and B8, at every
+  flash case of ``chip_smoke.flash_cases`` (both BERT routes' shapes in
+  f32 and bf16, dead key tiles, causal, cross-length, dead-row and
+  head-dim cases), on inputs made from a CPU generator seeded per case,
+  so both checkouts see the same numbers; the outputs are saved and
+  held against the first base run's within the kernels' tolerance,
+  1e-3 (f32) or 2e-2 (bf16) of each output's own max|base| (the f32
+  bits change with the product's order; a row max of -1e30 must match
+  exactly);
+- ``e2e``: the f32 BERT-base fine-tune step and evaluate batch
+  (chip_smoke phase 6's model and Estimator, batch 16, T 512, padding
+  masks) through each checkout's entry points: five warm-up steps, then
+  the mean wall ms of five steps twice and of five evaluate batches, and
+  the device ms per step or batch and per kernel over two of them from
+  ``torch.profiler`` (chip_smoke's ``profile_steps``).
 
 The script prints a table per kernel and dtype (each checkout's first
 run, its second beside it as the spread), the agreement of the outputs
@@ -120,6 +123,20 @@ def end_to_end(cs) -> dict:
     out["device_ms"] = prof["device_ms_per_step"]
     out["wall_ms_profiled"] = prof["wall_ms_per_step"]
     out["by_kernel_ms"] = prof["ms_per_step_by_kernel"]
+
+    def evaluate():
+        est.evaluate([a[:cs.BERT_BATCH] for a in x], y[:cs.BERT_BATCH],
+                     batch_size=cs.BERT_BATCH)
+    evaluate()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(cs.BERT_STEPS):
+        evaluate()
+    torch.cuda.synchronize()
+    out["eval_ms"] = (time.perf_counter() - t) / cs.BERT_STEPS * 1e3
+    prof = cs.profile_steps(evaluate, 2, cs.FLASH_KERNEL_NAMES)
+    out["eval_device_ms"] = prof["device_ms_per_step"]
+    out["eval_by_kernel_ms"] = prof["ms_per_step_by_kernel"]
     print(f"  end to end: {json.dumps(out)}", flush=True)
     return out
 
@@ -136,25 +153,39 @@ def child(tree: str, out: str, kernels) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     fa.build_kernels()
-    res = {"tree": tree, "bwd": [], "e2e": {}}
+    res = {"tree": tree, "bwd": [], "fwd": [], "e2e": {}}
     saved = {}
-    for i, case in enumerate(cs.flash_cases() if "bwd" in kernels else ()):
+    names = [n for part, ns in (("fwd", cs.FWD), ("bwd", cs.BWD))
+             if part in kernels for n in ns]
+    for i, case in enumerate(cs.flash_cases() if names else ()):
         args = case_inputs(cs, case, 100 + i)
+        q, k, v, _, km, _, _, _, causal, scale, off = args
         tag, b, tq, tk, h, d, causal, mkind, dt = case[:9]
         key = f"{tag} {dt} ({b}, {tq}, {tk}, {h}, {d})"
-        for name in cs.BWD:
-            got = fa._backward(name, *args)
+        for name in names:
+            if name == "flash_fwd":
+                def fn():
+                    return fa._flash_fwd(q, k, v, km, causal, scale)
+            elif name == "flash_block":
+                def fn():
+                    return fa._block_partials(q, k, v, off, causal, scale,
+                                              km)
+            else:
+                def fn(name=name):
+                    return fa._backward(name, *args)
+            got = fn()
             got = got if isinstance(got, tuple) else (got,)
             saved[f"{key} {name}"] = [t.cpu() for t in got]
+            part = "fwd" if name in cs.FWD else "bwd"
             rec = {"case": key, "kernel": name, "dtype": dt,
-                   "per_path": case[9][2 if name == "flash_bwd_dkdv"
-                                       else 3],
-                   "ms": cs.time_ms(lambda: fa._backward(name, *args))}
-            if hasattr(fa, "bwd_route"):
-                rec["route"] = fa.bwd_route(d, getattr(torch, dt))
-            res["bwd"].append(rec)
+                   "per_path": case[9][cs.FLASH.index(name)],
+                   "ms": cs.time_ms(fn)}
+            route = getattr(fa, part + "_route", None)
+            if route is not None:
+                rec["route"] = route(d, getattr(torch, dt))
+            res[part].append(rec)
             print(f"  {name} {key}: {rec['ms']:.4f} ms", flush=True)
-        del args
+        del args, q, k, v
         torch.cuda.empty_cache()
     if "e2e" in kernels:
         res["e2e"] = end_to_end(cs)
@@ -175,7 +206,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", help="the other checkout's root")
     ap.add_argument("--kernels", default="bwd",
-                    help="what to time, of bwd and e2e (default bwd)")
+                    help="what to time, of bwd, fwd and e2e (default bwd)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -210,13 +241,15 @@ def main() -> int:
     base, this, this2, base2 = results
     print(card)
     summary = {"card": card}
-    if base["bwd"]:
-        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+    cs = _chip_smoke()
+    for part, names in (("fwd", cs.FWD), ("bwd", cs.BWD)):
+        if not base[part]:
+            continue
+        for name in names:
             for dt in ("float32", "bfloat16"):
                 rows = []
-                for recs in zip(this["bwd"], this2["bwd"], base["bwd"],
-                                base2["bwd"]):
-                    t1, t2, b1, b2 = recs
+                for t1, t2, b1, b2 in zip(this[part], this2[part],
+                                          base[part], base2[part]):
                     if t1["kernel"] != name or t1["dtype"] != dt:
                         continue
                     rows.append([t1["case"], t1.get("route", ""),
@@ -226,46 +259,59 @@ def main() -> int:
                 _table(f"{name} {dt}, device ms per launch, first run "
                        "(second)", rows,
                        ["case", "route", "this", "base", "this / base"])
-        # per path: the f32 BERT step (12 launches each) and the bf16
-        # bench step
-        for label, recs in (("this", this["bwd"]), ("base", base["bwd"])):
-            summary[f"{label}_f32_step_ms"] = sum(
-                r["ms"] * r["per_path"] for r in recs
-                if r["dtype"] == "float32")
-            summary[f"{label}_bf16_step_ms"] = sum(
-                r["ms"] * r["per_path"] for r in recs
-                if r["dtype"] == "bfloat16")
-        print(f"B9 + B10 per f32 BERT step: this "
-              f"{summary['this_f32_step_ms']:.3f} ms, base "
-              f"{summary['base_f32_step_ms']:.3f}; per bf16 bench step: "
-              f"this {summary['this_bf16_step_ms']:.3f}, base "
-              f"{summary['base_bf16_step_ms']:.3f}", flush=True)
+        # per path: the f32 BERT step or eval batch, the bf16 bench step
+        for label, recs in (("this", this[part]), ("base", base[part])):
+            for name in names:
+                for dt, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+                    summary[f"{label}_{name}_{tag}_path_ms"] = sum(
+                        r["ms"] * r["per_path"] for r in recs
+                        if r["dtype"] == dt and r["kernel"] == name)
+        for name in names:
+            print(f"{name} per path (f32 BERT step or eval batch; bf16 "
+                  f"bench step): this "
+                  f"{summary[f'this_{name}_f32_path_ms']:.3f} ms, base "
+                  f"{summary[f'base_{name}_f32_path_ms']:.3f}; bf16: this "
+                  f"{summary[f'this_{name}_bf16_path_ms']:.3f}, base "
+                  f"{summary[f'base_{name}_bf16_path_ms']:.3f}", flush=True)
     agree = {}
     worst = 0.0
+    bitwise = {}    # kernel -> every output of every case equal bit for bit
     for key, ref in outs[0].items():
         tol = TOL["float32" if "float32" in key else "bfloat16"]
+        kernel = key.rsplit(" ", 1)[1]
         for o in outs[1:]:
+            bitwise[kernel] = bitwise.get(kernel, True) and all(
+                torch.equal(a, r) for a, r in zip(o[key], ref))
             for a, r in zip(o[key], ref):
-                scale = r.float().abs().max().item()
-                err = (a.float() - r.float()).abs().max().item()
+                a, r = a.float(), r.float()
+                dead = r.abs() >= 1e29      # a row max of -1e30: exact
+                same = torch.equal(a[dead], r[dead])
+                a, r = a[~dead], r[~dead]
+                scale = r.abs().max().item() if r.numel() else 0.0
+                err = (a - r).abs().max().item() if r.numel() else 0.0
                 rel = err / scale if scale else err
                 worst = max(worst, rel / tol)
-                agree[key] = agree.get(key, True) and rel <= tol
+                agree[key] = agree.get(key, True) and rel <= tol and same
     ok = all(agree.values())
     print(f"outputs within tolerance of the first base run's: {ok} (worst "
           f"error {worst:.3f} of its tolerance)", flush=True)
     summary["outputs_agree"] = ok
+    summary["bit_for_bit_with_base"] = bitwise
+    print(f"outputs equal to the first base run's bit for bit, by kernel: "
+          f"{bitwise}", flush=True)
     if base["e2e"]:
         rows = [[k, f"{this['e2e'][k]:.3f} ({this2['e2e'][k]:.3f})",
                  f"{base['e2e'][k]:.3f} ({base2['e2e'][k]:.3f})"]
                 for k in ("step_ms_0", "step_ms_1", "device_ms",
-                          "wall_ms_profiled")]
-        for g in this["e2e"]["by_kernel_ms"]:
-            rows.append([f"device ms {g}",
-                         f"{this['e2e']['by_kernel_ms'][g]:.3f}",
-                         f"{base['e2e']['by_kernel_ms'].get(g, 0.0):.3f}"])
-        _table("f32 BERT-base fine-tune step, ms (second run)", rows,
-               ["metric", "this", "base"])
+                          "wall_ms_profiled", "eval_ms", "eval_device_ms")]
+        for by, label in (("by_kernel_ms", "step"),
+                          ("eval_by_kernel_ms", "eval")):
+            for g in this["e2e"][by]:
+                rows.append([f"{label} device ms {g}",
+                             f"{this['e2e'][by][g]:.3f}",
+                             f"{base['e2e'][by].get(g, 0.0):.3f}"])
+        _table("f32 BERT-base fine-tune step and evaluate batch, ms "
+               "(second run)", rows, ["metric", "this", "base"])
         summary["e2e"] = {"this": [this["e2e"], this2["e2e"]],
                           "base": [base["e2e"], base2["e2e"]]}
     with open(os.path.join(OUT, "flash_ab.json"), "w") as f:

@@ -47,6 +47,7 @@ to bf16, it must round y as cuBLAS f32 does (counted against the fold
 in float64, beside plain TF32 as the control that fails that count).
 """
 
+import os
 import re
 
 import pytest
@@ -62,7 +63,26 @@ def cuda():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Kineto tears CUPTI down after every profiling session and attaches
+    # it again at the next; now and then a session so reopened recorded
+    # no kernel at all on the H100 (scripts/profiler_windows.py counts
+    # such windows), which failed the tests below that read which kernel
+    # a route reaches. Keep it attached (read at each session's end).
+    os.environ["TEARDOWN_CUPTI"] = "0"
     return torch.device("cuda")
+
+
+def _profiled_names(dev, fn):
+    """The names of the kernels ``fn`` launches on the card, from one
+    ``torch.profiler`` window after a warm call (a first launch loads the
+    kernel's module)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    return " ".join(e.key for e in prof.key_averages())
 
 
 @pytest.mark.cuda
@@ -432,19 +452,15 @@ def test_conv3x3_bn_apply_bf16_every_tile(cuda, monkeypatch, window, bn, b,
 def test_bf16_dx_and_fold_run_the_wgmma_kernels(cuda):
     # B3 and B6 dispatch by dtype: bf16 to the sm90 kernels (B6 with the
     # fold epilogue), f32 to the FMA templates
-    from torch.profiler import ProfilerActivity, profile
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
         args = _dx_inputs(300, 128, 64, True, True, dtype, cuda, 23)
         x, wt, s, t, os_, ot = _fold_inputs(2, 8, 8, 64, 64, False, cuda,
                                             24)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tcb._matmul_bn_dx(*args, True, True)
+        names[dtype] = _profiled_names(cuda, lambda: (
+            tcb._matmul_bn_dx(*args, True, True),
             tcb.conv3x3_bn_apply(x.to(dtype), wt, out_scale=os_,
-                                 out_shift=ot, relu_out=True)
-            torch.cuda.synchronize()
-        names[dtype] = " ".join(e.key for e in prof.key_averages())
+                                 out_shift=ot, relu_out=True)))
     bf, f32 = names[torch.bfloat16], names[torch.float32]
     assert "matmul_bn_dx_sm90_kernel" in bf and "conv_bn_dx_f32" not in bf
     assert re.search(r"conv3x3_bn(_s1)?_sm90_kernel<\d+, true>", bf)
@@ -456,8 +472,8 @@ def test_bf16_dx_and_fold_run_the_wgmma_kernels(cuda):
 @pytest.mark.cuda
 def test_bf16_runs_the_wgmma_kernels_and_f32_the_templates(cuda):
     # B2 and B4 dispatch by dtype: bf16 to the sm90 kernels, f32 to the
-    # FMA templates; one launch counted per call either way
-    from torch.profiler import ProfilerActivity, profile
+    # FMA templates; one launch counted per call either way (a warm call
+    # and the profiled one)
     g = torch.Generator().manual_seed(18)
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -467,15 +483,12 @@ def test_bf16_runs_the_wgmma_kernels_and_f32_the_templates(cuda):
         x2 = x.reshape(-1, 64)
         dy = torch.randn(128, 64, generator=g).to(cuda, dtype)
         before = dict(tcb.launches)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tcb._conv3x3_bn_fwd(x, w, None, None, sh, False, False, 1)
+        names[dtype] = _profiled_names(cuda, lambda: (
+            tcb._conv3x3_bn_fwd(x, w, None, None, sh, False, False, 1),
             tcb._matmul_bn_dw(x2, None, None, None, sh, x2, dy, sh, sh,
-                              False, False)
-            torch.cuda.synchronize()
-        names[dtype] = " ".join(e.key for e in prof.key_averages())
-        assert tcb.launches["conv3x3_bn"] == before["conv3x3_bn"] + 1
-        assert tcb.launches["matmul_bn_dw"] == before["matmul_bn_dw"] + 1
+                              False, False)))
+        assert tcb.launches["conv3x3_bn"] == before["conv3x3_bn"] + 2
+        assert tcb.launches["matmul_bn_dw"] == before["matmul_bn_dw"] + 2
     bf, f32 = names[torch.bfloat16], names[torch.float32]
     assert re.search(r"conv3x3_bn(_s1)?_sm90_kernel", bf)
     assert "conv_bn_f32_kernel" not in bf
@@ -783,6 +796,129 @@ def test_flash_attention_pads_other_head_dims_on_card(cuda):
     ref.square().sum().backward()
     _flash_close(out.cpu(), ref.detach(), torch.float32)
     _flash_close(qs.grad.cpu(), qc.grad, torch.float32)
+
+
+# -- the forward, B7 and B8: routes, tiles, offsets, chip_smoke's shapes ------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fwd_close(q, k, v, km, causal, scale, off, dt):
+    """B7 and B8 (at offset ``off``) against their plain versions; the
+    outputs, for repeats."""
+    o = tfa._flash_fwd(q, k, v, km, causal, scale)
+    _flash_close(o, tfa.flash_fwd_ref(q, k, v, km, causal, scale), dt)
+    part = tfa._block_partials(q, k, v, off, causal, scale, km)
+    for a, b_ in zip(part, tfa.flash_block_ref(q, k, v, km, causal, scale,
+                                               off)):
+        _flash_close(a, b_, torch.float32 if dt == torch.float32 else dt)
+    return (o, *part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_block"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_fwd_every_route_and_tile_on_card(cuda, name, dtype, d):
+    # the library runs the route and tile the wrapper names (fwd_route,
+    # fwd_tile, fwd_smem), and each instance matches the plain version
+    # over several query and key tiles with padding, causal or not
+    dt = getattr(torch, dtype)
+    assert tfa.fwd_config_on_card(name, d, dt) == (
+        tfa.fwd_route(d, dt).startswith("wgmma"), *tfa.fwd_tile(name, d, dt),
+        tfa.fwd_smem(name, d, dt))
+    km = torch.ones(3, 512)
+    km[1, 300:] = 0
+    km[2, 65:] = 0
+    q, k, v, _, _ = _flash_inputs(dt, 3, 512, 512, 3, d, False, 24, cuda)
+    for causal in (False, True):
+        _fwd_close(q, k, v, km.to(cuda), causal, d ** -0.5, 0, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_block_at_runtime_offsets_on_card(cuda, dtype, d, masked):
+    # B8's causal offset is any int: rows that see no key (-128), a
+    # diagonal inside the keys (64), every key visible (Tk + 1)
+    dt = getattr(torch, dtype)
+    q, k, v, _, km = _flash_inputs(dt, 2, 256, 384, 3, d, masked, 25, cuda)
+    for off in (-128, 64, 384 + 1):
+        got = tfa._block_partials(q, k, v, off, True, d ** -0.5, km)
+        want = tfa.flash_block_ref(q, k, v, km, True, d ** -0.5, off)
+        for a, b_ in zip(got, want):
+            _flash_close(a, b_, torch.float32 if dt == torch.float32 else dt)
+        if off < 0:      # rows 0 .. -off - 1 see no key
+            assert float(got[0][:, :-off].abs().max()) == 0.0
+            assert bool((got[1][..., :-off] == -1e30).all())
+            assert float(got[2][..., :-off].abs().max()) == 0.0
+
+
+def _smoke_fwd_cases():
+    # chip_smoke.flash_cases() as (B, Tq, Tk, H, D, causal, mask, dtype,
+    # strided): decided from the file, not the card
+    return [c[1:9] + (c[10],) for c in _chip_smoke().flash_cases()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _smoke_fwd_cases(),
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_flash_fwd_at_chip_smoke_shapes_on_card(cuda, case):
+    # both forward kernels at every flash shape chip_smoke runs (the BERT
+    # routes, dead key tiles of lengths 0, 1, 63, 64, 65, 129 and T,
+    # causal, cross-length, dead-row and head-dim cases), q, k, v read
+    # in place where chip_smoke slices them from one projection; a second
+    # launch gives the same bits
+    b, tq, tk, h, d, causal, mkind, dtype, strided = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(26)
+    if strided:
+        qkv = (torch.randn(b, tq, 3 * h * d, generator=g) * 0.5).to(cuda, dt)
+        q, k, v = [t.reshape(b, tq, h, d) for t in qkv.split(h * d, -1)]
+    else:
+        q, k, v = [(torch.randn(b, t, h, d, generator=g) * 0.5).to(cuda, dt)
+                   for t in (tq, tk, tk)]
+    km = _chip_smoke()._key_mask(b, tk, mkind, cuda)
+    first = _fwd_close(q, k, v, km, causal, d ** -0.5, tk - tq, dt)
+    again = (tfa._flash_fwd(q, k, v, km, causal, d ** -0.5),
+             *tfa._block_partials(q, k, v, tk - tq, causal, d ** -0.5, km))
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_b7_and_b8_reach_the_kernels_their_routes_name(cuda):
+    # D 64 and 128 run the wgmma template (one instance per dtype, D,
+    # kernel and tile), D 32 and 256 the old kernels; a warm launch
+    # first, then one profiled window per dtype and D
+    dtypes = (("float32", "float"), ("bfloat16", "__nv_bfloat16"))
+    for dtype, ctype in dtypes:
+        dt = getattr(torch, dtype)
+        for d in (32, 64, 128, 256):
+            q, k, v, _, km = _flash_inputs(dt, 2, 256, 256, 2, d, True, 27,
+                                           cuda)
+            wgs, _, keys = tfa.fwd_tile("flash_fwd", d, dt)
+            if tfa.fwd_route(d, dt).startswith("wgmma"):
+                want = [f"flash_fwd_sm90_kernel<{ctype}, {d}, {p}, {wgs}, "
+                        f"{keys}>" for p in ("false", "true")]
+            else:
+                old = "f32" if dtype == "float32" else "bf16"
+                want = [f"flash_fwd_{old}_kernel<{d}, {p}>"
+                        for p in ("false", "true")]
+            names = _profiled_names(cuda, lambda: (
+                tfa._flash_fwd(q, k, v, km, False, 0.125),
+                tfa._block_partials(q, k, v, 0, False, 0.125, km)))
+            for w in want:
+                assert w in names, (dtype, d, w, names)
 
 
 # -- flash decode: B11 --------------------------------------------------------
@@ -1146,7 +1282,6 @@ def test_b1_and_b5_reach_the_kernels_their_routes_name(cuda):
     # prologue), bf16 weights B1's kernel with the fold epilogue (bf16
     # x) or the tf32 kernel in one pass (f32 x); the old mma.sync 1x1
     # kernel is gone
-    from torch.profiler import ProfilerActivity, profile
     want = {("float32", "float32", False): ("tf32x3",
             "matmul_bn_apply_sm90_kernel<float, float, true>"),
             ("bfloat16", "float32", False): ("tf32x2",
@@ -1162,13 +1297,8 @@ def test_b1_and_b5_reach_the_kernels_their_routes_name(cuda):
         assert tcb.fold_route(dt, wdt, prologue) == route
         x, wt, res, fold = _b5_inputs(2, 8, 8, 64, 128, 1, True, prologue,
                                       dt, wdt, cuda, 34)
-        # a first launch loads the kernel, which the profiler may miss
-        tcb.conv1x1_bn_apply(x, wt, residual=res, **fold)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tcb.conv1x1_bn_apply(x, wt, residual=res, **fold)
-            torch.cuda.synchronize()
-        names = " ".join(e.key for e in prof.key_averages())
+        names = _profiled_names(cuda, lambda: tcb.conv1x1_bn_apply(
+            x, wt, residual=res, **fold))
         assert kernel in names, (dtype, w_dtype, prologue, names)
         assert "conv_bn_bf16_kernel" not in names
     for dtype, kernel in (("bfloat16", "matmul_bn_sm90_kernel<128, false"),
@@ -1177,11 +1307,6 @@ def test_b1_and_b5_reach_the_kernels_their_routes_name(cuda):
         x4 = torch.randn(2, 8, 8, 64, device=cuda).to(dt)
         wt = torch.randn(64, 128, device=cuda).to(dt)
         sh = torch.zeros(128, device=cuda)
-        tcb._matmul_bn_fwd(x4, wt, None, None, None, sh, 1, False, False)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tcb._matmul_bn_fwd(x4, wt, None, None, None, sh, 1, False,
-                               False)
-            torch.cuda.synchronize()
-        names = " ".join(e.key for e in prof.key_averages())
+        names = _profiled_names(cuda, lambda: tcb._matmul_bn_fwd(
+            x4, wt, None, None, None, sh, 1, False, False))
         assert kernel in names and "conv_bn_bf16_kernel" not in names
