@@ -1,52 +1,71 @@
-// Single-query decode attention over a gathered paged KV cache
-// (`flash_decode` in analytics_zoo_tpu_torch/ops/flash_attention.py, B11).
+// Single-query decode attention over a paged KV cache (B11: `flash_decode`
+// in analytics_zoo_tpu_torch/ops/flash_attention.py).
 //
 // For every slot s and head h:
 //   o[s, h, :] = sum_j p[j] v[s, j, h, :] / sum_j p[j],
 //   p[j] = exp(c[j] - max_j c[j]),
-//   c[j] = (q[s, h, :] . k[s, j, h, :]) * scale, or -1e30 where
-//          kmask[s, j] <= 0,
+//   c[j] = (q[s, h, :] . k[s, j, h, :]) * scale, or -1e30 where key j of
+//          slot s is not valid,
 // with the softmax in f32 whatever the operand type, and o in q's type.
+// Key j of slot s lives in row j % P of page table[s, j / P] of the pool
+// (page ids clamped into the pool, the reference's gather `mode="clip"`);
+// the dense view (S, T, H, D) is the same thing with one page of T rows
+// per slot and no table.
 //
 // Replaces the TPU's Pallas kernel of analytics_zoo_tpu/ops/
 // flash_attention.py: `flash_decode_attention` (`_fwd_kernel_masked` on
-// grid (S, H, 1, T/bk), with the one query row copied into an (8, D)
-// tile because a TPU sublane holds 8 rows). Here one query row is one
-// row: no copies.
+// grid (S, H, 1, T/bk) over the dense page-table gather, the one query
+// row copied into an (8, D) tile because a TPU sublane holds 8 rows, int8
+// views dequantized before the call). Here one query row is one row.
 //
-// Semantics kept from the reference: masked logits are -1e30, never
-// -inf, so a slot with no valid key averages all T keys uniformly, as
-// the dense path does. Int8 caches are dequantized by the caller before
-// the kernel, as the reference does.
+// Semantics kept from the reference: masked logits are -1e30, never -inf,
+// so a slot with no valid key averages all T keys uniformly, as the dense
+// path does (it reads every row through the clamped page ids). Int8 values
+// are formed as the reference's dequantization forms them, float(int8) *
+// scale rounded to q's type; a float pool of another type than q is
+// converted on load (rounded to q's type), as `.to(q.dtype)` does.
 //
-// What bounds it on the H100: bytes. A slot reads its valid keys' K and
-// V rows once (2 * len * H * D * size bytes) for 4 * len * H * D
-// operations: one operation per byte in f32, two in bf16, far below the
-// card's ~20 (FMA) and ~295 (tensor cores) operations per byte. So the
-// design only has to keep enough loads in flight and read no byte it
-// does not need:
-// - one block per (slot, head), 8 warps. A warp splits into key groups
-//   of G lanes, G * 16 bytes covering one K (or V) row (G <= 32), so a
-//   group reads a row as one coalesced burst of 16-byte loads, and the
-//   block keeps 4 keys per group (up to 256 keys) in flight;
-// - each group runs its own online softmax (running max m, sum l and
-//   its slice of the output accumulator in registers), reducing q . k
-//   over its G lanes by shuffles; the groups merge once at the end in
-//   shared memory, in a fixed order (the same bits every run);
-// - a key whose mask is 0 is never read when the slot has any valid key
-//   (its p would be exactly 0), so a launch reads only the valid rows:
-//   its bytes follow the slots' lengths, not the cache's capacity T. A
-//   slot with no valid key reads every row, for the uniform average.
+// What bounds it on the H100: bytes. A slot reads its valid keys' K and V
+// rows once (2 * len * H * D * size bytes) for 4 * len * H * D operations:
+// half an operation per byte in f32, one in bf16, two in int8, far below
+// the card's ~20 (f32 FMA) operations per byte. So the design has to keep
+// enough loads in flight on every SM and read no byte it does not need:
+// - split the context (flash-decoding): the grid is (chunk, head, slot),
+//   each block runs the online softmax over one chunk of keys and writes
+//   its unnormalised partial (acc, m, l) to a workspace. The wrapper plans
+//   the chunk from the shapes alone (`decode_plan`), never from the
+//   lengths, so that the host never waits on the card; a block whose chunk
+//   lies past its slot's length writes an empty partial and leaves at once
+//   (on the dense entry's mask it reads only the mask), so a launch reads
+//   only the valid rows. The last block of a (slot, head) to arrive (an
+//   atomic ticket, reset by that block for the next launch) merges the
+//   partials in chunk order, never in arrival order: the same bits every
+//   run;
+// - read the pages in place through the page table: no dense gather of
+//   the whole pool (a write and a read of its full capacity) before the
+//   launch;
+// - dequantize int8 in the kernel: the rows are read as int8 (a quarter of
+//   f32's bytes) with their f32 scale per (row, head).
+// Inside a block, 8 warps split into key groups of G lanes, G * 16 bytes
+// covering one K (or V) row of the pool's type (G <= 32), so a group reads
+// a row as one burst of 16-byte loads; each group keeps 2 keys in flight
+// and runs its own online softmax, the groups of a warp merge by shuffles,
+// the warps in shared memory in a fixed order. Four blocks share an SM (64
+// registers a thread): on the H100 that beat two blocks with 4 keys per
+// group in flight, and a second register stage of keys loaded under the
+// maths of the first (which spilled), at the generation path's shapes
+// (PERF.md).
 // bf16 rows multiply in f32, p rounded to bf16 before p * v as the flash
-// forward does. Left for later: splitting T over blocks (flash-decoding)
-// when slots * heads is below the SM count, and reading the pages in
-// place through the page table instead of the gathered view.
+// forward does.
 //
 // Layout: q (S, H, D) with slot stride q_ss (a column slice of the fused
-// qkv projection is read in place); k, v (S, T, H, D) with slot and time
-// strides; heads at stride D, the last axis contiguous, rows 16-byte
-// aligned (the wrapper checks). kmask (S, T) f32. o (S, H, D)
-// contiguous.
+// qkv projection is read in place); k, v (pages, rows, H, D) with page and
+// row strides, heads at stride D, the last axis contiguous, rows 16-byte
+// aligned (the wrapper checks); int8 scales (pages, rows, H) with page and
+// row strides. Validity: lens (S,) int32 (key j valid iff j < lens[s]) or
+// kmask (S, T) bool (valid iff true). o (S, H, D)
+// contiguous; work_acc (S, H, chunks, D) and work_ml (S, H, chunks, 2)
+// f32; tickets (S, H) int32, zero before the launch and after it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,201 +76,374 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;   // keys per group in flight
+constexpr int kUnroll = 2;   // keys per group in flight
+constexpr int kMinBlocks = 4;   // per SM: at most 64 registers a thread
+constexpr unsigned kFull = 0xffffffffu;
 
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;      // int8 scales, else null
+  const float* vs;
+  const int* table;     // (S, pps) page ids, or null: page s, rows T
+  const int* lens;      // (S,), or null: kmask
+  const uint8_t* kmask;   // (S, T) bool, or null: lens
+  void* o;
+  float* work_acc;
+  float* work_ml;
+  int* tickets;
+  int H, T, page, n_pages, pps, chunk, n_chunks;
+  long long q_ss, k_ps, k_rs, v_ps, v_rs, ks_ps, ks_rs, vs_ps, vs_rs;
+  float scale;
+};
+
+// A 16-byte load of the pool: N elements of type T, element i as f32.
 template <typename T>
-struct Vec;
+struct Elem;
 
 template <>
-struct Vec<float> {
-  static constexpr int N = 4;   // elements per 16-byte load
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+struct Elem<float> {
+  static constexpr int N = 4;
+  __device__ static float get(const uint4& r, int i) {
+    return __uint_as_float((&r.x)[i]);
   }
-  __device__ static float round_p(float p) { return p; }
-  __device__ static void store(float* p, float v) { *p = v; }
 };
 
 template <>
-struct Vec<__nv_bfloat16> {
+struct Elem<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static float round_p(float p) {
-    return __bfloat162float(__float2bfloat16(p));
-  }
-  __device__ static void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
+  __device__ static float get(const uint4& r, int i) {
+    const unsigned w = (&r.x)[i >> 1];
+    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
   }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ kmask,
-                    T* __restrict__ o, int H, int Tk, long long q_ss,
-                    long long k_ss, long long k_st, long long v_ss,
-                    long long v_st, float scale) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int G = (D / VEC < 32) ? D / VEC : 32;   // lanes per key
-  constexpr int NV = D / (G * VEC);                   // loads per lane
-  constexpr int PER = NV * VEC;                       // elements per lane
-  constexpr int KPW = 32 / G;                         // keys per warp
-  constexpr int NG = kWarps * KPW;                    // key groups
-  static_assert(NG * D <= 2048, "merge buffer exceeds 8 KB");
-  __shared__ float s_acc[NG][D];
-  __shared__ float s_m[NG];
-  __shared__ float s_l[NG];
+template <>
+struct Elem<int8_t> {
+  static constexpr int N = 16;
+  __device__ static float get(const uint4& r, int i) {
+    const unsigned w = (&r.x)[i >> 2];
+    return static_cast<float>(static_cast<int8_t>(w >> (8 * (i & 3))));
+  }
+};
 
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
+// q's type: how a value rounds to it, how one element loads and stores
+template <typename T>
+struct Qt;
+
+template <>
+struct Qt<float> {
+  __device__ static float round(float x) { return x; }
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static void store(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Qt<__nv_bfloat16> {
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+};
+
+template <typename A, typename B>
+struct Same {
+  static constexpr bool value = false;
+};
+template <typename A>
+struct Same<A, A> {
+  static constexpr bool value = true;
+};
+
+// element i of a loaded row as the attention reads it: dequantized
+// (float(int8) * scale) or converted, then rounded to q's type
+template <typename Tq, typename Tkv>
+__device__ __forceinline__ float kv_value(const uint4& r, int i, float sc) {
+  float x = Elem<Tkv>::get(r, i);
+  if (Same<Tkv, int8_t>::value) x *= sc;
+  if (!Same<Tkv, Tq>::value) x = Qt<Tq>::round(x);
+  return x;
+}
+
+// lanes per key and keys per iteration of a block (`decode_lanes` and
+// `decode_plan` in ops/flash_attention.py mirror them)
+template <typename Tkv, int D>
+struct Geo {
+  static constexpr int VEC = Elem<Tkv>::N;
+  static constexpr int G = (D / VEC < 32) ? D / VEC : 32;
+  static constexpr int NV = D / (G * VEC);
+  static constexpr int KPW = 32 / G;
+  static constexpr int NG = kWarps * KPW;
+  static constexpr int KI = NG * kUnroll;
+};
+
+template <typename Tq, typename Tkv, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_decode_kernel(const Params p) {
+  using Gm = Geo<Tkv, D>;
+  constexpr int VEC = Gm::VEC;
+  constexpr int G = Gm::G;
+  constexpr int NV = Gm::NV;
+  constexpr int PER = NV * VEC;   // elements per lane
+  constexpr int NG = Gm::NG;
+  constexpr int KI = Gm::KI;
+  constexpr bool kInt8 = Same<Tkv, int8_t>::value;
+  static_assert(G * NV * VEC == D, "a key's lanes must cover D");
+  __shared__ float s_acc[kWarps][D];
+  __shared__ float s_m[kWarps];
+  __shared__ float s_l[kWarps];
+  __shared__ int s_last;
+
+  const int c = blockIdx.x;
+  const int h = blockIdx.y;
+  const int s = blockIdx.z;
+  const int pair = s * p.H + h;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int sub = lane % G;
-  const int grp = (threadIdx.x >> 5) * KPW + lane / G;
-  const float* mrow = kmask + static_cast<long long>(s) * Tk;
+  const int grp = warp * Gm::KPW + lane / G;
+  const int c0 = c * p.chunk;
+  const int c1 = min(c0 + p.chunk, p.T);
+  const long long mrow0 = static_cast<long long>(s) * p.T;
+  // is key j of the mask route valid?
+  auto valid = [&](int j) { return p.kmask[mrow0 + j] != 0; };
 
-  // does the slot have a valid key? (else every key counts, uniformly)
-  int any = 0;
-  for (int j = threadIdx.x; j < Tk; j += kThreads) any |= mrow[j] > 0.f;
-  const bool any_valid = __syncthreads_or(any) != 0;
+  // does the slot have a valid key anywhere? (else every key counts,
+  // uniformly, in every chunk)
+  int len = p.T;
+  bool any_valid;
+  if (p.lens) {
+    len = min(max(p.lens[s], 0), p.T);
+    any_valid = len > 0;
+  } else {
+    int found = 0;
+    for (int base = 0; base < p.T && !found; base += kThreads) {
+      const int j = base + threadIdx.x;
+      found = __syncthreads_or(j < p.T && valid(j));
+    }
+    any_valid = found != 0;
+  }
+  const int hi = any_valid ? min(c1, len) : c1;   // keys [c0, hi) to read
+  float* ml = p.work_ml + (static_cast<long long>(pair) * p.n_chunks + c) * 2;
+  float* wacc =
+      p.work_acc + (static_cast<long long>(pair) * p.n_chunks + c) * D;
 
-  // this lane's elements: load n covers [(n * G + sub) * VEC, + VEC)
-  float qf[PER];
-  const T* qrow = q + s * q_ss + static_cast<long long>(h) * D;
+  if (c0 < hi) {
+    // this lane's elements: load n covers [(n * G + sub) * VEC, + VEC)
+    float qf[PER];
+    const Tq* qrow = static_cast<const Tq*>(p.q) + s * p.q_ss +
+                     static_cast<long long>(h) * D;
 #pragma unroll
-  for (int n = 0; n < NV; ++n)
-    Vec<T>::load(qrow + (n * G + sub) * VEC, qf + n * VEC);
-  const T* kb = k + s * k_ss + static_cast<long long>(h) * D;
-  const T* vb = v + s * v_ss + static_cast<long long>(h) * D;
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        qf[n * VEC + i] = Qt<Tq>::load(qrow + (n * G + sub) * VEC + i);
+    const int* trow =
+        p.table ? p.table + static_cast<long long>(s) * p.pps : nullptr;
+    const Tkv* kbase = static_cast<const Tkv*>(p.k) +
+                       static_cast<long long>(h) * D;
+    const Tkv* vbase = static_cast<const Tkv*>(p.v) +
+                       static_cast<long long>(h) * D;
 
-  float acc[PER];
+    float acc[PER];
 #pragma unroll
-  for (int e = 0; e < PER; ++e) acc[e] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
+    for (int e = 0; e < PER; ++e) acc[e] = 0.f;
+    float m = kNegInf;
+    float l = 0.f;
 
-  for (int base = 0; base < Tk; base += NG * kUnroll) {
-    float kf[kUnroll][PER];
-    float vf[kUnroll][PER];
-    bool use[kUnroll];
-    bool live[kUnroll];
+    // one iteration's keys of this lane's group: K and V in flight
+    struct Keys {
+      uint4 k[kUnroll][NV];
+      uint4 v[kUnroll][NV];
+      float ks[kUnroll];
+      float vs[kUnroll];
+      bool use[kUnroll];
+      bool live[kUnroll];
+    };
+    auto fetch = [&](Keys& x, int base) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u * NG + grp;
-      live[u] = j < Tk && mrow[j] > 0.f;
-      use[u] = j < Tk && (live[u] || !any_valid);
-      if (use[u]) {
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = base + u * NG + grp;
+        x.live[u] = j < hi && (p.kmask ? valid(j) : j < len);
+        x.use[u] = j < hi && (x.live[u] || !any_valid);
+        x.ks[u] = x.vs[u] = 0.f;
+        if (x.use[u]) {
+          long long pg = s;
+          int row = j;
+          if (trow) {
+            pg = min(max(trow[j / p.page], 0), p.n_pages - 1);
+            row = j % p.page;
+          }
+          const Tkv* kp = kbase + pg * p.k_ps + row * p.k_rs;
+          const Tkv* vp = vbase + pg * p.v_ps + row * p.v_rs;
 #pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const int off = (n * G + sub) * VEC;
-          Vec<T>::load(kb + j * k_st + off, kf[u] + n * VEC);
-          Vec<T>::load(vb + j * v_st + off, vf[u] + n * VEC);
+          for (int n = 0; n < NV; ++n) {
+            const int off = (n * G + sub) * VEC;
+            x.k[u][n] = __ldg(reinterpret_cast<const uint4*>(kp + off));
+            x.v[u][n] = __ldg(reinterpret_cast<const uint4*>(vp + off));
+          }
+          if (kInt8) {
+            x.ks[u] = __ldg(p.ks + pg * p.ks_ps + row * p.ks_rs + h);
+            x.vs[u] = __ldg(p.vs + pg * p.vs_ps + row * p.vs_rs + h);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NV; ++n)
+            x.k[u][n] = x.v[u][n] = make_uint4(0, 0, 0, 0);
         }
-      } else {
+      }
+    };
+    // the online softmax over one iteration's keys
+    auto consume = [&](const Keys& x) {
+      float cl[kUnroll];
 #pragma unroll
-        for (int e = 0; e < PER; ++e) kf[u][e] = vf[u][e] = 0.f;
+      for (int u = 0; u < kUnroll; ++u) {
+        float d = 0.f;
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            d = fmaf(qf[n * VEC + i], kv_value<Tq, Tkv>(x.k[u][n], i, x.ks[u]),
+                     d);
+        // every lane shuffles: the group's G lanes hold the same key
+#pragma unroll
+        for (int w = G / 2; w > 0; w >>= 1) d += __shfl_xor_sync(kFull, d, w);
+        cl[u] = x.live[u] ? d * p.scale : kNegInf;
+      }
+      float mx = m;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (x.use[u]) mx = fmaxf(mx, cl[u]);
+      const float alpha = __expf(m - mx);
+      l *= alpha;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) acc[e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!x.use[u]) continue;
+        const float pe = __expf(cl[u] - mx);
+        l += pe;
+        const float pr = Qt<Tq>::round(pe);
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            acc[n * VEC + i] = fmaf(
+                pr, kv_value<Tq, Tkv>(x.v[u][n], i, x.vs[u]), acc[n * VEC + i]);
+      }
+      m = mx;
+    };
+    for (int base = c0; base < hi; base += KI) {
+      Keys a;
+      fetch(a, base);
+      consume(a);
+    }
+
+    // the groups of a warp merge by shuffles (lanes of one sub position)
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+      const float mo = __shfl_xor_sync(kFull, m, off);
+      const float lo = __shfl_xor_sync(kFull, l, off);
+      const float mn = fmaxf(m, mo);
+      const float a = __expf(m - mn);
+      const float b = __expf(mo - mn);
+      l = l * a + lo * b;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const float ao = __shfl_xor_sync(kFull, acc[e], off);
+        acc[e] = acc[e] * a + ao * b;
+      }
+      m = mn;
+    }
+    if (lane < G) {
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          s_acc[warp][(n * G + sub) * VEC + i] = acc[n * VEC + i];
+      if (lane == 0) {
+        s_m[warp] = m;
+        s_l[warp] = l;
       }
     }
-    float c[kUnroll];
+    __syncthreads();
+    // the warps merge in warp order: the chunk's partial
+    float mb = kNegInf;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float d = 0.f;
+    for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, s_m[w]);
+    for (int e = threadIdx.x; e < D; e += kThreads) {
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < PER; ++e) d = fmaf(qf[e], kf[u][e], d);
-      // every lane shuffles: the group's G lanes hold the same key
-#pragma unroll
-      for (int w = G / 2; w > 0; w >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, w);
-      c[u] = live[u] ? d * scale : kNegInf;
+      for (int w = 0; w < kWarps; ++w)
+        sum += s_acc[w][e] * __expf(s_m[w] - mb);
+      wacc[e] = sum;
     }
-    float mx = m;
+    if (threadIdx.x == 0) {
+      float lb = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (use[u]) mx = fmaxf(mx, c[u]);
-    const float alpha = __expf(m - mx);
-    l *= alpha;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) acc[e] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!use[u]) continue;
-      const float p = __expf(c[u] - mx);
-      l += p;
-      const float pr = Vec<T>::round_p(p);
-#pragma unroll
-      for (int e = 0; e < PER; ++e) acc[e] = fmaf(pr, vf[u][e], acc[e]);
+      for (int w = 0; w < kWarps; ++w) lb += s_l[w] * __expf(s_m[w] - mb);
+      ml[0] = mb;
+      ml[1] = lb;
     }
-    m = mx;
+  } else if (threadIdx.x == 0) {
+    ml[0] = kNegInf;   // no valid key in this chunk: an empty partial
+    ml[1] = 0.f;
   }
 
-  // merge the groups: rescale each to the block's max, sum in group order
-  if (sub == 0) {
-    s_m[grp] = m;
-    s_l[grp] = l;
+  // the last block of this (slot, head) to arrive merges the partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int ticket = atomicAdd(p.tickets + pair, 1);
+    s_last = ticket == p.n_chunks - 1;
+    if (s_last) p.tickets[pair] = 0;   // ready for the next launch
   }
   __syncthreads();
-  float mb = kNegInf;
-#pragma unroll
-  for (int g = 0; g < NG; ++g) mb = fmaxf(mb, s_m[g]);
-  const float w = __expf(m - mb);
-#pragma unroll
-  for (int n = 0; n < NV; ++n)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      s_acc[grp][(n * G + sub) * VEC + i] = acc[n * VEC + i] * w;
-  __syncthreads();
-  float lb = 0.f;
-#pragma unroll
-  for (int g = 0; g < NG; ++g) lb += s_l[g] * __expf(s_m[g] - mb);
-  const float inv = 1.f / fmaxf(lb, 1e-30f);
-  T* orow = o + (static_cast<long long>(s) * H + h) * D;
+  if (!s_last) return;
+  __threadfence();
+  const float* pml = p.work_ml + static_cast<long long>(pair) * p.n_chunks * 2;
+  const float* pacc =
+      p.work_acc + static_cast<long long>(pair) * p.n_chunks * D;
+  float mg = kNegInf;
+  for (int k = 0; k < p.n_chunks; ++k)
+    if (__ldcg(pml + 2 * k + 1) > 0.f) mg = fmaxf(mg, __ldcg(pml + 2 * k));
+  Tq* orow = static_cast<Tq*>(p.o) + static_cast<long long>(pair) * D;
   for (int e = threadIdx.x; e < D; e += kThreads) {
+    float lg = 0.f;
     float sum = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) sum += s_acc[g][e];
-    Vec<T>::store(orow + e, sum * inv);
+    for (int k = 0; k < p.n_chunks; ++k) {   // chunk order
+      const float lk = __ldcg(pml + 2 * k + 1);
+      if (lk > 0.f) {
+        const float w = __expf(__ldcg(pml + 2 * k) - mg);
+        lg += lk * w;
+        sum += __ldcg(pacc + static_cast<long long>(k) * D + e) * w;
+      }
+    }
+    Qt<Tq>::store(orow + e, sum / fmaxf(lg, 1e-30f));
   }
 }
 
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const float* kmask, void* o, int S, int H, int Tk,
-                         int D, long long q_ss, long long k_ss,
-                         long long k_st, long long v_ss, long long v_st,
-                         float scale, cudaStream_t stream) {
-  const dim3 grid(H, S);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
+template <typename Tq, typename Tkv>
+cudaError_t launch_kv(const Params& p, int S, int D, cudaStream_t stream) {
+  const dim3 grid(p.n_chunks, p.H, S);
   switch (D) {
     case 32:
-      flash_decode_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, kmask, ot, H, Tk, q_ss, k_ss, k_st, v_ss, v_st, scale);
+      flash_decode_kernel<Tq, Tkv, 32><<<grid, kThreads, 0, stream>>>(p);
       break;
     case 64:
-      flash_decode_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, kmask, ot, H, Tk, q_ss, k_ss, k_st, v_ss, v_st, scale);
+      flash_decode_kernel<Tq, Tkv, 64><<<grid, kThreads, 0, stream>>>(p);
       break;
     case 128:
-      flash_decode_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, kmask, ot, H, Tk, q_ss, k_ss, k_st, v_ss, v_st, scale);
+      flash_decode_kernel<Tq, Tkv, 128><<<grid, kThreads, 0, stream>>>(p);
       break;
     case 256:
-      flash_decode_kernel<T, 256><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, kmask, ot, H, Tk, q_ss, k_ss, k_st, v_ss, v_st, scale);
+      flash_decode_kernel<Tq, Tkv, 256><<<grid, kThreads, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -259,19 +451,101 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename Tq>
+cudaError_t launch_q(const Params& p, int S, int D, int kv,
+                     cudaStream_t stream) {
+  switch (kv) {
+    case 0:
+      return launch_kv<Tq, float>(p, S, D, stream);
+    case 1:
+      return launch_kv<Tq, __nv_bfloat16>(p, S, D, stream);
+    case 2:
+      return launch_kv<Tq, int8_t>(p, S, D, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Tkv>
+int geo_of(int D, int* out) {
+  switch (D) {
+#define ZOO_GEO(DD)                  \
+  case DD:                           \
+    out[0] = Geo<Tkv, DD>::G;        \
+    out[1] = Geo<Tkv, DD>::KI;       \
+    return 0;
+    ZOO_GEO(32)
+    ZOO_GEO(64)
+    ZOO_GEO(128)
+    ZOO_GEO(256)
+#undef ZOO_GEO
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// kv: the pool's type, 0 f32, 1 bf16, 2 int8 (with scales); table null:
+// page s of `page` (= T) rows per slot; lens or kmask null, not both.
 extern "C" int flash_decode_launch(
-    const void* q, const void* k, const void* v, const void* kmask, void* o,
-    int S, int H, int Tk, int D, long long q_ss, long long k_ss,
-    long long k_st, long long v_ss, long long v_st, float scale, int bf16,
-    void* stream) {
-  const float* km = static_cast<const float*>(kmask);
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* table, const void* lens, const void* kmask,
+    void* o, void* work_acc, void* work_ml, void* tickets, int S, int H,
+    int T, int D, int page, int n_pages, int pps, int chunk, int n_chunks,
+    long long q_ss, long long k_ps, long long k_rs, long long v_ps,
+    long long v_rs, long long ks_ps, long long ks_rs, long long vs_ps,
+    long long vs_rs, float scale, int q_bf16, int kv, void* stream) {
+  if (chunk <= 0 || n_chunks <= 0 || (long long)chunk * n_chunks < T ||
+      (lens == nullptr) == (kmask == nullptr) || (kv == 2 && !(ks && vs)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ks = static_cast<const float*>(ks);
+  p.vs = static_cast<const float*>(vs);
+  p.table = static_cast<const int*>(table);
+  p.lens = static_cast<const int*>(lens);
+  p.kmask = static_cast<const uint8_t*>(kmask);
+  p.o = o;
+  p.work_acc = static_cast<float*>(work_acc);
+  p.work_ml = static_cast<float*>(work_ml);
+  p.tickets = static_cast<int*>(tickets);
+  p.H = H;
+  p.T = T;
+  p.page = page;
+  p.n_pages = n_pages;
+  p.pps = pps;
+  p.chunk = chunk;
+  p.n_chunks = n_chunks;
+  p.q_ss = q_ss;
+  p.k_ps = k_ps;
+  p.k_rs = k_rs;
+  p.v_ps = v_ps;
+  p.v_rs = v_rs;
+  p.ks_ps = ks_ps;
+  p.ks_rs = ks_rs;
+  p.vs_ps = vs_ps;
+  p.vs_rs = vs_rs;
+  p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_typed<__nv_bfloat16>(q, k, v, km, o, S, H, Tk, D, q_ss,
-                                          k_ss, k_st, v_ss, v_st, scale, st)
-           : launch_typed<float>(q, k, v, km, o, S, H, Tk, D, q_ss, k_ss,
-                                 k_st, v_ss, v_st, scale, st);
+  const cudaError_t err = q_bf16 ? launch_q<__nv_bfloat16>(p, S, D, kv, st)
+                                 : launch_q<float>(p, S, D, kv, st);
   return static_cast<int>(err);
+}
+
+// (lanes per key, keys per block iteration) for head dim D and pool type
+// kv, for the tests to hold `decode_lanes` and `decode_plan` to
+extern "C" int flash_decode_config(int D, int kv, int* out) {
+  switch (kv) {
+    case 0:
+      return geo_of<float>(D, out);
+    case 1:
+      return geo_of<__nv_bfloat16>(D, out);
+    case 2:
+      return geo_of<int8_t>(D, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

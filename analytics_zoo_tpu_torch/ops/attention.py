@@ -9,7 +9,9 @@ the crossover; :mod:`ops.flash_attention`), which keep the softmax
 statistics on chip instead of writing the (B, H, Tq, Tk) logits.
 ``ZOO_TPU_ATTENTION`` sets the default process-wide.
 :func:`decode_attention` is its single-query sibling for generation,
-routed the same way to the decode kernel (B11).
+routed the same way to the decode kernel (B11), and
+:func:`paged_decode_attention` the same over the paged cache's pools,
+which B11 reads in place.
 """
 
 from __future__ import annotations
@@ -55,6 +57,32 @@ def decode_flash_profitable(tk: int) -> bool:
     return tk >= (int(env) if env is not None else 2048)
 
 
+def decode_route(t: int, d: int, impl: str, q: torch.Tensor) -> bool:
+    """Whether decode attention over a context of T keys takes the decode
+    kernel (B11): T a multiple of 128, D <= 256, and ``impl="flash"`` or
+    "auto" on a CUDA tensor with T past the crossover; else dense. The
+    one copy of this rule, for :func:`decode_attention` and
+    :func:`paged_decode_attention`."""
+    return t % 128 == 0 and d <= 256 and (
+        impl == "flash" or (impl == "auto" and flash_backend_ok(q)
+                            and decode_flash_profitable(t)))
+
+
+def _dense_decode(q, k, v, seq_lens, scale: float, k_scales=None,
+                  v_scales=None):
+    if k_scales is not None:
+        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
+        k = dequantize_rows(k, k_scales, q.dtype)
+        v = dequantize_rows(v, v_scales, q.dtype)
+    t = k.shape[1]
+    logits = torch.einsum("shd,sthd->sht", q, k).float() * scale
+    valid = torch.arange(t, device=q.device)[None, None, :] < \
+        seq_lens[:, None, None]
+    logits = logits.masked_fill(~valid, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("sht,sthd->shd", probs, v)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      seq_lens: torch.Tensor,
                      scale: Optional[float] = None,
@@ -69,34 +97,64 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masks positions ``>= seq_lens[s]``. Returns (S, H, D); softmax in
     f32 whatever the input type. Int8 caches pass the views still
     quantized with their per-row scales (S, T, H), dequantized here or
-    by the kernel's wrapper. Routing: the decode kernel (B11) when T is
-    a multiple of 128, D <= 256, and ``impl="flash"`` or "auto" on a
-    CUDA tensor with T past the crossover; else dense. No causal mask:
-    the cache holds only positions the new token may see.
+    by the kernel. Routing: :func:`decode_route` (the decode kernel,
+    B11, or dense). No causal mask: the cache holds only positions the
+    new token may see. :func:`paged_decode_attention` takes the pools
+    and the page table instead of the gathered view.
     """
     impl = resolve_attention_impl(impl)
     d = q.shape[-1]
     t = k.shape[1]
     scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
-    if t % 128 == 0 and d <= 256 and (
-            impl == "flash" or (impl == "auto" and flash_backend_ok(q)
-                                and decode_flash_profitable(t))):
+    if decode_route(t, d, impl, q):
         from analytics_zoo_tpu_torch.ops import flash_attention as fa
         key_mask = torch.arange(t, device=q.device)[None, :] < \
             seq_lens[:, None]
         return fa.flash_decode_attention(q, k, v, key_mask, scale,
                                          k_scales=k_scales,
                                          v_scales=v_scales)
-    if k_scales is not None:
-        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
-        k = dequantize_rows(k, k_scales, q.dtype)
-        v = dequantize_rows(v, v_scales, q.dtype)
-    logits = torch.einsum("shd,sthd->sht", q, k).float() * scale
-    valid = torch.arange(t, device=q.device)[None, None, :] < \
-        seq_lens[:, None, None]
-    logits = logits.masked_fill(~valid, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("sht,sthd->shd", probs, v)
+    return _dense_decode(q, k, v, seq_lens, scale, k_scales, v_scales)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           seq_lens: torch.Tensor,
+                           scale: Optional[float] = None,
+                           impl: Optional[str] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Single-query attention against one block's paged cache: the one
+    place that decides how the decode step reads its pools.
+
+    q: (S, H, D); k_pages, v_pages: (pages, page, H, D) (int8 with their
+    (pages, page, H) scales); page_table: (S, pages_per_slot); seq_lens:
+    (S,) keys valid per slot. The context is pages_per_slot * page.
+    Where :func:`decode_route` takes B11, the kernel reads the pages in
+    place through the table (``flash_decode_paged``; on CPU tensors its
+    plain version, which gathers); a head dim the kernel does not have
+    (it pads D up to 32, 64, 128 or 256) runs B11 on the gathered view.
+    Otherwise the pools are gathered to (S, T, H, D), converted to q's
+    type (int8 stays quantized with its gathered scales), and attended
+    densely, the reference's decode step."""
+    from analytics_zoo_tpu_torch.ops import flash_attention as fa
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    impl = resolve_attention_impl(impl)
+    d = q.shape[-1]
+    t = page_table.shape[1] * k_pages.shape[1]
+    scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
+    b11 = decode_route(t, d, impl, q)
+    if b11 and (not q.is_cuda or fa.decode_takes(d)):
+        return fa.flash_decode_paged(q, k_pages, v_pages, page_table,
+                                     seq_lens, scale, k_scales=k_scales,
+                                     v_scales=v_scales)
+    k, v, sk, sv = kvc.gather_context(k_pages, v_pages, page_table, t,
+                                      q.dtype, k_scales, v_scales)
+    if b11:
+        return fa.flash_decode_attention(q, k, v,
+                                         kvc.length_mask(seq_lens, t),
+                                         scale, k_scales=sk, v_scales=sv)
+    return _dense_decode(q, k, v, seq_lens, scale, sk, sv)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,

@@ -19,10 +19,13 @@ public (B, T, H, D) layout:
 - :func:`flash_block_partial` is ``flash_block`` alone: the
   unnormalised f32 accumulator and the row statistics m and l, at a
   runtime q-k offset, for callers that merge partials;
-- :func:`flash_decode_attention` runs ``flash_decode``
+- :func:`flash_decode_paged` runs ``flash_decode``
   (``csrc/flash_decode.cu``, replacing ``flash_decode_attention``,
-  B11): one query row per slot against the gathered paged KV cache,
-  the decode step of generation.
+  B11): one query row per slot against one block's paged KV cache, read
+  in place through the page table (int8 pages dequantized in the
+  kernel), the context split across blocks (:func:`decode_plan`), the
+  decode step of generation; :func:`flash_decode_attention` runs the
+  same kernel on a dense (S, T, H, D) view, one page per slot.
 
 The two forwards share one template (``csrc/flash_fwd_sm90.cuh``) and
 the two backward kernels another (``csrc/flash_bwd_sm90.cuh``), with
@@ -45,6 +48,7 @@ depends on its block size.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple
@@ -83,10 +87,11 @@ _SIGNATURES = {
                       [ctypes.c_float, _I, _P],
     "flash_bwd_dq": [_P] * 11 + [_I] * 5 + [_L] * 8 + [_I] * 2 +
                     [ctypes.c_float, _I, _P],
-    # q, k, v, kmask, o, S, H, T, D, q_ss, k_ss, k_st, v_ss, v_st, scale,
-    # bf16, stream
-    "flash_decode": [_P] * 5 + [_I] * 4 + [_L] * 5 +
-                    [ctypes.c_float, _I, _P],
+    # q, k, v, k_scales, v_scales, table, lens, kmask (bool), o,
+    # work_acc, work_ml, tickets, S, H, T, D, page, pages, pages per
+    # slot, chunk, chunks, q_ss, 8 strides, scale, bf16, pool type, stream
+    "flash_decode": [_P] * 12 + [_I] * 9 + [_L] * 9 +
+                    [ctypes.c_float, _I, _I, _P],
 }
 _fns = {}
 
@@ -197,6 +202,49 @@ def flash_decode_ref(q, k, v, key_mask, scale: float):
     returns (S, H, D) in q's type. A slot with no valid key averages all
     T keys, as the dense path does."""
     return flash_fwd_ref(q[:, None], k, v, key_mask, False, scale)[:, 0]
+
+
+def decode_partials_ref(q, k, v, key_mask, scale: float, chunk: int):
+    """B11's split, plainly: the unnormalised partial ``(acc (S, H, n,
+    D) f32, m (S, H, n) f32, l (S, H, n) f32)`` of each chunk of
+    ``chunk`` keys (n = ceil(T / chunk)) under the kernel's rules: a
+    slot with a valid key reads only its valid keys, so a chunk holding
+    none is empty (m = -1e30, l = 0, acc = 0); a slot with none reads
+    every key at logit -1e30. p is rounded to v's type before p @ v."""
+    s, h, _ = q.shape
+    t = k.shape[1]
+    n = -(-t // chunk)
+    pad = n * chunk - t
+    valid = key_mask > 0
+    read = valid | ~valid.any(1, keepdim=True)       # keys the kernel reads
+    lg = torch.einsum("shd,sthd->sht", q.float(), k.float()) * scale
+    lg = lg.masked_fill(~valid[:, None, :], _MASKED)
+    lg = F.pad(lg, (0, pad), value=_MASKED).reshape(s, h, n, chunk)
+    rd = F.pad(read, (0, pad)).reshape(s, 1, n, chunk)
+    m = lg.masked_fill(~rd, -math.inf).amax(-1)
+    m = m.masked_fill(~rd.any(-1), _MASKED)
+    p = torch.exp(lg - m[..., None]) * rd
+    vc = F.pad(v, (0, 0, 0, 0, 0, pad)).reshape(s, n, chunk, h, -1)
+    acc = torch.einsum("shnc,snchd->shnd", _operand_round(p, v, torch.float32),
+                       vc.float())
+    return acc, m, p.sum(-1)
+
+
+def decode_merge(acc, m, l, dtype):
+    """B11's merge of the chunk partials of :func:`decode_partials_ref`,
+    in chunk order as the kernel's last block sums them: each non-empty
+    chunk weighted by exp(m_c - max m), then acc / max(l, 1e-30), in
+    ``dtype``."""
+    live = l > 0
+    mg = m.masked_fill(~live, -math.inf).amax(-1)
+    mg = mg.masked_fill(torch.isinf(mg), 0.0)
+    out = torch.zeros_like(acc[..., 0, :])
+    lsum = torch.zeros_like(l[..., 0])
+    for c in range(acc.shape[-2]):
+        w = torch.where(live[..., c], torch.exp(m[..., c] - mg), 0.0)
+        lsum = lsum + l[..., c] * w
+        out = out + acc[..., c, :] * w[..., None]
+    return (out / lsum.clamp_min(1e-30)[..., None]).to(dtype)
 
 
 def _recompute(q, k, v, dout, key_mask, m, l, delta, causal, scale, off,
@@ -644,15 +692,18 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
                            k_scales: Optional[torch.Tensor] = None,
                            v_scales: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Single-query decode attention over a cached context (B11).
+    """Single-query decode attention over a dense view of the cache
+    (B11, the reference's signature).
 
     q: (S, H, D), one new token per slot; k, v: (S, T, H, D), the dense
     page-table gather of the cache; key_mask: (S, T) 0/1 validity (1 =
     a real cached token). Returns (S, H, D) in q's type. T must be a
     multiple of 128 and D at most 256. Int8 caches pass the gathered
     views still quantized with their per-row scales ``k_scales`` /
-    ``v_scales`` (S, T, H); they are dequantized here, before the
-    kernel, as the reference does. Inference only: no gradient.
+    ``v_scales`` (S, T, H); the kernel dequantizes them as it reads
+    (the plain version before it, as the reference does). The kernel is
+    :func:`flash_decode_paged`'s, with one page of T rows per slot.
+    Inference only: no gradient.
     """
     s, h, d = q.shape
     t = k.shape[1]
@@ -661,36 +712,237 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
             f"flash_decode_attention needs T divisible by 128 and "
             f"D <= 256; got T={t} D={d} (use decode_attention's dense "
             f"path)")
-    if k_scales is not None:
-        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
-        k = dequantize_rows(k, k_scales, q.dtype)
-        v = dequantize_rows(v, v_scales, q.dtype)
     scale = float(scale)
-    km = _kmask(key_mask, s, t, q)
-    name = "flash_decode"
-    if _device_kind(name, q) == "cpu":
+    if _device_kind("flash_decode", q) == "cpu":
+        km = _kmask(key_mask, s, t, q)
+        if k_scales is not None:
+            from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
+            k = dequantize_rows(k, k_scales, q.dtype)
+            v = dequantize_rows(v, v_scales, q.dtype)
         return flash_decode_ref(q, k, v, km, scale)
+    (q, k, v), dp = _pad_heads([q, k, v], d)
+    k, v = [x if _decode_rows_ok(x) else x.contiguous() for x in (k, v)]
+    if tuple(key_mask.shape) != (s, t):
+        raise ValueError(f"key_mask must be (S, T)=({s}, {t}); got "
+                         f"{tuple(key_mask.shape)}")
+    # the kernel reads validity as bool: a bool mask as it lies (no
+    # conversion launch), any other as ``> 0``
+    km = key_mask.to(q.device)
+    km = (km if km.dtype == torch.bool else km > 0).contiguous()
+    out = _decode_launch(q, k, v, t, scale, kmask=km, k_scales=k_scales,
+                         v_scales=v_scales)
+    return out[..., :d] if dp != d else out
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       seq_lens: torch.Tensor, scale: float,
+                       k_scales: Optional[torch.Tensor] = None,
+                       v_scales: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Single-query decode attention over one block's paged cache, read
+    in place (B11).
+
+    q: (S, H, D); k_pages, v_pages: (pages, page, H, D), the block's
+    pools (f32, bf16, or int8 with ``k_scales``/``v_scales`` (pages,
+    page, H)); page_table: (S, pages_per_slot) int32; seq_lens: (S,)
+    int, key j of slot s valid iff ``j < seq_lens[s]``. The context is
+    T = pages_per_slot * page, a multiple of 128; D one of 32, 64, 128,
+    256 on the card. Returns (S, H, D) in q's type. Key j of slot s is
+    row ``j % page`` of page ``table[s, j // page]``, clamped into the
+    pool as :func:`ops.kv_cache.gather_layer` clamps; a float pool of
+    another type than q is converted as it is read. On CPU tensors the
+    plain version: ``gather_context`` (``gather_layer``), then
+    :func:`flash_decode_attention` (``dequantize_rows`` and
+    :func:`flash_decode_ref`)."""
+    s, h, d = q.shape
+    t = page_table.shape[1] * k_pages.shape[1]
+    if t % 128 or d > 256:
+        raise ValueError(
+            f"flash_decode_paged needs a context divisible by 128 and "
+            f"D <= 256; got T={t} D={d}")
+    # the kernel reads table[s] and seq_lens[s] for every slot of q
+    if page_table.dim() != 2 or page_table.shape[0] != s or \
+            tuple(seq_lens.shape) != (s,):
+        raise ValueError(
+            f"flash_decode_paged: q has {s} slots, page_table "
+            f"{tuple(page_table.shape)} and seq_lens "
+            f"{tuple(seq_lens.shape)} must have one row each")
+    scale = float(scale)
+    if _device_kind("flash_decode", q) == "cpu":
+        from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+        k, v, sk, sv = kvc.gather_context(k_pages, v_pages, page_table, t,
+                                          q.dtype, k_scales, v_scales)
+        return flash_decode_attention(q, k, v, kvc.length_mask(seq_lens, t),
+                                      scale, k_scales=sk, v_scales=sv)
+    for x in (k_pages, v_pages):
+        if not _decode_rows_ok(x):
+            raise ValueError(
+                f"flash_decode_paged: a pool of shape {tuple(x.shape)} "
+                f"and strides {x.stride()} is not read in place (heads "
+                f"at stride D, the last axis contiguous, 16-byte aligned "
+                f"rows: H * D * size a multiple of 16)")
+    return _decode_launch(q, k_pages, v_pages, t, scale, table=page_table,
+                          lens=seq_lens, k_scales=k_scales,
+                          v_scales=v_scales)
+
+
+# B11's block (csrc/flash_decode.cu): 8 warps, each key group of lanes
+# keeping 2 keys in flight, four blocks per SM; the plan aims at 4 x 132
+# blocks (the H100's SMs) and chunks of at least 64 keys
+_DECODE_KV = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DECODE_SIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+_DECODE_WARPS, _DECODE_UNROLL = 8, 2
+_DECODE_BLOCKS, _DECODE_MIN_CHUNK = 4 * 132, 64
+
+
+def decode_lanes(d: int, kv_dtype: torch.dtype) -> int:
+    """Lanes per key of B11's block (``Geo`` in ``csrc/flash_decode.cu``):
+    enough 16-byte loads of the pool's type to cover a row of D, at most
+    a warp."""
+    return min(d * _DECODE_SIZE[kv_dtype] // 16, 32)
+
+
+def decode_keys(d: int, kv_dtype: torch.dtype) -> int:
+    """Keys a block of B11 reads per iteration (``Geo::KI``): the key
+    groups of its warps, each with its keys in flight."""
+    return _DECODE_WARPS * (32 // decode_lanes(d, kv_dtype)) * _DECODE_UNROLL
+
+
+def decode_takes(d: int) -> bool:
+    """Whether B11 has a build for head dim D and so reads a paged cache
+    in place; another D up to 256 runs B11 on the gathered view, padded
+    up to the next head dim it has."""
+    return d in _KERNEL_D
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(s: int, h: int, t: int, d: int,
+                kv_dtype: torch.dtype) -> Tuple[int, int]:
+    """``(chunk, chunks)``: how B11 splits a context of T keys across
+    blocks, from the shapes alone (never the lengths: reading them would
+    make the host wait on the card every layer). The chunk is a power of
+    two, at least 64 keys and the keys a block reads per iteration,
+    doubled while the grid (chunks, H, S) keeps at least 4 x 132 blocks
+    (four per SM of the H100), so the longest slot's keys spread over
+    many SMs."""
+    chunk = max(decode_keys(d, kv_dtype), _DECODE_MIN_CHUNK)
+    while 2 * chunk < t and \
+            s * h * -(-t // (2 * chunk)) >= _DECODE_BLOCKS:
+        chunk *= 2
+    return chunk, -(-t // chunk)
+
+
+def decode_config_on_card(d: int, kv_dtype: torch.dtype) -> Tuple[int, int]:
+    """``(lanes per key, keys per block iteration)`` of the built library
+    (``flash_decode_config``), for the card tests to hold against
+    :func:`decode_lanes` and :func:`decode_keys`."""
+    fn = cuda_build.load("flash_decode").flash_decode_config
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    rc = fn(d, _DECODE_KV[kv_dtype], out)
+    if rc != 0:
+        raise ValueError(f"flash_decode: no kernel for head dim {d}")
+    return out[0], out[1]
+
+
+_tickets = {}
+
+
+def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """B11's tickets on the current stream of ``device``: zeros, which
+    every launch leaves zero (its last block per (slot, head) resets
+    its own), so they are allocated once per stream."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _tickets[key] = t
+    return t
+
+
+def _decode_rows_ok(x: torch.Tensor) -> bool:
+    """Whether B11 reads a (pages or slots, rows, H, D) operand in place:
+    heads at stride D, the last axis contiguous, 16-byte aligned rows."""
+    per16 = 16 // x.element_size()
+    return (x.dim() == 4 and x.stride(3) == 1 and
+            x.stride(2) == x.shape[3] and x.stride(2) % per16 == 0 and
+            x.stride(1) % per16 == 0 and x.stride(0) % per16 == 0 and
+            x.data_ptr() % 16 == 0)
+
+
+def _decode_launch(q, k, v, t: int, scale: float, table=None, lens=None,
+                   kmask=None, k_scales=None, v_scales=None):
+    """Launch B11: q (S, H, D) against k, v (pages, rows, H, D), read in
+    place, through ``table`` (S, pages per slot) or, without one, page s
+    of T rows per slot; validity from ``lens`` (S,) or ``kmask`` (S, T)
+    bool, whose shapes the callers checked."""
+    name = "flash_decode"
+    s, h, d = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
-    (q, k, v), dp = _pad_heads([q, k, v], d)
+    kv = _DECODE_KV.get(k.dtype)
+    if kv is None or v.dtype != k.dtype:
+        raise TypeError(f"{name}: pool dtypes {k.dtype}, {v.dtype}")
+    if (kv == 2) != (k_scales is not None) or \
+            (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: int8 pools need both scales, and only "
+                         f"they")
+    if d not in _KERNEL_D or tuple(k.shape[2:]) != (h, d) or \
+            v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, pools "
+                         f"{tuple(k.shape)} {tuple(v.shape)} (head dim "
+                         f"in {_KERNEL_D})")
+    dev = q.device
+    others = [x for x in (k, v, k_scales, v_scales, table, lens, kmask)
+              if x is not None]
+    if any(x.device != dev for x in others):
+        raise ValueError(f"{name}: operands on "
+                         f"{sorted({str(x.device) for x in others})} and "
+                         f"{dev}")
     q, q_ss = _query(name, q)
-    k, (ksb, kst) = _operand(name, k, q)
-    v, (vsb, vst) = _operand(name, v, q)
-    out = torch.empty((s, h, dp), dtype=q.dtype, device=q.device)
-    _launch(name, q.device, _ptr(q), _ptr(k), _ptr(v), _ptr(km),
-            _ptr(out), s, h, t, dp, q_ss, ksb, kst, vsb, vst, scale,
-            int(q.dtype == torch.bfloat16))
-    return out[..., :d] if dp != d else out
+    scales = []
+    for sc in (k_scales, v_scales):
+        if sc is None:
+            scales += [None, 0, 0]
+            continue
+        if sc.dtype != torch.float32 or tuple(sc.shape) != \
+                tuple(k.shape[:3]) or sc.stride(2) != 1:
+            raise ValueError(f"{name}: scales {tuple(sc.shape)} "
+                             f"{sc.dtype} for pools {tuple(k.shape)}")
+        scales += [sc, sc.stride(0), sc.stride(1)]
+    if table is not None and (table.dtype != torch.int32 or
+                              not table.is_contiguous()):
+        table = table.to(torch.int32).contiguous()
+    if lens is not None and (lens.dtype != torch.int32 or
+                             not lens.is_contiguous()):
+        lens = lens.to(torch.int32).contiguous()
+    chunk, n = decode_plan(s, h, t, d, k.dtype)
+    out = torch.empty((s, h, d), dtype=q.dtype, device=dev)
+    # the partials: acc (S, H, chunks, D), then m and l (S, H, chunks, 2)
+    work = torch.empty((s * h * n * (d + 2),), dtype=torch.float32,
+                       device=dev)
+    tickets = _decode_tickets(dev, s * h)
+    _launch(name, dev, _ptr(q), _ptr(k), _ptr(v), _ptr(scales[0]),
+            _ptr(scales[3]), _ptr(table), _ptr(lens), _ptr(kmask),
+            _ptr(out), work.data_ptr(), work.data_ptr() + 4 * s * h * n * d,
+            _ptr(tickets),
+            s, h, t, d, k.shape[1], k.shape[0],
+            1 if table is None else table.shape[1], chunk, n, q_ss,
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            scales[1], scales[2], scales[4], scales[5], scale,
+            int(q.dtype == torch.bfloat16), kv)
+    return out
 
 
 def _query(name: str, q: torch.Tensor):
     """The (S, H, D) decode query as the kernel reads it: heads at
-    stride D, the last axis contiguous, 16-byte aligned rows (else a
-    contiguous copy). Returns it and its slot stride in elements."""
-    per16 = 16 // q.element_size()
+    stride D, the last axis contiguous (else a contiguous copy). Returns
+    it and its slot stride in elements."""
     d = q.shape[2]
-    if (q.stride(2) != 1 or q.stride(1) != d or q.stride(0) % per16 or
-            q.data_ptr() % 16):
+    if q.stride(2) != 1 or q.stride(1) != d:
         q = q.contiguous()
     return q, q.stride(0)
 

@@ -14,7 +14,9 @@ already owns, so no tensor ever changes shape:
 - :func:`write_prompt_layer` writes a whole (right-padded) prompt's
   K/V, or with ``start`` a partial chunk of it;
 - :func:`gather_layer` / :func:`length_mask` give the dense (S, T, H, D)
-  view and its key-validity mask for attention.
+  view and its key-validity mask for attention (the decode kernel, B11,
+  reads the pages in place through the table instead:
+  ``ops.attention.paged_decode_attention``).
 
 Unlike the reference, whose arrays are immutable, the writes update the
 pools **in place** (a 1.2 GB pool cannot be copied every step) and
@@ -28,7 +30,8 @@ is ever written to a sentinel.
 Int8 pages: the pool stores int8 rows plus one f32 scale per (token,
 head), ``max|x| / 127`` over head_dim (:func:`quantize_rows`), written
 through the same coordinates as the rows; :func:`dequantize_rows`
-restores the values at the gather, before attention.
+restores the values at the gather, before attention (B11 forms the same
+values as it reads the int8 rows).
 
 :class:`PageAllocator` is the host-side free list of physical pages the
 generation engine assigns at admission and reclaims at retirement.
@@ -253,6 +256,21 @@ def gather_layer(pages: torch.Tensor, page_table: torch.Tensor,
     ids = page_table[:, :n].long().clamp(0, pages.shape[0] - 1)
     picked = pages[ids]                      # (S, n, page, ...)
     return picked.reshape((page_table.shape[0], t_max) + pages.shape[2:])
+
+
+def gather_context(k_pages, v_pages, page_table, t_max: int, dtype,
+                   k_scales=None, v_scales=None):
+    """One block's K and V gathered to (S, t_max, H, D) for dense
+    attention, as the reference's decode step reads them: float pools
+    converted to ``dtype``; int8 pools left quantized, with their
+    gathered (S, t_max, H) scales. Returns ``(k, v, k_scales,
+    v_scales)``, the scales None for float pools."""
+    k = gather_layer(k_pages, page_table, t_max)
+    v = gather_layer(v_pages, page_table, t_max)
+    if k_scales is None:
+        return k.to(dtype), v.to(dtype), None, None
+    return (k, v, gather_layer(k_scales, page_table, t_max),
+            gather_layer(v_scales, page_table, t_max))
 
 
 def length_mask(seq_lens: torch.Tensor, t: int) -> torch.Tensor:

@@ -18,9 +18,10 @@ The decode surface (``init_kv_cache``, ``prefill``, ``decode_step``,
 ``generate``) runs the same ``_split_qkv`` and ``_block_tail`` as the
 full forward over a paged KV cache (``ops/kv_cache.py``), whose pools
 it updates in place. ``decode_step`` attends through
-:func:`ops.attention.decode_attention`, the decode kernel (B11) on the
-card at long contexts; ``generate``'s loop is a Python loop with the
-reference's stop rule.
+:func:`ops.attention.paged_decode_attention`: on the card at long
+contexts the decode kernel (B11) reads each block's pages in place,
+else the pages are gathered and attended densely; ``generate``'s loop
+is a Python loop with the reference's stop rule.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ import torch.utils.checkpoint
 
 from analytics_zoo_tpu_torch.ops import kv_cache as kvc
 from analytics_zoo_tpu_torch.ops.activations import gelu
-from analytics_zoo_tpu_torch.ops.attention import (decode_attention,
-                                                   dot_product_attention,
+from analytics_zoo_tpu_torch.ops.attention import (dot_product_attention,
+                                                   paged_decode_attention,
                                                    resolve_attention_impl)
 from analytics_zoo_tpu_torch.ops.rng import fold_in
 from analytics_zoo_tpu_torch.ops.sampling import sample_tokens
@@ -364,7 +365,7 @@ class TransformerLayer(KerasLayer):
         pos = seq_lens.clamp(0, self.seq_len - 1).long()
         x = F.embedding(token_ids.long(), params["tok_embed"]) + \
             F.embedding(pos, params["pos_embed"])
-        t_max, table = cache.max_context, cache.page_table
+        table = cache.page_table
         lens_after = seq_lens + active.to(torch.int32)
         coords = kvc.append_coords(table, seq_lens, cache.page_size, active)
         for i in range(self.n_block):
@@ -376,17 +377,9 @@ class TransformerLayer(KerasLayer):
             kvc.append_layer(kp, vp, table, seq_lens, k_new, v_new,
                              active=active, k_scales=ks, v_scales=vs,
                              coords=coords)
-            k_ctx = kvc.gather_layer(kp, table, t_max)
-            v_ctx = kvc.gather_layer(vp, table, t_max)
-            sk = sv = None
-            if ks is None:
-                k_ctx, v_ctx = k_ctx.to(x.dtype), v_ctx.to(x.dtype)
-            else:
-                sk = kvc.gather_layer(ks, table, t_max)
-                sv = kvc.gather_layer(vs, table, t_max)
-            attn = decode_attention(q, k_ctx, v_ctx, lens_after,
-                                    impl=self.attention_impl,
-                                    k_scales=sk, v_scales=sv)
+            attn = paged_decode_attention(q, kp, vp, table, lens_after,
+                                          impl=self.attention_impl,
+                                          k_scales=ks, v_scales=vs)
             x = self._block_tail(p, x, attn.reshape(s, self.hidden_size))
         cache = cache._replace(seq_lens=lens_after)
         return cache, x @ params["tok_embed"].to(x.dtype).T

@@ -73,14 +73,16 @@ script exits non-zero and prints no result line:
    ``ContinuousBatcher`` to 16 greedy requests from 4 client threads
    with staggered arrivals (prompts of 17, 200, 700 and 1500 tokens,
    32-64 new tokens each); checks every budget, zero errors, slots and
-   pages back to full, the launches (B11 12 per decode step, B7 12 per
-   prefill at buckets >= 1024 and none below), eight teacher-forced
+   pages back to full, the launches (B11 12 per decode step, reading
+   the pages in place, B7 12 per prefill at buckets >= 1024 and none
+   below), eight teacher-forced
    decode steps through the kernels against the dense plain path (and
    the last against the uncached forward) within 1e-3 of max|logit|,
    and each served stream against the engine's sequential generate
    (a stream may part only where the top-2 margin is within that
    bound); tokens/s, median time to first token, the median decode
-   step at 8 active slots and a profile of two steps;
+   step at 8 active slots and a profile of two steps (its B11 and
+   page-table-gather rows printed);
 9. the flash/dense crossover: fwd+bwd at B = 4, H = 16, D = 64, bf16,
    causal, Tk from 128 to 4096 (printed only);
 10. the decode crossover: B11 against the dense decode at S 8, H 12,
@@ -92,8 +94,11 @@ Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
 tiles (samples of length 0, 1, 63, 64, 65, 129 and T), causal,
 cross-length, dead-row and other head-dim cases, and the decode kernel
-(B11) at the generation path's shape in f32 and bf16, with a slot that
-has no valid key, an int8 cache and head dims 32 to 256, each output
+(B11) at the generation path's shape in f32 and bf16, reading one
+block's pools in place through a permuted page table (f32, bf16 and
+int8 pools, against gather_layer + dequantize_rows + the plain version)
+and through the dense entry, with a slot that has no valid key, an
+int8 cache and head dims 32 to 256, repeating bit for bit, each output
 within 1e-3 (f32) or 2e-2 (bf16) of its own max|plain| (no floor at
 1), with ``F.scaled_dot_product_attention`` timed beside them as the
 library yardstick (never called by the port; its backward stands on
@@ -191,7 +196,8 @@ KERNELS = {
         "source": "analytics_zoo_tpu_torch/csrc/flash_decode.cu",
         "replaces": "analytics_zoo_tpu/ops/flash_attention.py:655",
         "path": "generate", "per_path": 12,
-        "library_is": "SDPA with a boolean mask at (S, H, 1, T)"},
+        "library_is": "SDPA with a boolean mask at (S, H, 1, T), on the "
+                      "dense view (its gather not timed)"},
 }
 FLASH = ("flash_fwd", "flash_block", "flash_bwd_dkdv", "flash_bwd_dq")
 PATHS = {"serve": f"one batch-{BATCH} bf16 forward",
@@ -200,7 +206,7 @@ PATHS = {"serve": f"one batch-{BATCH} bf16 forward",
                        "remat)",
          "bert_eval": "one f32 BERT-base eval batch (batch 16, T 512)",
          "generate": "one f32 GPT-1 decode step at 8 slots (T 2048, the "
-                     "path case's lengths)"}
+                     "paged path case's lengths)"}
 # the path each kernel's summary times are summed over: B1-B6 bf16,
 # B7-B11 f32 (the Estimator's route, the generation path; bf16 beside
 # it under by_dtype)
@@ -1351,71 +1357,123 @@ def decode_lens(s, t, seed):
 
 def decode_cases():
     """(tag, S, T, H, D, dtype, lengths, int8 cache, launches per decode
-    step): the path shape (8 slots, T 2048, 12 heads, D 64, f32; its
-    lengths mixed, 1 and 2048 among them) in f32 and bf16, a slot with
+    step, paged): the path shape (8 slots, T 2048, 12 heads, D 64, f32;
+    its lengths mixed, 1 and 2048 among them) read through a permuted
+    page table of 16-token pages as the decode step reads it (f32, bf16
+    and an int8 pool), and the same through the dense entry, a slot with
     no valid key, an int8 cache, and head dims 32, 128 and 256."""
     path = decode_lens(GEN_SLOTS, GEN_T, 0)
     dead = [0] + path[1:]
-    cases = [("path", GEN_SLOTS, GEN_T, 12, 64, "float32", path, False, 12),
-             ("path", GEN_SLOTS, GEN_T, 12, 64, "bfloat16", path, False, 0),
+    cases = [("paged_path", GEN_SLOTS, GEN_T, 12, 64, "float32", path,
+              False, 12, True),
+             ("paged_path", GEN_SLOTS, GEN_T, 12, 64, "bfloat16", path,
+              False, 0, True),
+             ("paged_int8", GEN_SLOTS, GEN_T, 12, 64, "float32", path, True,
+              0, True),
+             ("path", GEN_SLOTS, GEN_T, 12, 64, "float32", path, False, 0,
+              False),
+             ("path", GEN_SLOTS, GEN_T, 12, 64, "bfloat16", path, False, 0,
+              False),
              ("no_valid_key", GEN_SLOTS, GEN_T, 12, 64, "float32", dead,
-              False, 0),
+              False, 0, False),
              ("int8_cache", GEN_SLOTS, GEN_T, 12, 64, "float32", path, True,
-              0)]
+              0, False)]
     for dt in ("float32", "bfloat16"):
         for d, h in ((32, 16), (128, 8), (256, 4)):
             cases.append((f"d{d}", 4, 1024, h, d, dt,
-                          [1, 1024, 0, 613], False, 0))
+                          [1, 1024, 0, 613], False, 0, False))
     return cases
+
+
+def decode_inputs(case, randn):
+    """B11's operands at one decode case, the values drawn by
+    ``randn(*shape)`` (in the case's dtype), as a dict: ``q`` (S, H, D),
+    a column slice of a fused projection; ``k``, ``v``: for a paged case
+    one block's pools (a quarter more pages than the slots use) with
+    ``table``, a page table permuted by numpy seed 0, else dense (S, T,
+    H, D) views; ``scales`` (int8: ``k_scales``, ``v_scales``); ``lens``
+    and the key mask ``km`` (S, T) bool; ``dense``: the operands of the
+    dense entry (q, k, v, km, scales), for a paged case gathered through
+    the table; ``scale``."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    _, s, t, h, d, _, lens, int8, _, paged = case
+    dev = torch.device(DEV)
+    qkv = randn(s, 3 * h * d)
+    q = qkv[:, :h * d].reshape(s, h, d)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    km = kvc.length_mask(lens_t, t)
+    table = None
+    if paged:
+        pps = t // GEN_PAGE
+        n_pages = s * pps + s * pps // 4
+        k, v = randn(n_pages, GEN_PAGE, h, d), randn(n_pages, GEN_PAGE, h, d)
+        table = torch.from_numpy(np.random.RandomState(0).permutation(
+            n_pages)[:s * pps].reshape(s, pps).astype(np.int32)).to(dev)
+    else:
+        k, v = randn(s, t, h, d), randn(s, t, h, d)
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = kvc.quantize_rows(k), kvc.quantize_rows(v)
+        kw = dict(k_scales=ks, v_scales=vs)
+    dense = (q, k, v, km, kw)
+    if paged:
+        dense = (q, kvc.gather_layer(k, table, t),
+                 kvc.gather_layer(v, table, t), km,
+                 {n: kvc.gather_layer(x, table, t) for n, x in kw.items()})
+    return {"q": q, "k": k, "v": v, "table": table, "scales": kw,
+            "lens": lens_t, "km": km, "dense": dense, "scale": d ** -0.5}
 
 
 def run_decode_case(case, gen):
     """B11 at one shape against its plain version on the card, with
-    ``F.scaled_dot_product_attention`` timed beside it; the bound counts
-    the K and V rows a slot must read (its valid rows, or all T for a
-    slot with none), q, the mask and the output once."""
+    ``F.scaled_dot_product_attention`` timed beside it (on the dense
+    view; for a paged case the gather it needs is not timed); the bound
+    counts the K and V rows a slot must read (its valid rows, or all T
+    for a slot with none; int8 with their scales), q, the validity (the
+    mask, or the lengths and the page table) and the output once."""
     import torch
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
     from analytics_zoo_tpu_torch.ops import kv_cache as kvc
-    tag, s, t, h, d, dt, lens, int8, per_path = case
+    tag, s, t, h, d, dt, lens, int8, per_path, paged = case
     dev = torch.device(DEV)
     xdt = getattr(torch, dt)
     esize = torch.tensor([], dtype=xdt).element_size()
 
     def randn(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(xdt)
-    qkv = randn(s, 3 * h * d)      # q as a column slice of the projection
-    q = qkv[:, :h * d].reshape(s, h, d)
-    k, v = randn(s, t, h, d), randn(s, t, h, d)
-    lens_t = torch.tensor(lens, device=dev)
-    km = torch.arange(t, device=dev)[None, :] < lens_t[:, None]
-    scale = d ** -0.5
-    kw = {}
-    if int8:
-        (k, ks), (v, vs) = kvc.quantize_rows(k), kvc.quantize_rows(v)
-        kw = dict(k_scales=ks, v_scales=vs)
-        kd = kvc.dequantize_rows(k, ks, xdt)
-        vd = kvc.dequantize_rows(v, vs, xdt)
-    else:
-        kd, vd = k, v
+    x = decode_inputs(case, randn)
+    q, scale = x["q"], x["scale"]
+    _, dk, dv, km, dkw = x["dense"]
 
     def kernel():
-        return fa.flash_decode_attention(q, k, v, km, scale, **kw)
+        if paged:
+            return fa.flash_decode_paged(q, x["k"], x["v"], x["table"],
+                                         x["lens"], scale, **x["scales"])
+        return fa.flash_decode_attention(q, x["k"], x["v"], km, scale,
+                                         **x["scales"])
+    if int8:       # the paged plain version: gather, dequantize, plain
+        dk = kvc.dequantize_rows(dk, dkw["k_scales"], xdt)
+        dv = kvc.dequantize_rows(dv, dkw["v_scales"], xdt)
 
     def plain():
-        return fa.flash_decode_ref(q, kd, vd, km.float(), scale)
+        return fa.flash_decode_ref(q, dk, dv, km.float(), scale)
     lq = q[:, :, None].contiguous()                    # (S, H, 1, D)
-    lk, lv = [x.transpose(1, 2).contiguous() for x in (kd, vd)]
+    lk, lv = [y.transpose(1, 2).contiguous() for y in (dk, dv)]
     mask = km[:, None, None, :]
 
     def library():
         return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
-    got, want = kernel(), plain()
+    got, want, again = kernel(), plain(), kernel()
     torch.cuda.synchronize()
     check(tuple(got.shape) == (s, h, d) and got.dtype == xdt,
           f"flash_decode {tag}: got {tuple(got.shape)} {got.dtype}")
+    check(torch.equal(got, again), f"flash_decode {tag} {dt}: a second "
+          "launch gave other bits")
     check(bool(torch.isfinite(got.float()).all()),
           f"flash_decode {tag} {dt}: non-finite")
     err, tol, scl = flash_err(got, want, dt)
@@ -1424,10 +1482,11 @@ def run_decode_case(case, gen):
     rows = sum(n if n else t for n in lens)           # rows read per head
     kv_bytes = 2 * rows * h * d * (1 if int8 else esize) + \
         (2 * rows * h * 4 if int8 else 0)
-    nbytes = kv_bytes + 2 * s * h * d * esize + 4 * s * t
+    valid_bytes = 4 * s * (1 + t // GEN_PAGE) if paged else s * t
+    nbytes = kv_bytes + 2 * s * h * d * esize + valid_bytes
     flops = 4.0 * d * rows * h
     rec = {"kernel": "flash_decode", "key": [tag, s, t, h, d, int8],
-           "dtype": dt, "per_path": per_path, "lens": lens,
+           "dtype": dt, "per_path": per_path, "lens": lens, "paged": paged,
            "errors": {"out": (err, tol)},
            "rel_errors": {"out": err / scl if scl else 0.0},
            "max_abs_err": err, "ms": time_ms(kernel),
@@ -1440,7 +1499,8 @@ def run_decode_case(case, gen):
     rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
         else "bytes"
     print(f"  flash_decode {dt} {tag} (S {s}, T {t}, H {h}, D {d}"
-          f"{', int8 cache' if int8 else ''}, valid rows {rows}) "
+          f"{', int8 cache' if int8 else ''}"
+          f"{', paged' if paged else ''}, valid rows {rows}) "
           f"x{per_path}: max|err| {err:.2e}/{tol:.2e} (rel "
           f"{rec['rel_errors']['out']:.2e}); kernel {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.4f} ms, library "
@@ -1844,22 +1904,17 @@ def teacher_forced(net, params, prompt, tokens):
     return lg
 
 
-def generation_path(card, detail):
-    """Phase 8: serve GPT-style generation through the port's entry
-    points (``InferenceModel.load_generator`` → ``ContinuousBatcher``)
-    at GPT-1's widths and a 2048-token context: B11 on every decode
-    step, B7 on prefills at buckets >= 1024. Returns the launches of
-    the serving run."""
-    import numpy as np
+def gen_engine():
+    """The generation path's engine: ``gpt_net()`` with seeded random
+    weights, loaded by ``InferenceModel.load_generator`` (8 slots of
+    16-token pages, f32 cache) on the context's card and warmed. Returns
+    ``(net, engine, warm seconds)``."""
     import torch
 
     import analytics_zoo_tpu_torch as zoo
-    from analytics_zoo_tpu_torch.common import observability as obs
-    from analytics_zoo_tpu_torch.pipeline.inference import (
-        ContinuousBatcher, InferenceModel)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
     ctx = zoo.init_nncontext(seed=0)
-    dev = ctx.device
     t0 = time.perf_counter()
     net = gpt_net()
     params = net.build(torch.Generator().manual_seed(0), (GEN_T,))
@@ -1873,7 +1928,7 @@ def generation_path(card, detail):
         sum(v.numel() for v in eng.params["blocks"].values())
     pool_gb = 2 * eng.cache.k_pages.numel() * \
         eng.cache.k_pages.element_size() / 1e9
-    print(f"  GPT-1 widths, T {GEN_T}: {n_params} params on {eng.device}, "
+    print(f"  GPT-1 widths, T {GEN_T}: {n_params} params on {ctx.device}, "
           f"KV pool {pool_gb:.3f} GB ({eng.allocator.max_pages} pages of "
           f"{GEN_PAGE}), built in {time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -1885,6 +1940,18 @@ def generation_path(card, detail):
     print(f"  warm: {n_prog} programs (buckets {eng.prompt_buckets} and the "
           f"step) in {warm_s:.2f} s", flush=True)
     check(n_prog == len(eng.prompt_buckets) + 1, f"warm ran {n_prog}")
+    return net, eng, warm_s
+
+
+def serve_generation(eng):
+    """Serve :func:`gen_requests` through a ``ContinuousBatcher`` from
+    GEN_CLIENTS threads; returns the streams, each request's time to
+    first token, the prefill buckets, the window's seconds, the kernel
+    launches in it, the decode steps and the serving errors."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.pipeline.inference import ContinuousBatcher
 
     prompts, max_new, delays = gen_requests()
     ttft, buckets = [], []
@@ -1931,6 +1998,70 @@ def generation_path(card, detail):
     errors = sum(v["value"] for v in snap.get(
         "zoo_tpu_serving_errors_total", {"values": []})["values"])
     n_tok = sum(len(results[i]) for i in range(GEN_REQUESTS))
+    return {"results": results, "ttft": ttft, "buckets": buckets,
+            "window": window, "launches": launches, "steps": steps,
+            "errors": errors, "tokens": n_tok,
+            "tokens_per_s": n_tok / window,
+            "ttft_median_ms": statistics.median(ttft) * 1e3}
+
+
+def decode_step_profile(eng, card):
+    """The decode step at 8 active slots (prompt lengths GEN_PROMPTS in
+    turn): the median host ms of 30 ``GenerationEngine.step`` calls and
+    a ``torch.profiler`` window of two, with B11's and the page-table
+    gathers' rows named (the latter 0 where B11 reads the pages in
+    place)."""
+    import numpy as np
+    import torch
+    prompts, _, _ = gen_requests()
+    mix = [GEN_PROMPTS[i % len(GEN_PROMPTS)] for i in range(GEN_SLOTS)]
+    admitted = eng.admit([(prompts[0][:1] * n, 64, 0.0) for n in mix])
+    active = np.zeros((GEN_SLOTS,), np.bool_)
+    for slot, _ in admitted:
+        active[slot] = True
+    for _ in range(2):
+        eng.step(active)
+    step_s = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(active)
+        step_s.append(time.perf_counter() - t0)
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"  decode step at {GEN_SLOTS} active slots (lengths {mix}): "
+          f"median {step_ms:.3f} ms (30 steps, {min(step_s) * 1e3:.3f}-"
+          f"{max(step_s) * 1e3:.3f}) on {card}", flush=True)
+    prof = profile_steps(lambda: eng.step(active), 2, GEN_KERNEL_NAMES)
+    by = prof["ms_per_step_by_kernel"]
+    print(f"  decode step rows: page-table gathers "
+          f"{by.get('page-table gathers', 0.0):.3f} ms, B11 "
+          f"{by.get('flash_decode (B11)', 0.0):.3f} ms of "
+          f"{prof['device_ms_per_step']:.3f} device ms per step",
+          flush=True)
+    for slot, _ in admitted:
+        eng.release(slot)
+    return {"step_ms_8_slots": step_ms,
+            "step_ms_all": [t * 1e3 for t in step_s], "profile": prof}
+
+
+def generation_path(card, detail):
+    """Phase 8: serve GPT-style generation through the port's entry
+    points (``InferenceModel.load_generator`` → ``ContinuousBatcher``)
+    at GPT-1's widths and a 2048-token context: B11 on every decode
+    step, reading each block's pages in place, B7 on prefills at
+    buckets >= 1024. Returns the launches of the serving run."""
+    import numpy as np
+    import torch
+
+    net, eng, warm_s = gen_engine()
+    dev = eng.device
+    prompts, max_new, _ = gen_requests()
+    served = serve_generation(eng)
+    results, ttft, buckets = (served[k] for k in
+                              ("results", "ttft", "buckets"))
+    window, launches, steps, errors, n_tok = (
+        served[k] for k in ("window", "launches", "steps", "errors",
+                            "tokens"))
     n_b7 = sum(b >= 1024 for b in buckets)
     print(f"  served {GEN_REQUESTS} requests from {GEN_CLIENTS} threads: "
           f"{n_tok} tokens in {window:.3f} s ({n_tok / window:.1f} "
@@ -2026,34 +2157,15 @@ def generation_path(card, detail):
           f"the sequential generate {parted}", flush=True)
 
     # the decode step at 8 active slots: host time and a profile
-    mix = [GEN_PROMPTS[i % len(GEN_PROMPTS)] for i in range(GEN_SLOTS)]
-    admitted = eng.admit([(prompts[0][:1] * n, 64, 0.0) for n in mix])
-    active = np.zeros((GEN_SLOTS,), np.bool_)
-    for slot, _ in admitted:
-        active[slot] = True
-    for _ in range(2):
-        eng.step(active)
-    step_s = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step(active)
-        step_s.append(time.perf_counter() - t0)
-    step_ms = statistics.median(step_s) * 1e3
-    print(f"  decode step at {GEN_SLOTS} active slots (lengths {mix}): "
-          f"median {step_ms:.3f} ms on {card}", flush=True)
-    prof = profile_steps(lambda: eng.step(active), 2, GEN_KERNEL_NAMES)
-    for slot, _ in admitted:
-        eng.release(slot)
+    stepped = decode_step_profile(eng, card)
     detail["generation"] = {
         "tokens_per_s": n_tok / window, "window_s": window,
         "tokens": n_tok, "decode_steps": steps, "prefill_buckets": buckets,
         "ttft_ms": sorted(t * 1e3 for t in ttft),
         "ttft_median_ms": statistics.median(ttft) * 1e3,
-        "step_ms_8_slots": step_ms, "step_ms_all": [t * 1e3 for t in step_s],
         "warm_s": warm_s, "launches": launches, "checks": checks,
-        "parted": parted, "profile": prof}
-    del eng, im
+        "parted": parted, **stepped}
+    del eng
     torch.cuda.empty_cache()
     return launches
 
@@ -2160,7 +2272,7 @@ def main() -> int:
             print(f"    ptxas: {warn[:160]}", flush=True)
         for entry in log.split("Compiling entry function '")[1:]:
             fn = entry.split("'", 1)[0]
-            if "_sm90_kernel" not in fn:
+            if "_sm90_kernel" not in fn and "flash_decode_kernel" not in fn:
                 continue
             used = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
@@ -2191,6 +2303,20 @@ def main() -> int:
                       flush=True)
                 check(card_cfg == want, f"{name} D {d} {dt}: the library "
                       f"runs {card_cfg}, the wrapper expects {want}")
+
+    # B11's lanes per key and keys per block iteration, the library's
+    # own answer against the wrapper's plan
+    for d in (32, 64, 128, 256):
+        for kv in (torch.float32, torch.bfloat16, torch.int8):
+            want = (fa.decode_lanes(d, kv), fa.decode_keys(d, kv))
+            got = fa.decode_config_on_card(d, kv)
+            check(got == want, f"flash_decode D {d} {kv}: the library runs "
+                  f"{got} (lanes, keys per iteration), the plan expects "
+                  f"{want}")
+    print(f"  flash_decode plan at the path shape (S {GEN_SLOTS}, T {GEN_T}, "
+          f"H 12, D 64): chunk, chunks = "
+          f"{fa.decode_plan(GEN_SLOTS, 12, GEN_T, 64, torch.float32)}",
+          flush=True)
 
     print("[3] kernels against their plain versions", flush=True)
     shapes_net = ImageClassifier("resnet-50", input_shape=IMAGE,

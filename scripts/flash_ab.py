@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """The flash-attention kernels of the PyTorch/CUDA port on the card, one
 checkout against another: the backward (B9 ``flash_bwd_dkdv``, B10
-``flash_bwd_dq``) and the forward (B7 ``flash_fwd``, B8
-``flash_block``).
+``flash_bwd_dq``), the forward (B7 ``flash_fwd``, B8 ``flash_block``)
+and the decode kernel (B11 ``flash_decode``).
 
 Run from the repository root on a machine with one CUDA card, with
 another checkout (for example the parent commit, unpacked by
 ``git archive``) at DIR:
 
     python3 scripts/flash_ab.py --base DIR [--kernels bwd,fwd,e2e]
+    python3 scripts/flash_ab.py --base DIR --kernels decode,gen
 
 Four processes run in turn: the base checkout, this one, this one
 again, the base again (each builds its own kernels from its ``csrc/``).
@@ -24,6 +25,19 @@ Each times, in device milliseconds per launch (CUDA events,
   1e-3 (f32) or 2e-2 (bf16) of each output's own max|base| (the f32
   bits change with the product's order; a row max of -1e30 must match
   exactly);
+- ``decode``: B11 at every decode case of ``chip_smoke.decode_cases``
+  through the dense entry ``flash_decode_attention``, which both
+  checkouts have (for a paged case on the view gathered through its
+  table), inputs from a CPU generator seeded per case; and at the paged
+  cases the route the decode step takes (``decode_route``): this
+  checkout's paged entry where it has one, else the gathers of K and V
+  (and int8 scales) plus the dense entry. Outputs are held against the
+  first base run's as above;
+- ``gen``: chip_smoke phase 8's engine (GPT-1's widths, T 2048, 8 slots,
+  seeded random weights) through each checkout's entry points: tokens/s
+  and the median time to first token of the served traffic, the decode
+  step at 8 active slots (median host ms of 30) and its profiled device
+  ms per step with the B11 and page-table-gather rows;
 - ``e2e``: the f32 BERT-base fine-tune step and evaluate batch
   (chip_smoke phase 6's model and Estimator, batch 16, T 512, padding
   masks) through each checkout's entry points: five warm-up steps, then
@@ -86,6 +100,73 @@ def case_inputs(cs, case, seed):
     out = fa.flash_fwd_ref(q, k, v, km, causal, scale)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return (q, k, v, dout, km, m, l, delta, causal, scale, off)
+
+
+def decode_part(cs, fa, saved) -> list:
+    """B11 at every decode case (module note): ms per launch through the
+    dense entry and, at the paged cases, along the decode step's
+    route."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    recs = []
+    for i, case in enumerate(cs.decode_cases()):
+        tag, s, t, h, d, dt, lens, int8, per_path, paged = case
+        g = torch.Generator().manual_seed(200 + i)
+        xdt = getattr(torch, dt)
+
+        def randn(*shape):
+            return (torch.randn(*shape, generator=g) * 0.5).to("cuda", xdt)
+        x = cs.decode_inputs(case, randn)
+        q, dk, dv, km, dkw = x["dense"]
+        scale = x["scale"]
+        fns = {"dense": lambda: fa.flash_decode_attention(
+            q, dk, dv, km, scale, **dkw)}
+        if paged and hasattr(fa, "flash_decode_paged"):
+            fns["route"] = lambda: fa.flash_decode_paged(
+                q, x["k"], x["v"], x["table"], x["lens"], scale,
+                **x["scales"])
+        elif paged:
+            def gathered():
+                k = kvc.gather_layer(x["k"], x["table"], t)
+                v = kvc.gather_layer(x["v"], x["table"], t)
+                sc = {n: kvc.gather_layer(y, x["table"], t)
+                      for n, y in x["scales"].items()}
+                return fa.flash_decode_attention(q, k, v, km, scale, **sc)
+            fns["route"] = gathered
+        key = f"{tag} {dt} ({s}, {t}, {h}, {d}{', int8' if int8 else ''})"
+        for how, fn in fns.items():
+            saved[f"{key} {how} flash_decode_{how}"] = [fn().cpu()]
+            rec = {"case": key, "kernel": f"flash_decode_{how}",
+                   "dtype": dt, "per_path": per_path, "ms": cs.time_ms(fn)}
+            recs.append(rec)
+            print(f"  flash_decode {how} {key}: {rec['ms']:.4f} ms",
+                  flush=True)
+        del x, fns, q, dk, dv
+        torch.cuda.empty_cache()
+    return recs
+
+
+def generation(cs) -> dict:
+    """chip_smoke phase 8's engine and traffic through the checkout's
+    entry points (module note)."""
+    import torch
+    card = cs.card_line()
+    _, eng, _ = cs.gen_engine()
+    served = cs.serve_generation(eng)
+    stepped = cs.decode_step_profile(eng, card)
+    by = stepped["profile"]["ms_per_step_by_kernel"]
+    out = {"tokens_per_s": served["tokens_per_s"],
+           "ttft_median_ms": served["ttft_median_ms"],
+           "step_ms": stepped["step_ms_8_slots"],
+           "device_ms": stepped["profile"]["device_ms_per_step"],
+           "gathers_ms": by.get("page-table gathers", 0.0),
+           "b11_ms": by.get("flash_decode (B11)", 0.0),
+           "by_kernel_ms": by}
+    print(f"  generation: {json.dumps(out)}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def end_to_end(cs) -> dict:
@@ -153,7 +234,8 @@ def child(tree: str, out: str, kernels) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     fa.build_kernels()
-    res = {"tree": tree, "bwd": [], "fwd": [], "e2e": {}}
+    res = {"tree": tree, "bwd": [], "fwd": [], "decode": [], "e2e": {},
+           "gen": {}}
     saved = {}
     names = [n for part, ns in (("fwd", cs.FWD), ("bwd", cs.BWD))
              if part in kernels for n in ns]
@@ -187,6 +269,10 @@ def child(tree: str, out: str, kernels) -> None:
             print(f"  {name} {key}: {rec['ms']:.4f} ms", flush=True)
         del args, q, k, v
         torch.cuda.empty_cache()
+    if "decode" in kernels:
+        res["decode"] = decode_part(cs, fa, saved)
+    if "gen" in kernels:
+        res["gen"] = generation(cs)
     if "e2e" in kernels:
         res["e2e"] = end_to_end(cs)
     torch.save(saved, out + ".outs.pt")
@@ -206,7 +292,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", help="the other checkout's root")
     ap.add_argument("--kernels", default="bwd",
-                    help="what to time, of bwd, fwd and e2e (default bwd)")
+                    help="what to time, of bwd, fwd, decode, gen and e2e "
+                         "(default bwd)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -273,6 +360,36 @@ def main() -> int:
                   f"{summary[f'base_{name}_f32_path_ms']:.3f}; bf16: this "
                   f"{summary[f'this_{name}_bf16_path_ms']:.3f}, base "
                   f"{summary[f'base_{name}_bf16_path_ms']:.3f}", flush=True)
+    if base["decode"]:
+        for how in ("dense", "route"):
+            for dt in ("float32", "bfloat16"):
+                rows = [[t1["case"], f"{t1['ms']:.4f} ({t2['ms']:.4f})",
+                         f"{b1['ms']:.4f} ({b2['ms']:.4f})",
+                         f"{t1['ms'] / b1['ms']:.2f}"]
+                        for t1, t2, b1, b2 in zip(
+                            this["decode"], this2["decode"], base["decode"],
+                            base2["decode"])
+                        if t1["kernel"] == f"flash_decode_{how}" and
+                        t1["dtype"] == dt]
+                if rows:
+                    _table(f"flash_decode {how} {dt}, device ms per launch, "
+                           "first run (second)", rows,
+                           ["case", "this", "base", "this / base"])
+        for label, recs in (("this", this["decode"]),
+                            ("base", base["decode"])):
+            summary[f"{label}_flash_decode_route_f32_step_ms"] = sum(
+                r["ms"] * r["per_path"] for r in recs
+                if r["kernel"] == "flash_decode_route")
+    if base["gen"]:
+        keys = ("step_ms", "device_ms", "gathers_ms", "b11_ms",
+                "tokens_per_s", "ttft_median_ms")
+        _table("generation: decode step at 8 slots (host ms, profiled "
+               "device ms and its rows), tokens/s, median TTFT ms (second "
+               "run)", [[k, f"{this['gen'][k]:.3f} ({this2['gen'][k]:.3f})",
+                         f"{base['gen'][k]:.3f} ({base2['gen'][k]:.3f})"]
+                        for k in keys], ["metric", "this", "base"])
+        summary["gen"] = {"this": [this["gen"], this2["gen"]],
+                          "base": [base["gen"], base2["gen"]]}
     agree = {}
     worst = 0.0
     bitwise = {}    # kernel -> every output of every case equal bit for bit
@@ -316,7 +433,8 @@ def main() -> int:
                           "base": [base["e2e"], base2["e2e"]]}
     with open(os.path.join(OUT, "flash_ab.json"), "w") as f:
         json.dump({"summary": summary, "runs": results}, f, indent=1)
-    print(json.dumps({k: v for k, v in summary.items() if k != "e2e"}))
+    print(json.dumps({k: v for k, v in summary.items()
+                      if k not in ("e2e", "gen")}))
     return 0 if ok else 1
 
 

@@ -36,10 +36,12 @@ card and at the final one in the plain version. The f32 backward (B9,
 B10: three tf32 passes) is also held to its plain version run in
 float64: its max|error| at most twice the f32 plain version's plus one
 f32 ulp of the output's max, plain TF32 the control that fails. The
-decode kernel (B11) is held to the same bounds; a decode step of a
-small GPT stack on the card to the same step on the CPU within 1e-4 of
-max|logit| (products and sums in another order through two blocks,
-TF32 off). B5's f32
+decode kernel (B11) is held to the same bounds, read in place through
+a page table against gather_layer + dequantize_rows + its plain
+version, and must repeat bit for bit; a decode step of a small GPT
+stack on the card to the same step on the CPU, and a 12-block stack's
+step (no page-table gather) to its dense route, within 1e-4 of
+max|logit| (products and sums in another order, TF32 off). B5's f32
 product (three tf32 passes) is also held to the fold in float64 from
 the same inputs: its max|error| at most twice that of the plain
 version, cuBLAS f32 with TF32 off; with a bf16 x, whose y is rounded
@@ -967,8 +969,9 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype, d, t, lens,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_int8_cache_and_repeat_on_card(cuda, dtype):
-    # int8 views are dequantized before the kernel; the groups merge in
-    # a fixed order, so a second launch gives the same bits
+    # int8 views are dequantized by the kernel as it reads them; the
+    # groups and the chunks merge in a fixed order, so a second launch
+    # gives the same bits
     from analytics_zoo_tpu_torch.ops import kv_cache as tkv
     dt = getattr(torch, dtype)
     q, k, v, km = _decode_inputs(dt, 4, 256, 2, 64, (5, 256, 0, 130), 12,
@@ -1000,6 +1003,172 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(cuda):
                                  cuda)
     with pytest.raises(ValueError):
         tfa.flash_decode_attention(q, k.cpu(), v, km, 0.125)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_reads_a_float_mask_as_bool_on_card(cuda):
+    # the kernel reads validity as bool; an f32 0/1 mask is converted
+    # (> 0) in the wrapper and gives the bool mask's bits
+    q, k, v, km = _decode_inputs(torch.float32, 4, 256, 2, 64,
+                                 (17, 256, 0, 129), 14, cuda)
+    got = tfa.flash_decode_attention(q, k, v, km.float(), 0.125)
+    assert torch.equal(got, tfa.flash_decode_attention(q, k, v, km, 0.125))
+    _flash_close(got, tfa.flash_decode_ref(q, k, v, km.float(), 0.125),
+                 torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("short", ["table", "lens"])
+def test_flash_decode_paged_refuses_short_table_or_lens_on_card(cuda, short):
+    # a table or lengths one slot short of q would have the kernel read
+    # past them: the wrapper raises before the launch
+    q, kp, vp, table, ln, _ = _paged_inputs(torch.float32, "float32", 4, 16,
+                                            16, 2, 64, [1, 256, 17, 0], 23,
+                                            cuda)
+    table, ln = (table[:-1], ln) if short == "table" else (table, ln[:-1])
+    before = tfa.launches["flash_decode"]
+    with pytest.raises(ValueError, match="one row each"):
+        tfa.flash_decode_paged(q, kp, vp, table, ln, 0.125)
+    assert tfa.launches["flash_decode"] == before
+
+
+def _paged_inputs(dt, pool, s, pps, page, h, d, lens, seed, dev):
+    """q (a column slice of a fused projection), pools of 3 * s * pps / 2
+    pages of ``pool`` (int8 with scales), a permuted table with
+    out-of-range ids past each slot's length, and the lengths."""
+    from analytics_zoo_tpu_torch.ops import kv_cache as tkv
+    g = torch.Generator().manual_seed(seed)
+    n_pages = 3 * s * pps // 2
+    qkv = (torch.randn(s, 3 * h * d, generator=g) * 0.5).to(dev, dt)
+    q = qkv[:, :h * d].reshape(s, h, d)
+    kp, vp = [torch.randn(n_pages, page, h, d, generator=g) * 0.5
+              for _ in range(2)]
+    table = torch.randperm(n_pages, generator=g)[:s * pps].reshape(
+        s, pps).to(torch.int32)
+    for i, n in enumerate(lens):
+        past = -(-n // page) + 1
+        if past < pps:
+            table[i, past] = n_pages + 5 + i
+    scales = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = tkv.quantize_rows(kp), tkv.quantize_rows(vp)
+        scales = dict(k_scales=ks.to(dev), v_scales=vs.to(dev))
+    else:
+        kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+    return (q, kp.to(dev), vp.to(dev), table.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), scales)
+
+
+def _paged_plain(q, kp, vp, table, lens, scale, k_scales=None,
+                 v_scales=None):
+    """The paged plain version: gather_layer, dequantize_rows (or the
+    cast to q's type), flash_decode_ref."""
+    from analytics_zoo_tpu_torch.ops import kv_cache as tkv
+    t = table.shape[1] * kp.shape[1]
+    k, v = [tkv.gather_layer(x, table, t) for x in (kp, vp)]
+    if k_scales is None:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    else:
+        k = tkv.dequantize_rows(k, tkv.gather_layer(k_scales, table, t),
+                                q.dtype)
+        v = tkv.dequantize_rows(v, tkv.gather_layer(v_scales, table, t),
+                                q.dtype)
+    return tfa.flash_decode_ref(q, k, v, tkv.length_mask(lens, t).float(),
+                                scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"), ("float32", "int8"),
+    ("bfloat16", "int8"), ("float32", "bfloat16"), ("bfloat16", "float32")])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_decode_paged_matches_plain_on_card(cuda, dtype, pool, d):
+    # the pools read in place through a permuted table, lengths on the
+    # chunk edges of the plan (1, chunk - 1, chunk, chunk + 1, T) and a
+    # slot with no valid key, which reads every row through clamped ids
+    dt = getattr(torch, dtype)
+    pps, page, h = 64, 16, 3
+    t = pps * page
+    chunk, _ = tfa.decode_plan(6, h, t, d, getattr(torch, pool))
+    lens = [1, chunk - 1, chunk, chunk + 1, t, 0]
+    q, kp, vp, table, ln, sc = _paged_inputs(dt, pool, 6, pps, page, h, d,
+                                              lens, 21, cuda)
+    before = tfa.launches["flash_decode"]
+    got = tfa.flash_decode_paged(q, kp, vp, table, ln, d ** -0.5, **sc)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_decode"] == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    _flash_close(got, _paged_plain(q, kp, vp, table, ln, d ** -0.5, **sc),
+                 dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool", [("float32", "float32"),
+                                        ("bfloat16", "bfloat16"),
+                                        ("float32", "int8")])
+def test_flash_decode_paged_repeats_bit_for_bit_on_card(cuda, dtype, pool):
+    # the generation path's shape (8 slots, T 2048, 12 heads, D 64): the
+    # last block of each (slot, head) merges the chunks in chunk order,
+    # so every launch gives the same bits
+    dt = getattr(torch, dtype)
+    lens = [1, 2048, 700, 1500, 17, 255, 257, 0]
+    q, kp, vp, table, ln, sc = _paged_inputs(dt, pool, 8, 128, 16, 12, 64,
+                                              lens, 22, cuda)
+    outs = [tfa.flash_decode_paged(q, kp, vp, table, ln, 0.125, **sc)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    _flash_close(outs[0], _paged_plain(q, kp, vp, table, ln, 0.125, **sc),
+                 dt)
+
+
+@pytest.mark.cuda
+def test_flash_decode_plan_is_the_library_s_on_card(cuda):
+    for d in (32, 64, 128, 256):
+        for kv in (torch.float32, torch.bfloat16, torch.int8):
+            assert tfa.decode_config_on_card(d, kv) == \
+                (tfa.decode_lanes(d, kv), tfa.decode_keys(d, kv))
+
+
+@pytest.mark.cuda
+def test_decode_step_reads_pages_in_place_on_card(cuda, monkeypatch):
+    # a 12-block stack at T 2048 ("auto" takes B11): 12 launches per
+    # decode step, no page-table gather of the pools, and the same logits
+    # as the dense route
+    from analytics_zoo_tpu_torch.bridge import params_from_numpy
+    from analytics_zoo_tpu_torch.ops import kv_cache as tkv
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer \
+        import TransformerLayer
+    kw = dict(n_block=12, hidden_size=128, n_head=2, seq_len=2048, vocab=97,
+              hidden_p_drop=0.0, attn_p_drop=0.0, embed_p_drop=0.0)
+    net, dense = TransformerLayer(**kw), TransformerLayer(
+        attention_impl="xla", **kw)
+    params = params_from_numpy(
+        net.build(torch.Generator().manual_seed(16), (2048,)), cuda)
+    g = torch.Generator().manual_seed(17)
+    ids = torch.randint(1, 97, (4, 32), generator=g).to(cuda)
+    plens = torch.tensor([32, 5, 17, 0], dtype=torch.int32, device=cuda)
+    gathers = []
+    real = tkv.gather_layer
+
+    def spy(*a, **k):
+        gathers.append(tuple(a[0].shape))
+        return real(*a, **k)
+    with torch.no_grad():
+        cache = net.init_kv_cache(4, 2048, page_size=16, device=cuda)
+        cache, lg = net.prefill(params, cache, ids, plens)
+        cache_d = cache.clone()
+        tok = lg.argmax(-1).to(torch.int32)
+        monkeypatch.setattr(tkv, "gather_layer", spy)
+        before = tfa.launches["flash_decode"]
+        cache, lg = net.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        assert tfa.launches["flash_decode"] - before == 12
+        assert gathers == []
+        _, lg_d = dense.decode_step(params, cache_d, tok)
+        assert len(gathers) == 24      # the dense route gathers K and V
+    scale = lg_d.abs().max().item()
+    assert (lg - lg_d).abs().max().item() <= 1e-4 * scale
 
 
 @pytest.mark.cuda
