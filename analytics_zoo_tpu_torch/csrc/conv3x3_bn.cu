@@ -33,6 +33,7 @@ extern "C" int conv3x3_bn_launch(
     tiles = zoo::conv3_sm90::partial_rows(a);
   } else {
     tiles = (M + zoo::kBM - 1) / zoo::kBM;
+    zoo::note_launch("conv_bn_f32_kernel<float, 3, true>");
     zoo::conv_bn_f32_kernel<float, 3, true>
         <<<dim3(tiles, N / zoo::kBN), 256, 0, s>>>(a);
     const int err = static_cast<int>(cudaGetLastError());
@@ -41,3 +42,6 @@ extern "C" int conv3x3_bn_launch(
   return zoo::colsum(a.partial, static_cast<float*>(work),
                      static_cast<float*>(stats), tiles, 2 * N, s);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(conv3x3_bn)

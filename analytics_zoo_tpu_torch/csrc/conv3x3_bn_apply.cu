@@ -23,7 +23,11 @@ extern "C" int conv3x3_bn_apply_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) return zoo::conv3_sm90::launch_fold(a, window, bn, s);
   const int M = B * Ho * Wo;
+  zoo::note_launch("conv_bn_f32_kernel<float, 3, false>");
   zoo::conv_bn_f32_kernel<float, 3, false>
       <<<dim3((M + zoo::kBM - 1) / zoo::kBM, N / zoo::kBN), 256, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(conv3x3_bn_apply)

@@ -641,6 +641,7 @@ inline int launch_generic(const ConvBnArgs& a, cudaStream_t stream) {
   if (err != 0) return err;
   const int M = a.B * a.Ho * a.Wo;
   const dim3 grid((M + kBM - 1) / kBM, a.N / BN);
+  note_launch("conv3x3_bn_sm90_kernel<%d, %s>", BN, bool_name(kFold));
   conv3x3_bn_sm90_kernel<BN, kFold><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -655,6 +656,7 @@ inline int launch_s1(const ConvBnArgs& a, cudaStream_t stream) {
   if (err != 0) return err;
   const int M = a.B * a.Ho * a.Wo;
   const dim3 grid((M + P::kBM - 1) / P::kBM, a.N / BN);
+  note_launch("conv3x3_bn_s1_sm90_kernel<%d, %s>", BN, bool_name(kFold));
   conv3x3_bn_s1_sm90_kernel<BN, kFold><<<grid, P::kThreads, bytes,
                                          stream>>>(
       a, window_rows<BN>(a.W), window_bytes<BN>(a.W));

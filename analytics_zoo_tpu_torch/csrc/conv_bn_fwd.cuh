@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "last_launch.cuh"
+
 namespace zoo {
 
 struct ConvBnArgs {

@@ -573,6 +573,7 @@ inline int launch_fwd_d(const FwdArgs& a, int bf16, cudaStream_t stream) {
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(a.Tq / kBQ, a.B * a.H);
+    note_launch("flash_fwd_bf16_kernel<%d, %s>", D, bool_name(kPartial));
     kernel<<<grid, 128, smem, stream>>>(a);
   } else {
     constexpr size_t smem = fwd_f32_smem<D>();
@@ -580,6 +581,7 @@ inline int launch_fwd_d(const FwdArgs& a, int bf16, cudaStream_t stream) {
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(a.Tq / f32_tile<D>(), a.B * a.H);
+    note_launch("flash_fwd_f32_kernel<%d, %s>", D, bool_name(kPartial));
     kernel<<<grid, 256, smem, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());

@@ -24,3 +24,6 @@ extern "C" int flash_block_launch(
 extern "C" int flash_block_config(int D, int bf16, int* out) {
   return zoo::ffwd::config(D, bf16, out);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(flash_block)

@@ -560,6 +560,8 @@ inline int launch_tile(const FwdArgs& a, cudaStream_t stream) {
     allowed = C::kSmem;
   }
   const dim3 grid(a.Tq / C::kRowsQ, a.B * a.H);
+  note_launch("flash_fwd_sm90_kernel<%s, %d, %s, %d, %d>", type_name<T>(), D,
+              bool_name(kPartial), WG, R);
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,7 @@ extern "C" int matmul_bn_launch(
     err = zoo::mm_sm90::launch_stats(a, bn, s);
   } else {
     tiles = (M + zoo::kBM - 1) / zoo::kBM;
+    zoo::note_launch("conv_bn_f32_kernel<float, 1, true>");
     zoo::conv_bn_f32_kernel<float, 1, true>
         <<<dim3(tiles, N / zoo::kBN), 256, 0, s>>>(a);
     err = static_cast<int>(cudaGetLastError());
@@ -42,3 +43,6 @@ extern "C" int matmul_bn_launch(
   return zoo::colsum(a.partial, static_cast<float*>(work),
                      static_cast<float*>(stats), tiles, 2 * N, s);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(matmul_bn)

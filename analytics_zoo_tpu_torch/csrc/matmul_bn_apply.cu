@@ -28,3 +28,6 @@ extern "C" int matmul_bn_apply_launch(
                   : static_cast<int>(cudaErrorInvalidValue);
   return zoo::apply_sm90::launch(a, x_bf16, route, s);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(matmul_bn_apply)

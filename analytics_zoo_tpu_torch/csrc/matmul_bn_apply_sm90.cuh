@@ -499,6 +499,8 @@ inline int launch_tile(const ConvBnArgs& a, cudaStream_t stream) {
     allowed = bytes;
   }
   const dim3 grid((M + kBM - 1) / kBM, a.N / kBN);
+  note_launch("matmul_bn_apply_sm90_kernel<%s, %s, %s>", type_name<Tx>(),
+              type_name<Tw>(), bool_name(kALo));
   matmul_bn_apply_sm90_kernel<Tx, Tw, kALo>
       <<<grid, kThreads, bytes, stream>>>(a, tma_x, maps);
   return static_cast<int>(cudaGetLastError());

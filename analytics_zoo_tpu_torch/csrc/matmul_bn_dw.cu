@@ -41,9 +41,13 @@ extern "C" int matmul_bn_dw_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) return zoo::dw_sm90::launch(a, splits, bk, bn, dw, st);
   const dim3 grid(K / zoo::kBM, N / zoo::kBN, splits);
+  zoo::note_launch("conv_bn_dw_f32_kernel");
   zoo::conv_bn_dw_f32_kernel<<<grid, 256, 0, st>>>(a);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return zoo::colsum(a.partial, static_cast<float*>(work),
                      static_cast<float*>(dw), splits, K * N, st);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(matmul_bn_dw)

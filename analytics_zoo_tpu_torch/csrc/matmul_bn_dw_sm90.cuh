@@ -342,6 +342,7 @@ inline int launch_tile(const BwdArgs& a, int splits, cudaStream_t stream) {
     attr_bytes = bytes;
   }
   const dim3 grid(a.K / BK, a.N / BN, splits);
+  note_launch("matmul_bn_dw_sm90_kernel<%d, %d>", BK, BN);
   matmul_bn_dw_sm90_kernel<BK, BN><<<grid, kThreads, bytes, stream>>>(
       a, stage_bytes<BK, BN>(residual));
   return static_cast<int>(cudaGetLastError());

@@ -44,6 +44,7 @@ extern "C" int matmul_bn_dx_launch(
     err = zoo::dx_sm90::launch(a, bk, st);
   } else {
     tiles = (M + zoo::kBM - 1) / zoo::kBM;
+    zoo::note_launch("conv_bn_dx_f32_kernel");
     zoo::conv_bn_dx_f32_kernel<<<dim3(tiles, K / zoo::kBN), 256, 0, st>>>(
         a);
     err = static_cast<int>(cudaGetLastError());
@@ -52,3 +53,6 @@ extern "C" int matmul_bn_dx_launch(
   return zoo::colsum(a.partial, static_cast<float*>(work),
                      static_cast<float*>(dsdt), tiles, 2 * K, st);
 }
+
+// The instance this library launched last (last_launch.cuh).
+ZOO_EXPORT_LAST_KERNEL(matmul_bn_dx)

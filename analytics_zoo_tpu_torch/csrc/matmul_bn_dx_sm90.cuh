@@ -371,6 +371,7 @@ inline int launch_tile(const BwdArgs& a, cudaStream_t stream) {
     allowed = bytes;
   }
   const dim3 grid((a.M + kBM - 1) / kBM, a.K / BK);
+  note_launch("matmul_bn_dx_sm90_kernel<%d>", BK);
   matmul_bn_dx_sm90_kernel<BK><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

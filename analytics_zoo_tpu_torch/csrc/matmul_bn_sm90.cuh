@@ -682,6 +682,7 @@ inline int launch_tile(const ConvBnArgs& a, cudaStream_t stream) {
     wave = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
   }
   const int tiles = (M + kBM - 1) / kBM * (a.N / BN);
+  note_launch("matmul_bn_sm90_kernel<%d, %s>", BN, bool_name(kFold));
   kernel<<<tiles < wave ? tiles : wave, kThreads, bytes, stream>>>(
       a, slot_bytes<BN, kFold>(has_r), tma_x, maps);
   return static_cast<int>(cudaGetLastError());

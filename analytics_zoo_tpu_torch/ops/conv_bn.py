@@ -36,7 +36,8 @@ by M. Each header's note says what bounds
 its kernels on the H100 and what the design does about it. Each
 wrapper takes the plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises, and counts the
-launch in :data:`launches`.
+launch in :data:`launches` (B1's and B3's given an in_residual in
+:data:`residual_launches` as well).
 
 dtype rules (the reference's): the 1x1 fold casts the prologue output
 to the WEIGHT's type and multiplies in it, so bf16 activations with f32
@@ -51,6 +52,7 @@ backward lifts it to the f32 master weight).
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 from typing import Optional, Tuple
 
@@ -63,7 +65,39 @@ from analytics_zoo_tpu_torch.ops import cuda_build
 # not count)
 launches = {"matmul_bn_apply": 0, "conv3x3_bn_apply": 0, "matmul_bn": 0,
             "conv3x3_bn": 0, "matmul_bn_dx": 0, "matmul_bn_dw": 0}
+# of those, the B1 and B3 launches given an in_residual (the deferred
+# stage layout's c1 prologue, and its gradient dr)
+residual_launches = {"matmul_bn": 0, "matmul_bn_dx": 0}
 _launch_lock = threading.Lock()
+
+# Whether the fused bottlenecks beat the unfused graph (cuDNN convs,
+# separate BatchNorm and ReLU passes) on the card. chip_smoke.py's A/B
+# in two runs on an H100 80GB HBM3 at 700 W (PERF.md §6): a batch-32
+# request in bf16 9.255 / 10.186 ms fused against 18.168 / 13.215
+# unfused, in f32 10.980 / 11.033 against 18.140 / 18.505; the bf16
+# train step's device time 67.4 against 95.1 / 95.0 ms. The train
+# step's wall time, timed in turns, is host-bound and did not resolve
+# (1036.9 against 881.1 images/s in one run, 674.5 against 768.0 in
+# the other). The "auto" default of ImageClassifier follows it.
+MEASURED_WIN = True
+
+
+def fused_profitable() -> bool:
+    """Whether the "auto" fused-ResNet default may route to these
+    kernels: the device is CUDA (the context's, or the first card where
+    no context exists yet) and :data:`MEASURED_WIN`.
+    ``ZOO_TPU_FUSED_WIN=0/1`` overrides both (1: CPU coverage and
+    measurement runs; 0: a kill switch)."""
+    env = os.environ.get("ZOO_TPU_FUSED_WIN")
+    if env is not None:
+        return env == "1"
+    from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
+    try:
+        on_card = get_nncontext(create_if_missing=False).device.type == \
+            "cuda"
+    except RuntimeError:    # no context yet: the default is the card
+        on_card = torch.cuda.is_available()
+    return MEASURED_WIN and on_card
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the H100's SMs, which the bf16 tile choices fill, and a block's
@@ -100,13 +134,19 @@ _fns = {}
 
 def reset_launches() -> None:
     with _launch_lock:
-        for k in launches:
-            launches[k] = 0
+        for counts in (launches, residual_launches):
+            for k in counts:
+                counts[k] = 0
 
 
 def _count(name: str) -> None:
     with _launch_lock:
         launches[name] += 1
+
+
+def _count_residual(name: str) -> None:
+    with _launch_lock:
+        residual_launches[name] += 1
 
 
 def _kernel_fn(name: str):
@@ -593,6 +633,8 @@ def _matmul_bn_fwd(x4, w, s, t, r, sh, stride, relu_in, affine_in):
                 int(affine_in), int(relu_in),
                 int(x4.dtype == torch.bfloat16),
                 fwd_tile(n, residual=r is not None))
+        if r is not None:
+            _count_residual(name)
     return y, stats[:n], stats[n:]
 
 
@@ -618,6 +660,8 @@ def _matmul_bn_dx(x, w, s, t, r, sh, y, dy, dsum, dsq, relu_in,
                 _ptr(dx), _ptr(dr), _ptr(partial), _ptr(work), _ptr(dsdt),
                 m, k, n, int(affine_in), int(relu_in), dx_tile(k),
                 int(x.dtype == torch.bfloat16))
+        if r is not None:
+            _count_residual(name)
     ds, dt = (dsdt[:k], dsdt[k:]) if affine_in else (None, None)
     return dx, ds, dt, dr
 

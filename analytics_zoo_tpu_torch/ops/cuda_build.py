@@ -99,3 +99,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
+
+
+def last_kernel(name: str) -> str:
+    """The kernel instance ``csrc/<name>.cu``'s library launched last on
+    the calling thread, as the profiler names it without namespace and
+    parameters (``"matmul_bn_sm90_kernel<64, true>"``; ``""`` before the
+    first launch). The library keeps this record itself
+    (``csrc/last_launch.cuh``): a check of which route a call took that
+    does not rest on a profiler window. Libraries without the record
+    raise ``AttributeError``."""
+    fn = getattr(load(name), name + "_last_kernel")
+    fn.argtypes = []
+    fn.restype = ctypes.c_char_p
+    return fn().decode()

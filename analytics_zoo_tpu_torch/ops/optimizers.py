@@ -2,10 +2,13 @@
 ``analytics_zoo_tpu/ops/optimizers.py``: the two methods the training
 slices use and the learning-rate schedule helpers).
 
-The reference builds optax transformations. Here each optimizer keeps
-its state as a dict of trees shaped like the trainable part of the
-param tree and updates the parameters in place, step for step the
-update optax computes:
+The reference builds optax transformations, which XLA fuses into one
+program over the whole tree. Here each optimizer keeps its state as a
+dict of lists, one tensor per trainable leaf in tree order, and updates
+the parameters in place, step for step the update optax computes, with
+multi-tensor ``torch._foreach_*`` calls: each walks every leaf in a few
+launches, so a step's launches do not grow with the number of leaves
+(ResNet-50 has 161):
 
 - ``SGD``: ``g += weight_decay * p``; with momentum
   ``trace = g + momentum * trace`` and, with nesterov,
@@ -123,14 +126,17 @@ class SGD(ZooOptimizer):
     @torch.no_grad()
     def update(self, leaves, grads, state):
         lr = self.lr_at(state["count"])
-        for i, (p, g) in enumerate(zip(leaves, grads)):
-            if self.weight_decay:
-                g = g + self.weight_decay * p
-            if self.momentum:
-                tr = state["trace"][i]
-                tr.mul_(self.momentum).add_(g)
-                g = g + self.momentum * tr if self.nesterov else tr
-            p.sub_(lr * g)
+        leaves, grads = list(leaves), list(grads)
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, leaves,
+                                       alpha=self.weight_decay)
+        if self.momentum:
+            trace = state["trace"]
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, grads)
+            grads = (torch._foreach_add(grads, trace, alpha=self.momentum)
+                     if self.nesterov else trace)
+        torch._foreach_add_(leaves, grads, alpha=-lr)
         state["count"] += 1
 
 
@@ -151,13 +157,21 @@ class Adam(ZooOptimizer):
         t = state["count"] + 1
         b1, b2 = self.beta_1, self.beta_2
         c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-        for p, g, mu, nu in zip(leaves, grads, state["mu"], state["nu"]):
-            mu.mul_(b1).add_(g, alpha=1.0 - b1)
-            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
-            step = (mu / c1) / (torch.sqrt(nu / c2) + self.epsilon)
-            if self.weight_decay:
-                step = step + self.weight_decay * p
-            p.sub_(lr * step)
+        leaves, grads = list(leaves), list(grads)
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(grads, grads),
+                            alpha=1.0 - b2)
+        step = torch._foreach_div(mu, c1)
+        denom = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.epsilon)
+        torch._foreach_div_(step, denom)
+        if self.weight_decay:
+            torch._foreach_add_(step, leaves, alpha=self.weight_decay)
+        torch._foreach_add_(leaves, step, alpha=-lr)
         state["count"] = t
 
 

@@ -41,17 +41,28 @@ script exits non-zero and prints no result line:
    1, 8 and 32 in f32 and bf16; checks the launch counts (36 and 16 per
    forward), the f32 logits against the port's unfused graph (cuDNN
    convs) and the bf16 logits against the f32 ones; times the median
-   request (images/s) and profiles three batch-32 requests (device ms
+   request (images/s, with the requests' spread) beside the unfused
+   graph's at batch 32 and profiles three batch-32 requests (device ms
    per request by kernel, B5 and B6 named);
-5. training: ``resnet50(fused=True)`` at 224x224, 1000 classes, trained
-   by ``Estimator.train`` (SGD 0.1, momentum 0.9, softmax cross
-   entropy) on seeded numpy data: one f32 step held against the port's
-   unfused graph on the same weights and batch (loss and a sample of
-   the updated weights and moving statistics), then five
-   ``mixed_bfloat16`` steps at batch 128 (launches 36/16/36/36 per
-   step, finite losses, the first bf16 loss against the f32 one), five
-   more timed (images/s, model-FLOPs MFU) and two profiled (device busy
-   share, ms per kernel per step);
+5. training, through ``Estimator.train`` (SGD 0.1, momentum 0.9,
+   softmax cross entropy; the input path prefetching and placing each
+   batch through pinned buffers on a copy stream) at 224x224, 1000
+   classes, on seeded numpy data: ``resnet50(fused=True)``, one f32 step
+   held against the port's unfused graph on the same weights and batch
+   (loss and a sample of the updated weights and moving statistics),
+   then ``mixed_bfloat16`` at batch 128 with the default
+   ``ZOO_TPU_PREFETCH`` and with 0 (launches 36/16/36/36 per step,
+   finite losses, the first bf16 loss against the f32 one, the same
+   losses either way), each timed over three epochs (images/s with its
+   spread, model-FLOPs MFU) and profiled over three steps (device busy
+   share, ms per kernel per step, the host-to-device copies by source,
+   the ten largest rows left in "other"); then bench.py's flagship,
+   ``resnet50(space_to_depth=True)`` with ``fused=True`` and
+   ``fused="defer"`` (the stage layout on the fused model's weights),
+   each one f32 step against the other and the s2d unfused graph, then
+   the bf16 main path timed and profiled; and, between the two, the
+   unfused graph's bf16 main path, timed in turns with the fused one
+   (``MEASURED_WIN``'s evidence, with phase 4's unfused requests);
 6. BERT fine-tune: BERT-base (vocab 30522, hidden 768, 12 blocks, 12
    heads, intermediate 3072) at T = 512 with ``remat=True`` and
    ``attention_impl="flash"``, under Lambda(pooled) → Dropout(0.1) →
@@ -116,6 +127,8 @@ the wrapper's route, tile and shared memory per head dim and dtype are
 the library's (``fwd_config_on_card``, ``bwd_config_on_card``) and that
 the backward's D-64 instances spill nothing.
 
+Every kernel, plain and library time is the median of five windows of
+CUDA events (:func:`time_window`), each kernel's with its min and max.
 f32 comparisons run with TF32 off in both cuBLAS and cuDNN. Details go
 to ``chiprun_out/chip_smoke.json``.
 """
@@ -131,6 +144,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
@@ -258,43 +273,92 @@ def _ms(t) -> str:
     return "none" if t is None else f"{t:.4f} ms"
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    """Device milliseconds per call of ``fn``: CUDA events around
-    ``iters`` calls, after ``warmup``. A spin kernel holds the stream
-    while the calls are enqueued (for twice the host time they took
-    once), so the events time the device's work and not the host's
-    launch cost, which dominates small kernels."""
+def time_window(fn, iters: int = 10, warmup: int = 3, windows: int = 5):
+    """Device milliseconds per call of ``fn``: ``(median, min, max)`` over
+    ``windows`` windows of ``iters`` calls each, timed by CUDA events,
+    after ``warmup``. Before each window a spin kernel holds the stream
+    while the calls are enqueued (for twice the slowest of two host
+    passes), so the events time the device's work and not the host's
+    launch cost, which dominates small kernels. A window above 1.5x the
+    median (the host stalled past the spin while it enqueued) is timed
+    again, up to twice, and its lowest reading kept."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * host_s * 2e9))      # cycles at ~2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    host_s = 0.0
+    for _ in range(2):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_s = max(host_s, time.perf_counter() - t)
+
+    def window() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * host_s * 2e9))      # cycles at ~2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    times = [window() for _ in range(windows)]
+    med = statistics.median(times)
+    for i, t in enumerate(times):
+        for _ in range(2):
+            if times[i] <= 1.5 * med:
+                break
+            times[i] = min(times[i], window())
+    return statistics.median(times), min(times), max(times)
+
+
+def timed(fn, **kw) -> dict:
+    """A kernel record's timing entries: the median ms of
+    :func:`time_window` and its windows' min and max."""
+    med, lo, hi = time_window(fn, **kw)
+    return {"ms": med, "ms_spread": [lo, hi]}
+
+
+def _spread(rec) -> str:
+    lo, hi = rec["ms_spread"]
+    return f" [{lo:.4f}-{hi:.4f}]"
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """The median of :func:`time_window`: what every bound ratio and
+    A/B reads."""
+    return time_window(fn, iters, warmup)[0]
+
+
+def fused_blocks(model):
+    """``(block, input shape, consumes a pending input)`` for every fused
+    bottleneck of a ResNet in order: each FusedBottleneck layer, and
+    each block inside a FusedStage, where a block consumes its
+    predecessor's deferred tail in training if the predecessor defers
+    (``stage_defers``)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        FusedBottleneck, FusedStage)
+    from analytics_zoo_tpu_torch.models.image.imageclassification.resnet \
+        import stage_defers
+    for lyr in model.layers:
+        if isinstance(lyr, FusedBottleneck):
+            yield lyr, lyr.input_shape, False
+        elif isinstance(lyr, FusedStage):
+            shape, pending = lyr.input_shape, False
+            for blk, defers in zip(lyr.blocks, stage_defers(lyr.blocks)):
+                yield blk, shape, pending
+                shape, pending = blk.compute_output_shape(shape), defers
 
 
 def path_shapes(model, batch):
     """Distinct kernel shapes of one forward of a fused ResNet, each with
     its launch count: B5 keys (B, H, W, K, N, stride, residual, relu),
     B6 keys (B, H, W, Cin, Cout, stride)."""
-    from analytics_zoo_tpu_torch.models.image.imageclassification import \
-        FusedBottleneck
     b5, b6 = collections.Counter(), collections.Counter()
-    for lyr in model.layers:
-        if not isinstance(lyr, FusedBottleneck):
-            continue
-        h, w, c = lyr.input_shape
+    for lyr, (h, w, c), _ in fused_blocks(model):
         f, s = lyr.filters, lyr.stride
         ho, wo = -(-h // s), -(-w // s)
         b5[(batch, h, w, c, f, 1, False, True)] += 1           # c1
@@ -428,7 +492,7 @@ def run_case(case, gen):
     rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": wdt,
            "prologue": prologue, "per_path": per_path,
            "max_abs_err": err, "tol": TOL[dt] * scale,
-           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           **timed(kernel), "plain_ms": time_ms(plain),
            "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
            "flop_ms": flop_ms, "byte_ms": nbytes / PEAK_BYTES * 1e3}
     rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
@@ -472,7 +536,7 @@ def run_case(case, gen):
                   f"f32 {n_p}, TF32 {n_t}")
     print(f"  {name} {dt}/{wdt}{' prologue' if prologue else ''} "
           f"{tuple(key)} x{per_path}: max|err| {err:.3e} "
-          f"(tol {rec['tol']:.3e}){gate} kernel {rec['ms']:.4f} ms, plain "
+          f"(tol {rec['tol']:.3e}){gate} kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
           f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_term']})",
           flush=True)
@@ -504,19 +568,16 @@ def fold64(x, w, s, t, os_, ot, res, prologue, relu):
 
 def train_shapes(model, batch):
     """Distinct training-kernel shapes of one train step of a fused
-    ResNet, each with its launch count per step: 1x1 keys (B, H, W, K,
-    N, stride, prologue, residual) for B1 and its backward B3 + B4, 3x3
-    keys (B, H, W, Cin, Cout, stride) for B2 (prologue always on)."""
-    from analytics_zoo_tpu_torch.models.image.imageclassification import \
-        FusedBottleneck
+    ResNet (per-block or stage layout), each with its launch count per
+    step: 1x1 keys (B, H, W, K, N, stride, prologue, residual) for B1 and
+    its backward B3 + B4, 3x3 keys (B, H, W, Cin, Cout, stride) for B2
+    (prologue always on). A c1 that consumes a deferred tail takes the
+    previous bn3's fold and the residual in its prologue."""
     b1, b2 = collections.Counter(), collections.Counter()
-    for lyr in model.layers:
-        if not isinstance(lyr, FusedBottleneck):
-            continue
-        h, w, c = lyr.input_shape
+    for lyr, (h, w, c), pending in fused_blocks(model):
         f, s = lyr.filters, lyr.stride
         ho, wo = -(-h // s), -(-w // s)
-        b1[(batch, h, w, c, f, 1, False, False)] += 1          # c1
+        b1[(batch, h, w, c, f, 1, pending, pending)] += 1      # c1
         b2[(batch, h, w, f, f, s)] += 1                         # c2
         b1[(batch, ho, wo, f, 4 * f, 1, True, False)] += 1     # c3
         if lyr.downsample:
@@ -524,15 +585,16 @@ def train_shapes(model, batch):
     return b1, b2
 
 
-def train_cases(b1, b2):
+def train_cases(b1, b2, deferred=()):
     """(kernel, key, dtype, launches per step) for every train-path shape
-    in both dtypes, plus the in_residual prologue (which only the
-    deferred stage layout runs) and ragged M (3 images at 7x7); for B4
-    also K 64 / N 64 at a ragged M (its smallest tile) and K 2048 /
-    N 512 with a residual and no affine; for B2 Cin 128 and 256 at a
-    small ragged M and stride 2 at an odd extent."""
-    extra1 = [(TRAIN_BATCH, 56, 56, 256, 64, 1, True, True),
-              (3, 7, 7, 2048, 512, 1, True, True)]
+    in both dtypes, plus the in_residual prologue at every shape the
+    deferred stage layout runs it (``deferred``) and at a ragged M (3
+    images at 7x7); for B4 also K 64 / N 64 at a ragged M (its smallest
+    tile) and K 2048 / N 512 with a residual and no affine; for B2 Cin
+    128 and 256 at a small ragged M and stride 2 at an odd extent."""
+    extra1 = sorted(set(deferred) | {(TRAIN_BATCH, 56, 56, 256, 64, 1,
+                                      True, True)}) + \
+        [(3, 7, 7, 2048, 512, 1, True, True)]
     extra4 = [(3, 7, 7, 64, 64, 1, True, False),
               (3, 7, 7, 2048, 512, 1, False, True)]
     extra2 = [(3, 7, 7, 512, 512, 1), (3, 9, 9, 128, 128, 1),
@@ -678,7 +740,7 @@ def run_train_case(case, gen):
            "prologue": name == "conv3x3_bn" or bool(key[6]),
            "per_path": per_step, "errors": errs,
            "max_abs_err": max(e for e, _ in errs.values()),
-           "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           **timed(kernel), "plain_ms": time_ms(plain),
            "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
            "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
            "byte_ms": nbytes / PEAK_BYTES * 1e3}
@@ -687,7 +749,8 @@ def run_train_case(case, gen):
         else "bytes"
     print(f"  {name} {dt} {tuple(key)} x{per_step}: max|err| "
           + ", ".join(f"{o} {e:.2e}/{tl:.2e}" for o, (e, tl) in errs.items())
-          + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          + f"; kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, "
           f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
           f" ms ({rec['bound_by']})", flush=True)
     return rec
@@ -824,32 +887,171 @@ def main_path(card, detail):
         dname = str(dt).split(".")[-1]
         for bs in (1, BATCH):
             x = torch.from_numpy(images[bs]).to(ctx.device, dt)
-            med = median_request_s(im, x)
+            med, lo, hi = median_request_s(im, x)
             latency[f"{dname}_b{bs}_ms"] = med * 1e3
+            latency[f"{dname}_b{bs}_ms_spread"] = [lo * 1e3, hi * 1e3]
             print(f"  {dname} batch {bs}: median {med * 1e3:.3f} ms per "
-                  f"request, {bs / med:.1f} images/s on {card}",
-                  flush=True)
+                  f"request ({lo * 1e3:.3f}-{hi * 1e3:.3f}), "
+                  f"{bs / med:.1f} images/s on {card}", flush=True)
         rates[dname] = BATCH / (latency[f"{dname}_b{BATCH}_ms"] / 1e3)
         profiles[dname] = profile_requests(im, x)
     detail["images_per_s"] = rates
     detail["request_ms"] = latency
     detail["profile"] = profiles
+    # the unfused graph (cuDNN convs, separate BN and ReLU) on the same
+    # weights and requests: the serving half of MEASURED_WIN's evidence
+    ref_im = InferenceModel(supported_concurrent_num=2).load_keras_net(ref)
+    unfused = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        x = torch.from_numpy(images[BATCH]).to(ctx.device, dt)
+        med, lo, hi = median_request_s(ref_im, x)
+        unfused[f"{dname}_b{BATCH}_ms"] = med * 1e3
+        unfused[f"{dname}_b{BATCH}_ms_spread"] = [lo * 1e3, hi * 1e3]
+        print(f"  unfused {dname} batch {BATCH}: median {med * 1e3:.3f} ms "
+              f"per request ({lo * 1e3:.3f}-{hi * 1e3:.3f}; fused "
+              f"{latency[f'{dname}_b{BATCH}_ms']:.3f}) on {card}",
+              flush=True)
+    detail["unfused_request_ms"] = unfused
     return launches
+
+
+def one_f32_step(ctx, net, x, y, w0=None):
+    """One f32 ``Estimator.train`` step of ``net`` (from ``w0`` where
+    given) on the first batch: its loss and the weights after it."""
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    if w0 is not None:
+        net.load_params(w0)
+    est = train_estimator(ctx, net, "float32")
+    res = est.train(x, y, batch_size=TRAIN_BATCH, end_trigger=MaxIteration(1))
+    return res.history[-1]["losses"][0], params_to_numpy(net)
+
+
+def train_estimator(ctx, net, policy):
+    """bench.py's optimizer and loss: SGD 0.1 with momentum 0.9, softmax
+    cross entropy."""
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    return Estimator(net, optimizer=SGD(lr=0.1, momentum=0.9),
+                     loss="softmax_cross_entropy", dtype_policy=policy,
+                     ctx=ctx)
+
+
+def update_checks(label, got_after, ref_after, ref_jitter, ref_w0, sample,
+                  bn_layers):
+    """Sampled updated weights of a model (in the unfused graph's
+    layout) against the unfused graph's after the same f32 step: the
+    first step's gradient at random init is ill-conditioned in the early
+    layers, so the unfused graph itself moves by several percent of an
+    update there when its input moves by 1e-6 (relative); that movement,
+    measured, bounds the difference. Moving statistics within 1e-4."""
+    out = {}
+    for layer, leaf in sample:
+        want = ref_after[layer][leaf]
+        noise = float(np.abs(ref_jitter[layer][leaf] - want).max())
+        scale = float(np.abs(want - ref_w0[layer][leaf]).max())
+        out[f"{label}_update_{layer}/{leaf}"] = (
+            float(np.abs(got_after[layer][leaf] - want).max()),
+            max(1e-3 * scale, 2.0 * noise))
+    for layer in bn_layers:
+        for leaf in ("moving_mean", "moving_var"):
+            want = ref_after[layer]["_state"][leaf]
+            out[f"{label}_{layer}/{leaf}"] = (
+                float(np.abs(got_after[layer]["_state"][leaf] - want).max()),
+                1e-4 * max(1.0, float(np.abs(want).max())))
+    return out
+
+
+def check_train_launches(launches, steps, what):
+    for name, meta in KERNELS.items():
+        want = meta["per_path"] * steps if meta["path"] == "train" else 0
+        check(launches[name] == want,
+              f"{what}: {name} {launches[name]} launches in {steps} steps, "
+              f"expected {want}")
+
+
+def timed_epochs(est, x, y, windows: int = 3) -> dict:
+    """images/s of ``windows`` epochs of ``Estimator.train`` (each a
+    timed window on the host clock, ending in a sync): the median and
+    the min-max."""
+    import torch
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        rates.append(len(x) / (time.perf_counter() - t))
+    med = statistics.median(rates)
+    return {"images_per_s": med, "images_per_s_spread": [min(rates),
+                                                         max(rates)],
+            "windows": rates, "step_ms": TRAIN_BATCH / med * 1e3,
+            "mfu": med * TRAIN_FLOP_PER_IMAGE / PEAK_FLOPS["bfloat16"]}
+
+
+def bf16_run(ctx, net, w0, x, y, label, card, profile=True):
+    """The main path of one training configuration: ``mixed_bfloat16``
+    from ``w0``, one epoch with the launches counted (returned, with its
+    losses), then timed epochs and a profile."""
+    import torch
+    net.load_params(w0)
+    est = train_estimator(ctx, net, "mixed_bfloat16")
+    reset_launches()
+    torch.cuda.synchronize()
+    res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    residual = dict(cb.residual_launches)
+    losses = res.history[-1]["losses"]
+    print(f"  {label}: {len(losses)} bf16 steps at batch {TRAIN_BATCH}: "
+          f"losses {[round(v, 4) for v in losses]}; launches {launches}",
+          flush=True)
+    check(len(losses) == TRAIN_STEPS, f"{label}: {len(losses)} steps taken")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    out = {"losses": losses, "residual_launches": residual,
+           **timed_epochs(est, x, y)}
+    lo, hi = out["images_per_s_spread"]
+    print(f"  {label}: {out['step_ms']:.1f} ms per step, "
+          f"{out['images_per_s']:.1f} images/s (median of "
+          f"{len(out['windows'])} epochs; {lo:.1f}-{hi:.1f}), model-FLOPs "
+          f"MFU {out['mfu']:.4f} (against 989 TFLOP/s) on {card}",
+          flush=True)
+    if profile:
+        out["profile"] = profile_train_steps(est, x, y)
+    return out, launches, est
+
+
+def interleaved_epochs(ests, x, y, rounds: int = 3) -> dict:
+    """images/s of each estimator's epochs timed in turns (A B B A ...,
+    ``rounds`` epochs each), so the host's drift falls on both: the
+    median and the min-max per estimator."""
+    import torch
+    rates = {k: [] for k in ests}
+    order = list(ests)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ests[k].train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+            torch.cuda.synchronize()
+            rates[k].append(len(x) / (time.perf_counter() - t))
+    return {k: {"images_per_s": statistics.median(v),
+                "images_per_s_spread": [min(v), max(v)], "windows": v}
+            for k, v in rates.items()}
 
 
 def train_path(card, detail):
     """Phase 5: train ResNet-50 through the port's entry points; returns
-    the kernels' launches over the bf16 run."""
-    import numpy as np
+    the kernels' launches over the bf16 run of the 7x7-stem fused model
+    with the default prefetch."""
     import torch
 
     import analytics_zoo_tpu_torch as zoo
     from analytics_zoo_tpu_torch.bridge import params_to_numpy
     from analytics_zoo_tpu_torch.models.image.imageclassification import (
         convert_resnet_params, resnet50)
-    from analytics_zoo_tpu_torch.ops.optimizers import SGD
-    from analytics_zoo_tpu_torch.pipeline.estimator import (
-        Estimator, MaxIteration)
 
     ctx = zoo.init_nncontext(seed=0)
     rs = np.random.RandomState(0)
@@ -862,107 +1064,150 @@ def train_path(card, detail):
     w0 = params_to_numpy(model)
     print(f"  model built on {model.device} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    def estimator(net, policy):
-        return Estimator(net, optimizer=SGD(lr=0.1, momentum=0.9),
-                         loss="softmax_cross_entropy", dtype_policy=policy,
-                         ctx=ctx)
-
-    def one_step(net, images):
-        est = estimator(net, "float32")
-        res = est.train(images, y, batch_size=TRAIN_BATCH,
-                        end_trigger=MaxIteration(1))
-        return res.history[-1]["losses"][0], params_to_numpy(net)
+    jitter = 1.0 + 1e-6 * np.random.RandomState(1).standard_normal(
+        x.shape[1:]).astype(np.float32)
 
     # one f32 step, fused against the unfused graph (cuDNN convs, torch
-    # BN) from the same weights on the same batch
-    loss32, fused_after = one_step(model, x)
+    # BN) from the same weights on the same batch, and the unfused
+    # graph's own movement under a 1e-6 input change
+    loss32, fused_after = one_f32_step(ctx, model, x, y)
     ref = resnet50(input_shape=IMAGE, classes=1000, fused=False)
     ref.init_params()
     ref_w0 = convert_resnet_params(w0, params_to_numpy(ref))
-    ref.load_params(ref_w0)
-    loss_ref, ref_after = one_step(ref, x)
-    # the first step's gradient at random init is ill-conditioned in the
-    # early layers: the unfused graph itself moves by several percent of
-    # an update there when its input moves by 1e-6 (relative), so that
-    # movement, measured here, bounds the fused-vs-unfused difference
-    ref.load_params(ref_w0)
-    jitter = 1.0 + 1e-6 * np.random.RandomState(1).standard_normal(
-        x.shape[1:]).astype(np.float32)
-    _, ref_jitter = one_step(ref, x * jitter)
+    loss_ref, ref_after = one_f32_step(ctx, ref, x, y, ref_w0)
+    _, ref_jitter = one_f32_step(ctx, ref, x * jitter, y, ref_w0)
     del ref
     torch.cuda.empty_cache()
     checks = {"f32_loss_vs_unfused": (abs(loss32 - loss_ref),
                                       1e-4 * max(1.0, abs(loss_ref)))}
-    fused_as_ref = convert_resnet_params(fused_after, ref_after)
     sample = [("stem", "kernel"), ("s0b0_c1", "kernel"),
               ("s1b0_c2", "kernel"), ("s1b0_down", "kernel"),
               ("s2b3_c3", "kernel"), ("s3b2_c1_bn", "gamma"),
               ("s3b2_c3_bn", "beta"), ("fc", "kernel")]
-    for layer, leaf in sample:
-        want = ref_after[layer][leaf]
-        noise = float(np.abs(ref_jitter[layer][leaf] - want).max())
-        scale = float(np.abs(want - ref_w0[layer][leaf]).max())
-        checks[f"f32_update_{layer}/{leaf}"] = (
-            float(np.abs(fused_as_ref[layer][leaf] - want).max()),
-            max(1e-3 * scale, 2.0 * noise))
-    for layer in ("s0b0_c1_bn", "s2b0_c2_bn", "s3b2_c3_bn"):
-        for leaf in ("moving_mean", "moving_var"):
-            want = ref_after[layer]["_state"][leaf]
-            got = fused_as_ref[layer]["_state"][leaf]
-            checks[f"f32_{layer}/{leaf}"] = (
-                float(np.abs(got - want).max()),
-                1e-4 * max(1.0, float(np.abs(want).max())))
+    bn_layers = ("s0b0_c1_bn", "s2b0_c2_bn", "s3b2_c3_bn")
+    checks.update(update_checks(
+        "f32", convert_resnet_params(fused_after, ref_after), ref_after,
+        ref_jitter, ref_w0, sample, bn_layers))
     print(f"  f32 step 1: fused loss {loss32:.6f}, unfused {loss_ref:.6f}",
           flush=True)
-    del ref_w0, ref_after, ref_jitter, fused_as_ref, fused_after
+    del ref_w0, ref_after, ref_jitter, fused_after
 
-    # the main path: mixed_bfloat16 from the same starting weights
-    model.load_params(w0)
-    est = estimator(model, "mixed_bfloat16")
-    reset_launches()
-    torch.cuda.synchronize()
-    res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
-    torch.cuda.synchronize()
-    launches = all_launches()
-    losses = res.history[-1]["losses"]
-    print(f"  {len(losses)} bf16 steps at batch {TRAIN_BATCH}: losses "
-          f"{[round(v, 4) for v in losses]}; launches {launches}",
-          flush=True)
-    check(len(losses) == TRAIN_STEPS, f"{len(losses)} steps taken")
-    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    for name, meta in KERNELS.items():
-        want = meta["per_path"] * TRAIN_STEPS if meta["path"] == "train" \
-            else 0
-        check(launches[name] == want,
-              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-              f"expected {want}")
+    # the main path: mixed_bfloat16 from the same starting weights, with
+    # the default prefetch and with none (ZOO_TPU_PREFETCH=0)
+    runs = {}
+    for depth in ("default", "0"):
+        label = f"7x7 fused, prefetch {depth}"
+        if depth == "0":
+            os.environ["ZOO_TPU_PREFETCH"] = "0"
+        try:
+            runs[depth], launches, fused_est = bf16_run(
+                ctx, model, w0, x, y, label, card)
+        finally:
+            os.environ.pop("ZOO_TPU_PREFETCH", None)
+        check_train_launches(launches, TRAIN_STEPS, label)
+        if depth == "default":
+            main_launches = launches
+    losses = runs["default"]["losses"]
     checks["bf16_loss_vs_f32"] = (abs(losses[0] - loss32),
                                   5e-2 * max(1.0, abs(loss32)))
+    # without prefetch, the same batches and arithmetic: the same losses
+    # (cuDNN's stem backward may sum in another order)
+    checks["bf16_prefetch_0_losses"] = (
+        max(abs(a - b) for a, b in zip(runs["0"]["losses"], losses)),
+        1e-3 * max(1.0, max(abs(v) for v in losses)))
+    detail["train"] = {"prefetch_default": runs["default"],
+                       "prefetch_0": runs["0"]}
+
+    # the fused bottlenecks against the unfused graph (cuDNN convs,
+    # separate BN and ReLU) on the same weights, the same bf16 main
+    # path, then both timed in turns: the training half of
+    # MEASURED_WIN's evidence
+    ref = resnet50(input_shape=IMAGE, classes=1000, fused=False)
+    ref.init_params()
+    runs["unfused"], _, ref_est = bf16_run(
+        ctx, ref, convert_resnet_params(w0, params_to_numpy(ref)), x, y,
+        "7x7 unfused", card)
+    ab = interleaved_epochs({"fused": fused_est, "unfused": ref_est}, x, y)
+    for k, v in ab.items():
+        lo, hi = v["images_per_s_spread"]
+        print(f"  in turns, 7x7 {k}: {v['images_per_s']:.1f} images/s "
+              f"(median of {len(v['windows'])} epochs; {lo:.1f}-{hi:.1f}) "
+              f"on {card}", flush=True)
+    detail["train"]["unfused"] = runs["unfused"]
+    detail["train"]["fused_vs_unfused_in_turns"] = ab
+    del ref, ref_est, fused_est
+    torch.cuda.empty_cache()
+
+    # bench.py's flagship: the space-to-depth stem, fused and the
+    # deferred-apply stage layout, the latter on the former's weights
+    del model
+    torch.cuda.empty_cache()
+    s2d = resnet50(input_shape=IMAGE, classes=1000, space_to_depth=True,
+                   fused=True)
+    s2d.init_params()
+    s2d_w0 = params_to_numpy(s2d)
+    defer = resnet50(input_shape=IMAGE, classes=1000, space_to_depth=True,
+                     fused="defer")
+    defer.init_params()
+    defer_w0 = convert_resnet_params(s2d_w0, params_to_numpy(defer))
+    ref = resnet50(input_shape=IMAGE, classes=1000, space_to_depth=True,
+                   fused=False)
+    ref.init_params()
+    ref_w0 = convert_resnet_params(s2d_w0, params_to_numpy(ref))
+    loss_f, s2d_after = one_f32_step(ctx, s2d, x, y, s2d_w0)
+    loss_d, defer_after = one_f32_step(ctx, defer, x, y, defer_w0)
+    loss_u, ref_after = one_f32_step(ctx, ref, x, y, ref_w0)
+    _, ref_jitter = one_f32_step(ctx, ref, x * jitter, y, ref_w0)
+    del ref
+    torch.cuda.empty_cache()
+    print(f"  s2d f32 step 1: fused loss {loss_f:.6f}, defer {loss_d:.6f}, "
+          f"unfused {loss_u:.6f}", flush=True)
+    checks["s2d_defer_f32_loss_vs_fused"] = (abs(loss_d - loss_f),
+                                             1e-4 * max(1.0, abs(loss_f)))
+    checks["s2d_fused_f32_loss_vs_unfused"] = (abs(loss_f - loss_u),
+                                               1e-4 * max(1.0, abs(loss_u)))
+    for label, after in (("s2d_fused", s2d_after), ("s2d_defer",
+                                                    defer_after)):
+        checks.update(update_checks(
+            label, convert_resnet_params(after, ref_after), ref_after,
+            ref_jitter, ref_w0, sample, bn_layers))
+    del s2d_after, defer_after, ref_after, ref_jitter, ref_w0
+    for label, net, w in (("s2d fused", s2d, s2d_w0),
+                          ("s2d defer", defer, defer_w0)):
+        key = label.replace(" ", "_")
+        runs[key], launches, _ = bf16_run(ctx, net, w, x, y, label, card)
+        check_train_launches(launches, TRAIN_STEPS, label)
+        # the B1 and B3 launches given an in_residual, counted by the
+        # wrappers: each consuming c1's forward and its dr, every step
+        want = TRAIN_STEPS * sum(k_n for k, k_n in train_shapes(
+            net, TRAIN_BATCH)[0].items() if k[7])
+        got = runs[key]["residual_launches"]
+        print(f"  {label}: in_residual launches {got} in {TRAIN_STEPS} "
+              f"steps, expected {want} each", flush=True)
+        check(want == (8 * TRAIN_STEPS if key == "s2d_defer" else 0) and
+              got == {"matmul_bn": want, "matmul_bn_dx": want},
+              f"{label}: in_residual launches {got}, expected {want} "
+              f"of B1 and of B3")
+        checks[f"{key}_bf16_loss_vs_f32"] = (
+            abs(runs[key]["losses"][0] - loss_f),
+            5e-2 * max(1.0, abs(loss_f)))
+    detail["train"]["s2d_fused"] = runs["s2d_fused"]
+    detail["train"]["s2d_defer"] = runs["s2d_defer"]
+    detail["train"]["defer_residual_launches"] = \
+        runs["s2d_defer"]["residual_launches"]
+    del s2d, defer
+    torch.cuda.empty_cache()
+
     for k, (err, tol) in checks.items():
         print(f"  {k}: |err| {err:.4e} (tol {tol:.4e})", flush=True)
     detail["train_checks"] = checks
     bad = [k for k, (err, tol) in checks.items() if not err <= tol]
     check(not bad, f"training checks failed: {bad}")
     detail["train_losses"] = {"f32_fused": loss32, "f32_unfused": loss_ref,
+                              "s2d_f32": {"fused": loss_f, "defer": loss_d,
+                                          "unfused": loss_u},
                               "bf16": losses}
-
-    # steady state: one more epoch, timed on the host clock around a sync
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    res = est.train(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    rate = n / wall
-    mfu = rate * TRAIN_FLOP_PER_IMAGE / PEAK_FLOPS["bfloat16"]
-    print(f"  bf16 train: {wall / TRAIN_STEPS * 1e3:.1f} ms per step, "
-          f"{rate:.1f} images/s, model-FLOPs MFU {mfu:.4f} (against "
-          f"989 TFLOP/s) on {card}", flush=True)
-    detail["train"] = {"images_per_s": rate, "step_ms":
-                       wall / TRAIN_STEPS * 1e3, "mfu": mfu,
-                       "losses": res.history[-1]["losses"]}
-    detail["train"]["profile"] = profile_train_steps(est, x, y)
-    return launches
+    return main_launches
 
 
 TRAIN_KERNEL_NAMES = (
@@ -982,22 +1227,24 @@ SERVE_KERNEL_NAMES = (
 )
 
 
-def profile_train_steps(est, x, y, steps: int = 2) -> dict:
-    """Device time by kernel over ``steps`` bf16 train steps, the
-    port's kernels grouped by name (:func:`profile_steps`)."""
+def profile_train_steps(est, x, y, steps: int = 3) -> dict:
+    """Device time by kernel over one ``Estimator.train`` call of
+    ``steps`` bf16 steps (its input pipeline's start included, as every
+    epoch's), the port's kernels grouped by name (:func:`profile_steps`)."""
     from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
     print("  profile bf16 train:", flush=True)
     out = profile_steps(
         lambda: est.train(x, y, batch_size=TRAIN_BATCH,
-                          end_trigger=MaxIteration(est.step + 1)),
-        steps, TRAIN_KERNEL_NAMES)
+                          end_trigger=MaxIteration(est.step + steps)),
+        1, TRAIN_KERNEL_NAMES, per=steps)
     out["batch"] = TRAIN_BATCH
     return out
 
 
-def median_request_s(im, x, warmup: int = 3, iters: int = 10) -> float:
-    """Median host time of one ``predict`` (input on the card, logits
-    back on the host), after warm-up."""
+def median_request_s(im, x, warmup: int = 3, iters: int = 10):
+    """Host time of one ``predict`` (input on the card, logits back on
+    the host) after warm-up: the median of ``iters`` requests, with
+    their min and max."""
     import torch
     for _ in range(warmup):
         im.predict(x)
@@ -1008,7 +1255,7 @@ def median_request_s(im, x, warmup: int = 3, iters: int = 10) -> float:
         im.predict(x)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
 
 
 def profile_requests(im, x, n: int = 3) -> dict:
@@ -1242,7 +1489,7 @@ def run_flash_case(case, gen):
                "dtype": dt, "per_path": per_path[i], "errors": errs,
                "rel_errors": rel,
                "max_abs_err": max(e for e, _ in errs.values()),
-               "ms": time_ms(kernel), "plain_ms": time_ms(plain, iters=3,
+               **timed(kernel), "plain_ms": time_ms(plain, iters=3,
                                                           warmup=1),
                "library_ms": (lib_f, lib_f, lib_b, None)[i],
                "library_is": KERNELS[name]["library_is"],
@@ -1271,7 +1518,8 @@ def run_flash_case(case, gen):
               f") x{per_path[i]}{extra}: max|err| "
               + ", ".join(f"{o} {e:.2e}/{tl:.2e} (rel {rel[o]:.2e})"
                           for o, (e, tl) in errs.items())
-              + f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              + f"; kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
+              f"{rec['plain_ms']:.4f} "
               f"ms, library {_ms(rec['library_ms'])}, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_term']})", flush=True)
         records.append(rec)
@@ -1489,7 +1737,7 @@ def run_decode_case(case, gen):
            "dtype": dt, "per_path": per_path, "lens": lens, "paged": paged,
            "errors": {"out": (err, tol)},
            "rel_errors": {"out": err / scl if scl else 0.0},
-           "max_abs_err": err, "ms": time_ms(kernel),
+           "max_abs_err": err, **timed(kernel),
            "plain_ms": time_ms(plain, iters=3, warmup=1),
            "library_ms": time_ms(library),
            "library_is": KERNELS["flash_decode"]["library_is"],
@@ -1502,7 +1750,8 @@ def run_decode_case(case, gen):
           f"{', int8 cache' if int8 else ''}"
           f"{', paged' if paged else ''}, valid rows {rows}) "
           f"x{per_path}: max|err| {err:.2e}/{tol:.2e} (rel "
-          f"{rec['rel_errors']['out']:.2e}); kernel {rec['ms']:.4f} ms, "
+          f"{rec['rel_errors']['out']:.2e}); kernel {rec['ms']:.4f}"
+          f"{_spread(rec)} ms, "
           f"plain {rec['plain_ms']:.4f} ms, library "
           f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
@@ -1564,10 +1813,13 @@ FLASH_KERNEL_NAMES = (
 )
 
 
-def profile_steps(step, steps, groups):
+def profile_steps(step, steps, groups, per=1):
     """Device time by kernel over ``steps`` calls of ``step``
-    (``torch.profiler``), grouped by ``groups`` (name, regex), and the
-    device's busy share of the window's wall time."""
+    (``torch.profiler``), each call ``per`` steps of the path, grouped by
+    ``groups`` (name, regex); the device's busy share of the window's
+    wall time; the ten largest rows left in "other"; and the host-to-
+    device copies by source (a pageable copy runs on the compute stream
+    and blocks the host, a pinned one on a copy stream)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1579,6 +1831,7 @@ def profile_steps(step, steps, groups):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    n = steps * per
     kernels = collections.Counter()
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
@@ -1586,19 +1839,28 @@ def profile_steps(step, steps, groups):
     busy_us = sum(kernels.values())
     by_name = collections.Counter()
     members = collections.defaultdict(set)
+    other = collections.Counter()
     for key, us in kernels.items():
         group = next((g for g, pat in groups if re.search(pat, key)),
                      "other")
         by_name[group] += us
         if group != "other":
             members[group].add(key[:90])
-    out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
-           "device_ms_per_step": busy_us / steps / 1e3,
+        else:
+            other[key] += us
+    htod = {src: sum(us for key, us in kernels.items()
+                     if key.startswith(f"Memcpy HtoD ({src}"))
+            / n / 1e3 for src in ("Pageable", "Pinned")}
+    out = {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+           "device_ms_per_step": busy_us / n / 1e3,
            "device_busy_share": busy_us / wall_us if busy_us else None,
-           "ms_per_step_by_kernel": {k: v / steps / 1e3
+           "ms_per_step_by_kernel": {k: v / n / 1e3
                                      for k, v in by_name.most_common()},
-           "top": [(k[:90], v / steps / 1e3)
+           "top": [(k[:90], v / n / 1e3)
                    for k, v in kernels.most_common(12)],
+           "other_top": [(k[:120], v / n / 1e3)
+                         for k, v in other.most_common(10)],
+           "htod_ms_per_step": htod,
            "kernels_by_group": {k: sorted(v) for k, v in members.items()}}
     print(f"  profile: device busy {out['device_ms_per_step']:.3f} of "
           f"{out['wall_ms_per_step']:.3f} ms per step (share "
@@ -1607,6 +1869,11 @@ def profile_steps(step, steps, groups):
         names = "; ".join(sorted(members.get(k, ())))
         print(f"    {ms:9.3f} ms per step  {k}"
               + (f"  [{names}]" if names else ""), flush=True)
+    print(f"    HtoD copies per step: pageable {htod['Pageable']:.3f} ms, "
+          f"pinned {htod['Pinned']:.3f} ms", flush=True)
+    print("    the ten largest rows in other:", flush=True)
+    for k, ms in out["other_top"]:
+        print(f"      {ms:9.3f} ms per step  {k}", flush=True)
     return out
 
 
@@ -2233,8 +2500,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from analytics_zoo_tpu_torch.models.image.imageclassification import \
-        ImageClassifier
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ImageClassifier, resnet50)
     from analytics_zoo_tpu_torch.ops import conv_bn as cb
     from analytics_zoo_tpu_torch.ops import cuda_build
     from analytics_zoo_tpu_torch.ops import flash_attention as fa
@@ -2330,9 +2597,28 @@ def main() -> int:
     check(sum(b1.values()) == 36 and sum(b2.values()) == 16,
           f"ResNet-50 trains {sum(b1.values())} 1x1 and {sum(b2.values())} "
           "3x3 convs per step, expected 36 and 16")
+    # the deferred stage layout: the same launches, 8 of its c1s (every
+    # stage's blocks after the second) with the in_residual prologue
+    defer_net = resnet50(input_shape=IMAGE, classes=1000,
+                         space_to_depth=True, fused="defer")
+    defer_net.init(torch.Generator().manual_seed(0))
+    d1, d2 = train_shapes(defer_net, TRAIN_BATCH)
+    deferred = {k: n for k, n in d1.items() if k[7]}
+    print(f"  fused=\"defer\" per step: B1 {sum(d1.values())} launches "
+          f"({sum(deferred.values())} with in_residual: {deferred}), B2 "
+          f"{sum(d2.values())}", flush=True)
+    check(sum(d1.values()) == 36 and sum(d2.values()) == 16 and
+          sum(deferred.values()) == 8,
+          f"the defer layout trains {sum(d1.values())} 1x1 "
+          f"({sum(deferred.values())} with in_residual) and "
+          f"{sum(d2.values())} 3x3 convs per step, expected 36 (8), 16")
+    detail["defer_train_shapes"] = {"b1": [list(k) + [n] for k, n in
+                                           sorted(d1.items())]}
+    del defer_net
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = [run_case(c, gen) for c in kernel_cases(b5, b6)]
-    records += [run_train_case(c, gen) for c in train_cases(b1, b2)]
+    records += [run_train_case(c, gen)
+                for c in train_cases(b1, b2, deferred)]
     for c in flash_cases():
         records += run_flash_case(c, gen)
     records += [run_decode_case(c, gen) for c in decode_cases()]

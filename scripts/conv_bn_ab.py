@@ -37,7 +37,7 @@ and B5):
   (``Estimator.train``, two epochs of five steps timed after five
   warm-up steps), each beside its device time from ``torch.profiler``
   (chip_smoke's ``profile_requests`` and ``profile_train_steps``: three
-  requests, two steps);
+  requests, three steps in one train call);
 
 and saves B2's bf16 outputs (``_conv3x3_bn_fwd``: y and both
 statistics) at six shapes that take each of its kernels and tiles. A
@@ -116,8 +116,8 @@ def end_to_end(cs) -> dict:
     for bs in (1, cs.BATCH):
         x = torch.from_numpy(rs.rand(bs, *cs.IMAGE).astype(np.float32)).to(
             ctx.device, torch.bfloat16)
-        out[f"serve_bf16_b{bs}_ms"] = cs.median_request_s(im, x,
-                                                          iters=30) * 1e3
+        out[f"serve_bf16_b{bs}_ms"] = cs.median_request_s(
+            im, x, iters=30)[0] * 1e3
         out[f"serve_bf16_b{bs}_device_ms"] = cs.profile_requests(
             im, x)["device_ms_per_step"]
     del im, net

@@ -81,10 +81,9 @@ def test_fused_bottleneck_params_match_jax_layout():
     assert _shapes(tp) == _shapes(jp)
 
 
-def test_training_is_not_ported():
-    # the fused bottleneck trains now: a training forward returns every
-    # BN's moving-stat update and back-propagates to every weight; the
-    # space-to-depth stem and the fused="defer" stage layout still wait
+def test_fused_bottleneck_trains():
+    # a training forward returns every BN's moving-stat update and
+    # back-propagates to every weight
     blk = tr.FusedBottleneck(64, downsample=True)
     p = blk.init(torch.Generator().manual_seed(0), (4, 4, 64))
     x = torch.randn(2, 4, 4, 64, generator=torch.Generator().manual_seed(1))
@@ -101,10 +100,6 @@ def test_training_is_not_ported():
     grads = torch.autograd.grad(out.square().sum(), leaves)
     assert all(bool(torch.isfinite(g).all()) and g.abs().sum() > 0
                for g in grads)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tr.resnet50(input_shape=(32, 32, 3), space_to_depth=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tr.resnet50(input_shape=(32, 32, 3), fused="defer")
 
 
 def test_resnet50_param_tree_matches_jax():
