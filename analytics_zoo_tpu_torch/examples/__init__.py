@@ -1,0 +1,9 @@
+"""Runnable examples of the port, the ones ported so far. Each module
+has ``main(argv)``; run one with
+``python -m analytics_zoo_tpu_torch.examples <name> [args...]``. They
+run on the card unless given ``--device cpu``."""
+
+EXAMPLES = [
+    "ncf_recommendation",
+    "wide_and_deep",
+]

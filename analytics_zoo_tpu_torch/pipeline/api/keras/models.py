@@ -197,16 +197,24 @@ class KerasNet(KerasLayer):
         return self.apply(params, inputs, training=training, rng=rng)[0]
 
     def predict(self, x, batch_size: int = 32):
-        """Forward ``x`` (host array or tensor) in batches of
-        ``batch_size`` on the net's device; returns a host array, or one
-        per output of a multi-output net."""
+        """Forward ``x`` (a host array or tensor, or a list of them for
+        a multi-input net, each batched along its first axis) in batches
+        of ``batch_size`` on the net's device; returns a host array, or
+        one per output of a multi-output net."""
         if not self.initialized:
             self.init_params()
-        x = to_tensor(x, self.device)
+        multi = isinstance(x, (list, tuple))
+        xs = [to_tensor(a, self.device) for a in (x if multi else [x])]
+        n = xs[0].shape[0]
+        if any(a.shape[0] != n for a in xs):
+            raise ValueError("inconsistent sample counts in x: "
+                             f"{[a.shape[0] for a in xs]}")
         with torch.inference_mode():
             return concat_outputs(
-                [to_numpy(self.forward(x[i:i + batch_size]))
-                 for i in range(0, x.shape[0], batch_size)])
+                [to_numpy(self.forward(
+                    [a[i:i + batch_size] for a in xs] if multi
+                    else xs[0][i:i + batch_size]))
+                 for i in range(0, n, batch_size)])
 
     def predict_classes(self, x, batch_size: int = 32,
                         zero_based_label: bool = True) -> np.ndarray:

@@ -98,7 +98,25 @@ script exits non-zero and prints no result line:
    causal, Tk from 128 to 4096 (printed only);
 10. the decode crossover: B11 against the dense decode at S 8, H 12,
    D 64, f32, T from 128 to 4096 (printed only);
-11. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+11. recommendation: first ``Embedding``'s lookup of ids -1, n - 1, n
+   and -n - 1 on the card, forward and backward, against the CPU's
+   (the wrapped row, NaN rows, no gradient on the clamped rows; the
+   phases after it show no device-side assert fired); then NeuralCF at
+   ``bench_ncf.py``'s configuration (6040 users, 3706 items, 5 classes,
+   embeddings 20, MLP 40-20-10, Adam 1e-3, ``class_nll``, f32) through
+   ``compile``/``fit`` on 20 batches of 8192 ids drawn as bench_ncf
+   draws them: its log-probabilities and first three losses against the
+   CPU port on the same weights and batches (1e-5 of max(1, max|out|),
+   1e-4 relative), train samples/s (median of three 20-step epochs, with
+   their min-max), ms per step, the wait per step for input, a 3-step
+   profile (busy share, device rows per step, the five largest) and
+   ``recommend_for_user`` over 8192 pairs; then Wide&Deep
+   (``wide_n_deep``, the ml-1m column layout of the port's example at
+   6040 users and 3706 items): its forward and one Adam step against
+   the CPU port, then ``examples/wide_and_deep.py``'s ``main`` once on
+   the card. No kernel of the eleven lies on this path: their counts
+   stay 0 over it;
+12. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -240,6 +258,10 @@ BERT = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
             intermediate_size=3072, n_token_types=2)
 BERT_T, BERT_BATCH, BERT_STEPS = 512, 16, 5
 BENCH_T, BENCH_BATCH = 128, 32
+# bench_ncf.py's NeuralCF (the reference's ml-1m NCF example) and batch
+NCF = dict(user_count=6040, item_count=3706, num_classes=5, user_embed=20,
+           item_embed=20, hidden_layers=(40, 20, 10), mf_embed=20)
+NCF_BATCH, NCF_STEPS = 8192, 20
 DEV = "cuda"
 
 
@@ -1833,9 +1855,11 @@ def profile_steps(step, steps, groups, per=1):
         wall_us = (time.perf_counter() - t) * 1e6
     n = steps * per
     kernels = collections.Counter()
+    calls = 0
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             kernels[evt.key] += evt.self_device_time_total
+            calls += evt.count
     busy_us = sum(kernels.values())
     by_name = collections.Counter()
     members = collections.defaultdict(set)
@@ -1854,6 +1878,7 @@ def profile_steps(step, steps, groups, per=1):
     out = {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
            "device_ms_per_step": busy_us / n / 1e3,
            "device_busy_share": busy_us / wall_us if busy_us else None,
+           "device_rows_per_step": calls / n,
            "ms_per_step_by_kernel": {k: v / n / 1e3
                                      for k, v in by_name.most_common()},
            "top": [(k[:90], v / n / 1e3)
@@ -1864,7 +1889,8 @@ def profile_steps(step, steps, groups, per=1):
            "kernels_by_group": {k: sorted(v) for k, v in members.items()}}
     print(f"  profile: device busy {out['device_ms_per_step']:.3f} of "
           f"{out['wall_ms_per_step']:.3f} ms per step (share "
-          f"{out['device_busy_share']})", flush=True)
+          f"{out['device_busy_share']}), {out['device_rows_per_step']:.1f} "
+          "device rows (kernels, copies, fills) per step", flush=True)
     for k, ms in out["ms_per_step_by_kernel"].items():
         names = "; ".join(sorted(members.get(k, ())))
         print(f"    {ms:9.3f} ms per step  {k}"
@@ -2494,6 +2520,219 @@ def crossover(card, detail):
     detail["crossover"] = rows
 
 
+# -- recommendation: NeuralCF and Wide&Deep ---------------------------------
+
+def embedding_trap(card, detail):
+    """``Embedding``'s lookup at ids -1, n - 1, n and -n - 1 on the card,
+    forward and backward, equal to the CPU's: the wrapped row, NaN rows,
+    no gradient on the clamped rows. An id out of range that reached the
+    gather would fire a device-side assert, which ends the process's
+    CUDA context: the phases after this one show it did not."""
+    import torch
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.embedding \
+        import take_rows
+    n = NCF["user_count"]
+    table = torch.randn(n, 20, generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([-1, n - 1, n, -n - 1, 0], dtype=torch.int32)
+    w = torch.randn(5, 20, generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", DEV):
+        t = table.to(dev).requires_grad_(True)
+        out = take_rows(t, ids.to(dev))
+        loss = torch.sum(torch.where(torch.isnan(out), 0.0, out) * w.to(dev))
+        (g,) = torch.autograd.grad(loss, [t])
+        outs[dev] = (out.detach().cpu(), g.cpu())
+    torch.cuda.synchronize()
+    (co, cg), (go, gg) = outs["cpu"], outs[DEV]
+    nan_rows = torch.isnan(go).all(-1).tolist()
+    check(nan_rows == [False, False, True, True, False],
+          f"embedding: NaN rows {nan_rows}, expected ids n and -n-1 only")
+    check(torch.equal(go[0], table[n - 1]) and torch.equal(go[1],
+                                                          table[n - 1]),
+          "embedding: id -1 did not give row n - 1")
+    check(torch.equal(torch.nan_to_num(go), torch.nan_to_num(co)),
+          "embedding: card rows differ from the CPU's")
+    check(torch.equal(gg[n - 1], w[0] + w[1]) and torch.equal(gg[0], w[4]),
+          "embedding: the clamped rows got a gradient from invalid ids")
+    err = float((gg - cg).abs().max())
+    check(err <= 1e-6, f"embedding: table gradient {err} from the CPU's")
+    print(f"  Embedding ids (-1, n-1, n, -n-1, 0) at n {n}: rows and "
+          f"gradient as on the CPU (gradient max|diff| {err}), NaN rows "
+          f"{nan_rows}; no device assert on {card}", flush=True)
+    detail["embedding_trap"] = {"nan_rows": nan_rows, "grad_err": err}
+
+
+def ncf_data(n):
+    """bench_ncf.py's draw at ``n`` samples: ``RandomState(0)``, users
+    then items, label ``(u + i) % 5``."""
+    rs = np.random.RandomState(0)
+    users = rs.randint(0, NCF["user_count"], size=n)
+    items = rs.randint(0, NCF["item_count"], size=n)
+    x = np.stack([users, items], 1).astype(np.int32)
+    return x, ((users + items) % 5)[:, None].astype(np.int32)
+
+
+def on_cpu_and_card(build, compile_kw):
+    """The same zoo model built and compiled twice, on the CPU and on
+    the card, the card's weights (made first, from seed 0) loaded into
+    the CPU's; returns (card model, CPU model)."""
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu = build().compile(**compile_kw)
+    zoo.init_nncontext(seed=0)
+    card = build().compile(**compile_kw)
+    card.model.estimator._ensure_initialized()
+    cpu.model.estimator.params = params_to_numpy(card.model)
+    return card, cpu
+
+
+def held_to_cpu(label, card_m, cpu_m, x, y, batch, steps):
+    """``card_m``'s outputs on ``x[:batch]`` and its first ``steps``
+    losses (one ``fit`` epoch over ``steps`` batches) against the CPU
+    port's on the same weights and batches: outputs within 1e-5 of
+    max(1, max|out|), each loss within 1e-4 relative."""
+    first = (x[:batch] if isinstance(x, np.ndarray)
+             else [a[:batch] for a in x])
+    got = card_m.predict(first, batch_size=batch)
+    want = cpu_m.predict(first, batch_size=batch)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    check(np.isfinite(got).all() and err <= 1e-5 * scale,
+          f"{label}: card output {err} from the CPU's (scale {scale})")
+    n = batch * steps
+    xs = x[:n] if isinstance(x, np.ndarray) else [a[:n] for a in x]
+    lc = card_m.fit(xs, y[:n], batch_size=batch, nb_epoch=1).history
+    lp = cpu_m.fit(xs, y[:n], batch_size=batch, nb_epoch=1).history
+    lc, lp = lc[-1]["losses"], lp[-1]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    check(len(lc) == steps and all(np.isfinite(lc)) and rel <= 1e-4,
+          f"{label}: card losses {lc}, CPU {lp} (max rel {rel})")
+    print(f"  {label}: output max|diff| {err:.3e} (scale {scale:.3f}); "
+          f"losses card {[round(v, 6) for v in lc]}, CPU "
+          f"{[round(v, 6) for v in lp]} (max rel {rel:.2e})", flush=True)
+    return {"out_err": err, "out_scale": scale, "losses_card": lc,
+            "losses_cpu": lp, "loss_rel": rel}
+
+
+def ncf_path(card, detail):
+    """NeuralCF at bench_ncf.py's configuration through the entry points
+    a user calls: held to the CPU port, then timed, profiled and asked
+    for recommendations."""
+    import torch
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        NeuralCF, UserItemFeature)
+    from analytics_zoo_tpu_torch.ops.optimizers import Adam
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    out = {}
+    x, y = ncf_data(NCF_BATCH * NCF_STEPS)
+    compile_kw = dict(optimizer=Adam(lr=1e-3), loss="class_nll")
+    ncf, cpu = on_cpu_and_card(lambda: NeuralCF(**NCF), compile_kw)
+    n_params = sum(v.numel() for v in ncf.model.parameters())
+    print(f"  NeuralCF {NCF}: {n_params} params, batch {NCF_BATCH}",
+          flush=True)
+    out["params"] = n_params
+    out["vs_cpu"] = held_to_cpu("NCF", ncf, cpu, x, y, NCF_BATCH, 3)
+    del cpu
+    est = ncf.model.estimator
+    reset_launches()
+    torch.cuda.synchronize()
+    hist = ncf.fit(x, y, batch_size=NCF_BATCH, nb_epoch=1).history
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"NCF: the eleven kernels launched on this path: {launches}")
+    losses = hist[-1]["losses"]
+    check(len(losses) == NCF_STEPS and all(np.isfinite(losses)),
+          f"NCF: {len(losses)} steps, losses {losses}")
+    rates = []
+    obs.reset_metrics()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ncf.fit(x, y, batch_size=NCF_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        rates.append(len(x) / (time.perf_counter() - t))
+    wait = obs.snapshot()["zoo_tpu_train_data_wait_seconds"]["values"][0]
+    med = statistics.median(rates)
+    out.update(samples_per_s=med, samples_per_s_spread=[min(rates),
+                                                       max(rates)],
+               windows=rates, step_ms=NCF_BATCH / med * 1e3,
+               data_wait_ms_per_step=wait["sum"] / wait["count"] * 1e3,
+               losses=losses, launches=launches)
+    print(f"  NCF train: {out['step_ms']:.3f} ms per step, {med:.1f} "
+          f"samples/s (median of 3 epochs of {NCF_STEPS} steps; "
+          f"{min(rates):.1f}-{max(rates):.1f}), data wait "
+          f"{out['data_wait_ms_per_step']:.3f} ms per step over "
+          f"{wait['count']} steps, on {card}", flush=True)
+    print("  profile NCF train (3 steps):", flush=True)
+    prof = profile_steps(
+        lambda: est.train(x, y, batch_size=NCF_BATCH,
+                          end_trigger=MaxIteration(est.step + 3)),
+        1, (), per=3)
+    out["profile"] = prof
+    print("    the five largest device rows:", flush=True)
+    for k, ms in prof["top"][:5]:
+        print(f"      {ms:9.3f} ms per step  {k}", flush=True)
+    pairs = [UserItemFeature(int(u), int(i), row)
+             for (u, i), row in zip(x[:NCF_BATCH], x[:NCF_BATCH])]
+    recs = ncf.recommend_for_user(pairs, max_items=10)
+    check(len(recs) > 0 and all(np.isfinite(r.probability) for r in recs),
+          "NCF: recommend_for_user gave no finite recommendation")
+    times = []
+    for _ in range(7):
+        t = time.perf_counter()
+        ncf.recommend_for_user(pairs, max_items=10)
+        times.append(time.perf_counter() - t)
+    out["recommend_ms"] = statistics.median(times) * 1e3
+    out["recommend_ms_spread"] = [min(times) * 1e3, max(times) * 1e3]
+    print(f"  recommend_for_user over {len(pairs)} pairs (top 10 of "
+          f"{len({p.user_id for p in pairs})} users): median "
+          f"{out['recommend_ms']:.2f} ms per request "
+          f"({out['recommend_ms_spread'][0]:.2f}-"
+          f"{out['recommend_ms_spread'][1]:.2f}, 7 requests) on {card}",
+          flush=True)
+    detail["ncf"] = out
+    return launches
+
+
+def wide_and_deep_path(card, detail):
+    """``wide_n_deep`` at the ml-1m column layout of the port's example
+    (6040 users, 3706 items): forward and one Adam step held to the CPU
+    port, then the example's ``main`` once on the card."""
+    import torch
+    from analytics_zoo_tpu_torch.examples import wide_and_deep as ex
+    from analytics_zoo_tpu_torch.models.recommendation import WideAndDeep
+    from analytics_zoo_tpu_torch.ops.optimizers import Adam
+    users, items, n = NCF["user_count"], NCF["item_count"], 4096
+    info = ex.column_info(users, items)
+    d = ex.synth_ml1m(n, users, items, np.random.RandomState(0))
+    x = list(ex.assembly_feature(d, info))
+    y = (d["rating"] - 1)[:, None].astype(np.int32)
+    wnd, cpu = on_cpu_and_card(
+        lambda: WideAndDeep("wide_n_deep", num_classes=5, column_info=info),
+        dict(optimizer=Adam(lr=1e-2), loss="class_nll"))
+    # the wide Dense starts at zero: give it weights to carry
+    p = cpu.model.params()["wide_linear"]["kernel"]
+    w = torch.randn(p.shape, generator=torch.Generator().manual_seed(2))
+    for m in (wnd, cpu):
+        m.model.params()["wide_linear"]["kernel"].copy_(w * 0.1)
+    reset_launches()
+    res = held_to_cpu("Wide&Deep", wnd, cpu, x, y, n, 1)
+    check(not any(all_launches().values()),
+          f"Wide&Deep: the eleven kernels launched: {all_launches()}")
+    got = ex.main(["--users", str(users), "--items", str(items),
+                   "--samples", "16384", "--batch-size", "1024",
+                   "--epochs", "2"])
+    check(np.isfinite(got["loss"]) and got["loss"] > 0,
+          f"Wide&Deep example: loss {got['loss']}")
+    print(f"  examples/wide_and_deep.py main on the card: loss "
+          f"{got['loss']:.4f}, validation accuracy {got['accuracy']:.3f}",
+          flush=True)
+    detail["wide_and_deep"] = {**res, "example": got}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2675,11 +2914,18 @@ def main() -> int:
     print("[10] decode crossover (B11 vs dense, f32)", flush=True)
     decode_crossover(card, detail)
 
+    print("[11] recommendation: NeuralCF at bench_ncf.py's configuration "
+          "and Wide&Deep (no kernel of the eleven on this path)", flush=True)
+    embedding_trap(card, detail)
+    ncf_path(card, detail)
+    wide_and_deep_path(card, detail)
+    torch.cuda.empty_cache()
+
     by_path = {"serve": served, "train": trained, "generate": generated}
     for name, meta in KERNELS.items():
         launches[name] = by_path.get(meta["path"], bert_est)[name]
 
-    print("[11] summary", flush=True)
+    print("[12] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if rec["name"] in FLASH:
