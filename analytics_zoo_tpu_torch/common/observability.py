@@ -1,12 +1,26 @@
-"""Telemetry core, trimmed (port of
-``analytics_zoo_tpu/common/observability.py``).
+"""Telemetry core (port of ``analytics_zoo_tpu/common/observability.py``,
+less its JSONL event log).
 
-What ``InferenceModel.predict`` and the generation batcher write:
-labelled counters, gauges, fixed-bucket histograms and wall-time spans
+Labelled counters, gauges, fixed-bucket histograms and wall-time spans
 in one process-global, thread-safe registry, read back with
-:func:`snapshot`. The JAX package's Prometheus exposition, JSONL event
-log and trace joining are not ported yet. Names follow
+:func:`snapshot` (JSON-able) or :func:`to_prometheus` (Prometheus text
+format 0.0.4, the inference server's ``GET /metrics``). A span opened
+while a trace is ambient (:mod:`~analytics_zoo_tpu_torch.common.tracing`)
+also joins that trace as a child; its keyword fields go to the trace
+record, never to metric labels. Names follow
 ``zoo_tpu_<area>_<what>[_<unit>]``.
+
+The serving front end's metrics (``pipeline/inference/serving.py`` and
+the ``DynamicBatcher``): ``zoo_tpu_serving_requests_total{path,status}``,
+``zoo_tpu_serving_request_seconds{path}``, ``zoo_tpu_serving_in_flight``,
+``zoo_tpu_serving_queue_depth``, ``zoo_tpu_serving_warmed_buckets``,
+``zoo_tpu_serving_queue_wait_seconds``, ``zoo_tpu_serving_batch_size``,
+``zoo_tpu_serving_batch_fill_ratio``,
+``zoo_tpu_serving_padding_rows_total``,
+``zoo_tpu_serving_batch_executions_total{bucket}``,
+``zoo_tpu_serving_bucket_compiles_total``,
+``zoo_tpu_serving_errors_total{kind}`` and the ``serving/predict``,
+``serving/pad`` and ``serving/bucket_warm`` spans.
 
 The generation metrics (``pipeline/inference/batching.py``):
 ``zoo_tpu_serving_gen_ttft_seconds`` (submit to first token),
@@ -26,6 +40,8 @@ import threading
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+from analytics_zoo_tpu_torch.common import tracing as _tracing
+
 DEFAULT_BUCKETS: "Tuple[float, ...]" = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
@@ -44,11 +60,60 @@ def _sanitize(name: str) -> str:
     return name
 
 
+def _fmt(v: float) -> str:
+    """Prometheus sample value: integral floats print as ints."""
+    f = float(v)
+    return str(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+def _escape_label(v: Any) -> str:
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
 def _label_key(labels: Optional[Dict[str, Any]]
                ) -> "Tuple[Tuple[str, str], ...]":
     if not labels:
         return ()
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _label_str(key: "Tuple[Tuple[str, str], ...]") -> str:
+    if not key:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in key)
+    return "{" + inner + "}"
+
+
+def bucket_quantile(buckets: "Sequence[float]",
+                    counts: "Sequence[float]", q: float) -> float:
+    """Prometheus-style quantile estimate from per-bucket counts.
+
+    ``buckets`` are the finite upper bounds (ascending); ``counts`` are
+    per-bucket (not cumulative) observation counts with one trailing
+    entry for the ``+Inf`` bucket. Linear interpolation inside the
+    winning bucket, a lower edge of 0 for the first bucket and, like
+    Prometheus ``histogram_quantile``, the highest finite bound when the
+    rank lands in the overflow bucket. NaN when there are no
+    observations."""
+    if len(counts) != len(buckets) + 1:
+        raise ValueError("counts must be per-bucket plus overflow")
+    total = float(sum(counts))
+    if total <= 0:
+        return float("nan")
+    q = min(max(float(q), 0.0), 1.0)
+    rank = q * total
+    acc = 0.0
+    for i, hi in enumerate(buckets):
+        prev = acc
+        acc += counts[i]
+        if acc >= rank:
+            if counts[i] <= 0:
+                return float(hi)
+            lo = float(buckets[i - 1]) if i > 0 else 0.0
+            frac = (rank - prev) / counts[i]
+            return lo + (float(hi) - lo) * min(max(frac, 0.0), 1.0)
+    return float(buckets[-1])  # rank fell in the +Inf bucket
 
 
 class Counter:
@@ -125,6 +190,24 @@ class Histogram:
     def sum(self) -> float:
         return self._sum
 
+    def cumulative(self) -> "list[tuple[str, int]]":
+        """[(le_str, cumulative_count), ..., ("+Inf", total)]."""
+        with self._lock:
+            counts = list(self._counts)
+        out, acc = [], 0
+        for b, c in zip(self.buckets, counts):
+            acc += c
+            out.append((_fmt(b), acc))
+        out.append(("+Inf", acc + counts[-1]))
+        return out
+
+    def quantile(self, q: float) -> float:
+        """The q-quantile (0 <= q <= 1) estimated from the bucket
+        counts (:func:`bucket_quantile`); NaN when empty."""
+        with self._lock:
+            counts = list(self._counts)
+        return bucket_quantile(self.buckets, counts, q)
+
 
 class _Family:
     __slots__ = ("name", "mtype", "help", "buckets", "children", "_lock")
@@ -188,7 +271,7 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         """JSON-able dump: ``{name: {"type", "help", "values": [...]}}``
         with a counter's or gauge's ``value`` or a histogram's
-        ``count``/``sum``."""
+        ``count``, ``sum`` and cumulative ``buckets``."""
         out: "Dict[str, dict]" = {}
         with self._lock:
             fams = sorted(self._families.values(), key=lambda f: f.name)
@@ -201,6 +284,7 @@ class MetricsRegistry:
                 if fam.mtype == "histogram":
                     rec["count"] = m.count
                     rec["sum"] = m.sum
+                    rec["buckets"] = dict(m.cumulative())
                 else:
                     rec["value"] = m.value
                 values.append(rec)
@@ -208,12 +292,39 @@ class MetricsRegistry:
                              "values": values}
         return out
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines: "list[str]" = []
+        with self._lock:
+            fams = sorted(self._families.values(), key=lambda f: f.name)
+        for fam in fams:
+            if fam.help:
+                lines.append(f"# HELP {fam.name} {fam.help}")
+            lines.append(f"# TYPE {fam.name} {fam.mtype}")
+            with fam._lock:
+                items = sorted(fam.children.items())
+            for key, m in items:
+                ls = _label_str(key)
+                if fam.mtype == "histogram":
+                    for le, cum in m.cumulative():
+                        bl = _label_str(key + (("le", le),))
+                        lines.append(f"{fam.name}_bucket{bl} {cum}")
+                    lines.append(f"{fam.name}_sum{ls} {_fmt(m.sum)}")
+                    lines.append(f"{fam.name}_count{ls} {m.count}")
+                else:
+                    lines.append(f"{fam.name}{ls} {_fmt(m.value)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def reset(self):
         with self._lock:
             self._families.clear()
 
 
 _REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return _REGISTRY
 
 
 def counter(name: str, help: str = "",
@@ -236,6 +347,10 @@ def snapshot() -> dict:
     return _REGISTRY.snapshot()
 
 
+def to_prometheus() -> str:
+    return _REGISTRY.to_prometheus()
+
+
 def reset_metrics():
     """Clear the process-global registry (test isolation)."""
     _REGISTRY.reset()
@@ -245,17 +360,24 @@ class Span:
     """Times a ``with`` block into the wall-time histogram
     ``zoo_tpu_<name>_seconds`` (``serving/predict`` →
     ``zoo_tpu_serving_predict_seconds``); ``elapsed`` holds the
-    duration in seconds after exit. Exceptions pass through."""
+    duration in seconds after exit. Exceptions pass through. When a
+    trace is ambient the span also joins it as a child, recorded with
+    ``fields`` (which never become metric labels)."""
 
-    __slots__ = ("name", "elapsed", "_t0", "_registry")
+    __slots__ = ("name", "fields", "elapsed", "_t0", "_registry",
+                 "_trace_tok")
 
-    def __init__(self, name: str, registry: MetricsRegistry):
+    def __init__(self, name: str, registry: MetricsRegistry,
+                 fields: Dict[str, Any]):
         self.name = name
+        self.fields = fields
         self.elapsed = 0.0
         self._t0 = 0.0
         self._registry = registry
+        self._trace_tok = None
 
     def __enter__(self) -> "Span":
+        self._trace_tok = _tracing.span_start(self.name)
         self._t0 = time.perf_counter()
         return self
 
@@ -264,9 +386,13 @@ class Span:
         self._registry.histogram(
             "zoo_tpu_" + _sanitize(self.name) + "_seconds",
             help=f"wall time of {self.name} spans").observe(self.elapsed)
+        if self._trace_tok is not None:
+            _tracing.span_end(self._trace_tok, self.name, self.elapsed,
+                              self.fields)
         return False
 
 
-def span(name: str, registry: Optional[MetricsRegistry] = None) -> Span:
-    """``with span("serving/predict"): ...``"""
-    return Span(name, registry or _REGISTRY)
+def span(name: str, registry: Optional[MetricsRegistry] = None,
+         **fields) -> Span:
+    """``with span("serving/pad", rows=3): ...``"""
+    return Span(name, registry or _REGISTRY, fields)

@@ -101,6 +101,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def loaded() -> "tuple[str, ...]":
+    """The names of the libraries this process has loaded (and built
+    where they were missing), in order: a serving warm-up that did its
+    work leaves none for the first request to load."""
+    with _lock:
+        return tuple(_libs)
+
+
 def last_kernel(name: str) -> str:
     """The kernel instance ``csrc/<name>.cu``'s library launched last on
     the calling thread, as the profiler names it without namespace and

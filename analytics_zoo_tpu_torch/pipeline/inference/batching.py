@@ -1,22 +1,58 @@
-"""Continuous batching for generation serving (port of the
-``ContinuousBatcher`` of ``analytics_zoo_tpu/pipeline/inference/
-batching.py``, whole-prompt path; ``DynamicBatcher`` and the chunked,
-speculative and handoff branches wait with their engine features).
+"""Request batching for serving (port of
+``analytics_zoo_tpu/pipeline/inference/batching.py``): the
+``DynamicBatcher`` in front of ``/predict`` and the whole-prompt path of
+the ``ContinuousBatcher`` in front of ``/generate``.
 
-Generation requests run for a variable number of steps, so batching
-whole requests would hold every sequence hostage to the longest one
-(ORCA, OSDI'22). Instead one decode step runs continuously over a fixed
-slot array (``generation.GenerationEngine``) and this batcher
-reschedules between steps: finished sequences retire (pages reclaimed,
-future resolved) and queued ones are admitted into the freed slots by a
-bucket-padded prefill, while their neighbours keep decoding.
+**DynamicBatcher.** One request per forward starves the card at batch 1
+(Clipper, NSDI'17). Requests land in a bounded queue; one dispatcher
+thread drains up to ``max_batch_size`` rows or until ``max_wait_ms``
+expires, pads the coalesced batch with zero rows up to the next size of
+a bucket ladder (powers of two by default), runs one forward per bucket
+and scatters the un-padded rows back to the requests' futures. A full
+queue rejects at once (:class:`QueueFullError` → HTTP 503 +
+``Retry-After``), and requests past their deadline are evicted before
+dispatch (:class:`DeadlineExpiredError` → HTTP 504).
 
-Thread model: client threads call :meth:`ContinuousBatcher.submit`; one
+Where the reference AOT-compiles one executable per (signature,
+bucket), the port keeps one callable per (signature, bucket)
+(``InferenceModel.lower_for``). :meth:`DynamicBatcher.start` runs every
+bucket once on the dispatcher's own thread, under
+``torch.inference_mode``, before the first request, so kernel builds,
+cuDNN's algorithm choice and the caching allocator's blocks all happen
+in warm-up; a model reload (its ``generation`` counter) clears them. A
+warm-up failure raises: there is no unpadded fallback for a signature
+the model cannot run. The reference's fault point ``batcher/dispatch``
+and its recompile monitor wait for the ``faults`` and ``diagnostics``
+modules (ROADMAP A13).
+
+Configuration: constructor kwargs override the environment,
+``ZOO_TPU_SERVING_BATCH`` (``0`` reverts the servers to per-request
+serving), ``ZOO_TPU_SERVING_MAX_BATCH`` (32),
+``ZOO_TPU_SERVING_MAX_WAIT_MS`` (5), ``ZOO_TPU_SERVING_QUEUE_DEPTH``
+(256), ``ZOO_TPU_SERVING_DEADLINE_MS`` (0: none) and
+``ZOO_TPU_SERVING_BUCKETS`` (a comma-separated ladder).
+
+Correctness contract: the served forward is row-wise in eval mode (row
+*i* of the output depends only on row *i* of the input), as every model
+the zoo serves is (BatchNorm folds its moving statistics). Padding rows
+are zeros and are sliced off before the scatter.
+
+**ContinuousBatcher.** Generation requests run for a variable number of
+steps, so batching whole requests would hold every sequence hostage to
+the longest one (ORCA, OSDI'22). Instead one decode step runs
+continuously over a fixed slot array (``generation.GenerationEngine``)
+and this batcher reschedules between steps: finished sequences retire
+(pages reclaimed, future resolved) and queued ones are admitted into the
+freed slots by a bucket-padded prefill, while their neighbours keep
+decoding. Client threads call :meth:`ContinuousBatcher.submit`; one
 loop thread drives admit → step → retire. Admission is gated on a free
 slot and a full worst-case page reservation, so an admitted sequence
 always runs to completion. ``ZOO_TPU_GEN_QUEUE_DEPTH`` bounds the wait
 queue (default 64; full → :class:`QueueFullError`),
 ``ZOO_TPU_GEN_MAX_NEW`` caps a request's decode budget (default 256).
+The chunked, speculative and handoff branches wait with their engine
+features (ROADMAP A12).
+
 Telemetry: ``common/observability.py`` lists the metrics and spans.
 """
 
@@ -27,15 +63,19 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from analytics_zoo_tpu_torch.common import observability as obs
+from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.common.nncontext import logger
 
-__all__ = ["ContinuousBatcher", "QueueFullError", "DeadlineExpiredError",
-           "bucket_ladder"]
+__all__ = ["DynamicBatcher", "ContinuousBatcher", "QueueFullError",
+           "DeadlineExpiredError", "bucket_ladder"]
+
+# fill-ratio histogram buckets: rows / bucket capacity in (0, 1]
+_FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 
 def _fail_entry(entry, exc):
@@ -63,9 +103,19 @@ class DeadlineExpiredError(Exception):
     """The request's deadline elapsed while it waited in the queue."""
 
 
-def bucket_ladder(max_batch: int) -> "Tuple[int, ...]":
-    """Powers of two up to ``max_batch`` (``max_batch`` appended when it
-    is not one). The generation engine pads prompts to this ladder."""
+def bucket_ladder(max_batch: int,
+                  override: Optional[Sequence[int]] = None
+                  ) -> "Tuple[int, ...]":
+    """The batch sizes the batcher warms and pads to: powers of two up
+    to ``max_batch`` (``max_batch`` appended when it is not one), or a
+    validated, sorted copy of ``override`` (ValueError when it is empty
+    or holds a size below 1). The generation engine pads prompts to the
+    default ladder."""
+    if override is not None:
+        ladder = sorted({int(b) for b in override})
+        if not ladder or ladder[0] < 1:
+            raise ValueError(f"invalid bucket ladder: {override!r}")
+        return tuple(ladder)
     ladder = []
     b = 1
     while b < max_batch:
@@ -75,13 +125,489 @@ def bucket_ladder(max_batch: int) -> "Tuple[int, ...]":
     return tuple(ladder)
 
 
+class _Entry:
+    """One queued request: input arrays, row count, signature,
+    completion future, the two clocks (enqueue time, absolute
+    deadline) and, when the submitting thread had an open trace, its
+    captured context, so the dispatcher can credit queue wait, execute
+    and scatter back to the request's trace."""
+
+    __slots__ = ("xs", "n", "sig", "future", "t_enq", "deadline",
+                 "trace", "t_enq_wall")
+
+    def __init__(self, xs, n, sig, deadline):
+        self.xs = xs
+        self.n = n
+        self.sig = sig
+        self.future: "Future" = Future()
+        self.t_enq = time.monotonic()
+        self.deadline = deadline  # absolute monotonic, or None
+        self.trace = tracing.current()  # None when untraced
+        self.t_enq_wall = time.time() if self.trace else 0.0
+
+
+def _signature(xs) -> tuple:
+    """Coalescing key: per-input (row shape, dtype). Requests merge only
+    when every input position agrees on both."""
+    return tuple((tuple(x.shape[1:]), str(x.dtype)) for x in xs)
+
+
+class DynamicBatcher:
+    """Cross-request micro-batching between the HTTP front end and an
+    :class:`~analytics_zoo_tpu_torch.pipeline.inference.InferenceModel`
+    (the module docstring has the design).
+
+    Any number of handler threads call :meth:`submit`; one dispatcher
+    thread drains, pads, executes and scatters, so the card runs one
+    bucket at a time and the model's slot pool is not used by the
+    batched path.
+    """
+
+    def __init__(self, model, *,
+                 max_batch_size: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
+                 queue_depth: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 buckets: Optional[Sequence[int]] = None):
+        env = os.environ
+        if max_batch_size is None:
+            max_batch_size = int(env.get("ZOO_TPU_SERVING_MAX_BATCH", 32))
+        if max_wait_ms is None:
+            max_wait_ms = float(env.get("ZOO_TPU_SERVING_MAX_WAIT_MS", 5))
+        if queue_depth is None:
+            queue_depth = int(env.get("ZOO_TPU_SERVING_QUEUE_DEPTH", 256))
+        if deadline_ms is None:
+            deadline_ms = float(env.get("ZOO_TPU_SERVING_DEADLINE_MS", 0))
+        if buckets is None and env.get("ZOO_TPU_SERVING_BUCKETS"):
+            buckets = [int(b) for b in
+                       env["ZOO_TPU_SERVING_BUCKETS"].split(",")]
+        self.model = model
+        self.buckets = bucket_ladder(int(max_batch_size), buckets)
+        self.max_batch = self.buckets[-1]
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self.queue_depth = int(queue_depth)
+        self.deadline_s = (float(deadline_ms) / 1e3 if deadline_ms
+                           else None)
+
+        self._q: "deque[_Entry]" = deque()
+        self._cond = threading.Condition()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        # (signature, bucket) -> bucket callable; cleared when the
+        # model swaps generations (reload)
+        self._compiled: dict = {}
+        self._compile_lock = threading.Lock()
+        self._model_gen = getattr(model, "generation", 0)
+        self._ema_batch_s = 0.01  # retry-after estimator seed
+        # touch the gauges so /metrics carries them from the start
+        self._depth_gauge().set(0)
+        self._warmed_gauge().set(0)
+
+    # -- factory ------------------------------------------------------------
+    @classmethod
+    def from_env(cls, model) -> "Optional[DynamicBatcher]":
+        """The servers' default construction: a batcher with
+        environment settings, or ``None`` when ``ZOO_TPU_SERVING_BATCH=0``
+        reverts to per-request serving."""
+        if os.environ.get("ZOO_TPU_SERVING_BATCH", "1") == "0":
+            return None
+        return cls(model)
+
+    # -- metrics handles ----------------------------------------------------
+    def _depth_gauge(self):
+        return obs.gauge("zoo_tpu_serving_queue_depth",
+                         help="requests waiting in the batcher queue")
+
+    def _warmed_gauge(self):
+        return obs.gauge("zoo_tpu_serving_warmed_buckets",
+                         help="bucket executables compiled and ready")
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "DynamicBatcher":
+        """Start the dispatcher thread, which first warms every bucket
+        of the model's declared signature (:meth:`warm`) and then
+        serves; returns once warm-up is done and raises what it raised.
+        Idempotent."""
+        if self._thread is not None and self._thread.is_alive():
+            return self
+        with self._cond:
+            self._depth_gauge().set(len(self._q))
+        self._warmed_gauge().set(self.warmed_buckets)
+        self._stop = False
+        warmed = threading.Event()
+        failed: list = []
+
+        def dispatcher():
+            try:
+                self.warm()
+            except Exception as e:  # re-raised by start()
+                failed.append(e)
+                return
+            finally:
+                warmed.set()
+            self._run()
+
+        self._thread = threading.Thread(
+            target=dispatcher, name="zoo-tpu-batcher", daemon=True)
+        self._thread.start()
+        warmed.wait()
+        if failed:
+            self._thread.join()
+            self._thread = None
+            raise failed[0]
+        return self
+
+    def stop(self, timeout: float = 30.0):
+        """Drain the queue (pending entries execute or expire), then
+        stop the dispatcher."""
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+
+    def warm(self) -> int:
+        """Make and run every bucket callable of the model's declared
+        example-input signature, on the calling thread (the dispatcher's,
+        from :meth:`start`). Returns the number of buckets warmed; 0 when
+        the model declared no signature (a signature is then warmed on
+        its first request) or cannot build bucket callables."""
+        specs = getattr(self.model, "example_input_specs", None)
+        if not specs or not getattr(self.model, "can_relower", False):
+            return 0
+        sig = tuple((tuple(shape[1:]), str(np.dtype(dt)))
+                    for shape, dt in specs)
+        return self._warm_signature(sig)
+
+    # -- admission ----------------------------------------------------------
+    def batchable(self, xs: "Sequence[np.ndarray]") -> bool:
+        """Whether these inputs can ride the coalescing path: every
+        input has a leading (row) dimension and all agree on it."""
+        if not xs:
+            return False
+        if any(x.ndim < 1 for x in xs):
+            return False
+        n = xs[0].shape[0]
+        return n >= 1 and all(x.shape[0] == n for x in xs)
+
+    def submit(self, xs: "Sequence[np.ndarray]") -> "Future":
+        """Enqueue one request (a list of row-aligned host arrays).
+        Returns a future resolving to what ``model.predict`` returns for
+        these inputs (one array, or a list for a multi-output model).
+        Raises :class:`QueueFullError` when the queue is at capacity."""
+        xs = [np.asarray(x) for x in xs]
+        if not self.batchable(xs):
+            raise ValueError(
+                "inputs are not row-aligned (every input needs the "
+                "same leading dimension >= 1)")
+        n = xs[0].shape[0]
+        deadline = (time.monotonic() + self.deadline_s
+                    if self.deadline_s else None)
+        entry = _Entry(xs, n, _signature(xs), deadline)
+        with self._cond:
+            if len(self._q) >= self.queue_depth:
+                # ~time for the backlog to drain at the current rate
+                retry = max(0.05, len(self._q) * self._ema_batch_s
+                            * max(1.0, n / self.max_batch))
+                obs.counter("zoo_tpu_serving_errors_total",
+                            help="serving errors by kind",
+                            labels={"kind": "queue_full"}).inc()
+                raise QueueFullError(len(self._q), retry)
+            self._q.append(entry)
+            self._depth_gauge().set(len(self._q))
+            self._cond.notify_all()
+        return entry.future
+
+    # -- dispatcher ---------------------------------------------------------
+    def _evict_expired_locked(self):
+        if self.deadline_s is None or not self._q:
+            return
+        now = time.monotonic()
+        kept = deque()
+        for e in self._q:
+            if e.deadline is not None and e.deadline < now:
+                obs.counter("zoo_tpu_serving_errors_total",
+                            help="serving errors by kind",
+                            labels={"kind": "deadline_expired"}).inc()
+                _fail_entry(e, DeadlineExpiredError(
+                    f"request waited past its "
+                    f"{self.deadline_s * 1e3:.0f}ms deadline"))
+            else:
+                kept.append(e)
+        if len(kept) != len(self._q):
+            self._q = kept
+            self._depth_gauge().set(len(self._q))
+
+    def _ready_rows_locked(self) -> int:
+        """Row count of the maximal coalescible prefix (the head's
+        signature, cumulative rows <= max_batch)."""
+        rows = 0
+        sig = self._q[0].sig
+        for e in self._q:
+            if e.sig != sig or (rows and rows + e.n > self.max_batch):
+                break
+            rows += e.n
+        return rows
+
+    def _take_batch_locked(self) -> "list[_Entry]":
+        batch: "list[_Entry]" = []
+        rows = 0
+        while self._q:
+            e = self._q[0]
+            if batch and (e.sig != batch[0].sig
+                          or rows + e.n > self.max_batch):
+                break
+            batch.append(self._q.popleft())
+            rows += e.n
+            if rows >= self.max_batch:
+                break
+        self._depth_gauge().set(len(self._q))
+        return batch
+
+    def _run(self):
+        # nothing that goes wrong with one batch (pad, scatter, the
+        # forward, the queue bookkeeping) may escape this loop: it would
+        # end the one dispatcher thread and every later submit would
+        # wait forever. Each iteration fails at most its own batch.
+        while True:
+            batch: "list[_Entry]" = []
+            try:
+                with self._cond:
+                    while not self._q and not self._stop:
+                        self._cond.wait(timeout=0.1)
+                    if not self._q:
+                        if self._stop:
+                            return
+                        continue
+                    self._evict_expired_locked()
+                    if not self._q:
+                        continue
+                    # the coalescing window is anchored at the head's
+                    # arrival: the oldest request never waits past
+                    # max_wait_ms
+                    wait_until = self._q[0].t_enq + self.max_wait_s
+                    while (not self._stop and
+                           self._ready_rows_locked() < self.max_batch):
+                        remaining = wait_until - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cond.wait(timeout=min(remaining, 0.05))
+                        self._evict_expired_locked()
+                        if not self._q:
+                            break
+                    if not self._q:
+                        continue
+                    batch = self._take_batch_locked()
+                if batch:
+                    self._execute(batch)
+            except Exception as e:
+                for entry in batch:
+                    _fail_entry(entry, e)
+                obs.counter("zoo_tpu_serving_errors_total",
+                            help="serving errors by kind",
+                            labels={"kind": "dispatch_error"}).inc()
+                logger.warning("batcher dispatch error (%s: %s); "
+                               "dispatcher continues",
+                               type(e).__name__, e, exc_info=True)
+
+    # -- execution ----------------------------------------------------------
+    def _execute(self, batch: "list[_Entry]"):
+        now = time.monotonic()
+        wait_h = obs.histogram(
+            "zoo_tpu_serving_queue_wait_seconds",
+            help="time requests spent queued before dispatch")
+        rows = sum(e.n for e in batch)
+        for e in batch:
+            wait_h.observe(now - e.t_enq)
+            # credit the queue wait back to each request's trace
+            tracing.record_span(
+                e.trace, "serving/queue_wait", e.t_enq_wall,
+                now - e.t_enq, rows=e.n, batch_rows=rows,
+                n_requests=len(batch))
+        sig = batch[0].sig
+        n_inputs = len(batch[0].xs)
+        if len(batch) == 1:
+            xs = batch[0].xs
+        else:
+            xs = [np.concatenate([e.xs[i] for e in batch])
+                  for i in range(n_inputs)]
+        t0 = time.monotonic()
+        t0_wall = time.time()
+        try:
+            # the first entry's trace becomes ambient, so the pad and
+            # predict spans join it as children
+            with tracing.activate(batch[0].trace):
+                outs, multi = self._run_rows(sig, xs, rows)
+        except Exception as e:  # each request's future carries it
+            for entry in batch:
+                _fail_entry(entry, e)
+            logger.warning("batch of %d rows failed (%s: %s)", rows,
+                           type(e).__name__, e, exc_info=True)
+            return
+        exec_s = time.monotonic() - t0
+        # coalesced requests beyond the first get an explicit execute
+        # span (their trace was not the ambient one during the call)
+        for e in batch[1:]:
+            tracing.record_span(
+                e.trace, "serving/execute", t0_wall, exec_s,
+                rows=e.n, batch_rows=rows, n_requests=len(batch))
+        self._ema_batch_s = 0.8 * self._ema_batch_s + 0.2 * exec_s
+        off = 0
+        t_sc = time.monotonic()
+        t_sc_wall = time.time()
+        for entry in batch:
+            rows_out = [o[off:off + entry.n] for o in outs]
+            try:
+                if not entry.future.done():
+                    entry.future.set_result(
+                        rows_out if multi else rows_out[0])
+            except Exception:  # cancelled under us: drop the rows,
+                pass           # the batchmates still get theirs
+            off += entry.n
+        scatter_s = time.monotonic() - t_sc
+        for e in batch:
+            tracing.record_span(
+                e.trace, "serving/scatter", t_sc_wall, scatter_s,
+                rows=e.n, n_requests=len(batch))
+
+    def _run_rows(self, sig, xs, rows):
+        """Execute ``rows`` coalesced rows, in chunks of ``max_batch``
+        when one oversized request exceeds it. Returns ``(outs,
+        multi)``: row-aligned host arrays (one per model output) and
+        whether the model returned a list."""
+        if rows <= self.max_batch:
+            return self._pad_and_run(sig, xs, rows)
+        chunks = []
+        multi = False
+        for lo in range(0, rows, self.max_batch):
+            hi = min(lo + self.max_batch, rows)
+            part, multi = self._pad_and_run(
+                sig, [x[lo:hi] for x in xs], hi - lo)
+            chunks.append(part)
+        return [np.concatenate([c[i] for c in chunks])
+                for i in range(len(chunks[0]))], multi
+
+    def _pad_and_run(self, sig, xs, n):
+        bucket = next(b for b in self.buckets if b >= n)
+        fn = self._get_compiled(sig, bucket)
+        obs.histogram("zoo_tpu_serving_batch_size",
+                      help="predict batch size (leading dim)",
+                      buckets=obs.SIZE_BUCKETS).observe(n)
+        obs.histogram("zoo_tpu_serving_batch_fill_ratio",
+                      help="coalesced rows / bucket capacity",
+                      buckets=_FILL_BUCKETS).observe(n / bucket)
+        if fn is None:
+            # a model that cannot build bucket callables: coalesce
+            # without padding through the per-request path (still one
+            # call per drained batch)
+            with obs.span("serving/predict", rows=n, bucket=0):
+                out = self.model.predict(list(xs) if len(xs) > 1
+                                         else xs[0])
+            multi = isinstance(out, list)
+            outs = out if multi else [out]
+            return [np.asarray(o) for o in outs], multi
+        pad = bucket - n
+        if pad:
+            with obs.span("serving/pad", rows=n, bucket=bucket, pad=pad):
+                xs = [np.concatenate(
+                    [x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+                    for x in xs]
+            obs.counter("zoo_tpu_serving_padding_rows_total",
+                        help="padding rows executed (bucket waste)"
+                        ).inc(pad)
+        obs.counter("zoo_tpu_serving_batch_executions_total",
+                    help="bucket executions",
+                    labels={"bucket": str(bucket)}).inc()
+        with obs.span("serving/predict", rows=n, bucket=bucket,
+                      fill=round(n / bucket, 4)):
+            out = fn(*xs)
+        multi = isinstance(out, (list, tuple))
+        outs = [np.asarray(o) for o in (out if multi else [out])]
+        for o in outs:
+            if o.ndim < 1 or o.shape[0] != bucket:
+                raise ValueError(
+                    "model output is not row-aligned with its input "
+                    f"(expected leading dim {bucket}, got {o.shape}); "
+                    "dynamic batching requires a row-wise forward")
+        return [o[:n] for o in outs], multi
+
+    # -- bucket callables ---------------------------------------------------
+    def _get_compiled(self, sig, bucket: int):
+        gen = getattr(self.model, "generation", 0)
+        with self._compile_lock:
+            if gen != self._model_gen:  # model reloaded underneath us
+                self._compiled.clear()
+                self._model_gen = gen
+                self._warmed_gauge().set(0)
+            fn = self._compiled.get((sig, bucket))
+        if fn is not None:
+            return fn
+        if not getattr(self.model, "can_relower", False):
+            return None
+        # first sight of this signature: warm the whole ladder, so the
+        # request mix that follows makes no new callable (a failure
+        # fails this batch and is tried again on the next)
+        self._warm_signature(sig)
+        with self._compile_lock:
+            return self._compiled.get((sig, bucket))
+
+    def _warm_signature(self, sig) -> int:
+        warmed = 0
+        for b in self.buckets:
+            with self._compile_lock:
+                if (sig, b) in self._compiled:
+                    continue
+            specs = [((b,) + tuple(shape), np.dtype(dt))
+                     for shape, dt in sig]
+            with obs.span("serving/bucket_warm", bucket=b):
+                fn = self.model.lower_for(specs)
+            obs.counter("zoo_tpu_serving_bucket_compiles_total",
+                        help="bucket executables compiled "
+                        "(warm-up only in steady state)").inc()
+            with self._compile_lock:
+                self._compiled[(sig, b)] = fn
+                self._warmed_gauge().set(len(self._compiled))
+            warmed += 1
+        return warmed
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def warmed_buckets(self) -> int:
+        with self._compile_lock:
+            return len(self._compiled)
+
+    def stats(self) -> dict:
+        """JSON-able summary for ``GET /health``."""
+        with self._cond:
+            depth = len(self._q)
+        return {
+            "enabled": True,
+            "queue_depth": depth,
+            "queue_capacity": self.queue_depth,
+            "buckets": list(self.buckets),
+            "warmed_buckets": self.warmed_buckets,
+            "max_wait_ms": self.max_wait_s * 1e3,
+            "deadline_ms": (self.deadline_s * 1e3
+                            if self.deadline_s else None),
+        }
+
+    def __repr__(self):
+        return (f"DynamicBatcher(buckets={list(self.buckets)}, "
+                f"max_wait_ms={self.max_wait_s * 1e3:g}, "
+                f"queue_depth={self.queue_depth}, "
+                f"warmed={self.warmed_buckets})")
+
+
 class _GenEntry:
     """One queued generation request: prompt tokens, decode budget,
-    sampling knobs, completion future, clocks and, once admitted, its
-    slot and the tokens emitted so far."""
+    sampling knobs, completion future, clocks, the submitting thread's
+    trace context and, once admitted, its slot and the tokens emitted so
+    far."""
 
     __slots__ = ("ids", "max_new", "temperature", "eos_id", "future",
-                 "t_enq", "slot", "tokens", "prompt_len")
+                 "t_enq", "t_enq_wall", "trace", "slot", "tokens",
+                 "prompt_len")
 
     def __init__(self, ids, max_new, temperature, eos_id):
         self.ids = ids
@@ -90,6 +616,8 @@ class _GenEntry:
         self.eos_id = eos_id
         self.future: "Future" = Future()
         self.t_enq = time.monotonic()
+        self.t_enq_wall = time.time()
+        self.trace = tracing.current()
         self.slot = -1
         self.tokens: "list[int]" = []
         self.prompt_len = len(ids)
@@ -228,9 +756,13 @@ class ContinuousBatcher:
 
     # -- the decode loop ------------------------------------------------------
     def _finish(self, e: "_GenEntry", now: float):
-        with obs.span("decode/retire"):
+        with obs.span("decode/retire", slot=e.slot, tokens=len(e.tokens)):
             self.engine.release(e.slot)
-        self._ema_req_s = 0.8 * self._ema_req_s + 0.2 * (now - e.t_enq)
+        dur = now - e.t_enq
+        self._ema_req_s = 0.8 * self._ema_req_s + 0.2 * dur
+        # the request's trace: enqueue to its last token
+        tracing.record_span(e.trace, "decode/retire", e.t_enq_wall, dur,
+                            slot=e.slot, tokens=len(e.tokens))
         e.future.set_result(np.asarray(e.tokens, np.int32))
 
     def _token_out(self, e: "_GenEntry", tok: int, now: float) -> bool:
@@ -277,11 +809,16 @@ class ContinuousBatcher:
                 done: "list[_GenEntry]" = []
                 if fresh:
                     reqs = [(e.ids, e.max_new, e.temperature) for e in fresh]
-                    with obs.span("decode/admit"):
+                    with obs.span("decode/admit", n=len(fresh)):
                         first = engine.admit(reqs)
                     now = time.monotonic()
                     for e, (slot, tok) in zip(fresh, first):
                         e.slot = slot
+                        # the request's trace: enqueue to admission
+                        tracing.record_span(
+                            e.trace, "decode/admit", e.t_enq_wall,
+                            now - e.t_enq, slot=slot,
+                            prompt_len=len(e.ids))
                         if self._token_out(e, tok, now):
                             done.append(e)
                         else:

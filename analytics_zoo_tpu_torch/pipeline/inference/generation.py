@@ -346,6 +346,9 @@ class GenerationEngine:
             "prompt_buckets": list(self.prompt_buckets),
             "warmed_programs": len(self._warmed_programs),
             "kv_dtype": str(self.cache.k_pages.dtype).split(".")[-1],
+            # the reference's keys; both features are refused above
+            "prefill_chunk": 0,
+            "spec_k": 0,
         }
 
     def __repr__(self):

@@ -116,7 +116,32 @@ script exits non-zero and prints no result line:
    the CPU port, then ``examples/wide_and_deep.py``'s ``main`` once on
    the card. No kernel of the eleven lies on this path: their counts
    stay 0 over it;
-12. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+12. the serving front end over HTTP (``InferenceServer`` on port 0,
+   ``DynamicBatcher`` at bench_serving.py's settings: max batch 32,
+   5 ms, queue 512): phase 4's ResNet-50 in f32 and bf16 (declared by
+   an example batch of 8 in that dtype), 48 JSON requests of
+   bench_serving's size mix (1, 1, 1, 2, 1, 4, 1, 2) from 8 client
+   threads. Checked: every reply 200; every bucket execution equal bit
+   for bit to ``predict`` of the same padded bucket, every reply to its
+   rows of that bucket and, within 1e-3 (f32) or 2e-2 (bf16) of
+   max(1, max|ref|), to the request served alone; the ladder warmed
+   (6 buckets) and no library loaded nor bucket callable made after
+   warm-up; B5 36 and B6 16 launches per bucket execution; a sent
+   ``X-Zoo-Trace-Id`` echoed with its queue/pad/predict/scatter spans in
+   ``/debug/traces``; ``/health``. Printed: images/s, request p50/p99,
+   mean bucket fill. Then bench_serving's MLP tower (Dense
+   256→4096→4096→512→10) in closed loops of 8 clients for 4 s, batched
+   and per request (rows/s, p50/p99, their ratio, a reply per size
+   against ``predict``), and in int8 (``quantize=True``) behind the
+   batcher, held to the CPU port's ``QuantizedModel`` on the same
+   weights and calibration (the first layer's int8 input and int32
+   accumulator equal, replies within 1e-5 of max(1, max|out|)); then
+   ``/generate`` on the same server, mounted on phase 8's engine: 8
+   greedy requests (two prompts of 1500 tokens) from 8 threads beside
+   tower traffic on ``/predict``, each stream against the sequential
+   ``generate`` under phase 8's rule, B11 12 per decode step, B7 12 per
+   prefill at buckets >= 1024, slots and pages back to full, no error;
+13. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -161,6 +186,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -262,6 +288,12 @@ BENCH_T, BENCH_BATCH = 128, 32
 NCF = dict(user_count=6040, item_count=3706, num_classes=5, user_embed=20,
            item_embed=20, hidden_layers=(40, 20, 10), mf_embed=20)
 NCF_BATCH, NCF_STEPS = 8192, 20
+# the serving front end (phase 12): bench_serving.py's size mix and
+# closed-loop clients; ResNet-50 requests per dtype, the tower's window,
+# the /generate requests
+HTTP_MIX = (1, 1, 1, 2, 1, 4, 1, 2)
+HTTP_CLIENTS, HTTP_REQUESTS, HTTP_GEN = 8, 48, 8
+TOWER_SECONDS = 4.0
 DEV = "cuda"
 
 
@@ -812,6 +844,36 @@ def kernels_summary(records, launches):
     return out
 
 
+def served_resnet():
+    """ResNet-50 as phases 4 and 12 serve it: ``ImageClassifier(
+    "resnet-50", fused=True)`` at 224x224 and 1000 classes on the
+    context's card, its weights from the context's seed, with
+    distinctive BatchNorm statistics and affine params (seed 1) so every
+    fold matters."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+
+    net = ImageClassifier("resnet-50", input_shape=IMAGE, classes=1000,
+                          fused=True).model
+    net.init_params()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for pname, buf in net.named_buffers():
+            n = buf.shape[0]
+            if pname.endswith("moving_mean"):
+                buf.copy_(torch.randn(n, generator=g) * 0.1)
+            elif pname.endswith("moving_var"):
+                buf.copy_(torch.rand(n, generator=g) + 0.5)
+        for pname, p in net.named_parameters():
+            if pname.endswith("gamma"):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape[0], generator=g))
+            elif pname.endswith("beta"):
+                p.copy_(0.1 * torch.randn(p.shape[0], generator=g))
+    return net
+
+
 def main_path(card, detail):
     """Phase 4: serve ResNet-50 through the port's entry points."""
     import numpy as np
@@ -826,25 +888,7 @@ def main_path(card, detail):
     ctx = zoo.init_nncontext(seed=0)
     check(ctx.device.type == "cuda", f"context device {ctx.device}")
     t0 = time.perf_counter()
-    clf = ImageClassifier("resnet-50", input_shape=IMAGE, classes=1000,
-                          fused=True)
-    net = clf.model
-    net.init_params()
-    # distinctive BatchNorm statistics and affine params, so every fold
-    # matters
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for pname, buf in net.named_buffers():
-            n = buf.shape[0]
-            if pname.endswith("moving_mean"):
-                buf.copy_(torch.randn(n, generator=g) * 0.1)
-            elif pname.endswith("moving_var"):
-                buf.copy_(torch.rand(n, generator=g) + 0.5)
-        for pname, p in net.named_parameters():
-            if pname.endswith("gamma"):
-                p.copy_(1.0 + 0.1 * torch.randn(p.shape[0], generator=g))
-            elif pname.endswith("beta"):
-                p.copy_(0.1 * torch.randn(p.shape[0], generator=g))
+    net = served_resnet()
     im = InferenceModel(supported_concurrent_num=2).load_keras_net(net)
     print(f"  model built on {net.device} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2201,7 +2245,7 @@ def gen_engine():
     """The generation path's engine: ``gpt_net()`` with seeded random
     weights, loaded by ``InferenceModel.load_generator`` (8 slots of
     16-token pages, f32 cache) on the context's card and warmed. Returns
-    ``(net, engine, warm seconds)``."""
+    ``(net, engine, warm seconds, the InferenceModel)``."""
     import torch
 
     import analytics_zoo_tpu_torch as zoo
@@ -2233,7 +2277,7 @@ def gen_engine():
     print(f"  warm: {n_prog} programs (buckets {eng.prompt_buckets} and the "
           f"step) in {warm_s:.2f} s", flush=True)
     check(n_prog == len(eng.prompt_buckets) + 1, f"warm ran {n_prog}")
-    return net, eng, warm_s
+    return net, eng, warm_s, im
 
 
 def serve_generation(eng):
@@ -2298,6 +2342,34 @@ def serve_generation(eng):
             "ttft_median_ms": statistics.median(ttft) * 1e3}
 
 
+def check_streams(net, eng, prompts, max_new, results):
+    """Each served greedy stream against the engine's sequential
+    ``generate``: a stream may part from it only at a step where the
+    teacher-forced top-2 logit margin is within 1e-3 of max|logit| (a
+    near tie the two routes' rounding may break either way). Returns the
+    partings."""
+    parted = []
+    for i, (prompt, budget, got) in enumerate(zip(prompts, max_new,
+                                                  results)):
+        ref = [int(t) for t in eng.generate(prompt,
+                                            max_new_tokens=budget)[0]]
+        got = [int(t) for t in got]
+        if got == ref:
+            continue
+        j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
+        lg = teacher_forced(net, eng.params, prompt, got[:j])[0]
+        top2 = lg.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        tol = 1e-3 * lg.abs().max().item()
+        parted.append({"request": i, "step": j, "margin": margin,
+                       "tol": tol})
+        check(margin <= tol, f"request {i} parts from sequential generate "
+              f"at step {j} with top-2 margin {margin} > {tol}")
+    print(f"  {len(parted)} of {len(results)} served streams part from "
+          f"the sequential generate {parted}", flush=True)
+    return parted
+
+
 def decode_step_profile(eng, card):
     """The decode step at 8 active slots (prompt lengths GEN_PROMPTS in
     turn): the median host ms of 30 ``GenerationEngine.step`` calls and
@@ -2346,7 +2418,7 @@ def generation_path(card, detail):
     import numpy as np
     import torch
 
-    net, eng, warm_s = gen_engine()
+    net, eng, warm_s, im = gen_engine()
     dev = eng.device
     prompts, max_new, _ = gen_requests()
     served = serve_generation(eng)
@@ -2430,24 +2502,8 @@ def generation_path(card, detail):
     check(not bad, f"generation numerics failed: {bad}")
 
     # each served greedy stream against the engine's sequential generate
-    parted = []
-    for i in range(GEN_REQUESTS):
-        ref = [int(t) for t in eng.generate(prompts[i],
-                                            max_new_tokens=max_new[i])[0]]
-        got = [int(t) for t in results[i]]
-        if got == ref:
-            continue
-        j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
-        lg = teacher_forced(net, p, prompts[i], got[:j])[0]
-        top2 = lg.topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        tol = 1e-3 * lg.abs().max().item()
-        parted.append({"request": i, "step": j, "margin": margin,
-                       "tol": tol})
-        check(margin <= tol, f"request {i} parts from sequential generate "
-              f"at step {j} with top-2 margin {margin} > {tol}")
-    print(f"  {len(parted)} of {GEN_REQUESTS} served streams part from "
-          f"the sequential generate {parted}", flush=True)
+    parted = check_streams(net, eng, prompts, max_new,
+                           [results[i] for i in range(GEN_REQUESTS)])
 
     # the decode step at 8 active slots: host time and a profile
     stepped = decode_step_profile(eng, card)
@@ -2458,9 +2514,7 @@ def generation_path(card, detail):
         "ttft_median_ms": statistics.median(ttft) * 1e3,
         "warm_s": warm_s, "launches": launches, "checks": checks,
         "parted": parted, **stepped}
-    del eng
-    torch.cuda.empty_cache()
-    return launches
+    return launches, im
 
 
 def decode_crossover(card, detail):
@@ -2733,6 +2787,524 @@ def wide_and_deep_path(card, detail):
     detail["wide_and_deep"] = {**res, "example": got}
 
 
+def percentile_ms(lat, q):
+    return float(np.percentile(np.asarray(lat) * 1e3, q))
+
+
+def post_json(port, path, body, headers=None, timeout=600):
+    """``(status, response headers, parsed body, seconds)`` of one POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        r = urllib.request.urlopen(req, timeout=timeout)
+        code, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, e.headers, e.read()
+    return code, hdrs, json.loads(raw), time.perf_counter() - t0
+
+
+def get_json(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def served_counts():
+    """The serving counters' totals now: bucket executions, padding
+    rows and bucket callables made."""
+    from analytics_zoo_tpu_torch.common import observability as obs
+    snap = obs.snapshot()
+    return {k: int(sum(v["value"] for v in snap.get(
+        f"zoo_tpu_serving_{k}_total", {"values": []})["values"]))
+        for k in ("batch_executions", "padding_rows", "bucket_compiles")}
+
+
+def span_means(snap):
+    """Mean milliseconds of the serving histograms in ``snap``: the
+    handler's time per /predict request, the queue wait, the bucket
+    execution (the ``serving/predict`` span: copies in, forward, copies
+    out) and the padding."""
+    out = {}
+    for key, fam in (("request", "zoo_tpu_serving_request_seconds"),
+                     ("queue_wait", "zoo_tpu_serving_queue_wait_seconds"),
+                     ("predict", "zoo_tpu_serving_predict_seconds"),
+                     ("pad", "zoo_tpu_serving_pad_seconds")):
+        vals = [v for v in snap.get(fam, {"values": []})["values"]
+                if v["labels"].get("path", "/predict") == "/predict"]
+        n = sum(v["count"] for v in vals)
+        if n:
+            out[key] = sum(v["sum"] for v in vals) / n * 1e3
+    return out
+
+
+def recording_batcher():
+    """A ``DynamicBatcher`` that keeps each bucket execution's live
+    input rows and output rows, to hold them to ``predict`` after."""
+    from analytics_zoo_tpu_torch.pipeline.inference import DynamicBatcher
+
+    class Recording(DynamicBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.runs = []
+
+        def _pad_and_run(self, sig, xs, n):
+            outs, multi = super()._pad_and_run(sig, xs, n)
+            bucket = next(b for b in self.buckets if b >= n)
+            self.runs.append((xs[0], n, bucket, outs[0]))
+            return outs, multi
+    return Recording
+
+
+def http_resnet(net, dtype, card, detail):
+    """Phase 12, part 1: ResNet-50 (``net``, phase 4's weights) served
+    over HTTP in ``dtype`` behind a DynamicBatcher (bench_serving's
+    settings: max batch 32, 5 ms, queue 512) to HTTP_CLIENTS threads
+    posting HTTP_REQUESTS JSON requests of bench_serving's size mix."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.ops import cuda_build
+    from analytics_zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                            InferenceServer)
+    dname = str(dtype).split(".")[-1]
+    obs.reset_metrics()
+    rs = np.random.RandomState(12)
+    x8 = torch.from_numpy(rs.rand(8, *IMAGE).astype(np.float32))
+    im = InferenceModel(supported_concurrent_num=2).load_keras_net(
+        net, example_inputs=[x8.to(DEV, dtype)])
+    batcher = recording_batcher()(im, max_batch_size=BATCH, max_wait_ms=5,
+                                  queue_depth=512)
+    # images as a client sends them: 3 decimals, one JSON body each
+    sizes = [HTTP_MIX[i % len(HTTP_MIX)] for i in range(HTTP_REQUESTS)]
+    images = [np.round(rs.rand(n, *IMAGE), 3) for n in sizes]
+    bodies = [json.dumps({"inputs": x.tolist()}).encode() for x in images]
+    images = [x.astype(np.float32) for x in images]
+    t0 = time.perf_counter()
+    srv = InferenceServer(im, port=0, batcher=batcher, gen_batcher=None)
+    try:
+        srv.start()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        health = get_json(srv.port, "/health")["batcher"]
+        check(health["warmed_buckets"] == len(batcher.buckets) == 6 and
+              health["buckets"] == list(batcher.buckets),
+              f"{dname}: /health after warm-up {health}")
+        libs, before = cuda_build.loaded(), served_counts()
+        reset_launches()
+        replies = [None] * HTTP_REQUESTS
+
+        def client(c):
+            for i in range(c, HTTP_REQUESTS, HTTP_CLIENTS):
+                replies[i] = post_json(srv.port, "/predict", bodies[i])
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            for f in [pool.submit(client, c) for c in range(HTTP_CLIENTS)]:
+                f.result()
+        window = time.perf_counter() - t0
+        spans = span_means(obs.snapshot())
+        # one traced request alone: 3 rows pad to the bucket of 4
+        tid = f"smoke-resnet-{dname}"
+        code, hdrs, _, _ = post_json(
+            srv.port, "/predict",
+            json.dumps({"inputs": np.round(rs.rand(3, *IMAGE), 3).tolist()}
+                       ).encode(), {"X-Zoo-Trace-Id": tid})
+        torch.cuda.synchronize()
+        launches = all_launches()
+        after = served_counts()
+        check(cuda_build.loaded() == libs, f"{dname}: libraries loaded "
+              f"after warm-up: {set(cuda_build.loaded()) - set(libs)}")
+        traces = get_json(srv.port, "/debug/traces?n=50")["traces"]
+        health = get_json(srv.port, "/health")
+    finally:
+        srv.stop()
+    execs = after["batch_executions"] - before["batch_executions"]
+    check(after["bucket_compiles"] == before["bucket_compiles"],
+          f"{dname}: {after['bucket_compiles'] - before['bucket_compiles']}"
+          " bucket callables made after warm-up")
+    for name in KERNELS:
+        want = {"matmul_bn_apply": 36 * execs,
+                "conv3x3_bn_apply": 16 * execs}.get(name, 0)
+        check(launches[name] == want, f"{dname}: {name} launched "
+              f"{launches[name]} times in {execs} bucket executions, "
+              f"expected {want}")
+    check(code == 200 and hdrs["X-Zoo-Trace-Id"] == tid,
+          f"{dname}: traced request {code}, header "
+          f"{hdrs.get('X-Zoo-Trace-Id')}")
+    ours = [t for t in traces if t["trace_id"] == tid]
+    names = sorted(s["name"] for t in ours for s in t["spans"])
+    check(names == sorted(["serving/request", "serving/queue_wait",
+                           "serving/pad", "serving/predict",
+                           "serving/scatter"]),
+          f"{dname}: trace {tid} holds {names}")
+    check(health["batcher"]["warmed_buckets"] == 6 and
+          health["batcher"]["queue_depth"] == 0, f"/health {health}")
+    codes = [r[0] for r in replies]
+    check(codes == [200] * HTTP_REQUESTS, f"{dname}: statuses {codes}")
+
+    # each bucket held to predict of the same padded bucket, bit for bit
+    # (the traced request's is the last)
+    for xs, n, bucket, out in batcher.runs:
+        padded = np.concatenate(
+            [xs, np.zeros((bucket - n,) + xs.shape[1:], xs.dtype)])
+        check(np.array_equal(im.predict(padded)[:n], out),
+              f"{dname}: a served bucket of {bucket} ({n} rows) differs "
+              "from predict of the same padded bucket")
+    # each request: its rows of the bucket it rode, bit for bit, and
+    # within the serving bound of the request served alone
+    where = {}
+    for xs, n, _, out in batcher.runs:
+        for r in range(n):
+            where.setdefault(xs[r].ravel()[:64].tobytes(), []).append(
+                (xs, out, r))
+    worst = 0.0
+    for i, (x, reply) in enumerate(zip(images, replies)):
+        got = np.asarray(reply[2]["outputs"], np.float32)
+        hits = [(out, r) for xs, out, r in
+                where.get(x[0].ravel()[:64].tobytes(), [])
+                if np.array_equal(xs[r:r + len(x)], x)]
+        check(len(hits) == 1, f"{dname}: request {i} found in "
+              f"{len(hits)} bucket executions")
+        out, off = hits[0]
+        check(np.array_equal(got, out[off:off + len(x)]),
+              f"{dname}: request {i}'s reply is not its bucket's rows")
+        alone = im.predict(x)
+        err = float(np.abs(got - alone).max())
+        tol = TOL[dname] * max(1.0, float(np.abs(alone).max()))
+        check(err <= tol, f"{dname}: request {i} {err} from predict "
+              f"alone (tol {tol})")
+        worst = max(worst, err / tol)
+    rows = sum(sizes)
+    fill = sum(n for _, n, _, _ in batcher.runs[:-1]) / \
+        sum(b for _, _, b, _ in batcher.runs[:-1])
+    # the host's JSON work for one image, beside the spans: what a
+    # request's handler time is made of
+    decode = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.asarray(json.loads(bodies[0])["inputs"], np.float32)
+        decode.append(time.perf_counter() - t0)
+    decode_ms = statistics.median(decode) * 1e3
+    encode = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        json.dumps({"outputs": alone.tolist()})
+        encode.append(time.perf_counter() - t0)
+    lat = [r[3] for r in replies]
+    rec = {"images": rows, "requests": HTTP_REQUESTS, "window_s": window,
+           "images_per_s": rows / window,
+           "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+           "bucket_executions": execs,
+           "mean_bucket_fill": fill, "warm_s": warm_s,
+           "worst_err_over_tol": worst, "span_mean_ms": spans,
+           "json_decode_ms_per_image": decode_ms,
+           "json_encode_ms_per_reply": statistics.median(encode) * 1e3,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"  ResNet-50 {dname} over HTTP: {HTTP_REQUESTS} requests "
+          f"({rows} images) from {HTTP_CLIENTS} clients in {window:.3f} s: "
+          f"{rows / window:.2f} images/s, request p50 {rec['p50_ms']:.1f} ms"
+          f" p99 {rec['p99_ms']:.1f} ms, {execs} bucket executions, mean "
+          f"fill {fill:.3f}, warm-up {warm_s:.2f} s; launches "
+          f"{rec['launches']}; worst error {worst:.3f} of its bound; "
+          f"on {card}", flush=True)
+    print(f"    mean ms: handler {spans.get('request', 0):.2f}, queue wait "
+          f"{spans.get('queue_wait', 0):.2f}, bucket execution "
+          f"{spans.get('predict', 0):.2f}, pad {spans.get('pad', 0):.2f}; "
+          f"JSON decode of one image {decode_ms:.2f} (host, median of 5) "
+          f"on {card}", flush=True)
+    detail.setdefault("http", {})[f"resnet_{dname}"] = rec
+    return launches
+
+
+def tower_net(device=None):
+    """bench_serving.py's MLP tower (``bench_serving.py:70-75``): Dense
+    256→4096→4096→512→10 with ReLUs, weights from the context's seed, on
+    ``device`` (default: the context's card)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+    m = Sequential([L.Dense(4096, activation="relu", input_shape=(256,)),
+                    L.Dense(4096, activation="relu"),
+                    L.Dense(512, activation="relu"), L.Dense(10)])
+    m.init_params(device=device)
+    return m
+
+
+def tower_bodies():
+    """bench_serving's request bodies: ``randn(n, 256).round(3)`` for
+    each size of its mix, from numpy seed 1."""
+    rs = np.random.RandomState(1)
+    xs = {n: rs.randn(n, 256).round(3) for n in sorted(set(HTTP_MIX))}
+    return ({n: x.astype(np.float32) for n, x in xs.items()},
+            {n: json.dumps({"inputs": x.tolist()}).encode()
+             for n, x in xs.items()})
+
+
+def closed_loop(port, bodies, seconds, clients=HTTP_CLIENTS):
+    """bench_serving's closed loop: each client POSTs /predict back to
+    back, cycling the size mix from its own offset, until the window
+    closes. Returns rows, request latencies, non-200 replies, the
+    window's seconds and one reply per size."""
+    stop_at = time.perf_counter() + seconds
+    lock = threading.Lock()
+    lat, rows, errors, sample = [], [0], [], {}
+
+    def client(cid):
+        i = cid
+        while time.perf_counter() < stop_at:
+            n = HTTP_MIX[i % len(HTTP_MIX)]
+            code, _, body, dt = post_json(port, "/predict", bodies[n])
+            with lock:
+                if code == 200:
+                    lat.append(dt)
+                    rows[0] += n
+                    sample.setdefault(n, body["outputs"])
+                else:
+                    errors.append((code, body))
+            i += 1
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+        for f in [pool.submit(client, c) for c in range(clients)]:
+            f.result()
+    return rows[0], lat, errors, time.perf_counter() - t0, sample
+
+
+def tower_run(label, port, xs, bodies, ref, tol, card, detail):
+    """One closed-loop run of the tower over HTTP: rows/s, p50/p99, no
+    error, and one reply per size held to ``ref(x)`` within ``tol`` of
+    max(1, max|ref|)."""
+    rows, lat, errors, window, sample = closed_loop(port, bodies,
+                                                    TOWER_SECONDS)
+    check(not errors, f"tower {label}: {len(errors)} errors {errors[:2]}")
+    check(set(sample) == set(xs), f"tower {label}: sizes {set(sample)}")
+    worst = 0.0
+    for n, out in sample.items():
+        want = ref(xs[n])
+        got = np.asarray(out, np.float32)
+        err = float(np.abs(got - want).max())
+        bound = tol * max(1.0, float(np.abs(want).max()))
+        check(got.shape == want.shape and err <= bound,
+              f"tower {label}: rows of {n} off by {err} (tol {bound})")
+        worst = max(worst, err / bound)
+    rec = {"rows": rows, "requests": len(lat), "window_s": window,
+           "rows_per_s": rows / window, "p50_ms": percentile_ms(lat, 50),
+           "p99_ms": percentile_ms(lat, 99), "errors": 0,
+           "worst_err_over_tol": worst}
+    print(f"  tower {label}: {len(lat)} requests, {rows} rows in "
+          f"{window:.3f} s: {rec['rows_per_s']:.1f} rows/s, p50 "
+          f"{rec['p50_ms']:.2f} ms, p99 {rec['p99_ms']:.2f} ms, 0 errors on "
+          f"{card}", flush=True)
+    detail.setdefault("http", {})[f"tower_{label}"] = rec
+    return rec
+
+
+def http_path(card, detail, gen_im):
+    """Phase 12: the serving front end over HTTP on the card. ResNet-50
+    in f32 and bf16 (:func:`http_resnet`); bench_serving's tower batched
+    and per request, then in int8 held to the CPU port's; then
+    ``/generate`` on phase 8's engine (``gen_im``, mounted by
+    ``load_generator``) beside tower traffic on the same server.
+    Returns the kernel launches of the ResNet and generation runs."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        DynamicBatcher, InferenceModel, InferenceServer)
+
+    zoo.init_nncontext(seed=0)
+    obs.reset_metrics()
+    net = served_resnet()
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, v in http_resnet(net, dtype, card, detail).items():
+            launches[k] = launches.get(k, 0) + v
+    del net
+    torch.cuda.empty_cache()
+
+    # the tower: phase 8's InferenceModel takes it beside its generator,
+    # so one server answers /predict and /generate
+    tower = tower_net()
+    xs, bodies = tower_bodies()
+    calib = np.random.RandomState(2).randn(8, 256).astype(np.float32)
+    gen_im.load_keras_net(tower, example_inputs=[calib])
+    per_req = InferenceModel(supported_concurrent_num=2).load_keras_net(
+        tower)
+    int8 = InferenceModel(supported_concurrent_num=2).load_keras_net(
+        tower, example_inputs=[calib], quantize=True)
+    # the CPU port's QuantizedModel on the same weights and calibration
+    cpu_net = tower_net(device="cpu")
+    cpu_net.load_params(params_to_numpy(tower), device="cpu")
+    cpu_q = InferenceModel().load_keras_net(cpu_net, example_inputs=[calib],
+                                            quantize=True)
+    qx = torch.from_numpy(xs[4])
+    xq_card = int8.quantized.quantize_input(0, qx.to(DEV))
+    xq_cpu = cpu_q.quantized.quantize_input(0, qx)
+    check(torch.equal(xq_card.cpu(), xq_cpu),
+          "int8: the first layer's quantized input differs from the CPU "
+          "port's")
+    acc_card = int8.quantized.accumulator(0, xq_card).cpu()
+    acc_cpu = cpu_q.quantized.accumulator(0, xq_cpu)
+    check(torch.equal(acc_card, acc_cpu), "int8: the first layer's int32 "
+          "accumulators differ from the CPU port's")
+    check([e["a_scale"] for e in int8.quantized.plan] ==
+          [e["a_scale"] for e in cpu_q.quantized.plan],
+          "int8: the activation scales differ from the CPU port's")
+
+    servers = {
+        "batched": InferenceServer(gen_im, port=0, batcher=DynamicBatcher(
+            gen_im, max_batch_size=BATCH, max_wait_ms=5, queue_depth=512)),
+        "unbatched": InferenceServer(per_req, port=0, batcher=None,
+                                     gen_batcher=None),
+        "int8": InferenceServer(int8, port=0, batcher=DynamicBatcher(
+            int8, max_batch_size=BATCH, max_wait_ms=5, queue_depth=512),
+            gen_batcher=None)}
+    try:
+        for srv in servers.values():
+            srv.start()
+        reset_launches()
+        recs = {}
+        for label in ("batched", "unbatched"):
+            recs[label] = tower_run(label, servers[label].port, xs, bodies,
+                                    per_req.predict, TOL["float32"], card,
+                                    detail)
+        recs["int8"] = tower_run("int8", servers["int8"].port, xs, bodies,
+                                 cpu_q.predict, 1e-5, card, detail)
+        tower_launches = all_launches()
+        check(not any(tower_launches.values()),
+              f"the tower launched kernels: {tower_launches}")
+        f_bytes, q_bytes = int8.quantized.size_bytes()
+        ratio = recs["batched"]["rows_per_s"] / \
+            recs["unbatched"]["rows_per_s"]
+        print(f"  tower batched / unbatched: {ratio:.3f}x rows/s; int8 "
+              f"kernels {q_bytes} bytes (f32 {f_bytes}), "
+              f"{recs['int8']['rows_per_s']:.1f} rows/s against f32 "
+              f"batched {recs['batched']['rows_per_s']:.1f} on {card}",
+              flush=True)
+        detail["http"]["tower_ratio"] = ratio
+        detail["http"]["int8_size_bytes"] = [f_bytes, q_bytes]
+        gen = http_generate(servers["batched"], bodies, card, detail)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    for k, v in gen.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def http_generate(srv, tower_bodies_, card, detail):
+    """Phase 12, last part: 8 greedy requests posted to ``/generate`` on
+    ``srv`` (phase 8's engine, prompts of 17 to 1500 tokens: two of them
+    prefill at the bucket of 2048, through B7) from 8 threads while two
+    clients post tower requests to ``/predict``; each stream against the
+    engine's sequential generate, B11 12 per decode step, B7 12 per
+    prefill at buckets >= 1024, slots and pages back to full."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    eng = srv.model.generator
+    net = eng.net
+    prompts, max_new, _ = gen_requests()
+    prompts, max_new = prompts[:HTTP_GEN], [32] * HTTP_GEN
+    check(max(len(p) for p in prompts) >= 1024,
+          f"prompt lengths {[len(p) for p in prompts]}")
+    buckets = []
+
+    def admit(reqs):            # records each prefill's bucket
+        n = max(len(r[0]) for r in reqs)
+        buckets.append(next(b for b in eng.prompt_buckets if b >= n))
+        return type(eng).admit(eng, reqs)
+    eng.admit = admit
+
+    def steps_now():
+        fam = obs.snapshot().get("zoo_tpu_serving_gen_steps_total")
+        return 0 if fam is None else int(fam["values"][0]["value"])
+
+    steps0 = steps_now()
+    done = threading.Event()
+    lock = threading.Lock()
+    side = {"rows": 0, "errors": []}
+
+    def tower_client(c):
+        i = c
+        while not done.is_set():
+            n = HTTP_MIX[i % len(HTTP_MIX)]
+            code, _, body, _ = post_json(srv.port, "/predict",
+                                         tower_bodies_[n])
+            with lock:
+                if code == 200:
+                    side["rows"] += n
+                else:
+                    side["errors"].append((code, body))
+            i += 1
+
+    def gen_client(i):
+        return post_json(srv.port, "/generate", json.dumps(
+            {"prompt": prompts[i], "max_new_tokens": max_new[i]}).encode())
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(HTTP_GEN + 2) as pool:
+            towers = [pool.submit(tower_client, c) for c in range(2)]
+            replies = [f.result() for f in
+                       [pool.submit(gen_client, i) for i in range(HTTP_GEN)]]
+            window = time.perf_counter() - t0
+            done.set()
+            for f in towers:
+                f.result()
+        torch.cuda.synchronize()
+        launches = all_launches()
+        steps = steps_now() - steps0
+    finally:
+        done.set()
+        del eng.admit
+    codes = [r[0] for r in replies]
+    check(codes == [200] * HTTP_GEN, f"/generate statuses {codes}: "
+          f"{[r[2] for r in replies if r[0] != 200][:2]}")
+    check(not side["errors"], f"/predict beside /generate: "
+          f"{len(side['errors'])} errors {side['errors'][:2]}")
+    results = [r[2]["tokens"] for r in replies]
+    for i, toks in enumerate(results):
+        check(len(toks) == max_new[i], f"/generate {i}: {len(toks)} tokens")
+    check(eng.slots_active == 0 and
+          eng.free_pages == eng.allocator.max_pages,
+          f"after /generate: {eng.slots_active} slots active, "
+          f"{eng.free_pages} of {eng.allocator.max_pages} pages free")
+    nb = GPT["n_block"]
+    n_b7 = sum(b >= 1024 for b in buckets)
+    check(n_b7 > 0, f"prefill buckets {buckets}: none runs B7")
+    for name in KERNELS:
+        want = {"flash_decode": nb * steps, "flash_fwd": nb * n_b7}.get(
+            name, 0)
+        check(launches[name] == want, f"/generate: {name} launched "
+              f"{launches[name]} times in {steps} decode steps and {n_b7} "
+              f"prefills at buckets >= 1024, expected {want}")
+    parted = check_streams(net, eng, prompts, max_new, results)
+    n_tok = sum(len(t) for t in results)
+    lat = [r[3] for r in replies]
+    rec = {"requests": HTTP_GEN, "tokens": n_tok, "window_s": window,
+           "tokens_per_s": n_tok / window, "p50_ms": percentile_ms(lat, 50),
+           "p99_ms": percentile_ms(lat, 99), "decode_steps": steps,
+           "prefill_buckets": buckets, "parted": parted,
+           "tower_rows_beside": side["rows"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"  /generate over HTTP: {HTTP_GEN} requests, {n_tok} tokens in "
+          f"{window:.3f} s ({n_tok / window:.1f} tokens/s), request p50 "
+          f"{rec['p50_ms']:.1f} ms p99 {rec['p99_ms']:.1f} ms, {steps} "
+          f"decode steps, prefills at {buckets}; {side['rows']} tower rows "
+          f"served beside it, 0 errors; launches {rec['launches']} on "
+          f"{card}", flush=True)
+    detail.setdefault("http", {})["generate"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2906,7 +3478,7 @@ def main() -> int:
 
     print("[8] main path: GPT-style generation (paged KV cache, "
           "continuous batcher, B11)", flush=True)
-    generated = generation_path(card, detail)
+    generated, gen_im = generation_path(card, detail)
 
     print("[9] flash/dense crossover (fwd+bwd, bf16, causal)", flush=True)
     crossover(card, detail)
@@ -2925,11 +3497,20 @@ def main() -> int:
     for name, meta in KERNELS.items():
         launches[name] = by_path.get(meta["path"], bert_est)[name]
 
-    print("[12] summary", flush=True)
+    print("[12] the serving front end over HTTP: ResNet-50 (f32, bf16), "
+          "bench_serving's tower (batched, per request, int8) and "
+          "/generate", flush=True)
+    over_http = http_path(card, detail, gen_im)
+    del gen_im
+    torch.cuda.empty_cache()
+
+    print("[13] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if rec["name"] in FLASH:
             rec["launches_bf16_path"] = bert_bench[rec["name"]]
+        if over_http.get(rec["name"]):
+            rec["launches_http"] = over_http[rec["name"]]
     detail["kernels"] = summary
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),

@@ -152,9 +152,25 @@ def test_port_imports_no_jax():
         "InferenceModel\n"
         "z.init_nncontext(device='cpu')\n"
         "m = resnet50(input_shape=(32, 32, 3), classes=10, fused=True)\n"
-        "y = InferenceModel().load_keras_net(m).predict(\n"
-        "    np.zeros((1, 32, 32, 3), np.float32))\n"
+        "im = InferenceModel().load_keras_net(\n"
+        "    m, example_inputs=[np.zeros((2, 32, 32, 3), np.float32)])\n"
+        "y = im.predict(np.zeros((1, 32, 32, 3), np.float32))\n"
         "assert y.shape == (1, 10)\n"
+        "# the HTTP front end, its batcher and tracing, started and\n"
+        "# stopped\n"
+        "import json, urllib.request\n"
+        "from analytics_zoo_tpu_torch.pipeline.inference import (\n"
+        "    DynamicBatcher, make_inference_server)\n"
+        "srv = make_inference_server(im, batcher=DynamicBatcher(\n"
+        "    im, max_batch_size=2)).start()\n"
+        "try:\n"
+        "    r = urllib.request.urlopen(urllib.request.Request(\n"
+        "        f'http://127.0.0.1:{srv.port}/predict', data=json.dumps(\n"
+        "            {'inputs': np.zeros((1, 32, 32, 3)).tolist()}\n"
+        "        ).encode()), timeout=120)\n"
+        "    assert len(json.loads(r.read())['outputs'][0]) == 10\n"
+        "finally:\n"
+        "    srv.stop()\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'analytics_zoo_tpu' or "
         "k.startswith('analytics_zoo_tpu.')]\n"
