@@ -29,7 +29,18 @@ the gauges ``zoo_tpu_serving_gen_slots_active``,
 ``zoo_tpu_serving_gen_free_pages`` and
 ``zoo_tpu_serving_gen_queue_depth``, ``zoo_tpu_serving_errors_total``
 (``kind="gen_queue_full"``) and the ``decode/admit``, ``decode/step``
-and ``decode/retire`` spans.
+and ``decode/retire`` spans. Under the engine's levers:
+``zoo_tpu_serving_gen_prefill_chunks_total``,
+``zoo_tpu_serving_gen_spec_proposed_total`` and ``_spec_accepted_total``,
+``zoo_tpu_serving_gen_handoffs_total{direction}``,
+``zoo_tpu_serving_gen_handoff_seconds`` (blob enqueue to pages spliced),
+``zoo_tpu_serving_gen_handoff_pages_leaked`` (the drain audit; 0 in a
+correct flow) and the ``decode/prefill_chunk``, ``decode/spec_step``,
+``decode/handoff_export`` and ``decode/handoff_admit`` spans, each also
+recorded on the trace of every request it served.
+
+Fault injection (``common/faults.py``):
+``zoo_tpu_faults_injected_total{point,kind}``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Attention ops (port of ``analytics_zoo_tpu/ops/attention.py``: the
-training entry point and decode attention; chunk attention waits for
-chunked prefill, ``_flash_block_update`` for ring attention).
+training entry point, decode and chunk attention; ``_flash_block_update``
+waits for ring attention).
 
 :func:`dot_product_attention` has two interchangeable implementations:
 plain PyTorch dense attention (einsum, f32 softmax, -1e30 fill), or the
@@ -11,7 +11,9 @@ statistics on chip instead of writing the (B, H, Tq, Tk) logits.
 :func:`decode_attention` is its single-query sibling for generation,
 routed the same way to the decode kernel (B11), and
 :func:`paged_decode_attention` the same over the paged cache's pools,
-which B11 reads in place.
+which B11 reads in place. :func:`chunk_attention` attends C new
+tokens per slot over the gathered cache (chunked prefill, speculative
+verify); it is dense in the reference too, and here plain PyTorch.
 """
 
 from __future__ import annotations
@@ -155,6 +157,38 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                          kvc.length_mask(seq_lens, t),
                                          scale, k_scales=sk, v_scales=sv)
     return _dense_decode(q, k, v, seq_lens, scale, sk, sv)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor,
+                    scale: Optional[float] = None,
+                    k_scales: Optional[torch.Tensor] = None,
+                    v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention for a chunk of C new tokens per slot against the cache.
+
+    q: (S, C, H, D), the chunk's queries at absolute positions
+    ``q_positions`` (S, C); k, v: (S, T, H, D), gathered cache views that
+    already hold the chunk's own rows (callers write before they
+    gather). The mask ``key_pos <= q_pos`` gives causality inside the
+    chunk and validity against the cache in one comparison: stale rows
+    past a query's position stay invisible. Logits in f32, filled with
+    -1e30, so a slot with no visible key gets a uniform row, never NaN
+    (callers drop such rows). Int8 views come with their (S, T, H)
+    scales and are dequantized to q's type here. Returns (S, C, H, D).
+    """
+    d = q.shape[-1]
+    t = k.shape[1]
+    scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
+    if k_scales is not None:
+        from analytics_zoo_tpu_torch.ops.kv_cache import dequantize_rows
+        k = dequantize_rows(k, k_scales, q.dtype)
+        v = dequantize_rows(v, v_scales, q.dtype)
+    logits = torch.einsum("schd,sthd->shct", q, k).float() * scale
+    visible = torch.arange(t, device=q.device)[None, None, :] <= \
+        q_positions[:, :, None]                           # (S, C, T)
+    logits = logits.masked_fill(~visible[:, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("shct,sthd->schd", probs, v)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,

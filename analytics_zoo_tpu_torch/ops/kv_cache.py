@@ -1,6 +1,5 @@
 """Paged KV cache for autoregressive decode (port of
-``analytics_zoo_tpu/ops/kv_cache.py``, without the KV handoff between
-prefill and decode pools).
+``analytics_zoo_tpu/ops/kv_cache.py``).
 
 K and V live in a fixed pool of small pages per block, ``(max_pages,
 page_size, heads, head_dim)``, allocated once; a per-slot page table
@@ -16,7 +15,12 @@ already owns, so no tensor ever changes shape:
 - :func:`gather_layer` / :func:`length_mask` give the dense (S, T, H, D)
   view and its key-validity mask for attention (the decode kernel, B11,
   reads the pages in place through the table instead:
-  ``ops.attention.paged_decode_attention``).
+  ``ops.attention.paged_decode_attention``);
+- :func:`gather_slot_pages` / :func:`scatter_slot_pages` move one
+  sequence's pages out of one pool and into another (the KV handoff
+  between a prefill engine and a decode engine), and
+  :func:`handoff_to_wire` / :func:`handoff_from_wire` carry the
+  handoff blob through JSON.
 
 Unlike the reference, whose arrays are immutable, the writes update the
 pools **in place** (a 1.2 GB pool cannot be copied every step) and
@@ -39,8 +43,10 @@ generation engine assigns at admission and reclaims at retirement.
 
 from __future__ import annotations
 
+import base64
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -278,6 +284,131 @@ def length_mask(seq_lens: torch.Tensor, t: int) -> torch.Tensor:
     token iff ``p < seq_lens[s]``."""
     return torch.arange(t, dtype=torch.int32,
                         device=seq_lens.device)[None, :] < seq_lens[:, None]
+
+
+# -- KV-page handoff (prefill/decode disaggregation) ----------------------
+#
+# One sequence's cache state moves between engines as a page gather on
+# the source and a page scatter on the destination, never a per-token
+# reshape.
+
+
+def gather_slot_pages(cache: PagedKVCache, page_ids: torch.Tensor):
+    """One slot's pages out of every block's pool.
+
+    ``page_ids``: (P,) physical page ids, the slot's table row (entries
+    past the used prefix may repeat a real page; the caller keeps the
+    used prefix), clamped into the pool. Returns ``(k, v, k_scales,
+    v_scales)``: k/v (num_layers, P, page_size, heads, head_dim), scales
+    (num_layers, P, page_size, heads) or None for float pools."""
+    ids = page_ids.long().clamp(0, cache.k_pages.shape[1] - 1)
+    k, v = cache.k_pages[:, ids], cache.v_pages[:, ids]
+    if cache.k_scales is None:
+        return k, v, None, None
+    return k, v, cache.k_scales[:, ids], cache.v_scales[:, ids]
+
+
+def scatter_slot_pages(cache: PagedKVCache, page_ids, active, slot,
+                       seq_len, k_rows, v_rows, k_srows=None,
+                       v_srows=None) -> PagedKVCache:
+    """Write gathered pages into a destination pool, in place.
+
+    ``page_ids``: (P,) destination physical ids; ``active``: (P,) bool,
+    True for the entries to write. The reference routes the others to an
+    out-of-range id and drops them; here they are filtered out before
+    the write (an out-of-range index is a device assert on CUDA).
+    ``k_rows``/``v_rows`` (and scale rows for int8 pools) are
+    :func:`gather_slot_pages` outputs of width P. ``seq_lens[slot]``
+    becomes ``seq_len``, so the next decode step appends after the
+    shipped tokens. The caller writes the destination's page-table row.
+    Returns the cache with a new ``seq_lens``."""
+    dev = cache.k_pages.device
+    active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+    idx = active.nonzero(as_tuple=True)[0]
+    phys = torch.as_tensor(page_ids, device=dev).long()[idx]
+    cache.k_pages[:, phys] = k_rows[:, idx].to(cache.k_pages.dtype)
+    cache.v_pages[:, phys] = v_rows[:, idx].to(cache.v_pages.dtype)
+    if cache.k_scales is not None:
+        cache.k_scales[:, phys] = k_srows[:, idx].float()
+        cache.v_scales[:, phys] = v_srows[:, idx].float()
+    seq_lens = cache.seq_lens.clone()
+    seq_lens[int(slot)] = int(seq_len)
+    return cache._replace(seq_lens=seq_lens)
+
+
+# A handoff blob is a host dict: one sequence's cache rows (numpy arrays
+# sliced to the used page count) and the decode-resume state as plain
+# scalars, so it crosses HTTP as JSON. bfloat16 rows are numpy uint16
+# arrays of their bit patterns (numpy has no bfloat16 without
+# ml_dtypes); the blob's ``kv_dtype`` says "bfloat16", and on the wire
+# they carry the reference's ``"dtype": "bfloat16"``, so blobs cross
+# between this package and the JAX package both ways.
+HANDOFF_VERSION = 1
+_WIRE_ARRAYS = ("k", "v", "k_scales", "v_scales")
+_BF16 = "bfloat16"
+
+
+def _arr_to_wire(a, dtype_name: Optional[str] = None) -> dict:
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "dtype": dtype_name or a.dtype.name,
+            "data": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def _arr_from_wire(w) -> np.ndarray:
+    name = str(w["dtype"])
+    dtype = np.uint16 if name == _BF16 else np.dtype(name)
+    a = np.frombuffer(base64.b64decode(w["data"]), dtype=dtype)
+    return a.reshape([int(d) for d in w["shape"]]).copy()
+
+
+def handoff_to_wire(blob: dict) -> dict:
+    """JSON-safe encoding of a handoff blob: each array becomes ``{shape,
+    dtype, data: base64}``; the k/v rows of a bfloat16 blob go as their
+    16-bit patterns under dtype "bfloat16"."""
+    wire = {k: v for k, v in blob.items() if k not in _WIRE_ARRAYS}
+    for name in _WIRE_ARRAYS:
+        a = blob.get(name)
+        bf16 = name in ("k", "v") and blob.get("kv_dtype") == _BF16
+        wire[name] = None if a is None else _arr_to_wire(
+            np.asarray(a).view(np.uint16) if bf16 else a,
+            _BF16 if bf16 else None)
+    return wire
+
+
+def handoff_from_wire(wire: dict) -> dict:
+    """Inverse of :func:`handoff_to_wire`, bit for bit (bfloat16 rows
+    come back as uint16 bit patterns)."""
+    blob = {k: v for k, v in wire.items() if k not in _WIRE_ARRAYS}
+    for name in _WIRE_ARRAYS:
+        w = wire.get(name)
+        blob[name] = None if w is None else _arr_from_wire(w)
+    return blob
+
+
+def handoff_nbytes(blob: dict) -> int:
+    """Payload bytes of the blob's arrays (the wire-cost metric)."""
+    return sum(int(np.asarray(blob[n]).nbytes) for n in _WIRE_ARRAYS
+               if blob.get(n) is not None)
+
+
+def rows_to_host(t: torch.Tensor) -> np.ndarray:
+    """A cache-row tensor as the blob's numpy array: bfloat16 as its
+    uint16 bit patterns, other types as they are."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def rows_from_host(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """Inverse of :func:`rows_to_host` for a pool of ``dtype``: a
+    bfloat16 pool reads any 2-byte array (uint16 bit patterns, or an
+    ``ml_dtypes`` bfloat16 array from the JAX package) as bit patterns."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 class PageAllocator:

@@ -1,7 +1,6 @@
 """Transformer layers: MultiHeadAttention, TransformerLayer (GPT-style)
 and BERT (port of ``analytics_zoo_tpu/pipeline/api/keras/layers/
-transformer.py``; sequence and pipeline parallelism and ``forward_chunk``
-wait).
+transformer.py``; sequence and pipeline parallelism wait).
 
 As in the reference, per-block params are stacked on a leading
 ``n_block`` axis, so the param trees bridge one to one; the depth loop
@@ -15,13 +14,16 @@ generators built inside it (``ops/rng.py``), so the recompute draws
 the forward's masks again.
 
 The decode surface (``init_kv_cache``, ``prefill``, ``decode_step``,
-``generate``) runs the same ``_split_qkv`` and ``_block_tail`` as the
-full forward over a paged KV cache (``ops/kv_cache.py``), whose pools
-it updates in place. ``decode_step`` attends through
+``forward_chunk``, ``generate``) runs the same ``_split_qkv`` and
+``_block_tail`` as the full forward over a paged KV cache
+(``ops/kv_cache.py``), whose pools it updates in place. ``decode_step`` attends through
 :func:`ops.attention.paged_decode_attention`: on the card at long
 contexts the decode kernel (B11) reads each block's pages in place,
-else the pages are gathered and attended densely; ``generate``'s loop
-is a Python loop with the reference's stop rule.
+else the pages are gathered and attended densely. ``forward_chunk``
+(chunked prefill, speculative verify) writes a chunk of C tokens per
+slot and attends it densely over the gathered cache
+(:func:`ops.attention.chunk_attention`), as the reference does.
+``generate``'s loop is a Python loop with the reference's stop rule.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch.utils.checkpoint
 
 from analytics_zoo_tpu_torch.ops import kv_cache as kvc
 from analytics_zoo_tpu_torch.ops.activations import gelu
-from analytics_zoo_tpu_torch.ops.attention import (dot_product_attention,
+from analytics_zoo_tpu_torch.ops.attention import (chunk_attention,
+                                                   dot_product_attention,
                                                    paged_decode_attention,
                                                    resolve_attention_impl)
 from analytics_zoo_tpu_torch.ops.rng import fold_in
@@ -271,8 +274,9 @@ class TransformerLayer(KerasLayer):
 
     # -- decode path --------------------------------------------------------
     # ``prefill`` runs the prompts once and caches every block's K/V;
-    # ``decode_step`` extends every slot by one token against the cache;
-    # ``generate`` loops the two. Logits are tied to ``tok_embed``. Int8
+    # ``decode_step`` extends every slot by one token against the cache,
+    # ``forward_chunk`` by up to C tokens; ``generate`` loops the first
+    # two. Logits are tied to ``tok_embed``. Int8
     # caches carry scale pools that this layer only threads through.
     # Inference only: no dropout.
 
@@ -383,6 +387,60 @@ class TransformerLayer(KerasLayer):
             x = self._block_tail(p, x, attn.reshape(s, self.hidden_size))
         cache = cache._replace(seq_lens=lens_after)
         return cache, x @ params["tok_embed"].to(x.dtype).T
+
+    def forward_chunk(self, params, cache: kvc.PagedKVCache, token_ids,
+                      starts, n_new, all_logits: bool = False):
+        """Consume a chunk of new tokens per slot against the cache:
+        ``decode_step`` from 1 to C tokens, with a per-slot offset.
+
+        token_ids: (S, C) int, each slot's next tokens, left-aligned and
+        right-padded; starts: (S,) the absolute position the chunk
+        begins at (the slot's cached length); n_new: (S,) how many of
+        the C rows are real (0: the slot is untouched, nothing written,
+        its length frozen). Each block writes the chunk's K/V into the
+        pages first, then attends over the gathered cache with the mask
+        ``key_pos <= start + j`` (:func:`ops.attention.chunk_attention`).
+
+        Returns ``(cache', logits)``: (S, V) at each slot's last real
+        row (chunked prefill samples the first token from it), or (S, C,
+        V) at every row when ``all_logits`` (speculative verify).
+        ``seq_lens`` becomes ``starts + n_new`` where ``n_new > 0``."""
+        dev = cache.seq_lens.device
+        token_ids = torch.as_tensor(token_ids, device=dev)
+        starts = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+        n_new = torch.as_tensor(n_new, dtype=torch.int32, device=dev)
+        s, c = token_ids.shape
+        total = starts + n_new
+        q_pos = starts[:, None] + torch.arange(c, dtype=torch.int32,
+                                               device=dev)[None]
+        x = F.embedding(token_ids.long(), params["tok_embed"]) + \
+            F.embedding(q_pos.clamp(0, self.seq_len - 1).long(),
+                        params["pos_embed"])
+        table = cache.page_table
+        t_max = cache.max_context
+        coords = kvc.prompt_coords(table, total, c, cache.page_size, starts)
+        for i in range(self.n_block):
+            p = self._block_params(params, i)
+            kp, vp = cache.k_pages[i], cache.v_pages[i]
+            ks = None if cache.k_scales is None else cache.k_scales[i]
+            vs = None if cache.v_scales is None else cache.v_scales[i]
+            q, k_new, v_new = self._split_qkv(p, x)
+            kvc.write_prompt_layer(kp, vp, table, total, k_new, v_new,
+                                   start=starts, k_scales=ks, v_scales=vs,
+                                   coords=coords)
+            k_ctx, v_ctx, sk, sv = kvc.gather_context(
+                kp, vp, table, t_max, x.dtype, ks, vs)
+            attn = chunk_attention(q, k_ctx, v_ctx, q_pos, k_scales=sk,
+                                   v_scales=sv)
+            x = self._block_tail(p, x, attn.reshape(s, c, self.hidden_size))
+        cache = cache._replace(seq_lens=torch.where(n_new > 0, total,
+                                                    cache.seq_lens))
+        embed_t = params["tok_embed"].to(x.dtype).T
+        if all_logits:
+            return cache, x @ embed_t
+        last = x[torch.arange(s, device=dev),
+                 (n_new - 1).clamp(0, c - 1).long()]
+        return cache, last @ embed_t
 
     def generate(self, params, prompts, prompt_lens=None,
                  max_new_tokens: int = 32, *, temperature=0.0,

@@ -1,7 +1,7 @@
 """Request batching for serving (port of
 ``analytics_zoo_tpu/pipeline/inference/batching.py``): the
-``DynamicBatcher`` in front of ``/predict`` and the whole-prompt path of
-the ``ContinuousBatcher`` in front of ``/generate``.
+``DynamicBatcher`` in front of ``/predict`` and the ``ContinuousBatcher``
+in front of ``/generate``.
 
 **DynamicBatcher.** One request per forward starves the card at batch 1
 (Clipper, NSDI'17). Requests land in a bounded queue; one dispatcher
@@ -21,9 +21,10 @@ bucket once on the dispatcher's own thread, under
 cuDNN's algorithm choice and the caching allocator's blocks all happen
 in warm-up; a model reload (its ``generation`` counter) clears them. A
 warm-up failure raises: there is no unpadded fallback for a signature
-the model cannot run. The reference's fault point ``batcher/dispatch``
-and its recompile monitor wait for the ``faults`` and ``diagnostics``
-modules (ROADMAP A13).
+the model cannot run. The fault point ``batcher/dispatch``
+(``common/faults.py``) fires at the head of every batch execution; a
+fault fails that batch and the dispatcher goes on. The reference's
+recompile monitor waits for the ``diagnostics`` module.
 
 Configuration: constructor kwargs override the environment,
 ``ZOO_TPU_SERVING_BATCH`` (``0`` reverts the servers to per-request
@@ -50,8 +51,13 @@ slot and a full worst-case page reservation, so an admitted sequence
 always runs to completion. ``ZOO_TPU_GEN_QUEUE_DEPTH`` bounds the wait
 queue (default 64; full → :class:`QueueFullError`),
 ``ZOO_TPU_GEN_MAX_NEW`` caps a request's decode budget (default 256).
-The chunked, speculative and handoff branches wait with their engine
-features (ROADMAP A12).
+Under the engine's levers the loop also writes one prompt chunk per
+iteration for prompts longer than a chunk (short prompts keep the bucket
+prefill), runs a speculative round for the slots whose k-token window
+fits their reservation and plain steps for the rest, and in the
+disaggregated roles resolves :meth:`ContinuousBatcher.submit_prefill`
+with a handoff blob at the first token and admits blobs from
+:meth:`ContinuousBatcher.submit_handoff` with no prefill.
 
 Telemetry: ``common/observability.py`` lists the metrics and spans.
 """
@@ -67,6 +73,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common import faults
 from analytics_zoo_tpu_torch.common import observability as obs
 from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.common.nncontext import logger
@@ -76,6 +83,10 @@ __all__ = ["DynamicBatcher", "ContinuousBatcher", "QueueFullError",
 
 # fill-ratio histogram buckets: rows / bucket capacity in (0, 1]
 _FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+# chaos hook (common/faults.py): fires at the head of every batch
+# execution, on the dispatcher thread
+_DISPATCH_FAULT = faults.point("batcher/dispatch")
 
 
 def _fail_entry(entry, exc):
@@ -413,6 +424,7 @@ class DynamicBatcher:
 
     # -- execution ----------------------------------------------------------
     def _execute(self, batch: "list[_Entry]"):
+        _DISPATCH_FAULT.fire(rows=sum(e.n for e in batch))
         now = time.monotonic()
         wait_h = obs.histogram(
             "zoo_tpu_serving_queue_wait_seconds",
@@ -607,7 +619,7 @@ class _GenEntry:
 
     __slots__ = ("ids", "max_new", "temperature", "eos_id", "future",
                  "t_enq", "t_enq_wall", "trace", "slot", "tokens",
-                 "prompt_len")
+                 "prefilling", "handoff", "blob", "prompt_len")
 
     def __init__(self, ids, max_new, temperature, eos_id):
         self.ids = ids
@@ -620,6 +632,14 @@ class _GenEntry:
         self.trace = tracing.current()
         self.slot = -1
         self.tokens: "list[int]" = []
+        self.prefilling = False  # admitted, prompt not wholly cached
+        # disaggregation: None for an ordinary request; "out" on the
+        # prefill side (the future resolves to a handoff blob at the
+        # first token); "in" on the decode side (admitted from ``blob``)
+        self.handoff = None
+        self.blob = None
+        # the page-accounting length: the prompt's, or for a handoff-in
+        # entry, which never sees the prompt, the blob's position
         self.prompt_len = len(ids)
 
 
@@ -644,6 +664,9 @@ class ContinuousBatcher:
         self._cond = threading.Condition()
         self._stop = False
         self._draining = False
+        # an iteration is running: entries it popped may hold slots
+        # before they join _active, so the drain audit waits for it
+        self._busy = False
         self._thread: Optional[threading.Thread] = None
         self._ema_req_s = 0.05  # retry-after estimator seed
         self._slots_gauge().set(0)
@@ -701,10 +724,15 @@ class ContinuousBatcher:
         self._pages_gauge().set(self.engine.free_pages)
 
     def drain(self, timeout: float = 30.0) -> bool:
-        """Stop admitting but run the resident sequences to completion.
-        Queued entries fail at once with a retryable RuntimeError and new
-        submits are rejected. Returns True when every resident sequence
-        retired within ``timeout``. Idempotent."""
+        """Stop admitting but run the resident sequences to completion
+        (a prompt mid-chunked-prefill included). Queued entries fail at
+        once with a retryable RuntimeError and new submits are rejected.
+        Then, once the loop is between iterations, an audit reclaims any
+        slot that no request owns (a handoff splice that failed after its
+        entry was failed, say) and counts its pages in
+        ``zoo_tpu_serving_gen_handoff_pages_leaked``, which stays 0 in a
+        correct flow. Returns True when every resident sequence retired
+        within ``timeout``. Idempotent."""
         deadline = time.monotonic() + timeout
         with self._cond:
             self._draining = True
@@ -718,19 +746,26 @@ class ContinuousBatcher:
         alive = self._thread is not None and self._thread.is_alive()
         while time.monotonic() < deadline:
             with self._cond:
-                if not self._active or not alive:
+                if not (self._active or self._busy) or not alive:
                     break
             time.sleep(0.005)
         with self._cond:
-            return not self._active
+            drained = not self._active
+            audit = not self._busy
+            owned = {e.slot for e in self._active}
+        before = self.engine.free_pages
+        for s in range(self.engine.max_slots if audit else 0):
+            if s not in self.engine.free_slots and s not in owned:
+                self.engine.release(s)
+        obs.counter("zoo_tpu_serving_gen_handoff_pages_leaked",
+                    help="pages the drain audit reclaimed from slots no "
+                    "request owned (0 = exact pool refill)"
+                    ).inc(self.engine.free_pages - before)
+        self._pages_gauge().set(self.engine.free_pages)
+        return drained
 
     # -- admission ------------------------------------------------------------
-    def submit(self, prompt_ids, max_new_tokens: int = 32,
-               temperature: float = 0.0, eos_id=None) -> "Future":
-        """Enqueue one generation request. The future resolves to a 1-D
-        int32 array of the newly generated token ids (eos included when
-        hit). Raises ValueError for prompts the cache can never hold and
-        :class:`QueueFullError` at capacity."""
+    def _new_entry(self, prompt_ids, max_new_tokens, temperature, eos_id):
         ids = [int(t) for t in prompt_ids]
         max_new = min(int(max_new_tokens), self.max_new_cap)
         if max_new < 1:
@@ -739,7 +774,9 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt length {len(ids)} outside [1, "
                 f"{self.engine.max_context - 1}] for this cache")
-        entry = _GenEntry(ids, max_new, float(temperature), eos_id)
+        return _GenEntry(ids, max_new, float(temperature), eos_id)
+
+    def _enqueue(self, entry: "_GenEntry") -> "Future":
         with self._cond:
             if self._draining or self._stop:
                 raise RuntimeError("generation batcher is draining/stopped")
@@ -754,6 +791,51 @@ class ContinuousBatcher:
             self._cond.notify_all()
         return entry.future
 
+    def submit(self, prompt_ids, max_new_tokens: int = 32,
+               temperature: float = 0.0, eos_id=None) -> "Future":
+        """Enqueue one generation request. The future resolves to a 1-D
+        int32 array of the newly generated token ids (eos included when
+        hit). Raises ValueError for prompts the cache can never hold and
+        :class:`QueueFullError` at capacity."""
+        return self._enqueue(self._new_entry(prompt_ids, max_new_tokens,
+                                             temperature, eos_id))
+
+    def submit_prefill(self, prompt_ids, max_new_tokens: int = 32,
+                       temperature: float = 0.0) -> "Future":
+        """Prefill-pool admission: the prompt runs through the bucket or
+        chunked prefill as usual, but at its first token the slot's cache
+        state is exported and its pages reclaimed; the future resolves to
+        the handoff blob (``GenerationEngine.export_handoff``).
+        ``max_new_tokens`` rides along so admission reserves pages as a
+        monolithic engine would."""
+        entry = self._new_entry(prompt_ids, max_new_tokens, temperature,
+                                None)
+        entry.handoff = "out"
+        return self._enqueue(entry)
+
+    def submit_handoff(self, blob: dict, max_new_tokens: int = 32,
+                       eos_id=None) -> "Future":
+        """Decode-pool admission: claim a slot and pages for a prefilled
+        sequence and splice its shipped pages in, with no forward pass.
+        The future resolves to the whole new-token stream (the blob's
+        first token included), as the monolithic engine's. Raises
+        ValueError for a blob this engine can never hold."""
+        max_new = min(int(max_new_tokens), self.max_new_cap)
+        if max_new < 2:
+            raise ValueError(
+                "handoff admission needs max_new_tokens >= 2 (the first "
+                "token was already sampled at prefill)")
+        self.engine._check_handoff_blob(blob)
+        entry = _GenEntry([], max_new, float(blob.get("temperature", 0.0)),
+                          eos_id)
+        entry.handoff = "in"
+        entry.blob = blob
+        entry.prompt_len = int(blob["seq_len"])
+        # the prefill side emitted token 1: seed it, so the budget and
+        # the resolved stream match the monolithic engine's
+        entry.tokens = [int(blob["last_token"])]
+        return self._enqueue(entry)
+
     # -- the decode loop ------------------------------------------------------
     def _finish(self, e: "_GenEntry", now: float):
         with obs.span("decode/retire", slot=e.slot, tokens=len(e.tokens)):
@@ -765,6 +847,52 @@ class ContinuousBatcher:
                             slot=e.slot, tokens=len(e.tokens))
         e.future.set_result(np.asarray(e.tokens, np.int32))
 
+    def _finish_handoff_out(self, e: "_GenEntry", now: float):
+        """Prefill-side retirement: export the slot's cache state (which
+        reclaims its pages) and resolve the future with the blob."""
+        t0 = time.time()
+        with obs.span("decode/handoff_export", slot=e.slot):
+            blob = self.engine.export_handoff(e.slot)
+        obs.counter("zoo_tpu_serving_gen_handoffs_total",
+                    help="KV-page handoffs between prefill and decode "
+                    "pools", labels={"direction": "out"}).inc()
+        self._ema_req_s = 0.8 * self._ema_req_s + 0.2 * (now - e.t_enq)
+        tracing.record_span(e.trace, "decode/handoff_export", t0,
+                            time.time() - t0, slot=e.slot,
+                            seq_len=blob["seq_len"])
+        e.future.set_result(blob)
+
+    def _admit_handoffs(self, entries, done):
+        """Decode-side admission: splice each blob into the engine and
+        join the active set. A failed splice fails its own entry only;
+        the engine validates before it allocates, so a rejected blob
+        leaves the pool whole."""
+        for e in entries:
+            try:
+                with obs.span("decode/handoff_admit"):
+                    slot = self.engine.admit_from_handoff(e.blob, e.max_new)
+            except Exception as exc:
+                _fail_entry(e, exc)
+                continue
+            now = time.monotonic()
+            e.slot = slot
+            e.blob = None  # the host copy is spliced
+            obs.histogram("zoo_tpu_serving_gen_handoff_seconds",
+                          help="decode-pool handoff admission latency "
+                          "(blob enqueue to pages spliced)"
+                          ).observe(now - e.t_enq)
+            obs.counter("zoo_tpu_serving_gen_handoffs_total",
+                        help="KV-page handoffs between prefill and decode "
+                        "pools", labels={"direction": "in"}).inc()
+            tracing.record_span(e.trace, "decode/handoff_admit",
+                                e.t_enq_wall, now - e.t_enq, slot=slot,
+                                seq_len=e.prompt_len)
+            if (e.eos_id is not None and e.tokens[-1] == e.eos_id) or \
+                    len(e.tokens) >= e.max_new:
+                done.append(e)
+            else:
+                self._active.append(e)
+
     def _token_out(self, e: "_GenEntry", tok: int, now: float) -> bool:
         """Record one emitted token; True when the request is done."""
         if not e.tokens:
@@ -775,6 +903,19 @@ class ContinuousBatcher:
         if e.eos_id is not None and tok == e.eos_id:
             return True
         return len(e.tokens) >= e.max_new
+
+    def _first_token(self, e: "_GenEntry", tok: int, now: float, done):
+        """An admitted request's first token: a prefill-side handoff
+        exports and resolves; any other request joins ``done`` when the
+        token ends it. Returns True when it stays resident."""
+        if e.handoff == "out":
+            self._token_out(e, tok, now)
+            self._finish_handoff_out(e, now)
+            return False
+        if self._token_out(e, tok, now):
+            done.append(e)
+            return False
+        return True
 
     def _admit_locked_pop(self) -> "list[_GenEntry]":
         """Pop the longest queue prefix that fits (FIFO: no request
@@ -795,6 +936,143 @@ class ContinuousBatcher:
             self._depth_gauge().set(len(self._q))
         return take
 
+    def _spec_eligible(self, e: "_GenEntry") -> bool:
+        """Whether a resident slot may take a speculative round. A round
+        consumes a full k-token window even when the request needs one
+        more token, so the window must fit the slot's page reservation
+        and the context: the rows consumed after the round are ``plen +
+        emitted - 1 + k``, the reservation ``min(plen + max_new,
+        max_context)``. Ineligible slots take plain steps in the same
+        iteration."""
+        consumed_after = e.prompt_len + len(e.tokens) - 1 + \
+            self.engine.spec_k
+        return consumed_after <= min(e.prompt_len + e.max_new,
+                                     self.engine.max_context)
+
+    def _record_round(self, name: str, entries, t0_wall: float,
+                      dur: float, **fields):
+        """Credit one engine call (a chunk, a speculative round) to the
+        trace of every request it served."""
+        for e in entries:
+            tracing.record_span(e.trace, name, t0_wall, dur, slot=e.slot,
+                                **fields)
+
+    def _chunk_step(self, done):
+        """Advance every mid-prefill slot by one chunk and emit the first
+        tokens of prompts whose last chunk just landed."""
+        engine = self.engine
+        prefilling = [e for e in self._active if e.prefilling]
+        t0, t0_wall = time.monotonic(), time.time()
+        with obs.span("decode/prefill_chunk", n=len(prefilling)):
+            firsts = engine.prefill_step()
+        now = time.monotonic()
+        self._record_round("decode/prefill_chunk", prefilling, t0_wall,
+                           now - t0, n=len(prefilling))
+        obs.counter("zoo_tpu_serving_gen_prefill_chunks_total",
+                    help="prompt chunks written by chunked prefill").inc()
+        by_slot = {e.slot: e for e in prefilling}
+        for slot, tok in firsts:
+            e = by_slot[slot]
+            e.prefilling = False
+            if not self._first_token(e, tok, now, done):
+                self._active.remove(e)
+
+    def _admit(self, fresh, done):
+        """Admit the entries popped this iteration: handoff blobs are
+        spliced; prompts longer than one chunk (under chunked prefill)
+        claim slots and pages and land their first chunk at once; the
+        rest take one bucket-padded prefill, whose single right-sized
+        call beats a padded full-width chunk."""
+        engine = self.engine
+        hand_in = [e for e in fresh if e.handoff == "in"]
+        if hand_in:
+            self._admit_handoffs(hand_in, done)
+        prompts = [e for e in fresh if e.handoff != "in"]
+        chunk = engine.prefill_chunk
+        long_p = [e for e in prompts if 0 < chunk < len(e.ids)]
+        short_p = [e for e in prompts if not 0 < chunk < len(e.ids)]
+        if long_p:
+            reqs = [(e.ids, e.max_new, e.temperature) for e in long_p]
+            with obs.span("decode/admit", n=len(long_p)):
+                slots = engine.admit_partial(reqs)
+            now = time.monotonic()
+            for e, slot in zip(long_p, slots):
+                e.slot = slot
+                e.prefilling = True
+                tracing.record_span(e.trace, "decode/admit", e.t_enq_wall,
+                                    now - e.t_enq, slot=slot,
+                                    prompt_len=len(e.ids))
+                self._active.append(e)
+            # kickoff: the fresh prompts' first chunk lands in the
+            # iteration that admitted them
+            self._chunk_step(done)
+        if short_p:
+            reqs = [(e.ids, e.max_new, e.temperature) for e in short_p]
+            with obs.span("decode/admit", n=len(short_p)):
+                first = engine.admit(reqs)
+            now = time.monotonic()
+            for e, (slot, tok) in zip(short_p, first):
+                e.slot = slot
+                # the request's trace: enqueue to admission
+                tracing.record_span(e.trace, "decode/admit", e.t_enq_wall,
+                                    now - e.t_enq, slot=slot,
+                                    prompt_len=len(e.ids))
+                if self._first_token(e, tok, now, done):
+                    self._active.append(e)
+
+    def _decode(self, done) -> int:
+        """One decode iteration: a speculative round for the eligible
+        resident slots, a plain step for the others. Returns the tokens
+        emitted."""
+        engine = self.engine
+        spec_k = engine.spec_k
+        spec, regular = [], []
+        for e in self._active:
+            if not e.prefilling:
+                (spec if spec_k > 0 and self._spec_eligible(e)
+                 else regular).append(e)
+        emitted = 0
+        if spec:
+            active = np.zeros((engine.max_slots,), np.bool_)
+            active[[e.slot for e in spec]] = True
+            prev_acc = engine.spec_accepted
+            t0, t0_wall = time.monotonic(), time.time()
+            with obs.span("decode/spec_step", n=len(spec)):
+                out, n_emit = engine.spec_step(active)
+            now = time.monotonic()
+            self._record_round("decode/spec_step", spec, t0_wall, now - t0,
+                               n=len(spec))
+            obs.counter("zoo_tpu_serving_gen_spec_proposed_total",
+                        help="draft tokens proposed for verification"
+                        ).inc(spec_k * len(spec))
+            obs.counter("zoo_tpu_serving_gen_spec_accepted_total",
+                        help="draft tokens accepted by the target model"
+                        ).inc(engine.spec_accepted - prev_acc)
+            for e in spec:
+                for j in range(int(n_emit[e.slot])):
+                    emitted += 1
+                    if self._token_out(e, int(out[e.slot, j]), now):
+                        done.append(e)
+                        self._active.remove(e)
+                        break
+        if regular:
+            active = np.zeros((engine.max_slots,), np.bool_)
+            active[[e.slot for e in regular]] = True
+            with obs.span("decode/step", n=len(regular)):
+                toks = engine.step(active)
+            now = time.monotonic()
+            for e in regular:
+                emitted += 1
+                if self._token_out(e, int(toks[e.slot]), now):
+                    done.append(e)
+                    self._active.remove(e)
+        if spec or regular:
+            obs.counter("zoo_tpu_serving_gen_tokens_total",
+                        help="tokens generated").inc(emitted)
+            obs.counter("zoo_tpu_serving_gen_steps_total",
+                        help="decode iterations executed").inc()
+        return emitted
+
     def _run(self):
         engine = self.engine
         while True:
@@ -804,48 +1082,25 @@ class ContinuousBatcher:
                 if self._stop:
                     return
                 fresh = [] if self._draining else self._admit_locked_pop()
+                self._busy = True
+            done: "list[_GenEntry]" = []
             try:
-                now = time.monotonic()
-                done: "list[_GenEntry]" = []
                 if fresh:
-                    reqs = [(e.ids, e.max_new, e.temperature) for e in fresh]
-                    with obs.span("decode/admit", n=len(fresh)):
-                        first = engine.admit(reqs)
-                    now = time.monotonic()
-                    for e, (slot, tok) in zip(fresh, first):
-                        e.slot = slot
-                        # the request's trace: enqueue to admission
-                        tracing.record_span(
-                            e.trace, "decode/admit", e.t_enq_wall,
-                            now - e.t_enq, slot=slot,
-                            prompt_len=len(e.ids))
-                        if self._token_out(e, tok, now):
-                            done.append(e)
-                        else:
-                            self._active.append(e)
-                if self._active:
-                    active = np.zeros((engine.max_slots,), np.bool_)
-                    for e in self._active:
-                        active[e.slot] = True
-                    with obs.span("decode/step"):
-                        toks = engine.step(active)
-                    now = time.monotonic()
-                    for e in list(self._active):
-                        if self._token_out(e, int(toks[e.slot]), now):
-                            done.append(e)
-                            self._active.remove(e)
-                    obs.counter("zoo_tpu_serving_gen_tokens_total",
-                                help="tokens generated").inc(
-                        int(active.sum()))
-                    obs.counter("zoo_tpu_serving_gen_steps_total",
-                                help="decode iterations executed").inc()
+                    self._admit(fresh, done)
+                if engine.prefilling_slots:
+                    self._chunk_step(done)
+                self._decode(done)
+                now = time.monotonic()
                 for e in done:
                     self._finish(e, now)
             except Exception as exc:
                 # a failed step fails its requests, not the loop thread;
-                # slots are reclaimed so the batch serves whoever is next
-                failing = {id(e): e for e in fresh + self._active}
+                # slots are reclaimed so the batch serves whoever is next.
+                # A request already resolved (a handoff blob) owns no slot.
+                failing = {id(e): e for e in fresh + self._active + done}
                 for e in failing.values():
+                    if e.future.done():
+                        continue
                     if e.slot >= 0:
                         engine.release(e.slot)
                     _fail_entry(e, exc)
@@ -854,6 +1109,8 @@ class ContinuousBatcher:
                                exc_info=True)
             self._slots_gauge().set(engine.slots_active)
             self._pages_gauge().set(engine.free_pages)
+            with self._cond:
+                self._busy = False
 
     # -- introspection --------------------------------------------------------
     def stats(self) -> dict:

@@ -241,18 +241,31 @@ class InferenceModel:
     def load_generator(self, net, params=None, **engine_kwargs):
         """Attach an autoregressive decode engine for ``net`` (a
         transformer stack with ``init_kv_cache / prefill / decode_step /
-        generate``), beside the predict path. ``params`` defaults to the
-        net's own, initialised from the context if it has none.
-        ``engine_kwargs`` go to :class:`GenerationEngine`
+        forward_chunk / generate``), beside the predict path. ``params``
+        defaults to the net's own, initialised from the context if it
+        has none. ``engine_kwargs`` go to :class:`GenerationEngine`
         (``max_slots``, ``max_context``, ``page_size``, ``top_k``,
-        ``cache_dtype``, ``device``; environment defaults)."""
+        ``cache_dtype``, ``prefill_chunk``, ``spec_k``, ``role``,
+        ``device``; environment defaults). For speculative decoding pass
+        ``drafter=`` (a smaller net sharing the vocabulary);
+        ``drafter_params`` defaults to the drafter's own params as
+        ``params`` does to ``net``'s."""
         from analytics_zoo_tpu_torch.common.nncontext import get_nncontext
         from analytics_zoo_tpu_torch.pipeline.inference.generation import \
             GenerationEngine
-        if params is None:
-            if not net.params():
-                net.init(get_nncontext().new_generator())
-            params = net.params()
+
+        def params_of(n, explicit):
+            if explicit is not None:
+                return explicit
+            if not n.params():
+                n.init(get_nncontext().new_generator())
+            return n.params()
+
+        params = params_of(net, params)
+        drafter = engine_kwargs.get("drafter")
+        if drafter is not None:
+            engine_kwargs["drafter_params"] = params_of(
+                drafter, engine_kwargs.get("drafter_params"))
         self._generator = GenerationEngine(net, params, **engine_kwargs)
         return self
 

@@ -141,7 +141,37 @@ script exits non-zero and prints no result line:
    tower traffic on ``/predict``, each stream against the sequential
    ``generate`` under phase 8's rule, B11 12 per decode step, B7 12 per
    prefill at buckets >= 1024, slots and pages back to full, no error;
-13. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+13. generation's capacity levers on phase 8's model and weights, each
+   through ``load_generator`` and a ``ContinuousBatcher``: chunked
+   prefill (chunks of 256) serving phase 8's 16 requests from 4 clients,
+   no kernel of the eleven in a chunk step (the chunk attends densely, as
+   in the reference), B11 12 per decode step, no B7 (every prompt over
+   256 is chunked), ``forward_chunk``'s last row for the 1500-token
+   prompt in chunks against the uncached forward within 1e-3 of
+   max|logit|, TTFT p50/p99 of the short (<= 200) and long (1500)
+   prompts beside phase 8's; speculative decoding (k 4) with a drafter
+   by bench_generate.py's rule (6 blocks, hidden 384, 6 heads, the
+   vocabulary; seed 1) on 8 greedy requests (prompts 17-1500 twice, 32
+   new tokens): B11 24 per round (the drafter's steps; the verify is
+   dense), 12 per plain step, B7 12 + 6 per bucket prefill >= 1024,
+   the accept rate and tokens per target forward; 2 sampled requests
+   (temperature 0.8: budgets, the vocabulary, their accept rate); a
+   ``kill`` armed at
+   ``generation/decode_step`` fails the request in a round, its pages
+   return and the next request is served; the target drafting for
+   itself on 2 requests, every rejection at a top-2 margin of the
+   verify's logits within 1e-3 of max|logit|; then the prefill/decode
+   handoff, a ``role="prefill"`` and a ``role="decode"`` engine with
+   pools of their own, each blob through ``submit_prefill``, the wire
+   codec and JSON, and ``submit_handoff``, 8 requests in f32 pools and
+   2 in int8 pools: B7 12 per prefill >= 1024 on the prefill pool, B11
+   12 per step on the decode pool, no page leaked, both pools back to
+   full, blob bytes and the JSON hop's and the splice's p50/p99. Every
+   stream of the phase is held to the sequential ``generate`` under
+   phase 8's rule, each engine call's launches are checked one by one,
+   and the host ms of the chunk step, the decode step and the round are
+   printed;
+14. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -294,6 +324,13 @@ NCF_BATCH, NCF_STEPS = 8192, 20
 HTTP_MIX = (1, 1, 1, 2, 1, 4, 1, 2)
 HTTP_CLIENTS, HTTP_REQUESTS, HTTP_GEN = 8, 48, 8
 TOWER_SECONDS = 4.0
+# generation's capacity levers (phase 13): bench_generate.py's flags
+# (--prefill-chunk, --spec-k, --disagg) on phase 8's model; the drafter
+# by its rule, "half-width, half-depth ... sharing the vocabulary"
+# (bench_generate.py:131-139); the handoff in f32 and int8 pools
+LEVER_CHUNK, LEVER_SPEC_K, SPEC_NEW = 256, 4, 32
+DRAFT = dict(GPT, n_block=6, hidden_size=384, n_head=6)
+HANDOFF_F32, HANDOFF_INT8 = 8, 2
 DEV = "cuda"
 
 
@@ -2224,13 +2261,14 @@ def gen_requests():
     return prompts, [int(m) for m in max_new], delays
 
 
-def teacher_forced(net, params, prompt, tokens):
+def teacher_forced(net, params, prompt, tokens, cache_dtype=None):
     """Logits (1, V) after ``prompt`` + ``tokens`` on a fresh one-slot
-    cache: the prefill's when ``tokens`` is empty, else the last decode
-    step's."""
+    cache (of ``cache_dtype``, f32 by default): the prefill's when
+    ``tokens`` is empty, else the last decode step's."""
     import torch
     dev = params["tok_embed"].device
-    cache = net.init_kv_cache(1, GEN_T, page_size=GEN_PAGE, device=dev)
+    cache = net.init_kv_cache(1, GEN_T, page_size=GEN_PAGE,
+                              dtype=cache_dtype, device=dev)
     with torch.no_grad():
         cache, lg = net.prefill(params, cache,
                                 torch.tensor([prompt], device=dev),
@@ -2280,39 +2318,89 @@ def gen_engine():
     return net, eng, warm_s, im
 
 
-def serve_generation(eng):
-    """Serve :func:`gen_requests` through a ``ContinuousBatcher`` from
+class LaunchLog:
+    """Records, for each call of the named methods of one engine, its
+    arguments, the kernel launches it made (the counters' difference
+    around the call), whether it raised, and its host seconds (each
+    engine call ends by copying its tokens to the host, so they include
+    the card's work). The batcher calls the engine from its one loop
+    thread, so no other launch falls inside a call. :meth:`close`
+    removes the wrappers."""
+
+    def __init__(self, eng, names):
+        self.eng = eng
+        self.calls = {n: [] for n in names}
+        for n in names:
+            setattr(eng, n, self._wrap(n, getattr(type(eng), n)))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            before = all_launches()
+            rec = {"args": args, "error": None}
+            t0 = time.perf_counter()
+            try:
+                return fn(self.eng, *args, **kw)
+            except Exception as e:
+                rec["error"] = type(e).__name__
+                raise
+            finally:
+                rec["s"] = time.perf_counter() - t0
+                after = all_launches()
+                rec["launches"] = {k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}
+                self.calls[name].append(rec)
+        return wrapped
+
+    def median_ms(self, name):
+        """The median host ms of the recorded calls of ``name``."""
+        got = [c["s"] for c in self.calls.get(name, [])]
+        return statistics.median(got) * 1e3 if got else None
+
+    def buckets(self):
+        """The prompt bucket of each ``admit`` call."""
+        return [next(b for b in self.eng.prompt_buckets
+                     if b >= max(len(r[0]) for r in c["args"][0]))
+                for c in self.calls.get("admit", [])]
+
+    def close(self):
+        for n in self.calls:
+            delattr(self.eng, n)
+
+
+def serve_generation(eng, requests=None):
+    """Serve ``requests`` (``(prompts, budgets, delays)``, default
+    :func:`gen_requests`) through a ``ContinuousBatcher`` from
     GEN_CLIENTS threads; returns the streams, each request's time to
-    first token, the prefill buckets, the window's seconds, the kernel
-    launches in it, the decode steps and the serving errors."""
+    first token (with its prompt length), the prefill buckets, the
+    window's seconds, the kernel launches in it, each engine call's
+    launches (``calls``), the decode iterations and the serving
+    errors."""
     import torch
 
     from analytics_zoo_tpu_torch.common import observability as obs
     from analytics_zoo_tpu_torch.pipeline.inference import ContinuousBatcher
 
-    prompts, max_new, delays = gen_requests()
-    ttft, buckets = [], []
+    prompts, max_new, delays = requests or gen_requests()
+    n_req = len(prompts)
+    ttft, ttft_len = [], []
 
     class Batcher(ContinuousBatcher):
         """Keeps each request's time to first token (the value the
-        batcher's TTFT histogram observes) for the median."""
+        batcher's TTFT histogram observes) for the percentiles."""
 
         def _token_out(self, e, tok, now):
             if not e.tokens:
                 ttft.append(now - e.t_enq)
+                ttft_len.append(e.prompt_len)
             return super()._token_out(e, tok, now)
 
-    def admit(reqs):            # records each prefill's bucket
-        n = max(len(r[0]) for r in reqs)
-        buckets.append(next(b for b in eng.prompt_buckets if b >= n))
-        return type(eng).admit(eng, reqs)
-    eng.admit = admit
+    log = LaunchLog(eng, ("admit", "prefill_step", "step", "spec_step"))
     obs.reset_metrics()
     cb = Batcher(eng, queue_depth=64).start()
 
     def client(c):
         futs = []
-        for i in range(c, GEN_REQUESTS, GEN_CLIENTS):
+        for i in range(c, n_req, GEN_CLIENTS):
             time.sleep(float(delays[i]))
             futs.append((i, cb.submit(prompts[i],
                                       max_new_tokens=max_new[i])))
@@ -2321,43 +2409,66 @@ def serve_generation(eng):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(GEN_CLIENTS) as pool:
-        futures = [pool.submit(client, c) for c in range(GEN_CLIENTS)]
-        results = dict(r for f in futures for r in f.result())
-    torch.cuda.synchronize()
-    window = time.perf_counter() - t0
-    launches = all_launches()
-    cb.stop()
-    del eng.admit
+    try:
+        with concurrent.futures.ThreadPoolExecutor(GEN_CLIENTS) as pool:
+            futures = [pool.submit(client, c) for c in range(GEN_CLIENTS)]
+            results = dict(r for f in futures for r in f.result())
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+        launches = all_launches()
+    finally:
+        cb.stop()
+        log.close()
     snap = obs.snapshot()
     steps = int(snap["zoo_tpu_serving_gen_steps_total"]["values"][0]
                 ["value"])
     errors = sum(v["value"] for v in snap.get(
         "zoo_tpu_serving_errors_total", {"values": []})["values"])
-    n_tok = sum(len(results[i]) for i in range(GEN_REQUESTS))
-    return {"results": results, "ttft": ttft, "buckets": buckets,
+    n_tok = sum(len(results[i]) for i in range(n_req))
+    return {"results": results, "ttft": ttft, "ttft_len": ttft_len,
+            "buckets": log.buckets(), "calls": log.calls, "log": log,
             "window": window, "launches": launches, "steps": steps,
             "errors": errors, "tokens": n_tok,
             "tokens_per_s": n_tok / window,
             "ttft_median_ms": statistics.median(ttft) * 1e3}
 
 
+# the engine's sequential generate per (weights, prompt, pool dtype): a
+# greedy stream of a smaller budget is a prefix of a larger one, so each
+# prompt runs once at the largest budget asked (phases 8, 12 and 13 share
+# phase 8's weights)
+_SEQUENTIAL = {}
+
+
+def sequential_ref(eng, prompt, budget):
+    key = (eng.params["tok_embed"].data_ptr(), tuple(prompt),
+           str(eng.cache_dtype))
+    have = _SEQUENTIAL.get(key)
+    if have is None or len(have) < budget:
+        have = [int(t) for t in eng.generate(prompt,
+                                             max_new_tokens=budget)[0]]
+        _SEQUENTIAL[key] = have
+    return have[:budget]
+
+
 def check_streams(net, eng, prompts, max_new, results):
     """Each served greedy stream against the engine's sequential
-    ``generate``: a stream may part from it only at a step where the
-    teacher-forced top-2 logit margin is within 1e-3 of max|logit| (a
-    near tie the two routes' rounding may break either way). Returns the
-    partings."""
+    ``generate`` (:func:`sequential_ref`): a stream may part from it only
+    at a step where the teacher-forced top-2 logit margin (on a cache of
+    the engine's dtype) is within 1e-3 of max|logit| (a near tie the two
+    routes' rounding may break either way). Returns the partings."""
     parted = []
     for i, (prompt, budget, got) in enumerate(zip(prompts, max_new,
                                                   results)):
-        ref = [int(t) for t in eng.generate(prompt,
-                                            max_new_tokens=budget)[0]]
+        ref = sequential_ref(eng, prompt, budget)
         got = [int(t) for t in got]
+        check(len(got) == budget, f"request {i}: {len(got)} tokens, "
+              f"budget {budget}")
         if got == ref:
             continue
         j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
-        lg = teacher_forced(net, eng.params, prompt, got[:j])[0]
+        lg = teacher_forced(net, eng.params, prompt, got[:j],
+                            eng.cache_dtype)[0]
         top2 = lg.topk(2).values
         margin = (top2[0] - top2[1]).item()
         tol = 1e-3 * lg.abs().max().item()
@@ -2511,6 +2622,7 @@ def generation_path(card, detail):
         "tokens_per_s": n_tok / window, "window_s": window,
         "tokens": n_tok, "decode_steps": steps, "prefill_buckets": buckets,
         "ttft_ms": sorted(t * 1e3 for t in ttft),
+        "ttft_by_prompt_ms": ttft_split(served),
         "ttft_median_ms": statistics.median(ttft) * 1e3,
         "warm_s": warm_s, "launches": launches, "checks": checks,
         "parted": parted, **stepped}
@@ -3305,6 +3417,472 @@ def http_generate(srv, tower_bodies_, card, detail):
     return launches
 
 
+# -- generation's capacity levers (phase 13) ---------------------------------
+
+def ttft_split(served):
+    """TTFT p50/p99 (ms) of the short (<= 200 tokens) and the long (1500)
+    prompts of a :func:`serve_generation` record."""
+    out = {}
+    for name, keep in (("short", lambda n: n <= 200),
+                       ("long", lambda n: n >= 1500)):
+        lat = [t for t, n in zip(served["ttft"], served["ttft_len"])
+               if keep(n)]
+        out[name] = {"n": len(lat), "p50_ms": percentile_ms(lat, 50),
+                     "p99_ms": percentile_ms(lat, 99)} if lat else None
+    return out
+
+
+def lever_engine(net, params, **kw):
+    """A GPT engine at phase 8's geometry (8 slots of 16-token pages, T
+    2048) with the given levers, through ``load_generator``, warmed.
+    Returns ``(engine, warm seconds, programs warmed)``."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    eng = InferenceModel().load_generator(
+        net, params, max_slots=GEN_SLOTS, max_context=GEN_T,
+        page_size=GEN_PAGE, **kw).generator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_prog = eng.warm()
+    torch.cuda.synchronize()
+    check(n_prog == len(eng._programs()), f"warm ran {n_prog} programs of "
+          f"{len(eng._programs())}")
+    return eng, time.perf_counter() - t0, n_prog
+
+
+def pools_full(eng, what):
+    check(eng.slots_active == 0 and eng.free_pages == eng.allocator.max_pages,
+          f"{what}: {eng.slots_active} slots active, {eng.free_pages} of "
+          f"{eng.allocator.max_pages} pages free")
+
+
+def calls_launch(calls, name, want, what):
+    """Every recorded call of ``name`` launched exactly ``want(call)``."""
+    for i, c in enumerate(calls.get(name, [])):
+        exp = {k: v for k, v in want(c).items() if v}
+        check(c["launches"] == exp, f"{what}: {name} call {i} launched "
+              f"{c['launches']}, expected {exp}")
+
+
+def levers_chunked(net, params, card, detail):
+    """Phase 13, part 1: chunked prefill (C 256) serving phase 8's 16
+    requests from 4 clients. Each chunk step launches nothing of the
+    eleven (the chunk attends densely, as in the reference), each decode
+    step B11 12 times, and no prefill runs B7 (every prompt over 256 is
+    chunked); streams under phase 8's rule; forward_chunk's last row for
+    the 1500-token prompt in 256-token chunks against the uncached
+    forward within 1e-3 of max|logit|; TTFT beside phase 8's."""
+    import torch
+    nb = GPT["n_block"]
+    eng, warm_s, n_prog = lever_engine(net, params, prefill_chunk=LEVER_CHUNK)
+    prompts, max_new, _ = gen_requests()
+    served = serve_generation(eng)
+    calls, log = served["calls"], served["log"]
+    calls_launch(calls, "prefill_step", lambda c: {}, "chunked")
+    calls_launch(calls, "step", lambda c: {"flash_decode": nb}, "chunked")
+    calls_launch(calls, "admit", lambda c: {}, "chunked")
+    check(all(b <= LEVER_CHUNK for b in served["buckets"]),
+          f"bucket prefills at {served['buckets']}")
+    chunks, steps = len(calls["prefill_step"]), len(calls["step"])
+    check(served["launches"].get("flash_decode") == nb * steps and
+          not served["launches"].get("flash_fwd"),
+          f"chunked serving launches {served['launches']}")
+    check(served["errors"] == 0, f"{served['errors']} serving errors")
+    check(chunks >= 6, f"{chunks} chunk steps")   # 1500 tokens: 6 chunks
+    pools_full(eng, "after chunked serving")
+    parted = check_streams(net, eng, prompts, max_new,
+                           [served["results"][i]
+                            for i in range(len(prompts))])
+
+    # forward_chunk's last row against the uncached forward
+    long_p = next(p for p in prompts if len(p) == max(GEN_PROMPTS))
+    dev = eng.device
+    with torch.no_grad():
+        cache = net.init_kv_cache(1, GEN_T, page_size=GEN_PAGE, device=dev)
+        for off in range(0, len(long_p), LEVER_CHUNK):
+            part = long_p[off:off + LEVER_CHUNK]
+            ids = torch.zeros(1, LEVER_CHUNK, dtype=torch.int32)
+            ids[0, :len(part)] = torch.tensor(part)
+            cache, lg = net.forward_chunk(eng.params, cache, ids.to(dev),
+                                          [off], [len(part)])
+        h = net.call(eng.params, torch.tensor([long_p], device=dev))
+        full = h[0, -1] @ eng.params["tok_embed"].T
+        err = (lg[0] - full).abs().max().item()
+        tol = 1e-3 * full.abs().max().item()
+    del cache, h
+    print(f"  forward_chunk, {len(long_p)} tokens in chunks of "
+          f"{LEVER_CHUNK}: last row against the uncached forward max|err| "
+          f"{err:.4e} (tol {tol:.4e})", flush=True)
+    check(err <= tol, f"forward_chunk last row {err} > {tol}")
+
+    split = ttft_split(served)
+    base = detail["generation"]["ttft_by_prompt_ms"]
+    fmt = lambda r: "none" if r is None else \
+        f"p50 {r['p50_ms']:.1f} p99 {r['p99_ms']:.1f} ms (n {r['n']})"
+    print(f"  chunked (C {LEVER_CHUNK}): {served['tokens']} tokens in "
+          f"{served['window']:.3f} s ({served['tokens_per_s']:.1f} tokens/s),"
+          f" {steps} decode steps (median {_ms(log.median_ms('step'))}), "
+          f"{chunks} chunk steps (median {_ms(log.median_ms('prefill_step'))}"
+          f"), bucket prefills {served['buckets']}, warm {n_prog} programs "
+          f"in {warm_s:.2f} s; "
+          f"TTFT short {fmt(split['short'])}, long {fmt(split['long'])}; "
+          f"phase 8 (whole prompts): short {fmt(base['short'])}, long "
+          f"{fmt(base['long'])} on {card}", flush=True)
+    rec = {"tokens_per_s": served["tokens_per_s"], "window_s":
+           served["window"], "tokens": served["tokens"], "decode_steps":
+           steps, "chunk_steps": chunks, "buckets": served["buckets"],
+           "step_ms": log.median_ms("step"),
+           "chunk_step_ms": log.median_ms("prefill_step"),
+           "ttft": split, "ttft_phase8": base, "parted": parted,
+           "launches": served["launches"], "warm_s": warm_s,
+           "forward_chunk_err": err, "forward_chunk_tol": tol}
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+class RecordingNet:
+    """A net whose ``forward_chunk(all_logits=True)`` keeps its logits
+    (the verify's), delegating everything else."""
+
+    def __init__(self, net):
+        self._net = net
+        self.logits = None
+
+    def __getattr__(self, name):
+        return getattr(self._net, name)
+
+    def forward_chunk(self, *args, all_logits=False, **kw):
+        cache, lg = self._net.forward_chunk(*args, all_logits=all_logits,
+                                            **kw)
+        if all_logits:
+            self.logits = lg
+        return cache, lg
+
+
+def levers_spec(net, params, card):
+    """Phase 13, part 2: speculative decoding, k 4, with the drafter built
+    by bench_generate's rule (6 blocks, hidden 384, 6 heads, the vocab),
+    on 8 greedy requests (prompts 17, 200, 700 and 1500 twice, 32 new
+    tokens). Each round launches B11 24 times (the drafter's 4 steps of 6
+    blocks; the verify attends densely), each plain step 12, each bucket
+    prefill at >= 1024 B7 12 + 6; streams under phase 8's rule. Then 2
+    sampled requests (temperature 0.8), whose drafts the target rejects
+    at times: budgets, the vocabulary, the accept rate. Then the
+    target drafting for itself on 2 requests: every rejection at a
+    top-2 margin of the verify's logits within 1e-3 of max|logit|. Then
+    a ``kill`` at ``generation/decode_step`` in a round: the request
+    fails, its pages return, the next request is served. Returns the
+    record and the launches of the served run."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer \
+        import TransformerLayer
+    from analytics_zoo_tpu_torch.pipeline.inference import ContinuousBatcher
+    from analytics_zoo_tpu_torch.pipeline.inference import \
+        generation as gmod
+    nb, nd, k = GPT["n_block"], DRAFT["n_block"], LEVER_SPEC_K
+    dnet = TransformerLayer(seq_len=GEN_T, **DRAFT)
+    dparams = dnet.build(torch.Generator().manual_seed(1), (GEN_T,))
+    eng, warm_s, n_prog = lever_engine(net, params, spec_k=k, drafter=dnet,
+                                       drafter_params=dparams)
+    del dparams
+    prompts0, _, _ = gen_requests()
+    prompts = [next(p for p in prompts0 if len(p) == n)
+               for n in GEN_PROMPTS] * 2
+    max_new = [SPEC_NEW] * len(prompts)
+    delays = np.random.RandomState(3).uniform(0.0, 0.3, len(prompts))
+    served = serve_generation(eng, (prompts, max_new, delays))
+    calls, log = served["calls"], served["log"]
+    calls_launch(calls, "spec_step", lambda c: {"flash_decode": k * nd},
+                 "spec")
+    calls_launch(calls, "step", lambda c: {"flash_decode": nb}, "spec")
+    bucket = lambda c: next(b for b in eng.prompt_buckets
+                            if b >= max(len(r[0]) for r in c["args"][0]))
+    calls_launch(calls, "admit", lambda c: {
+        "flash_fwd": (nb + nd) if bucket(c) >= 1024 else 0}, "spec")
+    rounds, steps = len(calls["spec_step"]), len(calls["step"])
+    n_b7 = sum(b >= 1024 for b in served["buckets"])
+    check(n_b7 > 0 and rounds > 0, f"{rounds} rounds, buckets "
+          f"{served['buckets']}")
+    check(served["errors"] == 0, f"{served['errors']} serving errors")
+    pools_full(eng, "after speculative serving")
+    parted = check_streams(net, eng, prompts, max_new,
+                           [served["results"][i]
+                            for i in range(len(prompts))])
+    st = eng.stats()
+    distinct = [len(set(int(t) for t in served["results"][i]))
+                for i in range(len(prompts))]
+    # tokens after the first, per slot the target ran a forward for (a
+    # round's verify or a plain step)
+    decoded = served["tokens"] - len(prompts)
+    per_forward = decoded / sum(int(np.asarray(c["args"][0]).sum())
+                                for n in ("spec_step", "step")
+                                for c in calls[n])
+    print(f"  speculative (k {k}, drafter {nd} blocks x {DRAFT['hidden_size']}"
+          f"): {served['tokens']} tokens in {served['window']:.3f} s "
+          f"({served['tokens_per_s']:.1f} tokens/s), {rounds} rounds "
+          f"(median {_ms(log.median_ms('spec_step'))}) and {steps} plain "
+          f"steps, accept rate {st['spec_accept_rate']:.4f} "
+          f"({st['spec_accepted']} of {st['spec_proposed']}), "
+          f"{per_forward:.3f} tokens per target forward, distinct tokens "
+          f"per stream {distinct}, bucket prefills "
+          f"{served['buckets']}, warm {n_prog} programs in {warm_s:.2f} s "
+          f"on {card}", flush=True)
+    rec = {"tokens_per_s": served["tokens_per_s"], "window_s":
+           served["window"], "tokens": served["tokens"], "rounds": rounds,
+           "plain_steps": steps, "round_ms": log.median_ms("spec_step"),
+           "accept_rate": st["spec_accept_rate"],
+           "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
+           "tokens_per_target_forward": per_forward,
+           "distinct_tokens": distinct,
+           "buckets": served["buckets"], "parted": parted,
+           "launches": served["launches"], "warm_s": warm_s}
+
+    # sampled rounds (temperature 0.8): the target's law rejects drafts,
+    # so the residual's draw runs on the card
+    before = eng.spec_proposed, eng.spec_accepted
+    cb = ContinuousBatcher(eng, queue_depth=8).start()
+    try:
+        sampled = [[int(t) for t in f.result(600)] for f in
+                   [cb.submit(p, max_new_tokens=SPEC_NEW, temperature=0.8)
+                    for p in prompts[:2]]]
+    finally:
+        cb.stop()
+    check(all(len(t) == SPEC_NEW and 0 <= min(t) and max(t) < GPT["vocab"]
+              for t in sampled), f"sampled streams {sampled}")
+    pools_full(eng, "after sampled speculation")
+    proposed = eng.spec_proposed - before[0]
+    accepted = eng.spec_accepted - before[1]
+    print(f"  sampled (temperature 0.8) on 2 requests: accept rate "
+          f"{accepted / proposed:.4f} ({accepted} of {proposed}), distinct "
+          f"tokens per stream {[len(set(t)) for t in sampled]}", flush=True)
+    rec["sampled"] = {"accept_rate": accepted / proposed,
+                      "proposed": proposed, "accepted": accepted}
+
+    # a kill at the head of a round fails its request and strands nothing
+    cb = ContinuousBatcher(eng, queue_depth=8).start()
+    log = LaunchLog(eng, ("spec_step",))
+    try:
+        faults.arm("generation/decode_step", "kill", times=1)
+        try:
+            cb.submit(prompts[1], max_new_tokens=SPEC_NEW).result(600)
+            killed = None
+        except faults.InjectedKillError as e:
+            killed = e
+        check(killed is not None, "the armed kill did not fail the request")
+        check(log.calls["spec_step"][0]["error"] == "InjectedKillError",
+              f"the kill fired outside a round: {log.calls['spec_step'][:1]}")
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and \
+                eng.free_pages != eng.allocator.max_pages:
+            time.sleep(0.01)
+        pools_full(eng, "after the kill")
+        after = cb.submit(prompts[1], max_new_tokens=SPEC_NEW).result(600)
+    finally:
+        faults.disarm_all()
+        cb.stop()
+        log.close()
+    check_streams(net, eng, prompts[1:2], [SPEC_NEW], [after])
+    print(f"  kill at generation/decode_step in a round: the request failed "
+          f"({type(killed).__name__}), pages back to "
+          f"{eng.free_pages}/{eng.allocator.max_pages}, the next request "
+          f"served ({len(after)} tokens)", flush=True)
+    rec["kill"] = {"error": type(killed).__name__, "next_tokens": len(after)}
+    del eng, dnet
+    torch.cuda.empty_cache()
+
+    # the target drafting for itself: rejections only at near ties
+    rnet = RecordingNet(net)
+    eng, _, _ = lever_engine(rnet, params, spec_k=k, drafter=net,
+                             drafter_params=params)
+    rejections, state = [], {}
+    orig_accept = gmod.speculative_accept
+
+    def accept(seed, p, q, drafts):
+        n_acc, corrected = orig_accept(seed, p, q, drafts)
+        for s in np.flatnonzero(state["active"]):
+            j = int(n_acc[s])
+            if j < k:
+                row = rnet.logits[s, j].float()
+                top2 = row.topk(2).values
+                rejections.append({"slot": int(s), "pos": j, "margin": (
+                    top2[0] - top2[1]).item(),
+                    "tol": 1e-3 * row.abs().max().item()})
+        return n_acc, corrected
+
+    orig_round = type(eng).spec_step
+
+    def spec_step(active):
+        state["active"] = np.asarray(active, np.bool_)
+        return orig_round(eng, active)
+
+    self_prompts = [prompts[1], prompts[3]]
+    gmod.speculative_accept = accept
+    eng.spec_step = spec_step
+    cb = ContinuousBatcher(eng, queue_depth=8).start()
+    try:
+        outs = [f.result(600) for f in
+                [cb.submit(p, max_new_tokens=SPEC_NEW)
+                 for p in self_prompts]]
+    finally:
+        gmod.speculative_accept = orig_accept
+        cb.stop()
+        del eng.spec_step
+    st = eng.stats()
+    print(f"  self-draft on {len(self_prompts)} requests: accept rate "
+          f"{st['spec_accept_rate']:.4f} ({st['spec_accepted']} of "
+          f"{st['spec_proposed']}), rejections {rejections}", flush=True)
+    for r in rejections:
+        check(r["margin"] <= r["tol"], f"self-draft rejection at top-2 "
+              f"margin {r['margin']} > {r['tol']}")
+    check_streams(net, eng, self_prompts, [SPEC_NEW] * 2, outs)
+    rec["self_draft"] = {"accept_rate": st["spec_accept_rate"],
+                         "rejections": rejections}
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def levers_handoff(net, params, card, kv, n_req):
+    """Phase 13, part 3: a ``role="prefill"`` and a ``role="decode"``
+    engine on the one card, each with its own pool (``kv``) behind its
+    own ``ContinuousBatcher``. Every blob goes ``submit_prefill`` →
+    ``handoff_to_wire`` → JSON → ``handoff_from_wire`` →
+    ``submit_handoff``. The prefills run first (B7 12 per bucket >=
+    1024, nothing else), then the decodes (B11 12 per step, nothing
+    else); streams under phase 8's rule; no page leaked; both pools
+    back to full."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    from analytics_zoo_tpu_torch.pipeline.inference import ContinuousBatcher
+    nb = GPT["n_block"]
+    pre, _, _ = lever_engine(net, params, role="prefill", cache_dtype=kv)
+    dec, _, _ = lever_engine(net, params, role="decode", cache_dtype=kv)
+    prompts, max_new, _ = gen_requests()
+    # phase 12's first eight (two of 1500 tokens), or one prompt of each
+    # length from the longest down
+    pick = list(range(n_req)) if n_req == HTTP_GEN else [
+        next(i for i, p in enumerate(prompts) if len(p) == n)
+        for n in sorted(GEN_PROMPTS, reverse=True)][:n_req]
+    prompts, max_new = [prompts[i] for i in pick], [max_new[i] for i in pick]
+    spliced = []
+
+    class DecodeBatcher(ContinuousBatcher):
+        def _admit_handoffs(self, entries, done):
+            super()._admit_handoffs(entries, done)
+            now = time.monotonic()
+            spliced.extend(now - e.t_enq for e in entries)
+
+    obs.reset_metrics()
+    pre_cb, dec_cb = ContinuousBatcher(pre).start(), DecodeBatcher(dec).start()
+    plog = LaunchLog(pre, ("admit",))
+    dlog = LaunchLog(dec, ("step", "admit_from_handoff"))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        blobs = [f.result(600) for f in
+                 [pre_cb.submit_prefill(p, max_new_tokens=m)
+                  for p, m in zip(prompts, max_new)]]
+        prefill_s = time.perf_counter() - t0
+        pre_launch = all_launches()
+        wires, wire_s = [], []
+        for b in blobs:
+            t1 = time.perf_counter()
+            wires.append(kvc.handoff_from_wire(json.loads(json.dumps(
+                kvc.handoff_to_wire(b)))))
+            wire_s.append(time.perf_counter() - t1)
+        reset_launches()
+        t0 = time.perf_counter()
+        results = [f.result(600) for f in
+                   [dec_cb.submit_handoff(w, max_new_tokens=m)
+                    for w, m in zip(wires, max_new)]]
+        decode_s = time.perf_counter() - t0
+        dec_launch = all_launches()
+        check(pre_cb.drain() and dec_cb.drain(), "drain timed out")
+    finally:
+        pre_cb.stop()
+        dec_cb.stop()
+        plog.close()
+        dlog.close()
+    snap = obs.snapshot()
+    leaked = sum(v["value"] for v in snap.get(
+        "zoo_tpu_serving_gen_handoff_pages_leaked",
+        {"values": []})["values"])
+    buckets = plog.buckets()
+    n_b7 = sum(b >= 1024 for b in buckets)
+    calls_launch(plog.calls, "admit", lambda c: {"flash_fwd": nb if next(
+        b for b in pre.prompt_buckets if b >= max(len(r[0]) for r in
+                                                  c["args"][0])) >= 1024
+        else 0}, f"handoff {kv} prefill")
+    calls_launch(dlog.calls, "step", lambda c: {"flash_decode": nb},
+                 f"handoff {kv} decode")
+    calls_launch(dlog.calls, "admit_from_handoff", lambda c: {},
+                 f"handoff {kv} splice")
+    steps = len(dlog.calls["step"])
+    check(pre_launch.get("flash_fwd", 0) == nb * n_b7 and
+          not pre_launch.get("flash_decode") and
+          dec_launch.get("flash_decode", 0) == nb * steps and
+          not dec_launch.get("flash_fwd"),
+          f"handoff {kv}: prefill pool launched {pre_launch}, decode pool "
+          f"{dec_launch}")
+    check(leaked == 0, f"{leaked} handoff pages leaked")
+    pools_full(pre, f"{kv} prefill pool")
+    pools_full(dec, f"{kv} decode pool")
+    parted = check_streams(net, dec, prompts, max_new, results)
+    nbytes = [kvc.handoff_nbytes(b) for b in blobs]
+    rec = {"kv_dtype": kv, "requests": n_req, "buckets": buckets,
+           "blob_bytes": nbytes, "wire_ms": {
+               "p50": percentile_ms(wire_s, 50),
+               "p99": percentile_ms(wire_s, 99)},
+           "splice_ms": {"p50": percentile_ms(spliced, 50),
+                         "p99": percentile_ms(spliced, 99)},
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_steps": steps, "step_ms": dlog.median_ms("step"),
+           "splice_call_ms": dlog.median_ms("admit_from_handoff"),
+           "leaked": leaked, "parted": parted,
+           "launches": {"prefill": pre_launch, "decode": dec_launch}}
+    print(f"  handoff, {kv} pools: {n_req} requests (prompts "
+          f"{sorted(len(p) for p in prompts)}), blobs {min(nbytes)}-"
+          f"{max(nbytes)} bytes, wire (encode, JSON, decode) p50 "
+          f"{rec['wire_ms']['p50']:.1f} p99 {rec['wire_ms']['p99']:.1f} ms,"
+          f" enqueue to spliced p50 {rec['splice_ms']['p50']:.1f} p99 "
+          f"{rec['splice_ms']['p99']:.1f} ms; prefills {prefill_s:.3f} s "
+          f"at {buckets}, decode {decode_s:.3f} s in {steps} steps (median "
+          f"{_ms(dlog.median_ms('step'))}), a splice "
+          f"{_ms(dlog.median_ms('admit_from_handoff'))}; leaked "
+          f"{leaked} on {card}", flush=True)
+    del pre, dec, blobs, wires
+    torch.cuda.empty_cache()
+    return rec
+
+
+def levers_path(gen_eng, card, detail):
+    """Phase 13: generation's capacity levers on phase 8's model and
+    weights (``gen_eng``, whose sequential ``generate`` holds every
+    stream): chunked prefill, speculative decoding with a drafter and a
+    fault in a round, and the prefill/decode handoff in f32 and int8
+    pools. Returns the launches of each part."""
+    net, params = gen_eng.net, gen_eng.params
+    rec = {"chunked": levers_chunked(net, params, card, detail)}
+    rec["spec"] = levers_spec(net, params, card)
+    rec["handoff"] = [levers_handoff(net, params, card, "f32", HANDOFF_F32),
+                      levers_handoff(net, params, card, "int8",
+                                     HANDOFF_INT8)]
+    detail["levers"] = rec
+    total = {}
+    for part in (rec["chunked"]["launches"], rec["spec"]["launches"],
+                 *(h["launches"][s] for h in rec["handoff"]
+                   for s in ("prefill", "decode"))):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3479,6 +4057,7 @@ def main() -> int:
     print("[8] main path: GPT-style generation (paged KV cache, "
           "continuous batcher, B11)", flush=True)
     generated, gen_im = generation_path(card, detail)
+    gen_eng = gen_im.generator
 
     print("[9] flash/dense crossover (fwd+bwd, bf16, causal)", flush=True)
     crossover(card, detail)
@@ -3504,13 +4083,21 @@ def main() -> int:
     del gen_im
     torch.cuda.empty_cache()
 
-    print("[13] summary", flush=True)
+    print("[13] generation's capacity levers: chunked prefill, speculative "
+          "decoding with a drafter, the prefill/decode handoff", flush=True)
+    levers = levers_path(gen_eng, card, detail)
+    del gen_eng
+    torch.cuda.empty_cache()
+
+    print("[14] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if rec["name"] in FLASH:
             rec["launches_bf16_path"] = bert_bench[rec["name"]]
         if over_http.get(rec["name"]):
             rec["launches_http"] = over_http[rec["name"]]
+        if levers.get(rec["name"]):
+            rec["launches_levers"] = levers[rec["name"]]
     detail["kernels"] = summary
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),

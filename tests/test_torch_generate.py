@@ -373,16 +373,43 @@ def test_continuous_batcher_queue_full_and_stop_fails_pending():
         cb.submit([1], max_new_tokens=2)
 
 
-@pytest.mark.parametrize("kw,env", [
-    ({"prefill_chunk": 4}, None), ({"spec_k": 2}, None),
-    ({"role": "decode"}, None), ({}, ("ZOO_TPU_PREFILL_CHUNK", "8")),
-    ({}, ("ZOO_TPU_SPEC_K", "3"))])
-def test_engine_refuses_what_is_not_ported(monkeypatch, kw, env):
-    _, params, tnet, _ = _nets()
-    if env:
-        monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(tnet, params, max_slots=2, **kw)
+def _drafter_pair(vocab=VOCAB, seq=SEQ):
+    """A one-block drafter for the validation cases, in both packages."""
+    kw = dict(n_block=1, hidden_size=16, n_head=2, vocab=vocab, seq_len=seq,
+              hidden_p_drop=0.0, attn_p_drop=0.0, embed_p_drop=0.0)
+    jd = jtr.TransformerLayer(**kw)
+    return jd, jax.device_get(jd.build(jax.random.key(7), (seq,))), \
+        ttr.TransformerLayer(**kw)
+
+
+@pytest.mark.parametrize("case", [
+    "spec_without_drafter", "spec_env_without_drafter", "spec_with_role",
+    "bad_role", "drafter_vocab", "drafter_context", "absurd_spec_k"])
+def test_engine_validates_levers_as_the_reference(monkeypatch, case):
+    """Each lever's misconfiguration raises the reference's ValueError,
+    in the port and in the JAX engine alike."""
+    jnet, params, tnet, _ = _nets()
+    kw = dict(max_slots=2, max_context=SEQ, page_size=8)
+    jd, dparams, td = _drafter_pair(
+        vocab=VOCAB + 1 if case == "drafter_vocab" else VOCAB,
+        seq=SEQ // 2 if case == "drafter_context" else SEQ)
+    spec = dict(spec_k=2, drafter=(jd, td), drafter_params=dparams)
+    kw.update({
+        "spec_without_drafter": {"spec_k": 2},
+        "spec_env_without_drafter": {},
+        "spec_with_role": dict(spec, role="decode"),
+        "bad_role": {"role": "frontend"},
+        "drafter_vocab": spec, "drafter_context": spec,
+        "absurd_spec_k": dict(spec, spec_k=1001)}[case])
+    if case == "spec_env_without_drafter":
+        monkeypatch.setenv("ZOO_TPU_SPEC_K", "3")
+    for eng, net, params_, side in ((JEngine, jnet, params, 0),
+                                    (GenerationEngine, tnet, params, 1)):
+        args = dict(kw)
+        if "drafter" in args:
+            args["drafter"] = args["drafter"][side]
+        with pytest.raises(ValueError):
+            eng(net, params_, **args)
 
 
 def test_resolve_kv_dtype_and_engine_environment(monkeypatch):
