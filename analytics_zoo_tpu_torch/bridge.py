@@ -6,9 +6,13 @@ same names and layouts, so the bridge is a copy in both directions:
 ``params_to_numpy(params_from_numpy(tree))`` gives back ``tree`` bit
 for bit. Optimizer state crosses too, both ways: an Estimator's and an
 optax state's moments come out in one layout, and that layout loads
-back into an Estimator. So does a paged KV cache (pages, scales, table,
-lengths), so both packages can start from one cache state. This module
-imports no JAX.
+back into an Estimator. So does a checkpoint (:func:`checkpoint_from_
+reference`, :func:`checkpoint_to_reference`): the two packages write
+one format, ``{"params", "opt_state", "step"}``, whose ``opt_state`` is
+an optax state tree in the reference's files and the same tree's leaves
+in the port's. So does a paged KV cache (pages, scales, table, lengths),
+so both packages can start from one cache state. This module imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -134,6 +138,62 @@ def optax_state_to_numpy(state) -> dict:
 
     walk(state)
     return out
+
+
+def optax_leaves(node) -> list:
+    """The leaves of an optimizer state as ``jax.tree_util.tree_leaves``
+    flattens it: dicts by sorted key, tuples (optax's named tuples) and
+    lists in order, and None and empty tuples (``EmptyState``,
+    ``MaskedNode``) without a leaf. A port checkpoint's state is already
+    this flat list."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        return [leaf for k in sorted(node) for leaf in optax_leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [leaf for v in node for leaf in optax_leaves(v)]
+    return [node]
+
+
+def _unflatten_like(like, leaves):
+    """``like``'s structure (dicts, named tuples, tuples, lists) with its
+    leaves taken in order from the iterator ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        filled = {k: _unflatten_like(like[k], leaves) for k in sorted(like)}
+        return {k: filled[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*[_unflatten_like(v, leaves) for v in like])
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten_like(v, leaves) for v in like)
+    return next(leaves)
+
+
+def checkpoint_from_reference(state: dict) -> dict:
+    """A checkpoint dict of the JAX package's Estimator (as unpickled,
+    its optax state's classes real or stand-ins) → the port's layout:
+    the same params and step, the state's leaves as a flat list of host
+    arrays in the reference's order."""
+    return {"params": state["params"],
+            "opt_state": [np.asarray(a) for a in
+                          optax_leaves(state["opt_state"])],
+            "step": int(state["step"])}
+
+
+def checkpoint_to_reference(state: dict, opt_state_like) -> dict:
+    """A port checkpoint dict → the reference's layout, its optimizer
+    state rebuilt in the structure of ``opt_state_like`` (the reference
+    Estimator's state for the same model and optimizer, e.g. after
+    ``jax.device_get``). The leaf counts must agree."""
+    leaves = list(state["opt_state"])
+    want = len(optax_leaves(opt_state_like))
+    if len(leaves) != want:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves, the "
+                         f"reference's structure {want}")
+    return {"params": state["params"],
+            "opt_state": _unflatten_like(opt_state_like, iter(leaves)),
+            "step": int(state["step"])}
 
 
 _CACHE_FIELDS = ("k_pages", "v_pages", "page_table", "seq_lens", "k_scales",

@@ -43,8 +43,10 @@ that probability, ``where_<key>=value`` fires only when the site passed
 ``fire(<key>=value)``.
 
 Points in the port: ``generation/decode_step`` (``GenerationEngine.step``
-and ``spec_step``) and ``batcher/dispatch`` (the head of every
-``DynamicBatcher`` batch execution).
+and ``spec_step``), ``batcher/dispatch`` (the head of every
+``DynamicBatcher`` batch execution) and ``estimator/checkpoint_write``
+(``Estimator.save_checkpoint``, between the pickle's bytes and the
+rename).
 
 Every firing increments ``zoo_tpu_faults_injected_total{point,kind}``
 in :mod:`~analytics_zoo_tpu_torch.common.observability`. The reference

@@ -81,15 +81,19 @@ def init_nncontext(conf: Optional[ZooTpuConf] = None, *,
                    seed: Optional[int] = None,
                    device=None) -> NNContext:
     """Create (or replace) the process-wide :class:`NNContext`.
+    ``ZOO_TPU_*`` environment variables overlay ``conf``
+    (:meth:`ZooTpuConf.from_env`), and the arguments overlay both.
     ``device`` overrides ``conf.device``; both ``None`` means
     ``cuda:0``, and raises without a CUDA device."""
     global _current
-    conf = ZooTpuConf() if conf is None else ZooTpuConf(conf.seed,
-                                                        conf.device)
+    conf = ZooTpuConf.from_env(conf)
     if seed is not None:
         conf.seed = int(seed)
     if device is not None:
         conf.device = str(device)
+    # the package's own logger only; its records still reach the
+    # root's handlers
+    logger.setLevel(conf.log_level)
     ctx = NNContext(conf, resolve_device(conf.device))
     with _lock:
         _current = ctx

@@ -1,5 +1,5 @@
-"""Telemetry core (port of ``analytics_zoo_tpu/common/observability.py``,
-less its JSONL event log).
+"""Telemetry core (port of ``analytics_zoo_tpu/common/observability.py``;
+its JSONL event log without the segment rotation).
 
 Labelled counters, gauges, fixed-bucket histograms and wall-time spans
 in one process-global, thread-safe registry, read back with
@@ -41,11 +41,17 @@ recorded on the trace of every request it served.
 
 Fault injection (``common/faults.py``):
 ``zoo_tpu_faults_injected_total{point,kind}``.
+
+Structured events (:func:`event`) append one JSON line each to the file
+``ZOO_TPU_EVENT_LOG`` names (nothing when it is unset): the
+``diagnostics/anomaly`` and ``perf/goodput_epoch`` events.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
+import os
 import re
 import threading
 import time
@@ -362,9 +368,53 @@ def to_prometheus() -> str:
     return _REGISTRY.to_prometheus()
 
 
+_event_lock = threading.Lock()
+_event_path: Optional[str] = None
+_event_fh = None
+
+
+def _close_event_log() -> None:
+    global _event_path, _event_fh
+    if _event_fh is not None:
+        try:
+            _event_fh.close()
+        except OSError:
+            pass
+    _event_fh = None
+    _event_path = None
+
+
+def event(name: str, **fields) -> None:
+    """Append one structured JSON line ``{"ts", "event", **fields}`` to
+    the ``ZOO_TPU_EVENT_LOG`` file (read on every call; nothing when it
+    is unset). Values JSON cannot hold are written as strings."""
+    global _event_path, _event_fh
+    path = os.environ.get("ZOO_TPU_EVENT_LOG")
+    if not path:
+        return
+    rec = {"ts": round(time.time(), 6), "event": name}
+    rec.update(fields)
+    try:
+        line = json.dumps(rec)
+    except (TypeError, ValueError):
+        line = json.dumps({k: (v if isinstance(
+            v, (int, float, str, bool, type(None))) else str(v))
+            for k, v in rec.items()})
+    with _event_lock:
+        if path != _event_path:
+            _close_event_log()
+            _event_fh = open(path, "a", encoding="utf-8")
+            _event_path = path
+        _event_fh.write(line + "\n")
+        _event_fh.flush()
+
+
 def reset_metrics():
-    """Clear the process-global registry (test isolation)."""
+    """Clear the process-global registry and release the event log's
+    file (test isolation)."""
     _REGISTRY.reset()
+    with _event_lock:
+        _close_event_log()
 
 
 class Span:

@@ -4,8 +4,12 @@
 ``Unpickler.find_class`` admits only the numeric and container types a
 saved param tree or hyperparameter dict holds, and classes of the
 port's own subtrees, so a tampered file cannot run code on load. The
-port's saved files hold numpy trees: no optimizer library's state
-classes are admitted, and no class of the JAX package."""
+port's saved files hold numpy trees and lists. A checkpoint of the JAX
+package's Estimator names optax's state classes (named tuples such as
+``optax._src.transform.ScaleByAdamState``): they are never imported, but
+read as local tuple stand-ins (:func:`state_tuple`) that keep their
+fields' order, which is all a resume needs. No class of the JAX package
+is admitted."""
 
 from __future__ import annotations
 
@@ -40,8 +44,30 @@ _SAFE_CLASSES = {
 }
 
 
+# the optimizer libraries whose state classes a reference checkpoint
+# names; each is read as a tuple (its named-tuple fields in order)
+_STATE_MODULE_PREFIXES = ("optax", "chex")
+_stand_ins: "dict[tuple, type]" = {}
+
+
 class UnsafePickleError(pickle.UnpicklingError):
     pass
+
+
+def state_tuple(module: str, name: str) -> type:
+    """The stand-in for the named tuple ``module.name``: a ``tuple``
+    subclass built from positional fields, as pickle rebuilds a named
+    tuple (``cls.__new__(cls, *fields)``)."""
+    key = (module, name)
+    cls = _stand_ins.get(key)
+    if cls is None:
+        cls = type(name, (tuple,), {
+            "__new__": lambda c, *fields: tuple.__new__(c, fields),
+            "__module__": __name__,
+            "__qualname__": f"state_tuple[{module}.{name}]",
+            "__repr__": lambda self: f"{name}{tuple.__repr__(self)}"})
+        _stand_ins[key] = cls
+    return cls
 
 
 class CheckedUnpickler(pickle.Unpickler):
@@ -50,6 +76,8 @@ class CheckedUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if (module, name) in _SAFE_CLASSES:
             return super().find_class(module, name)
+        if module.split(".", 1)[0] in _STATE_MODULE_PREFIXES:
+            return state_tuple(module, name)
         if module.startswith("numpy") and name in ("ndarray", "dtype"):
             return super().find_class(module, name)
         if any(module == p[:-1] or module.startswith(p)

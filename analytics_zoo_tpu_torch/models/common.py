@@ -114,18 +114,7 @@ class ZooModel:
         """Write the weights as a flat ``.npz`` of ``"layer/param"``
         keys (the JAX package's format: each loads the other's)."""
         self._initialized_estimator()
-        flat = {}
-
-        def walk(prefix, d):
-            for k, v in d.items():
-                key = f"{prefix}/{k}" if prefix else str(k)
-                if isinstance(v, dict):
-                    walk(key, v)
-                else:
-                    flat[key] = v
-
-        walk("", params_to_numpy(self.model))
-        np.savez(path, **flat)
+        self.model.save_weights(path)
 
     def load_weights(self, path: str):
         """Load a :meth:`save_weights` file, every tensor's shape

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import cuda_build
+from analytics_zoo_tpu_torch.perf import flops as _flops
 
 # launches of each CUDA kernel (CPU calls run the plain version and do
 # not count)
@@ -289,6 +290,16 @@ def _check_3x3(name: str, x: torch.Tensor, w: torch.Tensor, stride: int):
     return cin, cout
 
 
+def _counted(name: str, m: int, k: int, n: int, taps: int = 1):
+    """A kernel's products (``2 m k n`` per tap) in an open FLOP count
+    (``perf/flops.py``): recorded the same on the card and on the CPU,
+    where the plain version's aten ops are muted."""
+    return _flops.kernel(
+        name, "convolution" if taps > 1 else "dot", 2.0 * m * k * n * taps,
+        f"m {m} k {k} n {n}" + (f" taps {taps}" if taps > 1 else ""),
+        (("lhs_f", k), ("rhs_i", k), ("rhs_o", n)))
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call kernel ``name``'s C entry point on the current stream of
     ``device``; raise if the launch was refused, else count it."""
@@ -307,6 +318,18 @@ def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
     """The 1x1 fold over NHWC ``x4``, every ``stride``-th pixel."""
     name = "matmul_bn_apply"
     k, n = _check_1x1(name, x4, w)
+    b, h, wd, _ = x4.shape
+    ho, wo = -(-h // stride), -(-wd // stride)
+    with _counted(name, b * ho * wo, k, n):
+        return _matmul_fold_launch(x4, w, stride, residual, in_scale,
+                                   in_shift, relu_in, out_scale, out_shift,
+                                   relu_out)
+
+
+def _matmul_fold_launch(x4, w, stride, residual, in_scale, in_shift,
+                        relu_in, out_scale, out_shift, relu_out):
+    name = "matmul_bn_apply"
+    k, n = w.shape
     b, h, wd, _ = x4.shape
     ho, wo = -(-h // stride), -(-wd // stride)
     m = b * ho * wo
@@ -412,6 +435,16 @@ def conv3x3_bn_apply(x: torch.Tensor, w: torch.Tensor,
     t = _vec(in_shift, cin, 0.0, x) if affine_in else None
     os_ = _vec(out_scale, cout, 1.0, x)
     ot = _vec(out_shift, cout, 0.0, x)
+    m = x.shape[0] * tf_same_pads(x.shape[1], 3, stride)[2] * \
+        tf_same_pads(x.shape[2], 3, stride)[2]
+    with _counted(name, m, cin, cout, taps=9):
+        return _conv3x3_apply_launch(x, w, s, t, os_, ot, relu_in,
+                                     affine_in, relu_out, stride, cin, cout)
+
+
+def _conv3x3_apply_launch(x, w, s, t, os_, ot, relu_in, affine_in, relu_out,
+                          stride, cin, cout):
+    name = "conv3x3_bn_apply"
     if _device_kind(name, x) == "cpu":
         return conv3x3_bn_apply_ref(x, w, s, t, os_, ot, relu_in,
                                     affine_in, relu_out, stride)
@@ -803,8 +836,11 @@ class _MatmulBn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x4, w, s, t, r, sh, stride, relu_in, affine_in):
-        y, ssum, ssq = _matmul_bn_fwd(x4, w, s, t, r, sh, stride, relu_in,
-                                      affine_in)
+        b, h, wd, k = x4.shape
+        m = b * -(-h // stride) * -(-wd // stride)
+        with _counted("matmul_bn", m, k, w.shape[1]):
+            y, ssum, ssq = _matmul_bn_fwd(x4, w, s, t, r, sh, stride,
+                                          relu_in, affine_in)
         ctx.save_for_backward(x4, w, s, t, r, sh, y)
         ctx.cfg = (stride, relu_in, affine_in)
         return y, ssum, ssq
@@ -818,9 +854,13 @@ class _MatmulBn(torch.autograd.Function):
         x2 = x4[:, ::stride, ::stride].reshape(-1, k).contiguous()
         grads = (y.reshape(-1, n), dy.reshape(-1, n).contiguous(),
                  dsum.float().contiguous(), dsq.float().contiguous())
-        dx2, ds, dt, dr = _matmul_bn_dx(x2, w, s, t, r, sh, *grads,
-                                        relu_in, affine_in)
-        dw = _matmul_bn_dw(x2, s, t, r, sh, *grads, relu_in, affine_in)
+        m = x2.shape[0]
+        with _counted("matmul_bn_dx", m, n, k):
+            dx2, ds, dt, dr = _matmul_bn_dx(x2, w, s, t, r, sh, *grads,
+                                            relu_in, affine_in)
+        with _counted("matmul_bn_dw", m, k, n):
+            dw = _matmul_bn_dw(x2, s, t, r, sh, *grads, relu_in,
+                               affine_in)
         if stride == 1:
             dx = dx2.reshape(x4.shape)
         else:
@@ -838,8 +878,11 @@ class _Conv3x3Bn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, s, t, sh, stride, relu_in, affine_in):
-        y, ssum, ssq = _conv3x3_bn_fwd(x, w, s, t, sh, relu_in, affine_in,
-                                       stride)
+        m = x.shape[0] * tf_same_pads(x.shape[1], 3, stride)[2] * \
+            tf_same_pads(x.shape[2], 3, stride)[2]
+        with _counted("conv3x3_bn", m, w.shape[2], w.shape[3], taps=9):
+            y, ssum, ssq = _conv3x3_bn_fwd(x, w, s, t, sh, relu_in,
+                                           affine_in, stride)
         ctx.save_for_backward(x, w, s, t, sh, y)
         ctx.cfg = (stride, relu_in, affine_in)
         return y, ssum, ssq

@@ -7,6 +7,12 @@ flags, so an edited source rebuilds and an unchanged one loads from
 ``analytics_zoo_tpu_torch/build/``. :func:`build` starts one ``nvcc``
 per source, all at once. Nothing here runs at import: the CPU tests
 import every module on machines without ``nvcc``.
+
+These are the port's compiles, so each is announced to the recompile
+monitor (``common/diagnostics.py``): ``cuda_build/build`` for a library
+compiled, inside :func:`build`'s ``expected_compiles`` bracket (a
+build is asked for), and ``cuda_build/load`` for a library loaded into
+the process at first use, which is watched.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Sequence
+
+from analytics_zoo_tpu_torch.common import diagnostics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -58,6 +66,11 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     took (0 for one found built). Raises with the compiler's output if
     any build fails. ``nvcc -Xptxas=-v``'s report (registers, shared
     memory, spills) is kept beside each library as ``<lib>.log``."""
+    with diagnostics.expected_compiles():
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     started = {}
@@ -85,6 +98,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
             f.write(log)
         os.replace(tmp, out)   # atomic: a concurrent loader never sees
         # a half-written library
+        diagnostics.compile_event("cuda_build/build", seconds[name])
     if failures:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
     return seconds
@@ -95,9 +109,12 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build([name])
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
+            diagnostics.compile_event("cuda_build/load",
+                                      time.perf_counter() - t0)
         return lib
 
 

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import cuda_build
+from analytics_zoo_tpu_torch.perf import flops as _flops
 
 _NEG_INF = -1e30
 # the masked logit as an f32 holds it (the row statistics are f32), so a
@@ -353,8 +354,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the products each kernel does, per B H Tq Tk D: the forward's S = QK^T
+# and PV; B9's recomputed S, dV, dP and dK; B10's S, dP and dQ
+_PRODUCTS = {"flash_fwd": 4, "flash_block": 4, "flash_bwd_dkdv": 8,
+             "flash_bwd_dq": 6}
+
+
+def _counted(name: str, q: torch.Tensor, k: torch.Tensor):
+    """The kernel's products in an open FLOP count (``perf/flops.py``),
+    the same on the card and on the CPU's plain version."""
+    b, tq, h, d = q.shape
+    return _flops.kernel(
+        name, "attention", _PRODUCTS[name] * b * h * tq * k.shape[1] * d,
+        f"q {tuple(q.shape)} k {tuple(k.shape)}",
+        (("lhs_f", d), ("rhs_i", d), ("rhs_o", d)))
+
+
 def _forward(name, q, k, v, key_mask, causal: bool, scale: float,
              off: int):
+    with _counted(name, q, k):
+        return _forward_launch(name, q, k, v, key_mask, causal, scale, off)
+
+
+def _forward_launch(name, q, k, v, key_mask, causal: bool, scale: float,
+                    off: int):
     """B7 (``flash_fwd``: the normalised output (B, Tq, H, D) in q's
     type, at offset Tk - Tq) or B8 (``flash_block``: ``(acc (B, Tq, H,
     D) f32, m (B, H, Tq) f32, l (B, H, Tq) f32)`` at causal offset
@@ -561,6 +584,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _backward(name, q, k, v, dout, key_mask, m, l, delta, causal, scale,
               off):
+    with _counted(name, q, k):
+        return _backward_launch(name, q, k, v, dout, key_mask, m, l, delta,
+                                causal, scale, off)
+
+
+def _backward_launch(name, q, k, v, dout, key_mask, m, l, delta, causal,
+                     scale, off):
     """B9 (``flash_bwd_dkdv``: returns dk, dv) or B10 (``flash_bwd_dq``:
     returns dq)."""
     if _device_kind(name, q) == "cpu":

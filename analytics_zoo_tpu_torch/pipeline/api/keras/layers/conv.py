@@ -6,7 +6,10 @@ PyTorch pads symmetrically, but TF "SAME" puts the odd extra row and
 column at the high end (the stem 7x7/s2 on 224 pads (2, 3)), so an
 asymmetric SAME pads explicitly before the convolution. This layer is a
 library convolution: in the reference it lies outside any Pallas kernel
-(the stem and the unfused comparison graph).
+(the stem and the unfused comparison graph). A strided convolution goes
+through :func:`~analytics_zoo_tpu_torch.ops.conv_grad.conv2d`, as the
+reference's does: the same forward, and a backward gated between cuDNN's
+strided one and the phase decomposition (``ZOO_TPU_PHASE_BWD``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from analytics_zoo_tpu_torch.ops import activations, initializers
+from analytics_zoo_tpu_torch.ops import (activations, conv_grad,
+                                         initializers, regularizers)
 from analytics_zoo_tpu_torch.ops.conv_bn import tf_same_pads
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
     KerasLayer, Shape)
@@ -57,8 +61,9 @@ class Convolution2D(KerasLayer):
     def __init__(self, nb_filter: int, nb_row: int,
                  nb_col: Optional[int] = None, init="glorot_uniform",
                  activation=None, border_mode: str = "valid",
-                 subsample=1, bias: bool = True, input_shape=None,
-                 name=None, **kwargs):
+                 subsample=1, w_regularizer=None, b_regularizer=None,
+                 bias: bool = True, input_shape=None, name=None,
+                 **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
         if border_mode not in ("valid", "same"):
             raise ValueError(f"border_mode must be valid|same, "
@@ -71,6 +76,8 @@ class Convolution2D(KerasLayer):
         self.border_mode = border_mode
         self.kernel_init = initializers.get(init)
         self.activation = activations.get(activation)
+        self.w_regularizer = regularizers.get(w_regularizer)
+        self.b_regularizer = regularizers.get(b_regularizer)
         self.use_bias = bool(bias)
 
     def build(self, generator, input_shape: Shape) -> dict:
@@ -82,16 +89,29 @@ class Convolution2D(KerasLayer):
         return params
 
     def call(self, params, x, *, training=False, rng=None):
-        xc, padding = pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
-                               self.subsample, self.border_mode)
-        w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
-        y = F.conv2d(xc, w, stride=self.subsample, padding=padding)
-        y = y.permute(0, 2, 3, 1)
+        if max(self.subsample) > 1:
+            y = conv_grad.conv2d(x, params["kernel"].to(x.dtype),
+                                 stride=self.subsample,
+                                 padding=self.border_mode)
+        else:
+            xc, padding = pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
+                                   self.subsample, self.border_mode)
+            w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
+            y = F.conv2d(xc, w, stride=self.subsample, padding=padding)
+            y = y.permute(0, 2, 3, 1)
         if self.use_bias:
             y = y + params["bias"].to(y.dtype)
         if self.activation is not None:
             y = self.activation(y)
         return y.contiguous()
+
+    def regularizers(self):
+        out = []
+        if self.w_regularizer is not None:
+            out.append(("kernel", self.w_regularizer))
+        if self.b_regularizer is not None:
+            out.append(("bias", self.b_regularizer))
+        return out
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         out = tuple(_conv_out_len(s, k, st, self.border_mode)

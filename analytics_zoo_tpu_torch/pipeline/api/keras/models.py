@@ -1,7 +1,11 @@
 """Containers: functional ``Model`` and ``Sequential`` (port of
 ``analytics_zoo_tpu/pipeline/api/keras/models.py``): params by layer
-name, ``apply`` with state updates, predict, and the training surface
-(``compile``/``fit``/``evaluate``, routed to the Estimator).
+name, ``apply`` with state updates, predict, the training surface
+(``compile``/``fit``/``evaluate`` and the TensorBoard, checkpoint and
+clipping setters, routed to the Estimator) and the weights' persistence
+(``save_weights``/``load_weights`` in the reference's ``.npz`` format,
+``get_weights``/``set_weights``/``copy_weights_from`` in its
+sorted-path order).
 
 A container's param tree is ``{layer.name: layer params}``, the JAX
 package's layout, so a JAX param pytree loads into it as a copy
@@ -164,6 +168,15 @@ class KerasNet(KerasLayer):
                 lyr.trainable = False
         return self
 
+    def unfreeze(self, *layer_names: str) -> "KerasNet":
+        """Unfreeze named layers (all layers if no names given). The
+        optimizer's state then covers other leaves: call ``compile``
+        again before ``fit``."""
+        for lyr in self.layers:
+            if not layer_names or lyr.name in layer_names:
+                lyr.trainable = True
+        return self
+
     # -- training surface (routes to the Estimator, as the reference) ------
     def compile(self, optimizer="adam", loss="mse", metrics=None):
         """Configure training. Weights live in the net, so re-compiling
@@ -180,14 +193,173 @@ class KerasNet(KerasLayer):
             raise RuntimeError("call compile(...) first")
         return est
 
+    def set_tensorboard(self, log_dir: str, app_name: str = "zoo_tpu"):
+        self.estimator.set_tensorboard(log_dir, app_name)
+        return self
+
+    def set_summary_trigger(self, name: str, trigger):
+        """"Parameters" or "LearningRate" summaries on ``trigger``."""
+        self.estimator.set_summary_trigger(name, trigger)
+        return self
+
+    def set_checkpoint(self, path: str, trigger=None):
+        self.estimator.set_checkpoint(path, trigger)
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        self.estimator.set_gradient_clipping_by_l2_norm(clip_norm)
+        return self
+
+    def set_constant_gradient_clipping(self, min_value, max_value):
+        self.estimator.set_constant_gradient_clipping(min_value, max_value)
+        return self
+
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
-            **kwargs):
-        """Train on numpy array(s) (+ ``y``) or an ``ArrayDataset``."""
+            validation_data=None, **kwargs):
+        """Train on numpy array(s) (+ ``y``) or an ``ArrayDataset``;
+        ``validation_data`` (an ``(x, y)`` pair or a dataset) is
+        evaluated at each ``validation_trigger`` (default every epoch)
+        into the history's ``val_<metric>`` keys."""
         return self.estimator.train(x, y, batch_size=batch_size,
-                                    nb_epoch=nb_epoch, **kwargs)
+                                    nb_epoch=nb_epoch,
+                                    validation_data=validation_data,
+                                    **kwargs)
 
     def evaluate(self, x, y=None, batch_size: int = 32):
         return self.estimator.evaluate(x, y, batch_size=batch_size)
+
+    # -- weights --------------------------------------------------------------
+    def _flat_weights(self):
+        """``("layer/param", tensor)`` for every leaf, in the reference's
+        sorted-path order."""
+        flat = []
+
+        def walk(prefix, d):
+            for k in sorted(d):
+                key = f"{prefix}/{k}" if prefix else str(k)
+                if isinstance(d[k], dict):
+                    walk(key, d[k])
+                else:
+                    flat.append((key, d[k]))
+        walk("", self.params())
+        return flat
+
+    def _weight_leaves(self):
+        """:meth:`_flat_weights` of the initialized net."""
+        self.estimator._ensure_initialized()
+        return self._flat_weights()
+
+    def _install(self, values: dict) -> None:
+        """Install host arrays by ``"layer/param"`` key (every key of
+        the tree), cast to each leaf's dtype."""
+        from analytics_zoo_tpu_torch.bridge import params_to_numpy
+
+        def fill(prefix, d):
+            for k, v in d.items():
+                key = f"{prefix}/{k}" if prefix else str(k)
+                if isinstance(v, dict):
+                    fill(key, v)
+                else:
+                    d[k] = np.asarray(values[key]).astype(v.dtype)
+        tree = params_to_numpy(self)
+        fill("", tree)
+        self.estimator.params = tree
+
+    def save_weights(self, path: str):
+        """The weights as a flat ``.npz`` keyed ``"layer/param"`` (the
+        reference's format: each package loads the other's)."""
+        if not self.initialized:
+            raise RuntimeError("no parameters to save; fit or init first")
+        np.savez(path, **{k: to_numpy(t) for k, t in self._flat_weights()})
+
+    def load_weights(self, path: str):
+        """Load a :meth:`save_weights` file (either package's); a
+        missing or misshapen tensor raises."""
+        values = {}
+        with np.load(path) as data:
+            for key, leaf in self._weight_leaves():
+                if key not in data:
+                    raise KeyError(f"weight {key} missing from {path}")
+                saved = data[key]
+                if tuple(saved.shape) != tuple(leaf.shape):
+                    raise ValueError(
+                        f"shape mismatch for {key}: saved {saved.shape} vs "
+                        f"model {tuple(leaf.shape)}")
+                values[key] = saved
+        self._install(values)
+        return self
+
+    def get_weights(self) -> "list[np.ndarray]":
+        """Every weight array in sorted-path order (the reference's
+        ``get_weights``); :meth:`set_weights` takes the list back."""
+        return [to_numpy(t).copy() for _, t in self._weight_leaves()]
+
+    def set_weights(self, weights: "list[np.ndarray]"):
+        """The inverse of :meth:`get_weights`, shape-checked."""
+        flat = self._weight_leaves()
+        if len(weights) != len(flat):
+            raise ValueError(f"expected {len(flat)} arrays, got "
+                             f"{len(weights)}")
+        values = {}
+        for (key, cur), w in zip(flat, weights):
+            w = np.asarray(w)
+            if tuple(w.shape) != tuple(cur.shape):
+                raise ValueError(f"shape mismatch: model "
+                                 f"{tuple(cur.shape)} vs {w.shape}")
+            values[key] = w
+        self._install(values)
+        return self
+
+    def copy_weights_from(self, other: "KerasNet",
+                          strict: bool = False) -> "KerasNet":
+        """Copy weights from another net by layer name: layers in both
+        take ``other``'s weights (cast to this net's dtypes), the rest
+        keep theirs. A layer whose shapes differ is skipped with a
+        warning, or raises with ``strict=True``, which also requires
+        every layer of this net in ``other``."""
+        from analytics_zoo_tpu_torch.bridge import params_to_numpy
+        from analytics_zoo_tpu_torch.common.nncontext import logger
+        other.estimator._ensure_initialized()
+        self.estimator._ensure_initialized()
+        src, dst = params_to_numpy(other), params_to_numpy(self)
+        missing = [n for n in dst if n not in src]
+        if strict and missing:
+            raise KeyError(f"layers missing from source: {missing}")
+
+        def shapes(tree, prefix=""):
+            out = []
+            for k in sorted(tree):
+                key = f"{prefix}/{k}"
+                if isinstance(tree[k], dict):
+                    out += shapes(tree[k], key)
+                else:
+                    out.append((key, tuple(np.shape(tree[k]))))
+            return out
+
+        def cast(s_, d):
+            if isinstance(d, dict):
+                return {k: cast(s_[k], v) for k, v in d.items()}
+            return np.asarray(s_).astype(d.dtype)
+
+        new = {}
+        for name, sub in dst.items():
+            if name not in src:
+                new[name] = sub
+                continue
+            if shapes(src[name]) != shapes(sub):
+                if strict:
+                    raise ValueError(
+                        f"layer {name!r}: source weights "
+                        f"{shapes(src[name])} incompatible with "
+                        f"{shapes(sub)}")
+                logger.warning("copy_weights_from: skipping layer %r — "
+                               "source shapes %s != destination %s", name,
+                               shapes(src[name]), shapes(sub))
+                new[name] = sub
+                continue
+            new[name] = cast(src[name], sub)
+        self.estimator.params = new
+        return self
 
     # -- inference ----------------------------------------------------------
     def forward(self, inputs):

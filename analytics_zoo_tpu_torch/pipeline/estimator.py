@@ -1,19 +1,21 @@
 """Estimator: train, evaluate and predict a Keras-style net on the card
 (port of ``analytics_zoo_tpu/pipeline/estimator.py``, the single-card
-core; checkpoints, TensorBoard, profiling, gradient clipping and the
-fsdp/tp/ep modes wait).
+train loop with the reference's whole training surface; the fsdp/tp/ep
+modes, sharded checkpoints, training SLOs and on-device augmentation
+wait for later slices).
 
 A train step is the reference's, written eagerly: the net's ``apply``
 in training mode under autograd, the loss (in f32 under the
 ``mixed_bfloat16`` policy, whose inputs go to the card as bf16 while
 the params stay f32), the gradients of the trainable leaves, the
-optimizer's in-place update, then the BatchNorm state updates copied
-into the net's buffers. The weights live in the net itself
-(``model.params()``), so ``predict`` and serving see every step. Inputs
-may be one array or a list of them (BERT takes four). Each step hands
-the net a seed, ``fold_in(base, step)`` with ``base`` drawn from the
-context once per ``train`` call, from which the layers that draw noise
-(dropout) derive theirs (``ops/rng.py``).
+clipping (global L2 norm or a constant range, first, as the
+reference's ``optax.chain``), the optimizer's in-place update, then the
+BatchNorm state updates copied into the net's buffers. The weights live
+in the net itself (``model.params()``), so ``predict`` and serving see
+every step. Inputs may be one array or a list of them (BERT takes
+four). Each step hands the net a seed, ``fold_in(base, step)`` with
+``base`` drawn from the context once per ``train`` call, from which the
+layers that draw noise (dropout) derive theirs (``ops/rng.py``).
 
 Input batches are prepared ahead of the step, as the reference does
 (``_prefetch_iter``): a worker thread named ``zoo-tpu-prefetch`` runs
@@ -21,9 +23,23 @@ Input batches are prepared ahead of the step, as the reference does
 line). On the card the worker gathers each batch into a pinned host
 buffer (a ring of depth + 1 per input), copies it on a copy stream of
 its own and records an event, which the step's stream waits for before
-it casts the inputs to bf16 under ``mixed_bfloat16``; the pageable copy
-on the compute stream is gone. Each train step's wait for its batch is
-observed in ``zoo_tpu_train_data_wait_seconds``.
+it casts the inputs to bf16 under ``mixed_bfloat16``. Each train step's
+wait for its batch is observed in ``zoo_tpu_train_data_wait_seconds``.
+
+The loop around the step is the reference's: the triggers decide when
+to validate, checkpoint, write summaries and stop; each epoch is a
+``train/epoch`` span and each step a ``train/step`` trace annotated
+with its ``data_wait_s``, ``dispatch_s``, ``device_s`` (with
+``ZOO_TPU_TRACE_SYNC=1``, a card sync per step) and ``checkpoint_s``;
+the gauges ``zoo_tpu_train_first_step_seconds``,
+``zoo_tpu_learning_rate`` and ``zoo_tpu_train_throughput_examples_per_
+sec``; a :class:`~analytics_zoo_tpu_torch.common.diagnostics.
+StepTimeWatcher` per run, the recompile monitor, the device-memory
+gauges per epoch; and the goodput ledger (``perf/goodput.py``), whose
+step FLOPs are counted inside the run's first step (``perf/flops.py``)
+and whose epoch summary goes into the history's ``goodput``.
+Checkpoints are the reference's files: either package resumes the
+other's.
 
 Multi-output models follow the reference's Keras semantics: labels
 given as a list of arrays are one column per output
@@ -34,30 +50,43 @@ array per output.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import pickle
 import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.bridge import optax_leaves
+from analytics_zoo_tpu_torch.common import diagnostics, faults
 from analytics_zoo_tpu_torch.common import observability as obs
+from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.common.nncontext import (
     NNContext, get_nncontext)
+from analytics_zoo_tpu_torch.common.safe_pickle import checked_load
 from analytics_zoo_tpu_torch.feature.feature_set import normalize_labels
 from analytics_zoo_tpu_torch.ops import losses as losses_lib
 from analytics_zoo_tpu_torch.ops import metrics as metrics_lib
 from analytics_zoo_tpu_torch.ops import optimizers as optim_lib
+from analytics_zoo_tpu_torch.perf import flops as flops_lib
+from analytics_zoo_tpu_torch.perf import goodput as goodput_lib
 from analytics_zoo_tpu_torch.ops.rng import fold_in
 from analytics_zoo_tpu_torch.pipeline.api.keras.engine import tree_leaves
 from analytics_zoo_tpu_torch.pipeline.api.keras.models import (
     concat_outputs, to_numpy)
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+# fires after the pickle's bytes are in the tmp file and before any
+# fsync or rename: a failure here leaves only the tmp file, never a torn
+# ckpt_*.pkl
+_CKPT_FAULT = faults.point("estimator/checkpoint_write")
 
 
 # ---------------------------------------------------------------------------
@@ -66,16 +95,58 @@ logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 class Trigger:
     """Training-control predicate (the reference's BigDL ``Trigger``
-    algebra, the everyEpoch/maxEpoch/maxIteration part)."""
+    algebra: every epoch, several iterations, max epoch, max iteration,
+    min loss, max score, and their and/or). ``**state`` carries the
+    epoch's loss and validation metrics at epoch-end checks."""
 
     def __call__(self, epoch: int, iteration: int, epoch_end: bool,
                  **state) -> bool:
         raise NotImplementedError
 
+    @staticmethod
+    def every_epoch() -> "Trigger":
+        return EveryEpoch()
+
+    @staticmethod
+    def several_iteration(n: int) -> "Trigger":
+        return SeveralIteration(n)
+
+    @staticmethod
+    def max_epoch(n: int) -> "Trigger":
+        return MaxEpoch(n)
+
+    @staticmethod
+    def max_iteration(n: int) -> "Trigger":
+        return MaxIteration(n)
+
+    @staticmethod
+    def min_loss(v: float) -> "Trigger":
+        return MinLoss(v)
+
+    @staticmethod
+    def max_score(v: float, metric: Optional[str] = None) -> "Trigger":
+        return MaxScore(v, metric)
+
+    @staticmethod
+    def and_(*triggers: "Trigger") -> "Trigger":
+        return TriggerAnd(*triggers)
+
+    @staticmethod
+    def or_(*triggers: "Trigger") -> "Trigger":
+        return TriggerOr(*triggers)
+
 
 class EveryEpoch(Trigger):
     def __call__(self, epoch, iteration, epoch_end, **state):
         return epoch_end
+
+
+class SeveralIteration(Trigger):
+    def __init__(self, n: int):
+        self.n = int(n)
+
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        return iteration > 0 and iteration % self.n == 0
 
 
 class MaxEpoch(Trigger):
@@ -92,6 +163,50 @@ class MaxIteration(Trigger):
 
     def __call__(self, epoch, iteration, epoch_end, **state):
         return iteration >= self.n
+
+
+class MinLoss(Trigger):
+    """The epoch's training loss at or below ``v``, at epoch end."""
+
+    def __init__(self, v: float):
+        self.v = float(v)
+
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        loss = state.get("loss")
+        return epoch_end and loss is not None and loss <= self.v
+
+
+class MaxScore(Trigger):
+    """A validation metric (``metric``, or the first reported) at or
+    above ``v``, at epoch end."""
+
+    def __init__(self, v: float, metric: Optional[str] = None):
+        self.v = float(v)
+        self.metric = metric
+
+    def __call__(self, epoch, iteration, epoch_end, **state):
+        metrics = state.get("val_metrics") or {}
+        if not (epoch_end and metrics):
+            return False
+        score = (metrics.get(self.metric) if self.metric is not None
+                 else next(iter(metrics.values()), None))
+        return score is not None and score >= self.v
+
+
+class TriggerAnd(Trigger):
+    def __init__(self, *triggers: Trigger):
+        self.triggers = triggers
+
+    def __call__(self, *a, **state):
+        return all(t(*a, **state) for t in self.triggers)
+
+
+class TriggerOr(Trigger):
+    def __init__(self, *triggers: Trigger):
+        self.triggers = triggers
+
+    def __call__(self, *a, **state):
+        return any(t(*a, **state) for t in self.triggers)
 
 
 # ---------------------------------------------------------------------------
@@ -423,15 +538,20 @@ class TrainResult:
 
 
 class Estimator:
-    """``train``/``evaluate``/``predict`` over a Keras-style net."""
+    """``train``/``evaluate``/``predict`` over a Keras-style net, with
+    the reference's training surface: triggers, validation, gradient
+    clipping, checkpoints, TensorBoard summaries, profiling and the
+    goodput ledger."""
 
     def __init__(self, model, optimizer="adam", loss="mse",
                  metrics: Optional[List] = None,
                  ctx: Optional[NNContext] = None,
                  dtype_policy: Optional[str] = None):
-        # the reference defaults to bf16 activations on a TPU only: the
-        # port's card is not one, so float32 unless asked
-        dtype_policy = dtype_policy or "float32"
+        # explicit, then ZOO_TPU_DTYPE_POLICY, then the default: the
+        # reference defaults to bf16 activations on a TPU only, and the
+        # card is not one
+        dtype_policy = (dtype_policy or
+                        os.environ.get("ZOO_TPU_DTYPE_POLICY") or "float32")
         if dtype_policy not in ("float32", "mixed_bfloat16"):
             raise ValueError("dtype_policy must be float32|mixed_bfloat16")
         self.dtype_policy = dtype_policy
@@ -448,8 +568,120 @@ class Estimator:
             self.loss_fn = losses_lib.get(loss)
         self.metrics = [metrics_lib.get(m) for m in (metrics or [])]
         self.optimizer = optim_lib.get(optimizer)
+        self._clip: Optional[Callable] = None
         self.opt_state: Optional[dict] = None
         self.step = 0
+        # the product FLOPs of a step, counted in a run's first step
+        # (perf/flops.py), and the counted products
+        self.flops_per_step: Optional[float] = None
+        self.flop_ops: list = []
+
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Trigger = EveryEpoch()
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_error: Optional[BaseException] = None
+        self.tensorboard_dir: Optional[str] = None
+        self.tensorboard_app = "zoo_tpu"
+        self._tb_writer = None
+        # True only for a writer _tb() opened: an injected writer is the
+        # caller's and is never closed here
+        self._tb_owns_writer = False
+        self._summary_triggers: "dict[str, Trigger]" = {}
+        self._profile_dir: Optional[str] = None
+        self._profile_start = 0
+        self._profile_end = 0
+        self._profiling = False
+        self._profiler = None
+
+    # -- knobs ---------------------------------------------------------------
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        """Scale the gradients to a global L2 norm of ``clip_norm`` when
+        they exceed it (optax.clip_by_global_norm), before the update."""
+        clip_norm = float(clip_norm)
+        self._clip = lambda g: optim_lib.clip_by_global_norm(g, clip_norm)
+        return self
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float):
+        """Clamp every gradient element into ``[min_value, max_value]``
+        before the update."""
+        lo, hi = float(min_value), float(max_value)
+        self._clip = lambda g: optim_lib.clip_constant(g, lo, hi)
+        return self
+
+    def set_checkpoint(self, path: str, trigger: Optional[Trigger] = None):
+        self.checkpoint_path = path
+        if trigger is not None:
+            self.checkpoint_trigger = trigger
+        return self
+
+    def set_tensorboard(self, log_dir: str, app_name: str = "zoo_tpu"):
+        """Write the ``Loss``, ``LearningRate``, ``Throughput`` and
+        ``Validation/<metric>`` scalars under ``log_dir/app_name``
+        (``torch.utils.tensorboard``, imported at the first ``train``:
+        without the ``tensorboard`` package that raises)."""
+        self.tensorboard_dir = log_dir
+        self.tensorboard_app = app_name
+        return self
+
+    def set_summary_trigger(self, name: str, trigger: Trigger):
+        """Extra summaries on a trigger (BigDL
+        ``TrainSummary.setSummaryTrigger``): ``"Parameters"``, a
+        histogram per weight (``Parameters/<layer>/<param>``, one fetch
+        of the whole tree per firing), or ``"LearningRate"``, the
+        schedule's value as a scalar and the ``zoo_tpu_learning_rate``
+        gauge."""
+        if name not in ("Parameters", "LearningRate"):
+            raise ValueError(f"unsupported summary {name!r}; supported: "
+                             "Parameters, LearningRate")
+        self._summary_triggers[name] = trigger
+        return self
+
+    def set_dtype_policy(self, policy: str):
+        """"float32" or "mixed_bfloat16" (bf16 activations, f32 params
+        and loss)."""
+        if policy not in ("float32", "mixed_bfloat16"):
+            raise ValueError("dtype_policy must be float32|mixed_bfloat16")
+        self.dtype_policy = policy
+        return self
+
+    def set_profile(self, log_dir: str, start_step: int = 3,
+                    n_steps: int = 3):
+        """Profile training steps ``start_step`` to ``start_step +
+        n_steps`` of the next ``train`` call (counted from its start)
+        with ``torch.profiler`` (the card's kernels too), and write the
+        trace into ``log_dir`` as ``<first>-<last>.pt.trace.json``. The
+        profiler stops on every exit path."""
+        self._profile_dir = log_dir
+        self._profile_start = int(start_step)
+        self._profile_end = int(start_step) + int(n_steps)
+        return self
+
+    def _tb(self):
+        if self.tensorboard_dir is None:
+            return None
+        if self._tb_writer is None:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb_writer = SummaryWriter(
+                os.path.join(self.tensorboard_dir, self.tensorboard_app))
+            self._tb_owns_writer = True
+        return self._tb_writer
+
+    def _record_lr(self, tb, step: int) -> float:
+        """The schedule's value at ``step`` into the
+        ``zoo_tpu_learning_rate`` gauge, and the ``LearningRate`` scalar
+        when a writer is passed."""
+        lr = self.optimizer.lr_at(step)
+        obs.gauge("zoo_tpu_learning_rate",
+                  help="current learning-rate schedule value").set(lr)
+        if tb is not None:
+            tb.add_scalar("LearningRate", lr, step)
+        return lr
+
+    def _write_param_histograms(self, tb, step: int) -> None:
+        paths, leaves = _sorted_leaves(self.model.params())
+        for path, arr in zip(paths, _host_copies(leaves)):
+            tb.add_histogram("Parameters/" + "/".join(path), arr, step)
 
     # -- params ------------------------------------------------------------
     @property
@@ -467,6 +699,15 @@ class Estimator:
         mask = self.model.trainable_mask(params)
         return [p for p, on in zip(tree_leaves(params), tree_leaves(mask))
                 if on]
+
+    def _trainable_order(self) -> "list[int]":
+        """The trainable leaves' indices in the reference's tree order
+        (every dict's keys sorted, as ``jax.tree_util`` flattens)."""
+        params = self.model.params()
+        mask = self.model.trainable_mask(params)
+        paths = [p for p, on in zip(_leaf_paths(params), tree_leaves(mask))
+                 if on]
+        return sorted(range(len(paths)), key=lambda i: paths[i])
 
     def _ensure_initialized(self) -> None:
         if not self.model.initialized:
@@ -533,6 +774,8 @@ class Estimator:
                 p.requires_grad_(False)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if self._clip is not None:     # first in the chain, as optax's
+            grads = self._clip(grads)
         self.optimizer.update(leaves, grads, self.opt_state)
         with torch.no_grad():
             self._merge_updates(params, state_upd)
@@ -542,15 +785,48 @@ class Estimator:
         out = self.model.call(self.model.params(), x, training=False)
         return _cast_floats(out, torch.float32) if self._mixed else out
 
+    def _sync(self) -> None:
+        dev = self.model.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.__enter__()
+        self._profiling = True
+        self._profile_first = self.step + 1
+
+    def _stop_profile(self) -> None:
+        """Stop the profiler and write its trace (every exit path)."""
+        prof, self._profiler = self._profiler, None
+        log_dir, self._profile_dir = self._profile_dir, None
+        self._profiling = False
+        self._sync()
+        prof.__exit__(None, None, None)
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"{self._profile_first}-{self.step}.pt.trace.json"))
+
     # -- API -----------------------------------------------------------------
     def train(self, data, y=None, batch_size: int = 32, nb_epoch: int = 1,
+              validation_data=None,
+              validation_trigger: Optional[Trigger] = None,
               end_trigger: Optional[Trigger] = None) -> TrainResult:
         """Train for ``nb_epoch`` epochs (or until ``end_trigger``). Each
         history entry has the epoch's mean loss, its per-step losses,
-        throughput (examples/s, host clock) and the step count."""
+        throughput (examples/s, host clock), the step count, the
+        ``val_<metric>`` results where ``validation_trigger`` (default
+        every epoch) fired, and the goodput ledger's ``goodput``
+        summary."""
         ds = to_dataset(data, y)
         self.ctx.check_batch_size(batch_size)
         self._ensure_initialized()
+        tb = self._tb()
+        validation_trigger = validation_trigger or EveryEpoch()
         # per-step host wall time is dispatch to dispatch, as in the
         # reference: no sync per step
         step_hist = obs.histogram(
@@ -565,53 +841,191 @@ class Estimator:
         wait_hist = obs.histogram(
             "zoo_tpu_train_data_wait_seconds",
             help="host time each training step waited for its batch")
+        watcher = diagnostics.StepTimeWatcher()
+        diagnostics.install_recompile_monitor()
+        ledger = goodput_lib.ledger_for_backend(device=self.model.device)
+        # ZOO_TPU_TRACE_SYNC=1: a card sync per step, so each step's
+        # trace carries its device time (it stops the host running ahead)
+        trace_sync = os.environ.get("ZOO_TPU_TRACE_SYNC", "0") == "1"
         base_rng = self.ctx.next_seed()
+        # the profile window counts from this run's start
+        p_start = self.step + self._profile_start
+        p_end = self.step + self._profile_end
         history: "list[dict]" = []
-        for epoch in range(1, nb_epoch + 1):
-            pending: "list[torch.Tensor]" = []
-            stop = False
-            t0 = t_prev = time.perf_counter()
-            batches, place = self._batches(ds, batch_size, shuffle=True,
-                                           seed=epoch)
-            try:
-                for wait_s, batch in _timed_iter(batches):
-                    wait_hist.observe(wait_s)
-                    pending.append(self._train_step(
-                        *place.take(batch), fold_in(base_rng, self.step)))
-                    self.step += 1
-                    now = time.perf_counter()
-                    step_hist.observe(now - t_prev)
-                    t_prev = now
-                    steps_total.inc()
-                    examples_total.inc(batch_size)
-                    if end_trigger is not None and end_trigger(
-                            epoch - 1, self.step, False):
-                        stop = True
-                        break
-            finally:
-                # a break or an exception stops the worker now, not at
-                # garbage collection (it would hold depth + 1 batches)
-                batches.close()
-            # one fetch per epoch, not one sync per step
-            step_losses = [float(v) for v in pending]
-            dt = max(time.perf_counter() - t0, 1e-9)
-            entry = {"epoch": epoch,
-                     "loss": float(np.mean(step_losses)) if step_losses
-                     else 0.0,
-                     "losses": step_losses,
-                     "throughput": len(pending) * batch_size / dt,
-                     "step": self.step}
-            history.append(entry)
-            if stop or (end_trigger is not None and end_trigger(
-                    epoch, self.step, True, loss=entry["loss"])):
-                break
+        first_step = True
+        stop = False
+        try:
+            for epoch in range(1, nb_epoch + 1):
+                pending: "list[tuple[int, torch.Tensor]]" = []
+                n_records = 0
+                batches, place = self._batches(ds, batch_size, shuffle=True,
+                                               seed=epoch)
+                ep_span = obs.span("train/epoch", epoch=epoch,
+                                   step=self.step)
+                with ep_span:
+                    try:
+                        t_prev = t_led_prev = time.perf_counter()
+                        for wait_s, batch in _timed_iter(batches):
+                            wait_hist.observe(wait_s)
+                            with tracing.trace("train/step",
+                                               step=self.step + 1,
+                                               epoch=epoch) as tr:
+                                if self._profile_dir and \
+                                        not self._profiling and \
+                                        self.step + 1 >= p_start:
+                                    self._start_profile()
+                                count = (first_step and ledger is not None
+                                         and goodput_lib.flops_enabled())
+                                t_disp = time.perf_counter()
+                                with (flops_lib.count() if count else
+                                      contextlib.nullcontext()) as fc:
+                                    loss = self._train_step(
+                                        *place.take(batch),
+                                        fold_in(base_rng, self.step))
+                                dispatch_s = time.perf_counter() - t_disp
+                                self.step += 1
+                                device_s = None
+                                if trace_sync:
+                                    t_dev = time.perf_counter()
+                                    self._sync()
+                                    device_s = time.perf_counter() - t_dev
+                                if first_step:
+                                    # the run's first step, its builds and
+                                    # the FLOP count included
+                                    self._sync()
+                                    obs.gauge(
+                                        "zoo_tpu_train_first_step_seconds",
+                                        help="first-step wall time of the "
+                                        "latest run").set(
+                                            time.perf_counter() - t_prev)
+                                    first_step = False
+                                    if fc is not None:
+                                        self.flop_ops = fc.ops
+                                        self.flops_per_step = fc.total
+                                        ledger.set_flops_per_step(fc.total)
+                                if self._profiling and self.step >= p_end:
+                                    self._stop_profile()
+                                now = time.perf_counter()
+                                step_hist.observe(now - t_prev)
+                                watcher.observe(now - t_prev, step=self.step)
+                                t_prev = now
+                                steps_total.inc()
+                                examples_total.inc(batch_size)
+                                n_records += batch_size
+                                pending.append((self.step, loss))
+                                self._fire_summaries(tb, epoch, False)
+                                ckpt_s = None
+                                if self.checkpoint_path and \
+                                        self.checkpoint_trigger(
+                                            epoch, self.step, False):
+                                    t_ck = time.perf_counter()
+                                    self.save_checkpoint()
+                                    ckpt_s = time.perf_counter() - t_ck
+                                tr.annotate(data_wait_s=round(wait_s, 6),
+                                            dispatch_s=round(dispatch_s, 6),
+                                            device_s=device_s,
+                                            checkpoint_s=ckpt_s)
+                                if ledger is not None:
+                                    # iteration to iteration, the
+                                    # checkpoint included: the shares sum
+                                    # to 1
+                                    t_led = time.perf_counter()
+                                    ledger.note_step(
+                                        t_led - t_led_prev,
+                                        data_wait_s=wait_s,
+                                        dispatch_s=dispatch_s,
+                                        checkpoint_s=ckpt_s or 0.0)
+                                    t_led_prev = t_led
+                                if end_trigger is not None and end_trigger(
+                                        epoch - 1, self.step, False):
+                                    stop = True
+                                    break
+                    finally:
+                        # a break or an exception stops the worker now,
+                        # not at garbage collection (it would hold depth
+                        # + 1 batches)
+                        batches.close()
+                    # one fetch per epoch, not one sync per step
+                    step_losses = [float(v) for v in
+                                   _host_copies([v for _, v in pending])]
+                dt = max(ep_span.elapsed, 1e-9)
+                if tb is not None:
+                    for (s, _), lf in zip(pending, step_losses):
+                        tb.add_scalar("Loss", lf, s)
+                        tb.add_scalar("LearningRate",
+                                      self.optimizer.lr_at(s), s)
+                throughput = n_records / dt
+                obs.gauge("zoo_tpu_train_throughput_examples_per_sec",
+                          help="epoch training throughput").set(throughput)
+                self._record_lr(None, self.step)
+                diagnostics.update_device_memory_gauges()
+                entry = {"epoch": epoch,
+                         "loss": float(np.mean(step_losses)) if step_losses
+                         else 0.0,
+                         "losses": step_losses,
+                         "throughput": throughput, "step": self.step}
+                if ledger is not None:
+                    gp = ledger.epoch_summary(epoch=epoch)
+                    if gp is not None:
+                        entry["goodput"] = gp
+                if tb is not None:
+                    tb.add_scalar("Throughput", throughput, self.step)
+                if validation_data is not None and validation_trigger(
+                        epoch, self.step, True):
+                    # a Keras-style (x_val, y_val) pair is data and
+                    # labels, not a two-input feature list
+                    if isinstance(validation_data, tuple) and \
+                            len(validation_data) == 2 and not hasattr(
+                                validation_data, "iter_batches"):
+                        val = self.evaluate(validation_data[0],
+                                            validation_data[1],
+                                            batch_size=batch_size)
+                    else:
+                        val = self.evaluate(validation_data,
+                                            batch_size=batch_size)
+                    entry.update({f"val_{k}": v for k, v in val.items()})
+                    if tb is not None:
+                        for k, v in val.items():
+                            tb.add_scalar(f"Validation/{k}", v, self.step)
+                if self.checkpoint_path and self.checkpoint_trigger(
+                        epoch, self.step, True):
+                    self.save_checkpoint()
+                self._fire_summaries(tb, epoch, True)
+                history.append(entry)
+                logger.info("epoch %d: %s", epoch, entry)
+                if stop or (end_trigger is not None and end_trigger(
+                        epoch, self.step, True, loss=entry["loss"],
+                        val_metrics={k[4:]: v for k, v in entry.items()
+                                     if k.startswith("val_")})):
+                    break
+        finally:
+            if self._profiling:     # the run ended inside the window
+                self._stop_profile()
+            if self._tb_writer is not None:
+                self._tb_writer.flush()
+                if self._tb_owns_writer:
+                    self._tb_writer.close()
+                    self._tb_writer = None
+                    self._tb_owns_writer = False
+        # durable on return: join an async checkpoint write
+        self.wait_for_checkpoint()
         return TrainResult(history, self.params, self.opt_state, self.step)
+
+    def _fire_summaries(self, tb, epoch: int, epoch_end: bool) -> None:
+        trig = self._summary_triggers.get("Parameters")
+        if tb is not None and trig is not None and trig(
+                epoch, self.step, epoch_end):
+            self._write_param_histograms(tb, self.step)
+        trig = self._summary_triggers.get("LearningRate")
+        if trig is not None and trig(epoch, self.step, epoch_end):
+            self._record_lr(tb, self.step)
 
     @torch.no_grad()
     def evaluate(self, data, y=None, batch_size: int = 32
                  ) -> "dict[str, float]":
         """The mean loss and each metric over every sample (the tail
-        batch included); the sums stay on the card until the end."""
+        batch included); the sums stay on the card until the end. One
+        ``train/eval_run`` trace per call."""
         ds = to_dataset(data, y)
         self._ensure_initialized()
         if self.metrics and isinstance(self.model.output_shape, list):
@@ -623,10 +1037,14 @@ class Estimator:
         batches, place = self._batches(ds, batch_size, shuffle=False,
                                        drop_last=False)
         try:
-            for batch in batches:
-                x, yt = place.take(batch)
-                total, n = self._eval_batch(x, yt, total, pairwise, sums)
-                count += n
+            with tracing.trace("train/eval_run", step=self.step), \
+                    obs.span("train/eval", step=self.step,
+                             n=getattr(ds, "num_samples", None)):
+                for batch in batches:
+                    x, yt = place.take(batch)
+                    total, n = self._eval_batch(x, yt, total, pairwise,
+                                                sums)
+                    count += n
         finally:
             batches.close()
         result = {"loss": float(total) / max(count, 1)}
@@ -671,3 +1089,215 @@ class Estimator:
         finally:
             batches.close()
         return concat_outputs(outs)
+
+    # -- checkpoints ---------------------------------------------------------
+    def checkpoint_state(self) -> dict:
+        """The checkpoint's contents, on the host, in the reference's
+        format: ``{"params": numpy tree keyed by layer name, "opt_state":
+        the leaves of the reference's optax state in its tree order,
+        "step": int}``. One synchronous copy from the card: the step
+        updates the params in place, so a background read would race
+        the next step."""
+        self._ensure_initialized()
+        tree = self.model.params()
+        params = tree_leaves(tree)
+        moments = [t for k, v in self.opt_state.items() if k != "count"
+                   for t in v]
+        host = _host_copies(params + moments)
+        # the param tree's own structure (layers without params keep
+        # their empty dicts), its leaves on the host
+        it = iter(host)
+        tree = _fill_like(tree, it)
+        # the moments as host arrays, in the state's own layout
+        host_state = {k: (v if k == "count" else [next(it) for _ in v])
+                      for k, v in self.opt_state.items()}
+        return {"params": tree,
+                "opt_state": self.optimizer.to_optax_leaves(
+                    host_state, self._trainable_order()),
+                "step": int(self.step)}
+
+    def save_checkpoint(self, path: Optional[str] = None,
+                        block: Optional[bool] = None) -> str:
+        """Snapshot params, optimizer state and step to
+        ``path/ckpt_<step>.pkl`` and point ``path/LATEST`` at it.
+
+        The write is atomic: the pickle goes to ``.tmp_ckpt_<step>``, is
+        fsynced and renamed; ``LATEST`` is promoted the same way, then
+        the directory is fsynced. The fault point
+        ``estimator/checkpoint_write`` fires between the bytes and the
+        rename, so a failure there leaves only the tmp file, which no
+        load reads. The copy from the card is synchronous; with
+        ``block=False`` (or ``ZOO_TPU_ASYNC_CKPT=1``) the pickle and the
+        write run on a non-daemon thread, and its error raises at the
+        next save or :meth:`wait_for_checkpoint`. Sharded checkpoints
+        wait for the multi-card slice."""
+        path = path or self.checkpoint_path
+        if path is None:
+            raise ValueError("no checkpoint path set")
+        if block is None:
+            block = os.environ.get("ZOO_TPU_ASYNC_CKPT", "0") != "1"
+        self.wait_for_checkpoint()   # one write at a time; raise its error
+        os.makedirs(path, exist_ok=True)
+        state = self.checkpoint_state()
+        step = self.step
+
+        def write():
+            with obs.span("train/checkpoint", step=step):
+                tmp = os.path.join(path, f".tmp_ckpt_{step}")
+                with open(tmp, "wb") as f:
+                    pickle.dump(state, f)
+                    _CKPT_FAULT.fire(step=step)
+                    f.flush()
+                    os.fsync(f.fileno())
+                final = os.path.join(path, f"ckpt_{step}.pkl")
+                os.replace(tmp, final)
+                latest = os.path.join(path, "LATEST")
+                ltmp = latest + ".tmp"
+                with open(ltmp, "w") as f:
+                    f.write(os.path.basename(final))
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(ltmp, latest)
+                _fsync_dir(path)
+            return final
+
+        if block:
+            return write()
+
+        def worker():
+            try:
+                write()
+            except BaseException as e:  # noqa: BLE001 — raised at the wait
+                self._ckpt_error = e
+
+        # non-daemon: a training process that dies mid-write still joins
+        # the writer at exit, so the newest checkpoint lands
+        t = threading.Thread(target=worker, daemon=False,
+                             name="zoo-tpu-ckpt-write")
+        t.start()
+        self._ckpt_thread = t
+        return os.path.join(path, f"ckpt_{step}.pkl")
+
+    def _join_ckpt_write(self) -> None:
+        """Join an in-flight async write without raising (safe inside
+        ``finally``)."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join()
+            self._ckpt_thread = None
+
+    def wait_for_checkpoint(self) -> None:
+        """Join an in-flight async checkpoint write; raise its error if
+        it failed."""
+        self._join_ckpt_write()
+        err, self._ckpt_error = self._ckpt_error, None
+        if err is not None:
+            raise err
+
+    def load_checkpoint(self, path: Optional[str] = None,
+                        step: Optional[int] = None) -> "Estimator":
+        """Resume from ``path``'s ``LATEST`` (or ``ckpt_<step>.pkl``): a
+        checkpoint of this package or of the JAX package's Estimator.
+        The file is read through the class whitelist
+        (``common/safe_pickle.py``), which reads the reference's optax
+        state classes as plain tuples; the state's leaves are poured into
+        this model's optimizer state in the reference's tree order."""
+        # join only: a failed async write stays pending for the next
+        # save or wait, and LATEST then names the last good file
+        self._join_ckpt_write()
+        if self._ckpt_error is not None:
+            logger.warning(
+                "an async checkpoint write failed (%s); LATEST may point "
+                "at an older step. The error re-raises at the next "
+                "save_checkpoint/wait_for_checkpoint.", self._ckpt_error)
+        path = path or self.checkpoint_path
+        if step is not None:
+            fname = os.path.join(path, f"ckpt_{step}.pkl")
+        else:
+            with open(os.path.join(path, "LATEST")) as f:
+                latest = f.read().strip()
+            if latest.startswith("sharded:"):
+                raise NotImplementedError(
+                    "sharded checkpoints wait for the multi-card slice")
+            fname = os.path.join(path, latest)
+        state = checked_load(fname)
+        _check_params_compatible(self.model, state["params"])
+        self.params = state["params"]
+        self.opt_state = self.optimizer.from_optax_leaves(
+            optax_leaves(state["opt_state"]), self._trainable_order(),
+            self.trainable_leaves(), count=int(state["step"]))
+        self.step = int(state["step"])
+        return self
+
+
+def _check_params_compatible(model, saved: dict) -> None:
+    """Layer names are deterministic per architecture, so a checkpoint's
+    keys must be this model's layer names exactly; a mismatch means
+    another architecture (or renamed layers)."""
+    expected = {lyr.name for lyr in model.layers}
+    got = set(saved)
+    if expected != got:
+        raise ValueError(
+            "checkpoint does not match model architecture; missing "
+            f"layers {sorted(expected - got)}, unexpected "
+            f"{sorted(got - expected)}")
+
+
+def _fsync_dir(path: str) -> None:
+    """fsync a directory so a rename in it is durable; where the
+    filesystem refuses, only crash durability is lost, not atomicity."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _fill_like(tree, leaves):
+    """``tree``'s dicts with its leaves taken in order from the iterator
+    ``leaves`` (:func:`tree_leaves`' order)."""
+    if isinstance(tree, dict):
+        return {k: _fill_like(v, leaves) for k, v in tree.items()}
+    return next(leaves)
+
+
+def _leaf_paths(tree, prefix=()) -> "list[tuple]":
+    """The key path of each leaf, in :func:`tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, prefix + (k,))]
+    return [prefix]
+
+
+def _sorted_leaves(tree):
+    """The leaves and their paths in the reference's order (keys
+    sorted)."""
+    paths, leaves = _leaf_paths(tree), tree_leaves(tree)
+    order = sorted(range(len(paths)), key=lambda i: paths[i])
+    return [paths[i] for i in order], [leaves[i] for i in order]
+
+
+def _host_copies(tensors: "list[torch.Tensor]") -> "list[np.ndarray]":
+    """Each tensor as a host array, in one copy per dtype and device:
+    the tensors are flattened into one buffer, brought over, and split."""
+    out: "list" = [None] * len(tensors)
+    groups: "dict" = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    for idx in groups.values():
+        ts = [tensors[i].detach() for i in idx]
+        flat = torch.cat([t.reshape(-1) for t in ts]).cpu()
+        if flat.dtype == torch.bfloat16:
+            flat = flat.float()
+        flat = flat.numpy()
+        pos = 0
+        for i, t in zip(idx, ts):
+            n = t.numel()
+            out[i] = flat[pos:pos + n].reshape(tuple(t.shape)).copy()
+            pos += n
+    return out

@@ -23,8 +23,9 @@ in warm-up; a model reload (its ``generation`` counter) clears them. A
 warm-up failure raises: there is no unpadded fallback for a signature
 the model cannot run. The fault point ``batcher/dispatch``
 (``common/faults.py``) fires at the head of every batch execution; a
-fault fails that batch and the dispatcher goes on. The reference's
-recompile monitor waits for the ``diagnostics`` module.
+fault fails that batch and the dispatcher goes on. The warm-up runs
+inside ``diagnostics.expected_compiles``; a bucket callable made after
+it is a ``serving/bucket_compile`` the recompile monitor watches.
 
 Configuration: constructor kwargs override the environment,
 ``ZOO_TPU_SERVING_BATCH`` (``0`` reverts the servers to per-request
@@ -73,6 +74,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common import diagnostics
 from analytics_zoo_tpu_torch.common import faults
 from analytics_zoo_tpu_torch.common import observability as obs
 from analytics_zoo_tpu_torch.common import tracing
@@ -247,10 +249,14 @@ class DynamicBatcher:
         self._stop = False
         warmed = threading.Event()
         failed: list = []
+        diagnostics.install_recompile_monitor()
 
         def dispatcher():
             try:
-                self.warm()
+                # the warm-up's callables are expected compiles; a
+                # callable made later for a new signature is watched
+                with diagnostics.expected_compiles():
+                    self.warm()
             except Exception as e:  # re-raised by start()
                 failed.append(e)
                 return
@@ -577,6 +583,7 @@ class DynamicBatcher:
             obs.counter("zoo_tpu_serving_bucket_compiles_total",
                         help="bucket executables compiled "
                         "(warm-up only in steady state)").inc()
+            diagnostics.compile_event("serving/bucket_compile")
             with self._compile_lock:
                 self._compiled[(sig, b)] = fn
                 self._warmed_gauge().set(len(self._compiled))
@@ -691,7 +698,8 @@ class ContinuousBatcher:
         Idempotent."""
         if self._thread is not None and self._thread.is_alive():
             return self
-        with obs.span("decode/warm"):
+        diagnostics.install_recompile_monitor()
+        with obs.span("decode/warm"), diagnostics.expected_compiles():
             self.engine.warm()
         self._stop = False
         self._draining = False

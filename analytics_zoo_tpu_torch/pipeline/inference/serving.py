@@ -54,6 +54,7 @@ from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.common import diagnostics
 from analytics_zoo_tpu_torch.common import observability as obs
 from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.pipeline.inference.batching import (
@@ -223,6 +224,13 @@ def handle_generate(model: InferenceModel, body: bytes,
         return 500, _error_body(500, str(e), kind="internal")
 
 
+def _refresh_vitals() -> None:
+    """The process vitals and build-info gauges, refreshed before each
+    scrape renders (RSS, uptime, open fds, provenance)."""
+    diagnostics.update_process_vitals()
+    diagnostics.update_build_info()
+
+
 def _health_payload(model: InferenceModel,
                     batcher: "Optional[DynamicBatcher]",
                     gen_batcher=None) -> dict:
@@ -365,8 +373,10 @@ class InferenceServer:
                             server.gen_batcher)
                     elif route == "/metrics":
                         status = 200  # rendered after accounting
+                        _refresh_vitals()
                     elif route == "/metrics/json":
                         status = 200
+                        _refresh_vitals()
                         payload = {"ts": time.time(),
                                    "metrics": obs.snapshot()}
                     elif route == "/debug/traces":

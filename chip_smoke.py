@@ -79,7 +79,8 @@ script exits non-zero and prints no result line:
    same weights, launches, samples/s and a profile;
 8. generation: ``TransformerLayer`` at GPT-1's widths (12 blocks,
    hidden 768, 12 heads, vocab 40990) with a 2048-token context and
-   seeded random weights, loaded by ``InferenceModel.load_generator``
+   seeded random weights (the token embedding scaled by
+   ``GEN_EMBED_SCALE``, so greedy streams vary), loaded by ``InferenceModel.load_generator``
    (8 slots, 16-token pages, f32 cache), warmed, and served by
    ``ContinuousBatcher`` to 16 greedy requests from 4 client threads
    with staggered arrivals (prompts of 17, 200, 700 and 1500 tokens,
@@ -154,7 +155,8 @@ script exits non-zero and prints no result line:
    vocabulary; seed 1) on 8 greedy requests (prompts 17-1500 twice, 32
    new tokens): B11 24 per round (the drafter's steps; the verify is
    dense), 12 per plain step, B7 12 + 6 per bucket prefill >= 1024,
-   the accept rate and tokens per target forward; 2 sampled requests
+   the accept rate (below 1) and tokens per target forward, at least a
+   median of 4 distinct tokens per greedy stream; 2 sampled requests
    (temperature 0.8: budgets, the vocabulary, their accept rate); a
    ``kill`` armed at
    ``generation/decode_step`` fails the request in a round, its pages
@@ -171,7 +173,35 @@ script exits non-zero and prints no result line:
    phase 8's rule, each engine call's launches are checked one by one,
    and the host ms of the chunk step, the decode step and the round are
    printed;
-14. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+14. the Estimator's training surface on bench.py's flagship step
+   (``resnet50(space_to_depth=True, fused="defer")``, 224x224, 1000
+   classes, ``mixed_bfloat16`` from ``ZOO_TPU_DTYPE_POLICY``, batch 128,
+   SGD 0.1 momentum 0.9) through ``compile``/``fit``: 3 epochs of 4
+   steps with 256 held-out images validated every epoch, async
+   checkpoints every 4 steps, clipping by global L2 norm, an injected
+   recording TensorBoard writer, the ``LearningRate`` summary trigger and
+   a profile of steps 3-5. Checked: launches per step (B1 36 with 8
+   in_residual, B2 16, B3 36 with 8 dr, B4 36) and per validation batch
+   (B5 36, B6 16), finite losses and validation metrics, ``val_*`` and
+   ``goodput`` in the history (shares summing to 1), the summary tags,
+   the profile's trace naming B1-B4, the device-memory gauges, the
+   checkpoints written; the step's FLOPs (``perf/flops.py``, counted
+   inside the first step) within 5% of ``TRAIN_FLOP_PER_IMAGE`` x 128
+   and within 1% of the unfused graph's count (cuDNN/cuBLAS). Then
+   resume: 8 steps against 4, ``save_checkpoint``, a fresh model and
+   ``load_checkpoint`` (the state bit for bit) and 4 more (bit-equal
+   losses, or within 1e-3 relative with each training kernel's and the
+   stem's repeatability printed); the checkpoint's bytes and its write
+   ms synchronous and async; an ``error`` armed at
+   ``estimator/checkpoint_write`` under an async write raises at the
+   wait, ``LATEST`` keeps the good file and a resume from it runs. Then
+   one step of AdamW, RMSprop, Adagrad, Adadelta and Adamax on a small
+   dense net against the CPU port (1e-6 relative), and the phase
+   backward (``ops/conv_grad.py``) against cuDNN's strided backward at
+   the unfused ResNet-50's strided convs (batch 128, bf16: gradients
+   within 2e-2 of max|grad|, ms of each). Printed: images/s per epoch,
+   the ledger's shares and MFU beside phase 5's model-FLOPs MFU;
+15. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -330,6 +360,13 @@ TOWER_SECONDS = 4.0
 # (bench_generate.py:131-139); the handoff in f32 and int8 pools
 LEVER_CHUNK, LEVER_SPEC_K, SPEC_NEW = 256, 4, 32
 DRAFT = dict(GPT, n_block=6, hidden_size=384, n_head=6)
+# the generation models' token embeddings are scaled down from their
+# seeded init: with tied logits and the init's scale, the residual
+# stream is mostly the input token's own embedding and every greedy
+# stream repeats one token. At 0.1 the blocks' outputs lead, greedy
+# streams vary (22-24 distinct tokens in 24 on the CPU at GPT-1 widths)
+# and a random drafter is rejected
+GEN_EMBED_SCALE = 0.1
 HANDOFF_F32, HANDOFF_INT8 = 8, 2
 DEV = "cuda"
 
@@ -492,8 +529,9 @@ def kernel_cases(b5, b6):
     return cases
 
 
-def run_case(case, gen):
-    """Kernel vs plain version on the card; returns the case's record."""
+def run_case(case, gen, timing=True):
+    """Kernel vs plain version on the card; returns the case's record
+    (without its times and bound where ``timing`` is False)."""
     import torch
     import torch.nn.functional as F
 
@@ -582,14 +620,16 @@ def run_case(case, gen):
     scale = max(1.0, ref.float().abs().max().item())
     rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": wdt,
            "prologue": prologue, "per_path": per_path,
-           "max_abs_err": err, "tol": TOL[dt] * scale,
-           **timed(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
-           "flop_ms": flop_ms, "byte_ms": nbytes / PEAK_BYTES * 1e3}
-    rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
-    rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
-        else "bytes"
-    rec["bound_term"] = term if rec["bound_by"] == "operations" else "bytes"
+           "max_abs_err": err, "tol": TOL[dt] * scale}
+    if timing:
+        rec.update(**timed(kernel), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), flops=flops, bytes=nbytes,
+                   flop_ms=flop_ms, byte_ms=nbytes / PEAK_BYTES * 1e3)
+        rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
+        rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
+            else "bytes"
+        rec["bound_term"] = term if rec["bound_by"] == "operations" \
+            else "bytes"
     gate = ""
     if name == "matmul_bn_apply" and wdt == "float32":
         # the f32 product's accuracy gate: against the fold in float64
@@ -625,12 +665,13 @@ def run_case(case, gen):
             check(n_k <= 2 * n_p + slack and n_t > 2 * n_p + slack,
                   f"{name} {key} {dt}: bf16 misroundings {n_k}, cuBLAS "
                   f"f32 {n_p}, TF32 {n_t}")
+    times = (f" kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
+             f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
+             f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_term']})"
+             if timing else "")
     print(f"  {name} {dt}/{wdt}{' prologue' if prologue else ''} "
           f"{tuple(key)} x{per_path}: max|err| {err:.3e} "
-          f"(tol {rec['tol']:.3e}){gate} kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_term']})",
-          flush=True)
+          f"(tol {rec['tol']:.3e}){gate}{times}", flush=True)
     check(err <= rec["tol"], f"{name} {key} {dt}: max|err| {err} > "
           f"{rec['tol']}")
     return rec
@@ -701,10 +742,11 @@ def train_cases(b1, b2, deferred=()):
     return cases
 
 
-def run_train_case(case, gen):
+def run_train_case(case, gen, timing=True):
     """A training kernel vs its plain version on the card: every output
     (y and the two statistics; dx, ds, dt, dr; dW) within the dtype's
-    tolerance of max(1, max|plain|). Returns the case's record."""
+    tolerance of max(1, max|plain|). Returns the case's record (without
+    its times and bound where ``timing`` is False)."""
     import torch
     import torch.nn.functional as F
 
@@ -830,20 +872,23 @@ def run_train_case(case, gen):
     rec = {"kernel": name, "key": list(key), "dtype": dt, "w_dtype": dt,
            "prologue": name == "conv3x3_bn" or bool(key[6]),
            "per_path": per_step, "errors": errs,
-           "max_abs_err": max(e for e, _ in errs.values()),
-           **timed(kernel), "plain_ms": time_ms(plain),
-           "library_ms": time_ms(library), "flops": flops, "bytes": nbytes,
-           "flop_ms": flops / PEAK_FLOPS[dt] * 1e3,
-           "byte_ms": nbytes / PEAK_BYTES * 1e3}
-    rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
-    rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
-        else "bytes"
+           "max_abs_err": max(e for e, _ in errs.values())}
+    times = ""
+    if timing:
+        rec.update(**timed(kernel), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), flops=flops, bytes=nbytes,
+                   flop_ms=flops / PEAK_FLOPS[dt] * 1e3,
+                   byte_ms=nbytes / PEAK_BYTES * 1e3)
+        rec["bound_ms"] = max(rec["flop_ms"], rec["byte_ms"])
+        rec["bound_by"] = "operations" if rec["flop_ms"] > rec["byte_ms"] \
+            else "bytes"
+        times = (f"; kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
+                 f"{rec['plain_ms']:.4f} ms, library "
+                 f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+                 f" ms ({rec['bound_by']})")
     print(f"  {name} {dt} {tuple(key)} x{per_step}: max|err| "
           + ", ".join(f"{o} {e:.2e}/{tl:.2e}" for o, (e, tl) in errs.items())
-          + f"; kernel {rec['ms']:.4f}{_spread(rec)} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, "
-          f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
-          f" ms ({rec['bound_by']})", flush=True)
+          + times, flush=True)
     return rec
 
 
@@ -2293,6 +2338,7 @@ def gen_engine():
     t0 = time.perf_counter()
     net = gpt_net()
     params = net.build(torch.Generator().manual_seed(0), (GEN_T,))
+    params["tok_embed"] = params["tok_embed"] * GEN_EMBED_SCALE
     im = InferenceModel().load_generator(net, params, max_slots=GEN_SLOTS,
                                          max_context=GEN_T,
                                          page_size=GEN_PAGE)
@@ -3586,6 +3632,7 @@ def levers_spec(net, params, card):
     nb, nd, k = GPT["n_block"], DRAFT["n_block"], LEVER_SPEC_K
     dnet = TransformerLayer(seq_len=GEN_T, **DRAFT)
     dparams = dnet.build(torch.Generator().manual_seed(1), (GEN_T,))
+    dparams["tok_embed"] = dparams["tok_embed"] * GEN_EMBED_SCALE
     eng, warm_s, n_prog = lever_engine(net, params, spec_k=k, drafter=dnet,
                                        drafter_params=dparams)
     del dparams
@@ -3615,6 +3662,14 @@ def levers_spec(net, params, card):
     st = eng.stats()
     distinct = [len(set(int(t) for t in served["results"][i]))
                 for i in range(len(prompts))]
+    # the streams must vary for the check above to test the decode path
+    # beyond its top logit (ROADMAP C5), and a random drafter must miss
+    check(statistics.median(distinct) >= 4,
+          f"greedy streams hold a median of {statistics.median(distinct)} "
+          f"distinct tokens (per stream {distinct}), expected >= 4")
+    check(st["spec_accept_rate"] < 1.0,
+          f"the random drafter's greedy accept rate is "
+          f"{st['spec_accept_rate']}: its drafts agree with the target")
     # tokens after the first, per slot the target ran a forward for (a
     # round's verify or a plain step)
     decoded = served["tokens"] - len(prompts)
@@ -3883,6 +3938,658 @@ def levers_path(gen_eng, card, detail):
     return total
 
 
+# -- the Estimator's training surface (phase 14) -----------------------------
+
+# bench.py's flagship step (s2d stem, fused="defer", mixed_bfloat16,
+# batch 128, SGD 0.1 momentum 0.9) through compile/fit: 3 epochs of 4
+# steps, 256 held-out images validated every epoch
+SURFACE_STEPS, SURFACE_EPOCHS, SURFACE_VAL = 4, 3, 256
+# the unfused ResNet-50's strided convs at batch 128 in bf16 (input NHWC,
+# kernel, output channels): the 7x7 stem, the stride-2 3x3 of stages
+# 1-3 (v1.5: the stride on the 3x3) and their 1x1 shortcuts
+STRIDED_SHAPES = (
+    ((TRAIN_BATCH, 224, 224, 3), 7, 64),
+    ((TRAIN_BATCH, 56, 56, 128), 3, 128),
+    ((TRAIN_BATCH, 28, 28, 256), 3, 256),
+    ((TRAIN_BATCH, 14, 14, 512), 3, 512),
+    ((TRAIN_BATCH, 56, 56, 256), 1, 512),
+    ((TRAIN_BATCH, 28, 28, 512), 1, 1024),
+    ((TRAIN_BATCH, 14, 14, 1024), 1, 2048),
+)
+SURFACE_OPTIMIZERS = ("AdamW", "RMSprop", "Adagrad", "Adadelta", "Adamax")
+
+
+class RecordingWriter:
+    """A TensorBoard writer's interface, recording what it is given (the
+    phase does not depend on the ``tensorboard`` package)."""
+
+    def __init__(self):
+        self.scalars, self.hists = [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), int(step)))
+
+    def add_histogram(self, tag, values, step):
+        self.hists.append((tag, int(step)))
+
+    def flush(self):
+        pass
+
+
+def flagship_model(fused="defer"):
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        resnet50
+    return resnet50(input_shape=IMAGE, classes=1000, space_to_depth=True,
+                    fused=fused)
+
+
+def compile_flagship(net):
+    """bench.py's optimizer and loss through ``compile``, the
+    ``mixed_bfloat16`` policy from ``ZOO_TPU_DTYPE_POLICY`` (the
+    Estimator's env route)."""
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        net.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+                    loss="softmax_cross_entropy", metrics=["accuracy"])
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    check(net.estimator.dtype_policy == "mixed_bfloat16",
+          f"policy {net.estimator.dtype_policy} from the environment")
+    return net.estimator
+
+
+def trace_kernels(log_dir):
+    """The profile's trace file under ``log_dir`` and which of B1-B4's
+    kernel name patterns its events name."""
+    files = [os.path.join(root, f) for root, _, fs in os.walk(log_dir)
+             for f in fs if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile traces under {log_dir}: {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f).get(
+            "traceEvents", [])}
+    found = {label: any(re.search(pat, n) for n in names)
+             for label, pat in TRAIN_KERNEL_NAMES[:4]}
+    return files[0], found
+
+
+def state_equal(a, b) -> bool:
+    """Two checkpoint states (params tree, optax leaves, step) equal bit
+    for bit."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [tree]
+    pa, pb = leaves(a["params"]), leaves(b["params"])
+    return (a["step"] == b["step"] and len(pa) == len(pb) and
+            len(a["opt_state"]) == len(b["opt_state"]) and
+            all(x.dtype == y.dtype and np.array_equal(x, y)
+                for x, y in zip(pa + list(a["opt_state"]),
+                                pb + list(b["opt_state"]))))
+
+
+def determinism_probe(gen):
+    """Each training kernel's wrapper and the s2d stem's cuDNN weight
+    gradient run twice on the same inputs at a path shape: which repeat
+    bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    dev, bf = "cuda", torch.bfloat16
+    out = {}
+
+    def twice(fn):
+        a, b = fn(), fn()
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    x = torch.randn(TRAIN_BATCH, 28, 28, 512, device=dev, generator=gen,
+                    dtype=bf)
+    w = (torch.randn(512, 128, device=dev, generator=gen) * 0.05).to(bf)
+    s = torch.rand(512, device=dev, generator=gen) + 0.5
+    t = torch.randn(512, device=dev, generator=gen) * 0.1
+    gy = torch.randn(TRAIN_BATCH, 28, 28, 128, device=dev, generator=gen,
+                     dtype=bf)
+
+    def b134():
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y, ssum, ssq = cb.conv1x1_bn(xx, ww, in_scale=s, in_shift=t,
+                                     relu_in=True)
+        dx, dw = torch.autograd.grad((y, ssum, ssq),
+                                     (xx, ww), (gy, ssum * 0 + 1e-3,
+                                                ssq * 0 + 1e-4))
+        return y, ssum, ssq, dx, dw
+
+    out["matmul_bn (B1) + matmul_bn_dx (B3) + matmul_bn_dw (B4)"] = \
+        twice(b134)
+    x3 = torch.randn(TRAIN_BATCH, 28, 28, 128, device=dev, generator=gen,
+                     dtype=bf)
+    w3 = (torch.randn(3, 3, 128, 128, device=dev, generator=gen) * 0.05)
+
+    def b2():
+        y, ssum, ssq = cb.conv3x3_bn(x3, w3.to(bf))
+        return y, ssum, ssq
+
+    out["conv3x3_bn (B2)"] = twice(b2)
+    xs = torch.randn(TRAIN_BATCH, 12, 115, 115, device=dev, generator=gen,
+                     dtype=bf)
+    ws = (torch.randn(64, 12, 4, 4, device=dev, generator=gen) * 0.05).to(bf)
+    gs = torch.randn(TRAIN_BATCH, 64, 112, 112, device=dev, generator=gen,
+                     dtype=bf)
+
+    def stem():
+        wr = ws.clone().requires_grad_()
+        return torch.autograd.grad(F.conv2d(xs, wr), wr, gs)
+
+    out["the s2d stem's cuDNN wgrad"] = twice(stem)
+    return out
+
+
+def surface_kernels(net, gen):
+    """Phase 14's six kernels against their plain versions at the shapes
+    this path gives them, as phase 3 holds its cases but untimed: B1-B4
+    at the flagship step's (batch 128, bf16), B5 and B6 at the
+    validation pass's (batch 128, bf16 activations; B5 with the f32
+    weights the model keeps). Returns the records."""
+    b5, b6 = path_shapes(net, TRAIN_BATCH)
+    b1, b2 = train_shapes(net, TRAIN_BATCH)
+    check(sum(b5.values()) == 36 and sum(b6.values()) == 16 and
+          sum(b1.values()) == 36 and sum(b2.values()) == 16,
+          f"the flagship's shapes: B5 {sum(b5.values())}, B6 "
+          f"{sum(b6.values())} per forward, B1 {sum(b1.values())}, B2 "
+          f"{sum(b2.values())} per step; expected 36, 16, 36, 16")
+    cases = [("matmul_bn_apply", k, "bfloat16", "float32", False, n)
+             for k, n in sorted(b5.items())]
+    cases += [("conv3x3_bn_apply", k, "bfloat16", "bfloat16", False, n)
+              for k, n in sorted(b6.items())]
+    recs = [run_case(c, gen, timing=False) for c in cases]
+    cases = [(name, k, "bfloat16", n)
+             for name in ("matmul_bn", "matmul_bn_dx", "matmul_bn_dw")
+             for k, n in sorted(b1.items())]
+    cases += [("conv3x3_bn", k, "bfloat16", n) for k, n in sorted(b2.items())]
+    recs += [run_train_case(c, gen, timing=False) for c in cases]
+    return recs
+
+
+def validation_held(net, est, xv):
+    """The fused validation forward (B5 and B6 under ``mixed_bfloat16``)
+    against the unfused graph (cuDNN, f32) on the same trained weights
+    and images: the logits within phase 4's bf16 rule, 5e-2 of max(1,
+    max|logit|). Returns (max|err|, tol, the logits' spread over the
+    images)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        convert_resnet_params
+    got = est.predict(xv, batch_size=TRAIN_BATCH)
+    ref = flagship_model(fused=False)
+    ref.init_params()
+    ref.load_params(convert_resnet_params(net.params(),
+                                          params_to_numpy(ref)))
+    want = ref.predict(xv, batch_size=TRAIN_BATCH)
+    check(got.shape == want.shape == (len(xv), 1000) and
+          np.isfinite(got).all(), f"validation logits {got.shape}")
+    err = float(np.abs(got - want).max())
+    tol = 5e-2 * max(1.0, float(np.abs(want).max()))
+    # how far the images move the logits: the check's power
+    spread = float(np.abs(want - want.mean(axis=0)).max())
+    print(f"  validation logits (fused, bf16) against the unfused graph "
+          f"(f32) on the trained weights: max|err| {err:.4e} (tol "
+          f"{tol:.4e}; max|logit| {float(np.abs(want).max()):.4e}, "
+          f"max|logit - its mean over the images| {spread:.4e})",
+          flush=True)
+    check(err <= tol, f"validation logits: max|err| {err} > {tol}")
+    del ref
+    torch.cuda.empty_cache()
+    return err, tol, spread
+
+
+def surface_train(card, ctx, x, y, xv, yv, w0, tmp):
+    """Phase 14, part 1: ``fit`` with the whole surface; returns the
+    record and the launches of the run."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.perf import flops as flops_lib
+    from analytics_zoo_tpu_torch.pipeline.estimator import SeveralIteration
+    net = flagship_model()
+    net.load_params(w0)
+    est = compile_flagship(net)
+    ckdir, profdir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "profile")
+    net.set_checkpoint(ckdir, SeveralIteration(SURFACE_STEPS))
+    net.set_gradient_clipping_by_l2_norm(1.0)
+    writer = RecordingWriter()
+    net.set_tensorboard(os.path.join(tmp, "tb"), "phase14")
+    est._tb_writer = writer                 # injected: never closed
+    net.set_summary_trigger("LearningRate", SeveralIteration(2))
+    est.set_profile(profdir, start_step=3, n_steps=2)   # steps 3-5
+    obs.reset_metrics()
+    reset_launches()
+    os.environ["ZOO_TPU_ASYNC_CKPT"] = "1"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=SURFACE_EPOCHS,
+                      validation_data=(xv, yv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("ZOO_TPU_ASYNC_CKPT", None)
+    launches = all_launches()
+    residual = dict(cb.residual_launches)
+    hist = res.history
+    steps = SURFACE_STEPS * SURFACE_EPOCHS
+    val_batches = SURFACE_EPOCHS * -(-SURFACE_VAL // TRAIN_BATCH)
+    want = {"matmul_bn": 36 * steps, "conv3x3_bn": 16 * steps,
+            "matmul_bn_dx": 36 * steps, "matmul_bn_dw": 36 * steps,
+            "matmul_bn_apply": 36 * val_batches,
+            "conv3x3_bn_apply": 16 * val_batches}
+    want.update({k: 0 for k in launches if k not in want})
+    print(f"  fit: {len(hist)} epochs, {est.step} steps in {wall:.2f} s; "
+          f"launches {launches} (in_residual {residual}); per step B1 "
+          f"{launches['matmul_bn'] / steps:g}, B2 "
+          f"{launches['conv3x3_bn'] / steps:g}, B3 "
+          f"{launches['matmul_bn_dx'] / steps:g}, B4 "
+          f"{launches['matmul_bn_dw'] / steps:g}; per validation batch B5 "
+          f"{launches['matmul_bn_apply'] / val_batches:g}, B6 "
+          f"{launches['conv3x3_bn_apply'] / val_batches:g}", flush=True)
+    check(launches == want, f"fit's launches {launches}, expected {want}")
+    check(residual == {"matmul_bn": 8 * steps, "matmul_bn_dx": 8 * steps},
+          f"in_residual launches {residual}, expected {8 * steps} each")
+    check(est.step == steps, f"{est.step} steps, expected {steps}")
+    losses = [v for h in hist for v in h["losses"]]
+    vals = [(h["val_loss"], h["val_accuracy"]) for h in hist]
+    print(f"  losses {[round(v, 4) for v in losses]}; validation (loss, "
+          f"accuracy) {[(round(a, 4), round(b, 4)) for a, b in vals]}",
+          flush=True)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(all(np.isfinite(v) for pair in vals for v in pair),
+          f"validation {vals}")
+    # the ledger: every epoch's summary, its shares summing to 1 (each is
+    # rounded to 6 decimals: 4 x 5e-7), the live gauges exactly
+    for h in hist:
+        gp = h.get("goodput")
+        check(gp is not None and gp["steps"] == SURFACE_STEPS,
+              f"epoch {h['epoch']}: goodput {gp}")
+        check(abs(sum(gp["shares"].values()) - 1.0) <= 2e-6,
+              f"epoch {h['epoch']}: shares {gp['shares']}")
+    snap = obs.snapshot()
+    shares = sum(v["value"] for v in
+                 snap["zoo_tpu_goodput_share"]["values"])
+    check(abs(shares - 1.0) <= 1e-6, f"goodput share gauges sum {shares}")
+    mem = {v["labels"]["kind"]: v["value"] for v in
+           snap["zoo_tpu_device_memory_bytes"]["values"]}
+    check(set(mem) == {"in_use", "peak", "limit"} and
+          all(v > 0 for v in mem.values()), f"device memory gauges {mem}")
+    for name in ("zoo_tpu_train_first_step_seconds", "zoo_tpu_learning_rate",
+                 "zoo_tpu_train_throughput_examples_per_sec"):
+        v = snap[name]["values"][0]["value"]
+        check(v > 0, f"{name} = {v}")
+    tags = collections.Counter(t for t, _, _ in writer.scalars)
+    print(f"  summaries: {dict(tags)}", flush=True)
+    check(tags["Loss"] == steps and tags["Throughput"] == SURFACE_EPOCHS and
+          tags["Validation/loss"] == SURFACE_EPOCHS and
+          tags["Validation/accuracy"] == SURFACE_EPOCHS and
+          tags["LearningRate"] >= steps, f"summary tags {dict(tags)}")
+    check(est._tb_writer is writer, "the injected writer was dropped")
+    trace_file, found = trace_kernels(profdir)
+    print(f"  profile {os.path.basename(trace_file)}: {found}", flush=True)
+    check(all(found.values()), f"the profile misses kernels: {found}")
+    # checkpoints: SeveralIteration(4) at steps 4, 8, 12
+    ck = sorted(f for f in os.listdir(ckdir) if f.startswith("ckpt_"))
+    with open(os.path.join(ckdir, "LATEST")) as f:
+        latest = f.read().strip()
+    check(ck == [f"ckpt_{s}.pkl" for s in (12, 4, 8)] and
+          latest == f"ckpt_{steps}.pkl", f"checkpoints {ck}, LATEST {latest}")
+    # the step's FLOPs, counted inside the first step
+    flops_fused = est.flops_per_step
+    want_flops = TRAIN_FLOP_PER_IMAGE * TRAIN_BATCH
+    gps = [h["goodput"] for h in hist]
+    rates = [h["throughput"] for h in hist]
+    rec = {"wall_s": wall, "losses": losses, "validation": vals,
+           "launches": launches, "residual_launches": residual,
+           "goodput": gps, "device_memory_bytes": mem,
+           "summary_tags": dict(tags), "profile": found,
+           "flops_per_step": flops_fused,
+           "top_ops": [o._asdict() for o in
+                       flops_lib.top_ops(est.flop_ops, 8)],
+           "images_per_s_epochs": rates}
+    print(f"  flops per step (perf/flops.py, fused defer): "
+          f"{flops_fused:.6e}, against TRAIN_FLOP_PER_IMAGE x "
+          f"{TRAIN_BATCH} = {want_flops:.6e} "
+          f"({flops_fused / want_flops:.4f}x)", flush=True)
+    for o in flops_lib.top_ops(est.flop_ops, 5):
+        print(f"    {o.name} {o.kind} {o.flops:.4e} {o.detail}", flush=True)
+    check(abs(flops_fused / want_flops - 1.0) <= 0.05,
+          f"counted {flops_fused:.4e} FLOPs per step, expected "
+          f"{want_flops:.4e} within 5%")
+    lo, hi = min(rates), max(rates)
+    print(f"  images/s per epoch (step loop: epoch 1 holds the first "
+          f"step's count and the profile, each epoch a checkpoint) "
+          f"{[round(r, 1) for r in rates]}: median "
+          f"{statistics.median(rates):.1f} ({lo:.1f}-{hi:.1f}) on {card}",
+          flush=True)
+    for h in hist:
+        gp = h["goodput"]
+        print(f"  epoch {h['epoch']} ledger: wall {gp['wall_s']:.4f} s, "
+              f"shares {gp['shares']}, MFU {gp['mfu']} (peak "
+              f"{gp['peak_flops']:.3e}, {gp['device_kind']})", flush=True)
+    rec["validation_logits"] = dict(zip(("max_abs_err", "tol", "spread"),
+                                        validation_held(net, est, xv)))
+    net._estimator = None
+    del net, est
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def surface_flops_unfused(w0):
+    """The step's count on the unfused s2d graph (cuDNN and cuBLAS,
+    which the dispatch mode sees), one step through ``fit``."""
+    import torch
+
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        convert_resnet_params
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    net = flagship_model(fused=False)
+    net.init_params()
+    net.load_params(convert_resnet_params(w0, params_to_numpy(net)))
+    est = compile_flagship(net)
+    rs = np.random.RandomState(5)
+    x = rs.rand(TRAIN_BATCH, *IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, size=(TRAIN_BATCH, 1)).astype(np.int32)
+    reset_launches()
+    net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1,
+            end_trigger=MaxIteration(1))
+    launches = all_launches()
+    check(not any(launches.values()), f"unfused launches {launches}")
+    out = est.flops_per_step
+    net._estimator = None
+    del net, est
+    torch.cuda.empty_cache()
+    return out
+
+
+def surface_resume(card, ctx, xa, ya, xb, yb, w0, tmp):
+    """Phase 14, part 2: 8 steps uninterrupted against 4 steps, a
+    checkpoint, a fresh model and Estimator, ``load_checkpoint`` and 4
+    more; the checkpoint's bytes and write time, synchronous and async;
+    then an ``error`` armed at ``estimator/checkpoint_write`` under
+    an async write."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.faults import InjectedFaultError
+    from analytics_zoo_tpu_torch.common.safe_pickle import checked_load
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+
+    def fresh():
+        net = flagship_model()
+        net.load_params(w0)
+        return net, compile_flagship(net)
+
+    def fit(net, x, y):
+        return [v for h in net.fit(x, y, batch_size=TRAIN_BATCH,
+                                   nb_epoch=1).history for v in h["losses"]]
+
+    a, _ = fresh()
+    uninterrupted = fit(a, xa, ya) + fit(a, xb, yb)
+    a._estimator = None
+    del a
+    b, est_b = fresh()
+    first = fit(b, xa, ya)
+    d = os.path.join(tmp, "resume")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = est_b.save_checkpoint(d, block=True)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(path)
+    saved = checked_load(path)
+    c, est_c = fresh()
+    est_c.load_checkpoint(d)
+    restored = est_c.checkpoint_state()
+    check(state_equal(saved, restored), "the restored params, optimizer "
+          "state and step differ from the saved ones")
+    resumed = fit(c, xb, yb)
+    bit_equal = resumed == uninterrupted[SURFACE_STEPS:]
+    rel = max(abs(p - q) / max(abs(q), 1e-12) for p, q in
+              zip(resumed, uninterrupted[SURFACE_STEPS:]))
+    probe = determinism_probe(torch.Generator(device="cuda").manual_seed(7))
+    print(f"  resume: uninterrupted {[round(v, 6) for v in uninterrupted]}, "
+          f"resumed steps 5-8 {[round(v, 6) for v in resumed]}: bit-equal "
+          f"{bit_equal} (max relative difference {rel:.3e}); first 4 "
+          f"steps equal {first == uninterrupted[:SURFACE_STEPS]}; "
+          f"repeats bit for bit: {probe}", flush=True)
+    check(bit_equal or rel <= 1e-3, f"resumed losses differ by {rel:.3e}")
+    # the write, synchronous (above) and async: the copy from the card
+    # is synchronous, the pickle and the write on a thread
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est_c.save_checkpoint(d, block=False)
+    return_ms = (time.perf_counter() - t0) * 1e3
+    est_c.wait_for_checkpoint()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  checkpoint: {nbytes} bytes; synchronous write {sync_ms:.1f} "
+          f"ms; async save returns in {return_ms:.1f} ms, written in "
+          f"{async_ms:.1f} ms on {card}", flush=True)
+    # a failed async write surfaces at the next wait; LATEST keeps the
+    # last good file, and a resume from it runs
+    good = f"ckpt_{est_c.step}.pkl"
+    fit(c, xa[:TRAIN_BATCH], ya[:TRAIN_BATCH])
+    faults.arm("estimator/checkpoint_write", "error", times=1)
+    try:
+        est_c.save_checkpoint(d, block=False)
+        raised = False
+        try:
+            est_c.wait_for_checkpoint()
+        except InjectedFaultError:
+            raised = True
+    finally:
+        faults.disarm("estimator/checkpoint_write")
+    with open(os.path.join(d, "LATEST")) as f:
+        latest = f.read().strip()
+    check(raised, "the armed checkpoint write did not raise at the wait")
+    check(latest == good, f"LATEST names {latest} after the failed write, "
+          f"expected {good}")
+    c._estimator = None
+    del b, c, est_b, est_c
+    e, est_e = fresh()
+    est_e.load_checkpoint(d)
+    after = e.fit(xa[:TRAIN_BATCH], ya[:TRAIN_BATCH],
+                  batch_size=TRAIN_BATCH, nb_epoch=1,
+                  end_trigger=MaxIteration(est_e.step + 1)).history
+    check(all(np.isfinite(h["loss"]) for h in after), f"resume {after}")
+    print(f"  async write with estimator/checkpoint_write armed: raised at "
+          f"the wait {raised}, LATEST {latest}, resumed from it at step "
+          f"{est_e.step - 1}: loss {after[-1]['loss']:.6f}", flush=True)
+    e._estimator = None
+    del e, est_e
+    torch.cuda.empty_cache()
+    return {"uninterrupted": uninterrupted, "resumed": resumed,
+            "bit_equal": bit_equal, "max_rel": rel, "repeats": probe,
+            "checkpoint_bytes": nbytes, "sync_write_ms": sync_ms,
+            "async_return_ms": return_ms, "async_write_ms": async_ms,
+            "fault_raised": raised}
+
+
+def surface_optimizers(card):
+    """Phase 14, part 3: one step of each optimizer the slice adds,
+    through ``fit`` of a small dense net on the card and on the CPU: the
+    card's update against the CPU port's on the same params, state and
+    gradients (1e-6 of each param's max|value|); the card's gradients
+    against the CPU port's (1e-5 of each gradient's max|value|); and the
+    whole step against the CPU port's step (1e-5 of each param's
+    max|value|: cuBLAS against the CPU's products, whose rounding the
+    adaptive methods scale up where a gradient is near 0; 3.09e-6 read
+    for RMSprop on an H100)."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.ops import optimizers as topt
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Sequential
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    rs = np.random.RandomState(11)
+    x = rs.randn(64, 32).astype(np.float32)
+    y = rs.randn(64, 8).astype(np.float32)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                               1e-30))
+
+    out = {}
+    for name in SURFACE_OPTIMIZERS:
+        after, seen = {}, {"cuda": {}, "cpu": {}}
+        for dev in ("cuda", "cpu"):
+            zoo.init_nncontext(seed=0, device=dev)
+            m = Sequential()
+            m.add(L.Dense(64, activation="tanh", input_shape=(32,)))
+            m.add(L.Dense(8))
+            opt = getattr(topt, name)(lr=0.01)
+            m.compile(optimizer=opt, loss="mse")
+
+            def spy(leaves, grads, state, update=opt.update, got=seen[dev]):
+                host = lambda ts: [t.detach().cpu().clone() for t in ts]
+                got.update(leaves=host(leaves), grads=host(grads),
+                           state={k: v if k == "count" else host(v)
+                                  for k, v in state.items()})
+                update(leaves, grads, state)
+                got["after"] = host(leaves)
+            opt.update = spy
+            m.fit(x, y, batch_size=64, nb_epoch=1,
+                  end_trigger=MaxIteration(1))
+            after[dev] = params_to_numpy(m)
+        card_, cpu_ = seen["cuda"], seen["cpu"]
+        # the CPU port's update on the card's own params, state and grads
+        ref = getattr(topt, name)(lr=0.01)
+        leaves = card_["leaves"]
+        ref.update(leaves, card_["grads"], card_["state"])
+        err = max(rel(a.numpy(), b.numpy())
+                  for a, b in zip(card_["after"], leaves))
+        grad_err = max(rel(a.numpy(), b.numpy())
+                       for a, b in zip(card_["grads"], cpu_["grads"]))
+        step_err = max(rel(after["cuda"][lyr][k], v)
+                       for lyr, sub in after["cpu"].items()
+                       for k, v in sub.items())
+        out[name] = {"update": err, "grads": grad_err, "step": step_err}
+        check(err <= 1e-6, f"{name}'s update on the card against the CPU "
+              f"port's: relative {err:.3e}")
+        check(grad_err <= 1e-5, f"{name}: the card's gradients against the "
+              f"CPU port's: relative {grad_err:.3e}")
+        check(step_err <= 1e-5, f"{name}'s step on the card against the CPU "
+              f"port's: relative {step_err:.3e}")
+    zoo.init_nncontext(seed=0)
+    print("  optimizers, one step on the card against the CPU port's (max "
+          "relative error per param or gradient): " + "; ".join(
+              f"{k} update {v['update']:.2e} (on the same gradients), "
+              f"gradients {v['grads']:.2e}, step {v['step']:.2e}"
+              for k, v in out.items()) + f" on {card}", flush=True)
+    return out
+
+
+def surface_conv_grad(card, gen):
+    """Phase 14, part 4: the phase-decomposed backward
+    (``ZOO_TPU_PHASE_BWD=1``) against cuDNN's strided dgrad/wgrad at the
+    unfused ResNet-50's strided convs, batch 128, bf16: gradients within
+    2e-2 of max|grad|, the ms of each."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import conv_grad
+    bf = torch.bfloat16
+    rows = []
+    for xshape, k, cout in STRIDED_SHAPES:
+        x = torch.randn(*xshape, device="cuda", generator=gen, dtype=bf)
+        w = (torch.randn(k, k, xshape[-1], cout, device="cuda",
+                         generator=gen) / (k * k * xshape[-1]) ** 0.5
+             ).to(bf)
+        grads, ms = {}, {}
+        for label, phase in (("phase", True), ("cudnn", False)):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = conv_grad.conv2d(xr, wr, 2, "SAME", phase_bwd=phase)
+            g = torch.randn(y.shape, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(3), dtype=bf)
+            grads[label] = torch.autograd.grad(y, (xr, wr), g,
+                                               retain_graph=True)
+            ms[label] = time_ms(lambda: torch.autograd.grad(
+                y, (xr, wr), g, retain_graph=True))
+            del y
+        errs = [float((a.float() - b.float()).abs().max() /
+                      b.float().abs().max())
+                for a, b in zip(grads["phase"], grads["cudnn"])]
+        rows.append({"x": list(xshape), "k": k, "cout": cout,
+                     "phase_ms": ms["phase"], "cudnn_ms": ms["cudnn"],
+                     "dx_err": errs[0], "dw_err": errs[1]})
+        print(f"  conv_grad {k}x{k}/2 x {xshape} -> {cout}: phase "
+              f"{ms['phase']:.4f} ms, cuDNN {ms['cudnn']:.4f} ms "
+              f"({ms['cudnn'] / ms['phase']:.2f}x), dx err {errs[0]:.2e}, "
+              f"dw err {errs[1]:.2e} (of max|grad|)", flush=True)
+        check(max(errs) <= 2e-2, f"phase backward at {xshape} k {k}: "
+              f"errors {errs}")
+        del x, w, grads
+    wins = all(r["phase_ms"] < r["cudnn_ms"] for r in rows)
+    print(f"  the phase backward wins on every shape in this run: {wins} "
+          f"(PHASE_MEASURED_WIN = {conv_grad.PHASE_MEASURED_WIN}) on "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    return {"shapes": rows, "phase_wins_all": wins}
+
+
+def surface_path(card, detail):
+    """Phase 14: the Estimator's whole training surface on bench.py's
+    flagship step; returns the launches of the ``fit`` run."""
+    import tempfile
+
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    ctx = zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(14)
+    n = SURFACE_STEPS * TRAIN_BATCH
+    x = rs.rand(n, *IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, size=(n, 1)).astype(np.int32)
+    xv = rs.rand(SURFACE_VAL, *IMAGE).astype(np.float32)
+    yv = rs.randint(0, 1000, size=(SURFACE_VAL, 1)).astype(np.int32)
+    net = flagship_model()
+    net.init_params()
+    w0 = params_to_numpy(net)
+    rec = {"kernel_cases": surface_kernels(
+        net, torch.Generator(device="cuda").manual_seed(14))}
+    del net
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out")
+                                     ) as tmp:
+        rec["fit"], launches = surface_train(card, ctx, x, y, xv, yv, w0,
+                                             tmp)
+        unfused = surface_flops_unfused(w0)
+        fused = rec["fit"]["flops_per_step"]
+        mfu5 = detail.get("train", {}).get("s2d_defer", {}).get("mfu")
+        print(f"  flops per step: fused defer {fused:.6e}, unfused "
+              f"(cuDNN/cuBLAS) {unfused:.6e} ({fused / unfused:.5f}x); the "
+              f"ledger's MFU {rec['fit']['goodput'][-1]['mfu']} (last "
+              f"epoch), phase 5's model-FLOPs MFU of the s2d defer step "
+              f"{mfu5} on {card}", flush=True)
+        check(abs(fused / unfused - 1.0) <= 0.01, f"fused count {fused:.4e} "
+              f"against unfused {unfused:.4e}: more than 1% apart")
+        rec["flops_unfused"] = unfused
+        xb = rs.rand(n, *IMAGE).astype(np.float32)
+        yb = rs.randint(0, 1000, size=(n, 1)).astype(np.int32)
+        rec["resume"] = surface_resume(card, ctx, x, y, xb, yb, w0, tmp)
+    del x, xv, xb
+    rec["optimizers"] = surface_optimizers(card)
+    rec["conv_grad"] = surface_conv_grad(
+        card, torch.Generator(device="cuda").manual_seed(0))
+    detail["surface"] = rec
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4089,9 +4796,24 @@ def main() -> int:
     del gen_eng
     torch.cuda.empty_cache()
 
-    print("[14] summary", flush=True)
+    print("[14] the Estimator's training surface on bench.py's flagship "
+          "step: validation, checkpoints and resume, clipping, summaries, "
+          "profiling, the goodput ledger and FLOP count, the optimizers, "
+          "the phase backward", flush=True)
+    surface = surface_path(card, detail)
+
+    print("[15] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        if surface.get(rec["name"]):
+            rec["launches_surface"] = surface[rec["name"]]
+            # phase 14's cases at its path's shapes count in the worst
+            # error too
+            rec["max_abs_err_surface"] = max(
+                r["max_abs_err"] for r in detail["surface"]["kernel_cases"]
+                if r["kernel"] == rec["name"])
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     rec["max_abs_err_surface"])
         if rec["name"] in FLASH:
             rec["launches_bf16_path"] = bert_bench[rec["name"]]
         if over_http.get(rec["name"]):
