@@ -4,6 +4,8 @@ has ``main(argv)``; run one with
 run on the card unless given ``--device cpu``."""
 
 EXAMPLES = [
+    "lenet_mnist",
     "ncf_recommendation",
     "wide_and_deep",
+    "transfer_learning",
 ]

@@ -94,6 +94,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _ordered_like(tree: dict, like: dict) -> dict:
+    """``tree`` with its keys, at every depth, in ``like``'s order."""
+    return {k: _ordered_like(tree[k], v) if isinstance(v, dict) else tree[k]
+            for k, v in like.items()}
+
+
 def check_same_structure(src: dict, like: dict, where: str = "") -> None:
     """Raise unless ``src`` has exactly ``like``'s keys and leaf shapes."""
     if set(src) != set(like):
@@ -180,9 +186,13 @@ class KerasLayer(nn.Module):
 
     def set_params(self, tree: dict) -> None:
         """Install ``tree`` (tensors, used as given) as this layer's
-        state; a built layer checks it has the same keys and shapes."""
+        state; a built layer checks it has the same keys and shapes and
+        keeps its key order, the order of the optimizer state's lists
+        (a tree from JAX comes with its keys sorted)."""
         if "weights" in self._modules:
-            check_same_structure(tree, self.params(), self.name)
+            like = self.params()
+            check_same_structure(tree, like, self.name)
+            tree = _ordered_like(tree, like)
         self.weights = ParamTree(tree)
 
     def params(self) -> dict:

@@ -1,7 +1,7 @@
 """Keras-style layers of the port."""
 
-from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import \
-    Convolution2D
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
+    Convolution2D, DepthwiseConvolution2D)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import (
     Activation, Dense, Dropout, ExpandDim, Flatten, Masking, Narrow, Permute,
     RepeatVector, Reshape, Select, Squeeze)
@@ -12,14 +12,22 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.layers.merge import (
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.normalization \
     import BatchNormalization, LayerNormalization
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.pooling import (
-    GlobalAveragePooling2D, MaxPooling2D)
+    AveragePooling1D, AveragePooling2D, AveragePooling3D,
+    GlobalAveragePooling1D, GlobalAveragePooling2D, GlobalAveragePooling3D,
+    GlobalMaxPooling1D, GlobalMaxPooling2D, GlobalMaxPooling3D, MaxPooling1D,
+    MaxPooling2D, MaxPooling3D)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer import (
     BERT, MultiHeadAttention, TransformerLayer)
 
-__all__ = ["Activation", "Add", "Average", "BatchNormalization", "BERT",
-           "Concatenate", "Convolution2D", "Dense", "Dot", "Dropout",
-           "Embedding", "ExpandDim", "Flatten", "GlobalAveragePooling2D",
-           "LayerNormalization", "Masking", "MaxPooling2D", "Maximum",
-           "Merge", "Minimum", "MultiHeadAttention", "Multiply", "Narrow",
-           "Permute", "RepeatVector", "Reshape", "Select", "Squeeze",
+__all__ = ["Activation", "Add", "Average", "AveragePooling1D",
+           "AveragePooling2D", "AveragePooling3D", "BatchNormalization",
+           "BERT", "Concatenate", "Convolution2D", "Dense",
+           "DepthwiseConvolution2D", "Dot", "Dropout", "Embedding",
+           "ExpandDim", "Flatten", "GlobalAveragePooling1D",
+           "GlobalAveragePooling2D", "GlobalAveragePooling3D",
+           "GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalMaxPooling3D",
+           "LayerNormalization", "Masking", "MaxPooling1D", "MaxPooling2D",
+           "MaxPooling3D", "Maximum", "Merge", "Minimum",
+           "MultiHeadAttention", "Multiply", "Narrow", "Permute",
+           "RepeatVector", "Reshape", "Select", "Squeeze",
            "TransformerLayer", "WordEmbedding", "merge"]

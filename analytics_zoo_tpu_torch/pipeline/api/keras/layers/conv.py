@@ -1,4 +1,4 @@
-"""Convolution2D (port of
+"""Convolution2D and DepthwiseConvolution2D (port of
 ``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``): NHWC
 activations, HWIO kernels, TF "SAME" or "VALID" padding.
 
@@ -118,3 +118,84 @@ class Convolution2D(KerasLayer):
                     for s, k, st in zip(input_shape[:2], self.kernel_size,
                                         self.subsample))
         return out + (self.nb_filter,)
+
+
+class DepthwiseConvolution2D(KerasLayer):
+    """Depthwise 2-D convolution (MobileNet's building block): each
+    input channel convolved with ``depth_multiplier`` filters of its
+    own. The kernel is kept as the reference keeps it, HWIO ``(kh, kw,
+    1, in * mult)`` under ``"depthwise"``, and runs as a grouped
+    ``F.conv2d`` (``groups = in``) with the weight viewed as ``(in *
+    mult, 1, kh, kw)``: XLA's ``feature_group_count`` and PyTorch's
+    groups both order the output channels ``c * mult + m``. A library
+    convolution, as the reference's ``lax.conv`` is."""
+
+    def __init__(self, nb_row: int, nb_col=None, init="glorot_uniform",
+                 activation=None, border_mode="valid", subsample=(1, 1),
+                 depth_multiplier=1, dim_ordering="tf", w_regularizer=None,
+                 b_regularizer=None, bias=True, input_shape=None, name=None,
+                 **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(f"border_mode must be valid|same, "
+                             f"got {border_mode}")
+        if dim_ordering not in ("tf", "th"):
+            raise ValueError("dim_ordering must be 'tf' or 'th'")
+        self.kernel_size = (_norm_tuple(nb_row, 1, "nb_row")[0],
+                            _norm_tuple(nb_col if nb_col is not None
+                                        else nb_row, 1, "nb_col")[0])
+        self.subsample = _norm_tuple(subsample, 2, "subsample")
+        self.depth_multiplier = int(depth_multiplier)
+        self.border_mode = border_mode
+        self.dim_ordering = dim_ordering
+        self.kernel_init = initializers.get(init)
+        self.activation = activations.get(activation)
+        self.w_regularizer = regularizers.get(w_regularizer)
+        self.b_regularizer = regularizers.get(b_regularizer)
+        self.bias = bias
+
+    def _in_channels(self, input_shape):
+        return (input_shape[-1] if self.dim_ordering == "tf"
+                else input_shape[0])
+
+    def build(self, generator, input_shape: Shape) -> dict:
+        out_ch = self._in_channels(input_shape) * self.depth_multiplier
+        params = {"depthwise": self.kernel_init(
+            generator, self.kernel_size + (1, out_ch))}
+        if self.bias:
+            params["bias"] = torch.zeros((out_ch,))
+        return params
+
+    def call(self, params, x, *, training=False, rng=None):
+        xc = x.permute(0, 3, 1, 2) if self.dim_ordering == "tf" else x
+        xc, padding = pad_nchw(xc, self.kernel_size, self.subsample,
+                               self.border_mode)
+        w = params["depthwise"].to(x.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(xc, w, stride=self.subsample, padding=padding,
+                     groups=xc.shape[1])
+        if self.bias:
+            y = y + params["bias"].to(y.dtype).reshape(1, -1, 1, 1)
+        if self.dim_ordering == "tf":
+            y = y.permute(0, 2, 3, 1)
+        if self.activation is not None:
+            y = self.activation(y)
+        return y.contiguous()
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        out_ch = self._in_channels(input_shape) * self.depth_multiplier
+        spatial = (input_shape[:2] if self.dim_ordering == "tf"
+                   else input_shape[1:3])
+        out_sp = tuple(_conv_out_len(s, k, st, self.border_mode)
+                       for s, k, st in zip(spatial, self.kernel_size,
+                                           self.subsample))
+        if self.dim_ordering == "tf":
+            return out_sp + (out_ch,)
+        return (out_ch,) + out_sp
+
+    def regularizers(self):
+        out = []
+        if self.w_regularizer is not None:
+            out.append(("depthwise", self.w_regularizer))
+        if self.b_regularizer is not None:
+            out.append(("bias", self.b_regularizer))
+        return out

@@ -479,8 +479,14 @@ class Model(KerasNet):
     def init(self, generator: torch.Generator,
              input_shape: Optional[ShapeLike] = None) -> dict:
         """Build every layer in graph order, each at its node's input
-        shape, from one generator."""
+        shape, from one generator. On this model's first build, a layer
+        another net already built at that shape keeps its weights: the
+        layers live in the graph, so a model made over another's nodes
+        (:meth:`new_graph`, a new head on them) shares them, where the
+        reference's functional params are copied; a second build of
+        this model draws every layer anew."""
         del input_shape  # graph shapes come from the Input variables
+        first = not self.initialized
         built = set()
         for v in self._order:
             lyr = v.layer
@@ -490,7 +496,9 @@ class Model(KerasNet):
             in_shape: ShapeLike = ([p.shape for p in v.parents]
                                    if len(v.parents) > 1
                                    else v.parents[0].shape)
-            lyr.init(generator, in_shape)
+            if not (first and "weights" in lyr._modules and
+                    lyr.input_shape == in_shape):
+                lyr.init(generator, in_shape)
             built.add(id(lyr))
         shapes = [v.shape for v in self.outputs]
         self._output_shape = shapes if self._multi_out else shapes[0]
@@ -526,3 +534,36 @@ class Model(KerasNet):
                 updates[lyr.name] = upd
         outs = [values[id(v)] for v in self.outputs]
         return (outs if self._multi_out else outs[0]), updates
+
+    def new_graph(self, output_names: "list[str]") -> "Model":
+        """The sub-graph from this model's inputs to the named nodes
+        (reference ``GraphNet.newGraph``: transfer-learning surgery).
+        It shares this model's layers, and so their weights."""
+        by_name = {v.name: v for v in self._order}
+        missing = [n for n in output_names if n not in by_name]
+        if missing:
+            raise ValueError(f"no graph nodes named {missing}")
+        outs = [by_name[n] for n in output_names]
+        return Model(self.inputs, outs if len(outs) > 1 else outs[0])
+
+    def freeze_up_to(self, *node_names: str) -> "Model":
+        """Freeze every layer at or before the named nodes (reference
+        ``freezeUpTo``): their trainable leaves get no optimizer update
+        (:meth:`trainable_mask`), while a frozen BatchNormalization's
+        moving statistics still follow the batches in training, as in
+        the reference."""
+        by_name = {v.name: v for v in self._order}
+        missing = [n for n in node_names if n not in by_name]
+        if missing:
+            raise ValueError(f"no graph nodes named {missing}")
+        frontier = [by_name[n] for n in node_names]
+        seen = set()
+        while frontier:
+            v = frontier.pop()
+            if id(v) in seen:
+                continue
+            seen.add(id(v))
+            if v.layer is not None and not isinstance(v.layer, _InputLayer):
+                v.layer.trainable = False
+            frontier.extend(v.parents)
+        return self

@@ -185,9 +185,13 @@ script exits non-zero and prints no result line:
    (B5 36, B6 16), finite losses and validation metrics, ``val_*`` and
    ``goodput`` in the history (shares summing to 1), the summary tags,
    the profile's trace naming B1-B4, the device-memory gauges, the
-   checkpoints written; the step's FLOPs (``perf/flops.py``, counted
-   inside the first step) within 5% of ``TRAIN_FLOP_PER_IMAGE`` x 128
-   and within 1% of the unfused graph's count (cuDNN/cuBLAS). Then
+   checkpoints written; the validation logits (fused, bf16) within a
+   tenth of their spread over 256 images of stepped brightness of the
+   unfused f32 graph's, and that bound failed by a batch-stride fault
+   put into B6's output (two smaller faults printed); the step's FLOPs
+   (``perf/flops.py``, counted inside the first step) within 5% of
+   ``TRAIN_FLOP_PER_IMAGE`` x 128 and within 1% of the unfused graph's
+   count (cuDNN/cuBLAS). Then
    resume: 8 steps against 4, ``save_checkpoint``, a fresh model and
    ``load_checkpoint`` (the state bit for bit) and 4 more (bit-equal
    losses, or within 1e-3 relative with each training kernel's and the
@@ -201,7 +205,26 @@ script exits non-zero and prints no result line:
    the unfused ResNet-50's strided convs (batch 128, bf16: gradients
    within 2e-2 of max|grad|, ms of each). Printed: images/s per epoch,
    the ledger's shares and MFU beside phase 5's model-FLOPs MFU;
-15. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+15. image classification, at 224x224 and 1000 classes (LeNet-5 at
+   28x28x1 and 10), no kernel of the eleven on the path (every count 0):
+   LeNet-5 as ``examples/lenet_mnist.py`` trains it on ``datasets.
+   mnist``'s synthetic stand-in (images/s; one epoch at dropout 0 held
+   to the CPU port, losses 1e-4 relative); Inception-v1 served by
+   ``InferenceModel`` in f32 and bf16 at batch 1, 8 and 32 (images/s,
+   device busy share) and its logits at batch 4 held to the CPU port's
+   (f32 1e-3, bf16 5e-2 of max(1, max|logit|), each bound below the
+   logits' spread over the images, the head scaled so the logits reach
+   10); trained through ``compile``/``fit`` (``mixed_bfloat16``, batch
+   128, 3 epochs of 5 steps: images/s, the ledger's FLOPs per step and
+   MFU, a profile of 3 steps) and one f32 step at batch 4 held to the
+   CPU port (loss 1e-4, the head's and the last block's updates);
+   transfer learning as ``examples/transfer_learning.py`` does it on
+   Inception-v1 (frozen trainable leaves bit for bit, frozen BNs'
+   moving statistics moved, the head moved); VGG-16/19, MobileNet,
+   MobileNet-v2, DenseNet-121 and SqueezeNet: a bf16 forward at batch 32
+   timed, f32 logits at batch 2 held to the CPU port, and one f32 step
+   of MobileNet-v2 and DenseNet-121 at batch 2 (loss 1e-4);
+16. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -4111,12 +4134,66 @@ def surface_kernels(net, gen):
     return recs
 
 
+def spread_images(rs, n):
+    """``n`` seeded images whose brightness steps from 0.25 to 2 across
+    the batch, so the logits move with the image (uniform noise images
+    of one brightness move a random net's logits by about 3% of their
+    size, a bound above that cannot fail a wrong kernel)."""
+    scale = np.linspace(0.25, 2.0, n).astype(np.float32)
+    return rs.rand(n, *IMAGE).astype(np.float32) * scale[:, None, None,
+                                                           None]
+
+
+def spread_bound(want):
+    """A tenth of the logits' spread over the images: the median over
+    logit columns of each column's max - min. An output that ignores
+    its image misses by up to the spread, so it fails."""
+    spread = float(np.median(np.ptp(want, axis=0)))
+    return 0.1 * spread, spread
+
+
+class PerturbedB6:
+    """Within the block, every B6 output (the 3x3 eval fold, as the
+    fused ResNet calls it) passes through ``fault`` first."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.models.image.imageclassification \
+            import resnet
+        self.mod, self.orig = resnet, resnet.conv3x3_bn_apply
+        resnet.conv3x3_bn_apply = \
+            lambda *a, **kw: self.fault(self.orig(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv3x3_bn_apply = self.orig
+
+
+def _scale_channel0(y):
+    y = y.clone()
+    y[..., 0] *= 1.01
+    return y
+
+
+# faults put into B6's output to show what the validation check fails;
+# the first must fail it
+B6_FAULTS = (
+    ("every image's output replaced by the first's (a batch-stride "
+     "fault)", lambda y: y[:1].expand_as(y).contiguous()),
+    ("every channel x1.01", lambda y: y * 1.01),
+    ("channel 0 x1.01", _scale_channel0),
+)
+
+
 def validation_held(net, est, xv):
     """The fused validation forward (B5 and B6 under ``mixed_bfloat16``)
     against the unfused graph (cuDNN, f32) on the same trained weights
-    and images: the logits within phase 4's bf16 rule, 5e-2 of max(1,
-    max|logit|). Returns (max|err|, tol, the logits' spread over the
-    images)."""
+    and images (:func:`spread_images`): every logit within a tenth of
+    the logits' spread over the images (:func:`spread_bound`). Then the
+    same forward with each of :data:`B6_FAULTS` in B6's output, held to
+    the same bound: the first fault must fail it. Returns a record."""
     import torch
 
     from analytics_zoo_tpu_torch.bridge import params_to_numpy
@@ -4131,18 +4208,29 @@ def validation_held(net, est, xv):
     check(got.shape == want.shape == (len(xv), 1000) and
           np.isfinite(got).all(), f"validation logits {got.shape}")
     err = float(np.abs(got - want).max())
-    tol = 5e-2 * max(1.0, float(np.abs(want).max()))
-    # how far the images move the logits: the check's power
-    spread = float(np.abs(want - want.mean(axis=0)).max())
+    bound, spread = spread_bound(want)
     print(f"  validation logits (fused, bf16) against the unfused graph "
-          f"(f32) on the trained weights: max|err| {err:.4e} (tol "
-          f"{tol:.4e}; max|logit| {float(np.abs(want).max()):.4e}, "
-          f"max|logit - its mean over the images| {spread:.4e})",
-          flush=True)
-    check(err <= tol, f"validation logits: max|err| {err} > {tol}")
+          f"(f32) on the trained weights: max|err| {err:.4e}, bound "
+          f"{bound:.4e} (a tenth of the spread {spread:.4e}, the median "
+          f"column's max - min over {len(xv)} images; max|logit| "
+          f"{float(np.abs(want).max()):.4e})", flush=True)
+    check(err <= bound, f"validation logits: max|err| {err} > {bound}")
+    faults = {}
+    for label, fault in B6_FAULTS:
+        with PerturbedB6(fault):
+            bad = est.predict(xv, batch_size=TRAIN_BATCH)
+        ferr = float(np.abs(bad - want).max())
+        faults[label] = {"max_abs_err": ferr, "fails": ferr > bound}
+        print(f"    B6 output with {label}: max|err| {ferr:.4e} -> "
+              f"{'fails' if ferr > bound else 'passes'} the bound",
+              flush=True)
+    first = B6_FAULTS[0][0]
+    check(faults[first]["fails"], f"validation check passed B6 with "
+          f"{first}: it cannot fail a wrong kernel")
     del ref
     torch.cuda.empty_cache()
-    return err, tol, spread
+    return {"max_abs_err": err, "bound": bound, "spread": spread,
+            "faults": faults}
 
 
 def surface_train(card, ctx, x, y, xv, yv, w0, tmp):
@@ -4277,8 +4365,7 @@ def surface_train(card, ctx, x, y, xv, yv, w0, tmp):
         print(f"  epoch {h['epoch']} ledger: wall {gp['wall_s']:.4f} s, "
               f"shares {gp['shares']}, MFU {gp['mfu']} (peak "
               f"{gp['peak_flops']:.3e}, {gp['device_kind']})", flush=True)
-    rec["validation_logits"] = dict(zip(("max_abs_err", "tol", "spread"),
-                                        validation_held(net, est, xv)))
+    rec["validation_logits"] = validation_held(net, est, xv)
     net._estimator = None
     del net, est
     torch.cuda.empty_cache()
@@ -4553,7 +4640,7 @@ def surface_path(card, detail):
     n = SURFACE_STEPS * TRAIN_BATCH
     x = rs.rand(n, *IMAGE).astype(np.float32)
     y = rs.randint(0, 1000, size=(n, 1)).astype(np.int32)
-    xv = rs.rand(SURFACE_VAL, *IMAGE).astype(np.float32)
+    xv = spread_images(rs, SURFACE_VAL)
     yv = rs.randint(0, 1000, size=(SURFACE_VAL, 1)).astype(np.int32)
     net = flagship_model()
     net.init_params()
@@ -4588,6 +4675,485 @@ def surface_path(card, detail):
     detail["surface"] = rec
     torch.cuda.empty_cache()
     return launches
+
+
+# -- image classification (phase 15) ------------------------------------------
+
+IC_SERVE = (1, 8, 32)
+IC_TRAIN_STEPS, IC_TRAIN_EPOCHS = 5, 3
+IC_TRANSFER_N, IC_TRANSFER_BATCH = 256, 32
+IC_OTHERS = ("vgg-16", "vgg-19", "mobilenet", "mobilenet-v2",
+             "densenet-121", "squeezenet")
+# the archs whose f32 step is held too: the depthwise and the average
+# pool backward
+IC_OTHER_STEP = ("mobilenet-v2", "densenet-121")
+# the scale the head's kernel is set to give the held logits
+IC_LOGIT_MAX = 10.0
+
+
+def logits_held(label, got, want, rel):
+    """``got`` within ``rel`` of max(1, max|want|) of the CPU port's
+    ``want``, a bound that must lie below the logits' spread over the
+    images (the median column's max - min), or the check could not fail
+    an output that ignores its image."""
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: logits {got.shape}, want {want.shape}")
+    err = float(np.abs(got - want).max())
+    tol = rel * max(1.0, float(np.abs(want).max()))
+    spread = spread_bound(want)[1]
+    print(f"  {label}: max|err| {err:.4e} (tol {tol:.4e}, below the "
+          f"logits' spread {spread:.4e}; max|logit| "
+          f"{float(np.abs(want).max()):.4e})", flush=True)
+    check(tol < spread, f"{label}: tol {tol} is not below the spread "
+          f"{spread}, so the check could not fail")
+    check(err <= tol, f"{label}: max|err| {err} > {tol}")
+    return {"max_abs_err": err, "tol": tol, "spread": spread}
+
+
+def scale_head(net, x):
+    """Scale the kernel of ``net``'s last layer with weights (its head)
+    so that its logits on ``x`` reach :data:`IC_LOGIT_MAX`: at random
+    init they are ~1e-3, below the max(1, ...) floor of every logit
+    bound. Every net here is positively homogeneous in that kernel (a
+    Dense, or SqueezeNet's conv10 before a ReLU). Returns the factor."""
+    import torch
+    head = [lyr for lyr in net.layers if "kernel" in lyr.params()][-1]
+    peak = float(np.abs(net.predict(x, batch_size=len(x))).max())
+    factor = IC_LOGIT_MAX / peak
+    with torch.no_grad():
+        head.params()["kernel"].mul_(factor)
+    return factor
+
+
+def cpu_twin(name, net):
+    """``ImageClassifier(name)``'s net on the CPU with ``net``'s
+    weights."""
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    cpu = ImageClassifier(name, input_shape=IMAGE, classes=1000).model
+    cpu.load_params(params_to_numpy(net), device="cpu")
+    return cpu
+
+
+def f32_step(ctx, name, w0, x, y, jitter=0.0):
+    """One f32 SGD step (0.1, momentum 0.9, softmax cross entropy) of
+    ``ImageClassifier(name)`` from ``w0`` on ``(x, y)`` on ``ctx``'s
+    device, every Dropout's rate 0 on this instance: the loss and the
+    weights after it."""
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dropout
+    from analytics_zoo_tpu_torch.pipeline.estimator import (Estimator,
+                                                            MaxIteration)
+    net = ImageClassifier(name, input_shape=IMAGE, classes=1000).model
+    net.load_params(w0, device=ctx.device)
+    for lyr in net.layers:
+        if isinstance(lyr, Dropout):
+            lyr.p = 0.0
+    est = Estimator(net, optimizer=SGD(lr=0.1, momentum=0.9),
+                    loss="softmax_cross_entropy", ctx=ctx)
+    res = est.train(x * (1.0 + jitter), y, batch_size=len(x),
+                    end_trigger=MaxIteration(1))
+    return res.history[-1]["losses"][0], params_to_numpy(net)
+
+
+def step_held(label, name, w0, x, y, held=(), shown=(), bn_layers=()):
+    """One f32 step on the card (TF32 off) against the CPU port's from
+    the same weights and batch: the loss within 1e-4 relative; each
+    ``held`` leaf after the step within 1e-5 of its max|param|, or twice
+    the card's own movement when its input moves by 1e-6 (relative),
+    whichever is larger; moving statistics within 1e-4 of max(1,
+    max|stat|). The ``shown`` leaves are printed beside that movement
+    and not held: random init's first step is ill-conditioned in the
+    early and middle layers (phase 5), where a 1e-6 change of the input
+    moves an update as far as the card's rounding does."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    card_ctx = zoo.init_nncontext(seed=0)
+    lc, pc = f32_step(card_ctx, name, w0, x, y)
+    pj = f32_step(card_ctx, name, w0, x, y, jitter=1e-6)[1] \
+        if held or shown else None
+    torch.cuda.empty_cache()
+    lp, pp = f32_step(zoo.init_nncontext(seed=0, device="cpu"), name, w0,
+                      x, y)
+    zoo.init_nncontext(seed=0)
+    rel = abs(lc - lp) / abs(lp)
+    print(f"  {label}: one f32 step at batch {len(x)}: loss card {lc:.6f}, "
+          f"CPU {lp:.6f} (rel {rel:.2e}, tol 1e-4)", flush=True)
+    check(np.isfinite(lc) and rel <= 1e-4, f"{label}: loss {lc} vs {lp}")
+    out = {"loss_card": lc, "loss_cpu": lp, "loss_rel": rel}
+    for layer, leaf in held + shown:
+        got, want = pc[layer][leaf], pp[layer][leaf]
+        err = float(np.abs(got - want).max())
+        jit = float(np.abs(pj[layer][leaf] - got).max())
+        peak = float(np.abs(want).max())
+        if (layer, leaf) in held:
+            tol = max(1e-5 * peak, 2.0 * jit)
+            print(f"    {layer}/{leaf} after the step: max|card - CPU| "
+                  f"{err:.4e} (tol {tol:.4e}: 1e-5 of max|param| "
+                  f"{peak:.4e}, or twice the card's 1e-6 jitter "
+                  f"{jit:.4e})", flush=True)
+            check(err <= tol, f"{label}: {layer}/{leaf} {err} > {tol}")
+            out[f"{layer}/{leaf}"] = (err, tol)
+        else:
+            print(f"    {layer}/{leaf} after the step (shown, not held): "
+                  f"max|card - CPU| {err:.4e}, the card's 1e-6 jitter "
+                  f"{jit:.4e}, max|param| {peak:.4e}", flush=True)
+            out[f"{layer}/{leaf}"] = (err, jit)
+    for layer in bn_layers:
+        for leaf in ("moving_mean", "moving_var"):
+            want = pp[layer]["_state"][leaf]
+            err = float(np.abs(pc[layer]["_state"][leaf] - want).max())
+            tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+            check(err <= tol, f"{label}: {layer}/{leaf} {err} > {tol}")
+            out[f"{layer}/{leaf}"] = (err, tol)
+    if bn_layers:
+        worst = max(out[f"{b}/{leaf}"][0] for b in bn_layers
+                    for leaf in ("moving_mean", "moving_var"))
+        print(f"    moving statistics of {list(bn_layers)} within 1e-4 of "
+              f"max(1, max|stat|): worst max|card - CPU| {worst:.4e}",
+              flush=True)
+    return out
+
+
+def lenet_run(card):
+    """Phase 15, part 1: LeNet-5 as ``examples/lenet_mnist.py`` trains
+    it (SGD 0.01, momentum 0.9, batch 64, 2 epochs of 512 images), on
+    ``datasets.mnist``'s synthetic stand-in; then one epoch of the card
+    at ``dropout=0.0`` against the CPU port's."""
+    import tempfile
+
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        lenet5
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.api.keras.datasets import mnist
+    with tempfile.TemporaryDirectory() as empty:   # no cache: synthetic
+        (xtr, ytr), (xte, yte) = mnist.load_data(empty)
+    x = (xtr[:512] / 255.0).astype(np.float32)
+    y = ytr[:512].reshape(-1, 1).astype(np.int32)
+    xv = (xte[:128] / 255.0).astype(np.float32)
+    yv = yte[:128].reshape(-1, 1).astype(np.int32)
+
+    def compiled(dropout):
+        m = lenet5(input_shape=(28, 28, 1), classes=10, dropout=dropout)
+        m.compile(optimizer=SGD(lr=0.01, momentum=0.9),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+        return m
+
+    zoo.init_nncontext(seed=0)
+    m = compiled(0.5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = m.fit(x, y, batch_size=64, nb_epoch=2,
+                 validation_data=(xv, yv)).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    metrics = m.evaluate(xv, yv, batch_size=64)
+    losses = [v for h in hist for v in h["losses"]]
+    rates = [h["throughput"] for h in hist]
+    print(f"  lenet-5: {len(losses)} steps at batch 64 on mnist's "
+          f"synthetic stand-in, epoch losses "
+          f"{[round(h['loss'], 4) for h in hist]}, images/s per epoch "
+          f"{[round(r, 1) for r in rates]} ({2 * len(x) / wall:.1f} over "
+          f"both, validation included); test {metrics} on {card}",
+          flush=True)
+    check(len(losses) == 16 and np.isfinite(losses).all(),
+          f"lenet-5 losses {losses}")
+    card_m = compiled(0.0)
+    card_m.estimator._ensure_initialized()
+    w = params_to_numpy(card_m)
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu_m = compiled(0.0)
+    cpu_m.estimator.params = w
+    held = held_to_cpu("lenet-5 at dropout 0, one epoch, card against "
+                       "the CPU port", card_m, cpu_m, x, y, 64, 8)
+    zoo.init_nncontext(seed=0)
+    return {"losses": losses, "images_per_s_epochs": rates,
+            "images_per_s": 2 * len(x) / wall, "test": metrics,
+            "held": held}
+
+
+def inception_serving(card):
+    """Phase 15, part 2: Inception-v1 served by ``InferenceModel`` in
+    f32 and bf16 at batch 1, 8 and 32 (the median of 10 requests, the
+    device's busy share over 3), and its logits at batch 4 against the
+    CPU port's. Returns the record and the weights before the head was
+    scaled."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    ctx = zoo.init_nncontext(seed=0)
+    net = ImageClassifier("inception-v1", input_shape=IMAGE,
+                          classes=1000).model
+    net.init_params()
+    w0 = params_to_numpy(net)
+    rs = np.random.RandomState(15)
+    x4 = spread_images(rs, 4)
+    factor = scale_head(net, x4)
+    im = InferenceModel(supported_concurrent_num=2).load_keras_net(net)
+    rec = {"head_scale": factor}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for bs in IC_SERVE:
+            x = torch.from_numpy(spread_images(rs, bs)).to(ctx.device, dt)
+            med, lo, hi = median_request_s(im, x)
+            prof = profile_steps(lambda: im.predict(x), 3, ())
+            rec[f"{dname}_b{bs}"] = {
+                "images_per_s": bs / med, "ms": med * 1e3,
+                "ms_spread": [lo * 1e3, hi * 1e3],
+                "device_busy_share": prof["device_busy_share"],
+                "device_ms": prof["device_ms_per_step"],
+                "device_rows": prof["device_rows_per_step"],
+                "top": prof["top"][:10]}
+            print(f"  inception-v1 {dname} batch {bs}: {bs / med:.1f} "
+                  f"images/s (median of 10 requests {med * 1e3:.3f} ms, "
+                  f"{lo * 1e3:.3f}-{hi * 1e3:.3f}), device busy "
+                  f"{prof['device_busy_share']} on {card}", flush=True)
+    cpu = cpu_twin("inception-v1", net)
+    want = cpu.predict(x4, batch_size=4)
+    got = {dt: im.predict(torch.from_numpy(x4).to(ctx.device, dt))
+           for dt in (torch.float32, torch.bfloat16)}
+    rec["held_f32"] = logits_held(
+        f"inception-v1 f32 logits at batch 4 against the CPU port (head "
+        f"x{factor:.4g})", got[torch.float32], want, 1e-3)
+    rec["held_bf16"] = logits_held(
+        "inception-v1 bf16 logits at batch 4 against the CPU port's f32",
+        got[torch.bfloat16], want, 5e-2)
+    del net, im, cpu
+    torch.cuda.empty_cache()
+    return rec, w0
+
+
+def inception_training(card, w0):
+    """Phase 15, part 3: Inception-v1 through ``compile``/``fit``
+    (``mixed_bfloat16``, SGD 0.1 momentum 0.9, batch 128, 3 epochs of 5
+    steps): images/s per epoch, the goodput ledger's FLOPs per step and
+    MFU, a profile of 3 steps (busy share, the ten largest device rows);
+    then one f32 step at batch 4 against the CPU port's."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(16)
+    n = TRAIN_BATCH * IC_TRAIN_STEPS
+    x = rs.rand(n, *IMAGE).astype(np.float32)
+    y = rs.randint(0, 1000, (n, 1)).astype(np.int32)
+    net = ImageClassifier("inception-v1", input_shape=IMAGE,
+                          classes=1000).model
+    net.load_params(w0)
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        net.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+                    loss="softmax_cross_entropy")
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    est = net.estimator
+    check(est.dtype_policy == "mixed_bfloat16", est.dtype_policy)
+    hist = net.fit(x, y, batch_size=TRAIN_BATCH,
+                   nb_epoch=IC_TRAIN_EPOCHS).history
+    losses = [v for h in hist for v in h["losses"]]
+    rates = [h["throughput"] for h in hist]
+    gp = hist[-1]["goodput"]
+    check(len(losses) == IC_TRAIN_STEPS * IC_TRAIN_EPOCHS and
+          np.isfinite(losses).all(), f"inception-v1 losses {losses}")
+    print(f"  inception-v1 training (mixed_bfloat16, batch {TRAIN_BATCH}): "
+          f"losses {[round(v, 4) for v in losses]}; images/s per epoch "
+          f"{[round(r, 1) for r in rates]}, median "
+          f"{statistics.median(rates):.1f} ({min(rates):.1f}-"
+          f"{max(rates):.1f}); the ledger: {gp['flops_per_step']:.6e} "
+          f"FLOPs per step, MFU {gp['mfu']} (peak {gp['peak_flops']:.3e}), "
+          f"shares {gp['shares']} on {card}", flush=True)
+    print("  profile inception-v1 bf16 train, per step:", flush=True)
+    prof = profile_steps(
+        lambda: est.train(x, y, batch_size=TRAIN_BATCH,
+                          end_trigger=MaxIteration(est.step + 3)),
+        1, (), per=3)
+    rec = {"losses": losses, "images_per_s_epochs": rates,
+           "images_per_s": statistics.median(rates),
+           "flops_per_step": gp["flops_per_step"], "mfu": gp["mfu"],
+           "shares": gp["shares"], "profile": prof}
+    net._estimator = None
+    del net, est, x
+    torch.cuda.empty_cache()
+    x4 = spread_images(rs, 4)
+    y4 = rs.randint(0, 1000, (4, 1)).astype(np.int32)
+    rec["f32_step"] = step_held(
+        "inception-v1", "inception-v1", w0, x4, y4,
+        held=(("fc", "kernel"), ("fc", "bias"), ("i5b_1x1", "kernel")),
+        shown=(("i4c_5x5", "kernel"), ("i3a_3x3", "kernel"),
+               ("stem1", "kernel")),
+        bn_layers=("stem1_bn", "i4c_5x5_bn", "i5b_pool_bn"))
+    return rec
+
+
+def inception_transfer(card):
+    """Phase 15, part 4: transfer learning as
+    ``examples/transfer_learning.py`` does it, on Inception-v1 at full
+    width: ``new_graph`` at its global average pool, ``freeze_up_to``
+    it, a fresh ``Dense(2, activation="softmax")`` head,
+    ``copy_weights_from`` the backbone, and 2 epochs of synthetic
+    two-class images at batch 32. Every frozen trainable leaf must come
+    back bit for bit, every frozen BatchNorm's moving statistics must
+    move (the reference folds a frozen BN's updates in), the head must
+    move and the losses be finite."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        BatchNormalization, Dense, GlobalAveragePooling2D)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import Model
+    zoo.init_nncontext(seed=0)
+    backbone = ImageClassifier("inception-v1", input_shape=IMAGE,
+                               classes=1000).model
+    backbone.compile(optimizer="adam", loss="softmax_cross_entropy")
+    backbone.estimator._ensure_initialized()
+    gap = next(v.name for v in backbone._order
+               if isinstance(v.layer, GlobalAveragePooling2D))
+    trunk = backbone.new_graph([gap])
+    trunk.freeze_up_to(gap)
+    head = Dense(2, activation="softmax", name="cats_dogs")(
+        trunk.outputs[0])
+    tuned = Model(trunk.inputs, head, name="tuned")
+    tuned.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    tuned.copy_weights_from(backbone)
+    rs = np.random.RandomState(17)
+    y = rs.randint(0, 2, (IC_TRANSFER_N, 1)).astype(np.int32)
+    x = rs.rand(IC_TRANSFER_N, *IMAGE).astype(np.float32)
+    x[..., 0] += 0.8 * y.reshape(-1, 1, 1)
+    before = params_to_numpy(tuned)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = tuned.fit(x, y, batch_size=IC_TRANSFER_BATCH, nb_epoch=2).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    after = params_to_numpy(tuned)
+    losses = [v for h in hist for v in h["losses"]]
+    check(np.isfinite(losses).all() and
+          len(losses) == 2 * IC_TRANSFER_N // IC_TRANSFER_BATCH,
+          f"transfer losses {losses}")
+    frozen = [lyr for lyr in tuned.layers if not lyr.trainable]
+    leaves = moved = 0
+    for lyr in frozen:
+        for k, v in before[lyr.name].items():
+            if k == "_state":
+                continue
+            leaves += 1
+            check(np.array_equal(after[lyr.name][k], v),
+                  f"frozen {lyr.name}/{k} moved in fine-tuning")
+        if isinstance(lyr, BatchNormalization):
+            st0, st1 = before[lyr.name]["_state"], after[lyr.name]["_state"]
+            moved += all(not np.array_equal(st0[s], st1[s]) for s in st0)
+    bns = sum(isinstance(lyr, BatchNormalization) for lyr in frozen)
+    check(bns > 0 and moved == bns, f"{moved} of {bns} frozen BNs' moving "
+          "statistics moved")
+    check(all(not np.array_equal(after["cats_dogs"][k], v)
+              for k, v in before["cats_dogs"].items()), "the head is still")
+    metrics = tuned.evaluate(x, y, batch_size=IC_TRANSFER_BATCH)
+    rates = [h["throughput"] for h in hist]
+    print(f"  transfer learning on inception-v1 (cut at {gap}): "
+          f"{len(frozen)} frozen layers, {leaves} frozen trainable leaves "
+          f"bit for bit after {len(losses)} steps, {moved} of {bns} frozen "
+          f"BNs' moving statistics moved, the head moved; losses "
+          f"{[round(v, 4) for v in losses]}; images/s per epoch "
+          f"{[round(r, 1) for r in rates]} "
+          f"({len(losses) * IC_TRANSFER_BATCH / wall:.1f} over both); "
+          f"metrics {metrics} on {card}", flush=True)
+    rec = {"frozen_layers": len(frozen), "frozen_leaves": leaves,
+           "frozen_bns_moved": moved, "losses": losses,
+           "images_per_s_epochs": rates, "metrics": metrics}
+    del backbone, trunk, tuned
+    torch.cuda.empty_cache()
+    return rec
+
+
+def other_archs(card):
+    """Phase 15, part 5: the other six architectures, each built by
+    ``ImageClassifier(name)``: a bf16 forward at batch 32 through
+    ``InferenceModel`` (the median of 10 requests), the f32 logits at
+    batch 2 against the CPU port's, and for MobileNet-v2 and
+    DenseNet-121 one f32 step at batch 2 against the CPU port's."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    rs = np.random.RandomState(18)
+    rec = {}
+    for name in IC_OTHERS:
+        ctx = zoo.init_nncontext(seed=0)
+        net = ImageClassifier(name, input_shape=IMAGE, classes=1000).model
+        net.init_params()
+        w0 = params_to_numpy(net)
+        x2 = spread_images(rs, 2)
+        factor = scale_head(net, x2)
+        im = InferenceModel(supported_concurrent_num=1).load_keras_net(net)
+        x32 = torch.from_numpy(spread_images(rs, 32)).to(ctx.device,
+                                                         torch.bfloat16)
+        out = im.predict(x32)
+        check(out.shape == (32, 1000) and np.isfinite(out).all(),
+              f"{name} bf16 logits {out.shape}")
+        med, lo, hi = median_request_s(im, x32)
+        got = im.predict(torch.from_numpy(x2).to(ctx.device))
+        cpu = cpu_twin(name, net)
+        r = {"images_per_s_bf16_b32": 32 / med, "ms": med * 1e3,
+             "ms_spread": [lo * 1e3, hi * 1e3], "head_scale": factor}
+        print(f"  {name}: bf16 batch 32 {32 / med:.1f} images/s (median "
+              f"{med * 1e3:.3f} ms, {lo * 1e3:.3f}-{hi * 1e3:.3f}) on "
+              f"{card}", flush=True)
+        r["held_f32"] = logits_held(
+            f"{name} f32 logits at batch 2 against the CPU port (head "
+            f"x{factor:.4g})", got, cpu.predict(x2, batch_size=2), 1e-3)
+        del net, im, cpu
+        torch.cuda.empty_cache()
+        if name in IC_OTHER_STEP:
+            r["f32_step"] = step_held(
+                name, name, w0, spread_images(rs, 2),
+                rs.randint(0, 1000, (2, 1)).astype(np.int32))
+        rec[name] = r
+    return rec
+
+
+def image_classification_path(card, detail):
+    """Phase 15: the image-classification family on the card; no kernel
+    of the eleven on this path."""
+    t0 = time.perf_counter()
+    reset_launches()
+    rec = {"lenet": lenet_run(card)}
+    rec["inception_serving"], w0 = inception_serving(card)
+    rec["inception_training"] = inception_training(card, w0)
+    rec["transfer"] = inception_transfer(card)
+    rec["others"] = other_archs(card)
+    launches = all_launches()
+    print(f"  no kernel of the eleven on this path: launches {launches}",
+          flush=True)
+    check(not any(launches.values()), f"phase 15 launched {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 15 in {rec['seconds']:.1f} s", flush=True)
+    detail["image_classification"] = rec
 
 
 def main() -> int:
@@ -4802,7 +5368,13 @@ def main() -> int:
           "the phase backward", flush=True)
     surface = surface_path(card, detail)
 
-    print("[15] summary", flush=True)
+    print("[15] image classification: LeNet-5 on MNIST's stand-in, "
+          "Inception-v1 serving, training and transfer learning, VGG-16/19, "
+          "MobileNet v1/v2, DenseNet-121, SqueezeNet (no kernel of the "
+          "eleven on this path)", flush=True)
+    image_classification_path(card, detail)
+
+    print("[16] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if surface.get(rec["name"]):
