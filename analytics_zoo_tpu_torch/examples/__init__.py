@@ -8,4 +8,7 @@ EXAMPLES = [
     "ncf_recommendation",
     "wide_and_deep",
     "transfer_learning",
+    "text_classification",
+    "qa_ranker",
+    "anomaly_detection",
 ]

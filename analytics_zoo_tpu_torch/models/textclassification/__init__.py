@@ -1,0 +1,6 @@
+"""Text classification of the port: the TextClassifier."""
+
+from analytics_zoo_tpu_torch.models.textclassification.text_classifier \
+    import TextClassifier
+
+__all__ = ["TextClassifier"]

@@ -268,7 +268,9 @@ class _InputLayer(KerasLayer):
 
 class Variable:
     """A node in the functional graph: symbolic shape (batch excluded),
-    the producing layer and the parent variables."""
+    the producing layer and the parent variables. Its arithmetic and
+    indexing add operator nodes (``pipeline.api.autograd``, imported
+    when first used: it imports this module)."""
 
     __slots__ = ("shape", "layer", "parents", "name")
 
@@ -283,6 +285,50 @@ class Variable:
 
     def __repr__(self):
         return f"Variable(name={self.name}, shape={self.shape})"
+
+    @staticmethod
+    def _ag():
+        from analytics_zoo_tpu_torch.pipeline.api import autograd
+        return autograd
+
+    def __add__(self, other):
+        return self._ag().add(self, other)
+
+    def __radd__(self, other):
+        return self._ag().add(self, other)
+
+    def __sub__(self, other):
+        return self._ag().sub(self, other)
+
+    def __rsub__(self, other):
+        return self._ag().rsub(self, other)
+
+    def __mul__(self, other):
+        return self._ag().mul(self, other)
+
+    def __rmul__(self, other):
+        return self._ag().mul(self, other)
+
+    def __truediv__(self, other):
+        return self._ag().div(self, other)
+
+    def __rtruediv__(self, other):
+        return self._ag().rdiv(self, other)
+
+    def __neg__(self):
+        return self._ag().neg(self)
+
+    def __pow__(self, p):
+        return self._ag().pow(self, p)
+
+    def __getitem__(self, idx):
+        return self._ag().slice_var(self, idx)
+
+    def squeeze(self, dim=None):
+        return self._ag().squeeze(self, dim)
+
+    def expand_dims(self, axis):
+        return self._ag().expand_dims(self, axis)
 
 
 def Input(shape: ShapeLike, name: Optional[str] = None) -> Variable:

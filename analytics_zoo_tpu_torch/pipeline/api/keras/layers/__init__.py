@@ -1,7 +1,7 @@
 """Keras-style layers of the port."""
 
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.conv import (
-    Convolution2D, DepthwiseConvolution2D)
+    Conv1D, Conv2D, Convolution1D, Convolution2D, DepthwiseConvolution2D)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import (
     Activation, Dense, Dropout, ExpandDim, Flatten, Masking, Narrow, Permute,
     RepeatVector, Reshape, Select, Squeeze)
@@ -16,18 +16,21 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.layers.pooling import (
     GlobalAveragePooling1D, GlobalAveragePooling2D, GlobalAveragePooling3D,
     GlobalMaxPooling1D, GlobalMaxPooling2D, GlobalMaxPooling3D, MaxPooling1D,
     MaxPooling2D, MaxPooling3D)
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers.recurrent import (
+    GRU, LSTM, Bidirectional, SimpleRNN, TimeDistributed)
 from analytics_zoo_tpu_torch.pipeline.api.keras.layers.transformer import (
     BERT, MultiHeadAttention, TransformerLayer)
 
 __all__ = ["Activation", "Add", "Average", "AveragePooling1D",
            "AveragePooling2D", "AveragePooling3D", "BatchNormalization",
-           "BERT", "Concatenate", "Convolution2D", "Dense",
+           "BERT", "Bidirectional", "Concatenate", "Conv1D", "Conv2D",
+           "Convolution1D", "Convolution2D", "Dense",
            "DepthwiseConvolution2D", "Dot", "Dropout", "Embedding",
            "ExpandDim", "Flatten", "GlobalAveragePooling1D",
            "GlobalAveragePooling2D", "GlobalAveragePooling3D",
            "GlobalMaxPooling1D", "GlobalMaxPooling2D", "GlobalMaxPooling3D",
-           "LayerNormalization", "Masking", "MaxPooling1D", "MaxPooling2D",
-           "MaxPooling3D", "Maximum", "Merge", "Minimum",
+           "GRU", "LayerNormalization", "LSTM", "Masking", "MaxPooling1D",
+           "MaxPooling2D", "MaxPooling3D", "Maximum", "Merge", "Minimum",
            "MultiHeadAttention", "Multiply", "Narrow", "Permute",
-           "RepeatVector", "Reshape", "Select", "Squeeze",
-           "TransformerLayer", "WordEmbedding", "merge"]
+           "RepeatVector", "Reshape", "Select", "SimpleRNN", "Squeeze",
+           "TimeDistributed", "TransformerLayer", "WordEmbedding", "merge"]

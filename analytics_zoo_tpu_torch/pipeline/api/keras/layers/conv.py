@@ -1,6 +1,7 @@
-"""Convolution2D and DepthwiseConvolution2D (port of
-``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``): NHWC
-activations, HWIO kernels, TF "SAME" or "VALID" padding.
+"""Convolution1D, Convolution2D and DepthwiseConvolution2D (port of
+``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``): channels-last
+activations (NWC, NHWC), WIO and HWIO kernels, TF "SAME" or "VALID"
+padding.
 
 PyTorch pads symmetrically, but TF "SAME" puts the odd extra row and
 column at the high end (the stem 7x7/s2 on 224 pads (2, 3)), so an
@@ -52,6 +53,69 @@ def pad_nchw(x, kernel, strides, border_mode):
     if (pt, pl) == (pb, pr):
         return x, (pt, pl)
     return F.pad(x, (pl, pr, pt, pb)), (0, 0)
+
+
+class Convolution1D(KerasLayer):
+    """1-D convolution over (steps, input_dim) with a ``(filter_length,
+    input_dim, nb_filter)`` kernel (cast to the input's dtype), run as
+    ``F.conv1d`` over a channels-first view; ``subsample_length`` is
+    the stride (the reference maps it to ``subsample``). A library
+    convolution, as the reference's ``lax.conv_general_dilated`` is."""
+
+    def __init__(self, nb_filter: int, filter_length: int,
+                 init="glorot_uniform", activation=None,
+                 border_mode: str = "valid", subsample_length: int = 1,
+                 w_regularizer=None, b_regularizer=None, bias: bool = True,
+                 input_shape=None, name=None, **kwargs):
+        subsample = kwargs.pop("subsample", subsample_length)
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        if border_mode not in ("valid", "same"):
+            raise ValueError(f"border_mode must be valid|same, "
+                             f"got {border_mode}")
+        self.nb_filter = int(nb_filter)
+        self.kernel_size = _norm_tuple(filter_length, 1, "kernel_size")
+        self.subsample = _norm_tuple(subsample, 1, "subsample")
+        self.border_mode = border_mode
+        self.kernel_init = initializers.get(init)
+        self.activation = activations.get(activation)
+        self.w_regularizer = regularizers.get(w_regularizer)
+        self.b_regularizer = regularizers.get(b_regularizer)
+        self.use_bias = bool(bias)
+
+    def build(self, generator, input_shape: Shape) -> dict:
+        params = {"kernel": self.kernel_init(
+            generator, self.kernel_size + (input_shape[-1],
+                                           self.nb_filter))}
+        if self.use_bias:
+            params["bias"] = torch.zeros((self.nb_filter,))
+        return params
+
+    def call(self, params, x, *, training=False, rng=None):
+        (k,), (stride,) = self.kernel_size, self.subsample
+        xc = x.transpose(1, 2)
+        if self.border_mode == "same":
+            lo, hi, _ = tf_same_pads(xc.shape[2], k, stride)
+            xc = F.pad(xc, (lo, hi))
+        w = params["kernel"].to(x.dtype).permute(2, 1, 0)
+        y = F.conv1d(xc, w, stride=stride).transpose(1, 2)
+        if self.use_bias:
+            y = y + params["bias"].to(y.dtype)
+        if self.activation is not None:
+            y = self.activation(y)
+        return y.contiguous()
+
+    def regularizers(self):
+        out = []
+        if self.w_regularizer is not None:
+            out.append(("kernel", self.w_regularizer))
+        if self.b_regularizer is not None:
+            out.append(("bias", self.b_regularizer))
+        return out
+
+    def compute_output_shape(self, input_shape: Shape) -> Shape:
+        return (_conv_out_len(input_shape[0], self.kernel_size[0],
+                              self.subsample[0], self.border_mode),
+                self.nb_filter)
 
 
 class Convolution2D(KerasLayer):
@@ -199,3 +263,8 @@ class DepthwiseConvolution2D(KerasLayer):
         if self.b_regularizer is not None:
             out.append(("bias", self.b_regularizer))
         return out
+
+
+# Keras-2 names of the same layers
+Conv1D = Convolution1D
+Conv2D = Convolution2D

@@ -63,11 +63,12 @@ class KerasNet(KerasLayer):
 
     def _canonicalize_names(self, layers: "list[KerasLayer]") -> None:
         """Rename auto-named layers to container-scoped deterministic
-        names (``dense_1``, ``dense_2``, ... in container order), so two
+        names (``dense_1``, ``dense_2``, ... in container order; an
+        autograd operator by its ``name_prefix``: ``add_1``), so two
         builds of one architecture key their params alike."""
         counters: "dict[str, int]" = {}
         for lyr in layers:
-            prefix = type(lyr).__name__.lower()
+            prefix = getattr(lyr, "name_prefix", type(lyr).__name__.lower())
             counters[prefix] = counters.get(prefix, 0) + 1
             if getattr(lyr, "_auto_named", False):
                 lyr.name = f"{prefix}_{counters[prefix]}"
@@ -108,12 +109,19 @@ class KerasNet(KerasLayer):
         return {lyr.name: lyr.params() for lyr in self.layers}
 
     def set_params(self, tree: dict) -> None:
-        extra = sorted(set(tree) - set(self.graph_layers))
+        """Install a tree keyed by layer name. A layer without params
+        (an operator, a pool) needs no entry, and an empty entry under
+        another name is ignored: operator nodes are numbered by process
+        in the JAX package and by container here."""
+        extra = sorted(k for k in set(tree) - set(self.graph_layers)
+                       if not (isinstance(tree[k], dict) and not tree[k]))
         if extra:
             raise KeyError(f"{self.name}: params for unknown layers "
                            f"{extra[:5]}")
         for lyr in self.layers:
             if lyr.name not in tree:
+                if not lyr.params():
+                    continue
                 raise KeyError(f"{self.name}: no params for layer "
                                f"{lyr.name!r}")
             lyr.set_params(tree[lyr.name])
@@ -134,6 +142,7 @@ class KerasNet(KerasLayer):
             # shapes and output-shape bookkeeping come from a build
             self.init(torch.Generator().manual_seed(0))
         self.set_params(params_from_numpy(tree, device))
+        self.to(device)    # state outside the tree (a Constant's value)
         return self
 
     def regularization_loss(self, params: dict) -> torch.Tensor:
@@ -493,9 +502,11 @@ class Model(KerasNet):
             if lyr is None or isinstance(lyr, _InputLayer) or \
                     id(lyr) in built:
                 continue
-            in_shape: ShapeLike = ([p.shape for p in v.parents]
-                                   if len(v.parents) > 1
-                                   else v.parents[0].shape)
+            if not v.parents:   # a Parameter or a Constant
+                in_shape: ShapeLike = v.shape
+            else:
+                in_shape = ([p.shape for p in v.parents]
+                            if len(v.parents) > 1 else v.parents[0].shape)
             if not (first and "weights" in lyr._modules and
                     lyr.input_shape == in_shape):
                 lyr.init(generator, in_shape)
@@ -526,7 +537,8 @@ class Model(KerasNet):
                     "in Model(inputs=...)")
             args = [values[id(p)] for p in v.parents]
             values[id(v)], upd = lyr.apply(
-                params[lyr.name], args if len(args) > 1 else args[0],
+                params[lyr.name],
+                None if not args else args if len(args) > 1 else args[0],
                 training=training,
                 rng=None if rng is None else fold_in(rng, i))
             if upd:

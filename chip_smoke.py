@@ -224,7 +224,25 @@ script exits non-zero and prints no result line:
    MobileNet-v2, DenseNet-121 and SqueezeNet: a bf16 forward at batch 32
    timed, f32 logits at batch 2 held to the CPU port, and one f32 step
    of MobileNet-v2 and DenseNet-121 at batch 2 (loss 1e-4);
-16. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+16. text, no kernel of the eleven on the path (every count 0): the
+   TextSet pipeline over a synthetic 20-class corpus of 2560 documents
+   (host ms per stage); ``TextClassifier`` at 20 Newsgroups' widths
+   (sequence 500, embedding 200 over 5000 words, encoder 256, 20
+   classes) with each encoder (cnn, lstm, gru) trained through
+   ``compile``/``fit`` at batch 128 in f32 and ``mixed_bfloat16`` (2
+   epochs of 5 steps: samples/s, ms per step, peak memory, a profile of
+   3 steps) and served by ``InferenceModel`` at batch 1 and 128; held to
+   the CPU port: f32 probabilities at batch 4 (1e-4, the head scaled so
+   the logits reach 10, the bound below half the probabilities'
+   spread), two f32 Adam steps at batch 4 and dropout 0 (losses 1e-4
+   relative), bf16 against f32 on the pre-embedded input (5e-2); the
+   recurrent layers' time loop run under ``set_sync_debug_mode
+   ("error")``. KNRM at its defaults (10 + 40 ids over 20000, embed 300,
+   21 kernels) trained with ``rank_hinge`` at batch 256 in f32 (pairs/s)
+   and held to the CPU port (scores at batch 8, two steps); the
+   AnomalyDetector at its defaults on windows of 50 x 3 at batch 1024
+   (samples/s), its predictions held to the CPU port;
+17. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -2005,10 +2023,12 @@ def profile_steps(step, steps, groups, per=1):
     n = steps * per
     kernels = collections.Counter()
     calls = 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            kernels[evt.key] += evt.self_device_time_total
-            calls += evt.count
+    # the raw device events: key_averages() builds the host's event tree
+    # first, tens of seconds over a recurrent step's ~25,000 rows
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA:
+            kernels[evt.name()] += evt.duration_ns() / 1e3
+            calls += 1
     busy_us = sum(kernels.values())
     by_name = collections.Counter()
     members = collections.defaultdict(set)
@@ -4691,18 +4711,18 @@ IC_OTHER_STEP = ("mobilenet-v2", "densenet-121")
 IC_LOGIT_MAX = 10.0
 
 
-def logits_held(label, got, want, rel):
+def logits_held(label, got, want, rel, what="logit"):
     """``got`` within ``rel`` of max(1, max|want|) of the CPU port's
-    ``want``, a bound that must lie below the logits' spread over the
-    images (the median column's max - min), or the check could not fail
-    an output that ignores its image."""
+    ``want``, a bound that must lie below the outputs' spread over the
+    inputs (the median column's max - min), or the check could not fail
+    an output that ignores its input. ``what`` names the outputs."""
     check(got.shape == want.shape and np.isfinite(got).all(),
-          f"{label}: logits {got.shape}, want {want.shape}")
+          f"{label}: {what}s {got.shape}, want {want.shape}")
     err = float(np.abs(got - want).max())
     tol = rel * max(1.0, float(np.abs(want).max()))
     spread = spread_bound(want)[1]
     print(f"  {label}: max|err| {err:.4e} (tol {tol:.4e}, below the "
-          f"logits' spread {spread:.4e}; max|logit| "
+          f"{what}s' spread {spread:.4e}; max|{what}| "
           f"{float(np.abs(want).max()):.4e})", flush=True)
     check(tol < spread, f"{label}: tol {tol} is not below the spread "
           f"{spread}, so the check could not fail")
@@ -5156,6 +5176,499 @@ def image_classification_path(card, detail):
     detail["image_classification"] = rec
 
 
+# -- the text family (phase 16) ---------------------------------------------
+
+# TextClassifier at the reference's defaults (text_classifier.py:24-26):
+# 20 Newsgroups' 20 classes, GloVe 200d's width, encoder 256, sequence
+# 500, over the upstream example's 5000-word vocabulary (max_words_num);
+# the corpus is examples/text_classification.py's synth_corpus widened
+# to 20 classes: 2560 documents of 400-599 words over 8000 words
+TC = dict(class_num=20, token_length=200, sequence_length=500,
+          encoder_output_dim=256)
+TC_WORDS, TC_VOCAB_WORDS, TC_DOCS_PER_CLASS = 5000, 8000, 128
+TC_BATCH, TC_STEPS, TC_EPOCHS = 128, 5, 2
+TC_SERVE = (1, 128)
+# the scale the head's kernel is set to give the held logits
+TC_LOGIT_MAX = 10.0
+# KNRM at its defaults (knrm.py:30-34) with examples/qa_ranker.py's
+# lengths, over 20000 ids; batch 256 of alternating positive and
+# negative rows
+KNRM_CFG = dict(text1_length=10, text2_length=40, embed_size=300,
+                kernel_num=21, sigma=0.1, exact_sigma=0.001)
+KNRM_VOCAB, KNRM_QUESTIONS = 20000, 2560
+KNRM_BATCH, KNRM_STEPS, KNRM_EPOCHS = 256, 10, 2
+# AnomalyDetector at its defaults (anomaly_detector.py:30-31) over
+# windows of 50 steps of 3 features at batch 1024 (the unroll and batch
+# of upstream's NYC-taxi anomaly-detection app)
+AD_CFG = dict(feature_shape=(50, 3), hidden_layers=(8, 32, 15),
+              dropouts=(0.2, 0.2, 0.2))
+AD_BATCH, AD_STEPS, AD_EPOCHS = 1024, 5, 2
+
+
+def text_corpus():
+    """The TextSet pipeline (tokenize, word2idx with ``max_words_num``
+    5000, shape_sequence 500, generate_sample, to_arrays) over the
+    synthetic 20-class corpus: ids (2560, 500) int32, labels, and each
+    stage's host ms."""
+    from analytics_zoo_tpu_torch.examples.text_classification import \
+        synth_corpus
+    from analytics_zoo_tpu_torch.feature.text import TextSet
+    rs = np.random.RandomState(16)
+    ms = {}
+    t = time.perf_counter()
+    texts, labels = synth_corpus(rs, TC_DOCS_PER_CLASS, TC["class_num"],
+                                 vocab_words=TC_VOCAB_WORDS,
+                                 length=(400, 600))
+    ms["synth_corpus"] = (time.perf_counter() - t) * 1e3
+    stages = (("from_texts", lambda _: TextSet.from_texts(texts, labels)),
+              ("tokenize", lambda ts: ts.tokenize()),
+              ("word2idx", lambda ts: ts.word2idx(max_words_num=TC_WORDS)),
+              ("shape_sequence",
+               lambda ts: ts.shape_sequence(TC["sequence_length"])),
+              ("generate_sample", lambda ts: ts.generate_sample()),
+              ("to_arrays", lambda ts: ts.to_arrays()))
+    out = None
+    for name, fn in stages:
+        t = time.perf_counter()
+        out = fn(out) if name != "to_arrays" else (out, fn(out))
+        ms[name] = (time.perf_counter() - t) * 1e3
+    ts, (x, y) = out
+    words = len(ts.get_word_index())
+    tokens = sum(len(f.tokens) for f in ts.features)
+    pipeline = sum(v for k, v in ms.items() if k != "synth_corpus")
+    print(f"  TextSet pipeline over {len(texts)} documents ({tokens} "
+          f"tokens, {words} words kept of {TC_VOCAB_WORDS}): host ms "
+          f"{ {k: round(v, 1) for k, v in ms.items()} }, "
+          f"{pipeline:.1f} ms from from_texts to to_arrays "
+          f"({tokens / pipeline * 1e3:.0f} tokens/s)", flush=True)
+    check(x.shape == (len(texts), TC["sequence_length"]) and
+          x.dtype == np.int32 and words == TC_WORDS and
+          int(x.max()) == TC_WORDS, f"ids {x.shape} {x.dtype}, {words} "
+          f"words, max id {x.max()}")
+    return x, y.astype(np.int32), {"host_ms": ms, "tokens": tokens,
+                                   "words": words}
+
+
+def text_classifier(encoder, embedded=True):
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Embedding
+    emb = (Embedding(TC_WORDS + 2, TC["token_length"]) if embedded
+           else None)
+    return TextClassifier(encoder=encoder, embedding=emb, **TC)
+
+
+def compiled(build, policy, loss, optimizer="adam"):
+    """``build()`` compiled under the dtype ``policy`` (the
+    ``ZOO_TPU_DTYPE_POLICY`` a user sets)."""
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = policy
+    try:
+        m = build().compile(optimizer=optimizer, loss=loss)
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    check(m.model.estimator.dtype_policy == policy,
+          m.model.estimator.dtype_policy)
+    return m
+
+
+def timed_fit(label, m, x, y, batch, epochs, card, unit="samples"):
+    """``m.fit`` over ``x`` (whole batches) for ``epochs``: the losses
+    (finite), the rate per epoch (history, host clock) with its min and
+    max, ms per step, and a profile of 3 more steps (device busy share,
+    rows per step)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = m.fit(x, y, batch_size=batch, nb_epoch=epochs).history
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = [v for h in hist for v in h["losses"]]
+    rates = [h["throughput"] for h in hist]
+    steps = len(x) // batch
+    check(len(losses) == steps * epochs and np.isfinite(losses).all(),
+          f"{label} losses {losses}")
+    est = m.model.estimator
+    # the first epoch holds the first step's FLOP count and first calls
+    print(f"  {label}: losses {[round(v, 4) for v in losses]}; {unit}/s "
+          f"per epoch {[round(r, 1) for r in rates]} ({min(rates):.1f}-"
+          f"{max(rates):.1f}), the last {rates[-1]:.1f}: "
+          f"{batch / rates[-1] * 1e3:.2f} ms per step "
+          f"({wall / (steps * epochs) * 1e3:.2f} over the fit's wall, "
+          f"first step included) on {card}", flush=True)
+    t = time.perf_counter()
+    prof = profile_steps(
+        lambda: est.train(x, y, batch_size=batch,
+                          end_trigger=MaxIteration(est.step + 3)),
+        1, (), per=3)
+    print(f"    fit {wall:.1f} s, the profile of 3 steps "
+          f"{time.perf_counter() - t:.1f} s (its processing included)",
+          flush=True)
+    return {"losses": losses, "per_s_epochs": rates,
+            "per_s": rates[-1], "ms_per_step": batch / rates[-1] * 1e3,
+            "fit_wall_s": wall, "device_busy_share":
+                prof["device_busy_share"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "device_rows_per_step": prof["device_rows_per_step"],
+            "top": prof["top"][:8]}
+
+
+def no_sync_loop(lyr, params, x):
+    """One forward and backward of the recurrent layer ``lyr`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    host sync: the time loop reads nothing back."""
+    import torch
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = lyr.call(p, x)
+        torch.autograd.grad(out.float().square().sum(), list(p.values()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def probs_held(label, got, want, rel):
+    """``got`` within ``rel`` of max(1, max|want|) of ``want``, a bound
+    that must lie below half the probabilities' spread over the inputs:
+    the largest column's max - min. Rows that ignore their input are
+    one row, which misses that column's max or min by half the spread
+    at least (the median column of 20 classes barely moves)."""
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: probabilities {got.shape}, want {want.shape}")
+    err = float(np.abs(got - want).max())
+    tol = rel * max(1.0, float(np.abs(want).max()))
+    spread = float(np.ptp(want, axis=0).max())
+    print(f"  {label}: max|err| {err:.4e} (tol {tol:.4e}, below half the "
+          f"probabilities' spread {spread:.4e}; max p "
+          f"{float(want.max()):.4e})", flush=True)
+    check(tol < spread / 2, f"{label}: tol {tol} is not below half the "
+          f"spread {spread}, so the check could not fail")
+    check(err <= tol, f"{label}: max|err| {err} > {tol}")
+    return {"max_abs_err": err, "tol": tol, "spread": spread}
+
+
+def scale_text_head(net, x):
+    """Scale the last Dense (kernel and bias) so that the centred logits
+    (log p less its row mean) on ``x`` reach :data:`TC_LOGIT_MAX`; at
+    random init the probabilities sit near 1/20 and move by less than
+    any bound. Returns the factor."""
+    import torch
+    p = net.predict(x, batch_size=len(x)).astype(np.float64)
+    lp = np.log(p)
+    peak = float(np.abs(lp - lp.mean(axis=1, keepdims=True)).max())
+    factor = TC_LOGIT_MAX / peak
+    head = net.layers[-1].params()
+    with torch.no_grad():
+        head["kernel"].mul_(factor)
+        head["bias"].mul_(factor)
+    return factor
+
+
+def text_classifier_run(encoder, x, y, card):
+    """Phase 16, part 1, one encoder: train through ``compile``/``fit``
+    in f32 and ``mixed_bfloat16``, serve through ``InferenceModel`` at
+    batch 1 and 128, then hold the card to the CPU port: f32
+    probabilities at batch 4 (1e-4 of max(1, max|p|), below their
+    spread, the head scaled), one f32 step at batch 4 and dropout 0
+    (loss 1e-4 relative), and bf16 against f32 (5e-2) on the
+    pre-embedded input."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dropout
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    loss = "sparse_categorical_crossentropy"
+    ctx = zoo.init_nncontext(seed=0)
+    w0 = params_to_numpy(text_classifier(encoder).model.init_params())
+    n = TC_BATCH * TC_STEPS
+    rec = {}
+    for policy in ("float32", "mixed_bfloat16"):
+        m = compiled(lambda: text_classifier(encoder), policy, loss)
+        m.model.load_params(w0)
+        torch.cuda.reset_peak_memory_stats()
+        rec[policy] = timed_fit(f"textclassifier {encoder} {policy} train "
+                                f"(batch {TC_BATCH}, T "
+                                f"{TC['sequence_length']})", m, x[:n],
+                                y[:n], TC_BATCH, TC_EPOCHS, card)
+        rec[policy]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated()
+        print(f"    peak device memory {torch.cuda.max_memory_allocated()}"
+              " bytes", flush=True)
+        del m
+        torch.cuda.empty_cache()
+
+    net = text_classifier(encoder).model
+    net.load_params(w0)
+    if encoder != "cnn":
+        rnn = net.layers[1]
+        emb = net.layers[0].params()["embeddings"]
+        ids = torch.from_numpy(x[:16]).to(ctx.device).long()
+        no_sync_loop(rnn, rnn.params(), emb[ids])
+        kind = type(rnn).__name__
+        print(f"  {encoder}: one forward and backward of the {kind} at "
+              "batch 16, T 500 under set_sync_debug_mode('error'): no host "
+              "sync in the time loop", flush=True)
+    t = time.perf_counter()
+    im = InferenceModel(supported_concurrent_num=1).load_keras_net(net)
+    for bs in TC_SERVE:
+        xt = torch.from_numpy(x[:bs]).to(ctx.device)
+        med, lo, hi = median_request_s(im, xt)
+        prof = profile_steps(lambda: im.predict(xt), 3, ())
+        rec[f"serve_b{bs}"] = {
+            "samples_per_s": bs / med, "ms": med * 1e3,
+            "ms_spread": [lo * 1e3, hi * 1e3],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms": prof["device_ms_per_step"],
+            "device_rows": prof["device_rows_per_step"]}
+        print(f"  textclassifier {encoder} served at batch {bs}: "
+              f"{bs / med:.1f} samples/s (median of 10 requests "
+              f"{med * 1e3:.3f} ms, {lo * 1e3:.3f}-{hi * 1e3:.3f}), device "
+              f"busy {prof['device_busy_share']} on {card}", flush=True)
+
+    print(f"    serving {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    x4, y4 = x[:4], y[:4]
+    factor = scale_text_head(net, x4)
+    w_held = params_to_numpy(net)
+    got = im.predict(x4)
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu = text_classifier(encoder).model
+    cpu.load_params(w_held, device="cpu")
+    rec["held_f32"] = probs_held(
+        f"textclassifier {encoder} f32 probabilities at batch 4 against "
+        f"the CPU port (head x{factor:.4g})", got, cpu.predict(x4), 1e-4)
+    ctx = zoo.init_nncontext(seed=0)
+    # mixed_bfloat16 casts float inputs only: the ids stay int32 and the
+    # Embedding's f32 table feeds f32 activations, as in the reference
+    same = Estimator(net, dtype_policy="mixed_bfloat16").predict(x4, 4)
+    rec["mixed_with_ids_err"] = float(np.abs(same - got).max())
+    print(f"  textclassifier {encoder} with ids under mixed_bfloat16: "
+          f"max|p - f32 p| {rec['mixed_with_ids_err']:.3e} (the Embedding "
+          "feeds f32 activations)", flush=True)
+    pre = text_classifier(encoder, embedded=False).model
+    pre.load_params({k: v for k, v in w_held.items()
+                     if k != "embedding_1"})
+    xe = w_held["embedding_1"]["embeddings"][x4]
+    f32 = Estimator(pre, dtype_policy="float32").predict(xe, 4)
+    bf16 = Estimator(pre, dtype_policy="mixed_bfloat16").predict(xe, 4)
+    rec["held_bf16"] = probs_held(
+        f"textclassifier {encoder} pre-embedded, mixed_bfloat16 against "
+        "f32 on the card", bf16, f32, 5e-2)
+    del net, im, pre
+    torch.cuda.empty_cache()
+
+    def dropout_0(m):
+        for lyr in m.model.layers:
+            if isinstance(lyr, Dropout):
+                lyr.p = 0.0
+        return m
+
+    print(f"    probabilities held in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    rec["f32_step"] = two_steps_held(
+        f"textclassifier {encoder}, f32 at batch 4, T "
+        f"{TC['sequence_length']}, dropout 0",
+        lambda: dropout_0(text_classifier(encoder).compile(
+            optimizer="adam", loss=loss)), w0, x4, y4)
+    print(f"    two steps held in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def two_steps_held(label, build, w, x, y):
+    """Two f32 Adam steps (two epochs of one batch, ``x``) from the
+    weights ``w`` on the card and on the CPU port: each loss within
+    1e-4 relative. The second loss is taken after the first update, so
+    it holds the step."""
+    import analytics_zoo_tpu_torch as zoo
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        zoo.init_nncontext(seed=0, device=None if dev == "cuda" else dev)
+        m = build()
+        m.model.load_params(w)
+        hist = m.fit(x, y, batch_size=len(x), nb_epoch=2).history
+        losses[dev] = [h["loss"] for h in hist]
+    zoo.init_nncontext(seed=0)
+    lc, lp = losses["cuda"], losses["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    print(f"  {label}: two steps, losses card "
+          f"{[round(v, 7) for v in lc]}, CPU {[round(v, 7) for v in lp]} "
+          f"(max rel {rel:.2e}, tol 1e-4)", flush=True)
+    check(np.isfinite(lc).all() and rel <= 1e-4,
+          f"{label}: losses {lc} vs {lp}")
+    return {"losses_card": lc, "losses_cpu": lp, "rel": rel}
+
+
+def knrm_data():
+    """A WikiQA-shaped synthetic corpus over ``KNRM_VOCAB`` words: each
+    question (10 words) has a positive answer sharing 5 of its words
+    and a negative one (40 words each); the word index over both
+    corpora, the TextSets shaped to 10 and 40, and the training rows
+    ``from_relation_pairs(seed=0)`` gives (ids as float32, as
+    ``qa_ranker`` carries them)."""
+    from analytics_zoo_tpu_torch.feature.text import (Relation, TextFeature,
+                                                      TextSet)
+    rs = np.random.RandomState(17)
+    words = np.array([f"w{i}" for i in range(KNRM_VOCAB)])
+    qs, ans, rel = [], [], []
+    for i in range(KNRM_QUESTIONS):
+        q = rs.randint(0, KNRM_VOCAB, 10)
+        qs.append(TextFeature(" ".join(words[q]), uri=f"q{i}"))
+        for j in range(2):
+            a = rs.randint(0, KNRM_VOCAB, 40)
+            if j == 0:
+                a[rs.choice(40, 5, replace=False)] = q[:5]
+            ans.append(TextFeature(" ".join(words[a]), uri=f"a{i}_{j}"))
+            rel.append(Relation(f"q{i}", f"a{i}_{j}", 1 - j))
+    t = time.perf_counter()
+    index = TextSet([TextFeature(f.text) for f in qs + ans]).tokenize() \
+        .word2idx(max_words_num=KNRM_VOCAB - 1).get_word_index()
+    q_set = TextSet(qs).tokenize().word2idx(existing_map=index) \
+        .shape_sequence(KNRM_CFG["text1_length"])
+    a_set = TextSet(ans).tokenize().word2idx(existing_map=index) \
+        .shape_sequence(KNRM_CFG["text2_length"])
+    x1, x2 = TextSet.from_relation_pairs(rel, q_set, a_set, seed=0)
+    host_ms = (time.perf_counter() - t) * 1e3
+    x = np.concatenate([x1, x2], axis=1).astype(np.float32)
+    vocab = max(index.values()) + 1
+    print(f"  KNRM data: {len(qs)} questions, {len(ans)} answers, "
+          f"{len(rel)} relations, {len(x)} rows (alternating positive and "
+          f"negative), vocabulary {vocab}; TextSet pipeline and pairs "
+          f"{host_ms:.1f} host ms", flush=True)
+    return x, vocab, host_ms
+
+
+def knrm_run(card):
+    """Phase 16, part 2: KNRM trained with ``rank_hinge`` at batch 256
+    in f32 (ms per step, pairs/s, a profile of 3 steps), then its
+    scores at batch 8 and one step held to the CPU port (1e-4 of
+    max(1, max|score|), the loss 1e-4 relative)."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.textmatching import KNRM
+    x, vocab, host_ms = knrm_data()
+    y = np.zeros((len(x), 1), np.float32)    # rank_hinge ignores it
+
+    def build():
+        return KNRM(vocab_size=vocab, **KNRM_CFG)
+
+    zoo.init_nncontext(seed=0)
+    m = compiled(build, "float32", "rank_hinge")
+    n = KNRM_BATCH * KNRM_STEPS
+    rec = timed_fit(f"knrm train (f32, batch {KNRM_BATCH}, rank_hinge)",
+                    m, x[:n], y[:n], KNRM_BATCH, KNRM_EPOCHS, card,
+                    unit="rows")
+    rec["pairs_per_s"] = rec["per_s"] / 2
+    rec["vocab"], rec["pipeline_host_ms"] = vocab, host_ms
+    print(f"    = {rec['pairs_per_s']:.1f} pairs/s", flush=True)
+    w = params_to_numpy(m.model)
+    got = m.predict(x[:8], batch_size=8)
+    cpu_ctx = zoo.init_nncontext(seed=0, device="cpu")
+    cpu = compiled(build, "float32", "rank_hinge")
+    cpu.model.load_params(w, device="cpu")
+    rec["held_scores"] = logits_held(
+        "knrm scores at batch 8 against the CPU port", got,
+        cpu.predict(x[:8], batch_size=8), 1e-4, what="score")
+    del cpu_ctx, cpu, m
+    rec["step"] = two_steps_held(
+        "knrm, f32 at batch 8, rank_hinge",
+        lambda: compiled(build, "float32", "rank_hinge"), w, x[:8], y[:8])
+    torch.cuda.empty_cache()
+    return rec
+
+
+def anomaly_run(card):
+    """Phase 16, part 3: the AnomalyDetector on windows of a synthetic
+    three-feature series (a daily cycle, noise and spikes): 2 epochs of
+    5 steps at batch 1024 (samples/s, a profile of 3 steps), predict,
+    ``detect_anomalies``, and the predictions at batch 4 held to the CPU
+    port (1e-4 of max(1, max|y|))."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.anomalydetection import \
+        AnomalyDetector
+    rs = np.random.RandomState(18)
+    unroll, feats = AD_CFG["feature_shape"]
+    n = AD_BATCH * AD_STEPS + unroll
+    t = np.arange(n)[:, None]
+    series = (np.sin(t / 24 * 2 * np.pi + np.arange(feats)) +
+              0.1 * rs.randn(n, feats)).astype(np.float32)
+    series[rs.choice(n, 20, replace=False), 0] += 3.0
+    x, y = AnomalyDetector.to_arrays(AnomalyDetector.unroll(series, unroll))
+
+    def build():
+        return AnomalyDetector(**AD_CFG)
+
+    zoo.init_nncontext(seed=0)
+    m = compiled(build, "float32", "mse")
+    rec = timed_fit(f"anomaly detector train (f32, batch {AD_BATCH}, "
+                    f"windows {unroll}x{feats})", m, x, y, AD_BATCH,
+                    AD_EPOCHS, card)
+    pred = m.predict(x, batch_size=AD_BATCH)
+    flagged, threshold = AnomalyDetector.detect_anomalies(y, pred, 20)
+    check(np.isfinite(pred).all() and len(flagged) >= 20,
+          f"anomaly predictions {pred.shape}, flagged {len(flagged)}")
+    w = params_to_numpy(m.model)
+    got = m.predict(x[:4], batch_size=4)
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu = compiled(build, "float32", "mse")
+    cpu.model.load_params(w, device="cpu")
+    want = cpu.predict(x[:4], batch_size=4)
+    err = float(np.abs(got - want).max())
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    print(f"  anomaly detector: {len(flagged)} flagged (threshold "
+          f"{threshold:.4f}); predictions at batch 4 against the CPU port: "
+          f"max|err| {err:.3e} (tol {tol:.3e})", flush=True)
+    check(err <= tol, f"anomaly predictions {err} > {tol}")
+    rec.update(flagged=len(flagged), threshold=float(threshold),
+               held={"max_abs_err": err, "tol": tol})
+    zoo.init_nncontext(seed=0)
+    del m, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def text_path(card, detail):
+    """Phase 16: the text family on the card; no kernel of the eleven
+    on this path."""
+    t0 = time.perf_counter()
+    reset_launches()
+    x, y, corpus = text_corpus()
+    rec = {"corpus": corpus}
+    parts = {"corpus": time.perf_counter() - t0}
+    runs = [(e, lambda e=e: text_classifier_run(e, x, y, card))
+            for e in ("cnn", "lstm", "gru")]
+    for name, run in runs + [("knrm", lambda: knrm_run(card)),
+                             ("anomaly", lambda: anomaly_run(card))]:
+        t = time.perf_counter()
+        rec[name] = run()
+        parts[name] = time.perf_counter() - t
+    print(f"  phase 16 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    rec["seconds_by_part"] = parts
+    launches = all_launches()
+    print(f"  no kernel of the eleven on this path: launches {launches}",
+          flush=True)
+    check(not any(launches.values()), f"phase 16 launched {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16 in {rec['seconds']:.1f} s", flush=True)
+    detail["text"] = rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5374,7 +5887,12 @@ def main() -> int:
           "eleven on this path)", flush=True)
     image_classification_path(card, detail)
 
-    print("[16] summary", flush=True)
+    print("[16] text: TextClassifier (cnn, lstm, gru) at 20 Newsgroups' "
+          "widths through the TextSet pipeline, KNRM, the AnomalyDetector "
+          "(no kernel of the eleven on this path)", flush=True)
+    text_path(card, detail)
+
+    print("[17] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if surface.get(rec["name"]):
