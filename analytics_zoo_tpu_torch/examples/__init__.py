@@ -11,4 +11,6 @@ EXAMPLES = [
     "text_classification",
     "qa_ranker",
     "anomaly_detection",
+    "chatbot",
+    "object_detection",
 ]

@@ -101,3 +101,43 @@ class ImageClassificationConfig:
             logger.info("ImageClassificationConfig: %s randomly "
                         "initialized (allow_random=True)", arch)
         return model
+
+
+class ObjectDetectionConfig:
+    """The published detection models (reference
+    ``ObjectDetectionConfig``)."""
+
+    @staticmethod
+    def names() -> Tuple[str, ...]:
+        from analytics_zoo_tpu_torch.models.image.objectdetection \
+            .object_detector import CONFIGS
+        return tuple(sorted(CONFIGS))
+
+    @staticmethod
+    def create(name: str, n_classes: Optional[int] = None,
+               img_size: Optional[int] = None,
+               weights_path: Optional[str] = None,
+               allow_random: bool = False):
+        from analytics_zoo_tpu_torch.models.image.objectdetection import \
+            ObjectDetector
+        arch = _strip_published_name(name).lower()
+        wp = _resolve_weights(name, arch, weights_path)
+        if wp is None and not allow_random:
+            raise _missing_weights_error("ObjectDetectionConfig", name)
+        if wp is not None and wp.endswith(".model"):
+            raise NotImplementedError(
+                f"ObjectDetectionConfig: {wp} is a BigDL .model artifact, "
+                "which needs the BigDL loader (Net.load_bigdl, ROADMAP "
+                "A16e) that this package does not have yet; pass a .npz "
+                "weight file instead")
+        model = ObjectDetector(model_name=arch, n_classes=n_classes,
+                               img_size=img_size)
+        model.compile()
+        if wp is not None:
+            model.load_weights(wp)
+            logger.info("ObjectDetectionConfig: %s weights from %s",
+                        arch, wp)
+        else:
+            logger.info("ObjectDetectionConfig: %s randomly "
+                        "initialized (allow_random=True)", arch)
+        return model

@@ -5,12 +5,18 @@ padding.
 
 PyTorch pads symmetrically, but TF "SAME" puts the odd extra row and
 column at the high end (the stem 7x7/s2 on 224 pads (2, 3)), so an
-asymmetric SAME pads explicitly before the convolution. This layer is a
+asymmetric SAME pads explicitly before the convolution. A dilated
+kernel pads for its dilated extent ``(k - 1) * d + 1`` (SSD's fc6, 3x3
+at dilation 6, pads 6 each side). ``groups`` splits the input and
+output channels into groups convolved apart, in XLA's
+``feature_group_count`` order, which is PyTorch's. This layer is a
 library convolution: in the reference it lies outside any Pallas kernel
 (the stem and the unfused comparison graph). A strided convolution goes
 through :func:`~analytics_zoo_tpu_torch.ops.conv_grad.conv2d`, as the
 reference's does: the same forward, and a backward gated between cuDNN's
-strided one and the phase decomposition (``ZOO_TPU_PHASE_BWD``).
+strided one and the phase decomposition (``ZOO_TPU_PHASE_BWD``). A
+strided convolution with groups or dilation goes to ``F.conv2d``, as
+the reference's goes to ``lax.conv_general_dilated``.
 """
 
 from __future__ import annotations
@@ -36,10 +42,30 @@ def _norm_tuple(v, n, name):
     return v
 
 
-def _conv_out_len(length, k, stride, border_mode):
+def _conv_out_len(length, k, stride, border_mode, dilation=1):
     if border_mode == "same":
         return -(-length // stride)
-    return -(-(length - k + 1) // stride)
+    return -(-(length - (k - 1) * dilation) // stride)
+
+
+def _dilated(kernel, dilation):
+    """The extent each kernel axis covers at its dilation."""
+    return tuple((k - 1) * d + 1 for k, d in zip(kernel, dilation))
+
+
+def _check_groups(groups, nb_filter):
+    groups = int(groups)
+    if groups < 1 or int(nb_filter) % groups:
+        raise ValueError(f"nb_filter {nb_filter} must divide by groups "
+                         f"{groups}")
+    return groups
+
+
+def _grouped_in(input_shape, groups):
+    if input_shape[-1] % groups:
+        raise ValueError(f"input channels {input_shape[-1]} must divide "
+                         f"by groups {groups}")
+    return input_shape[-1] // groups
 
 
 def pad_nchw(x, kernel, strides, border_mode):
@@ -59,22 +85,26 @@ class Convolution1D(KerasLayer):
     """1-D convolution over (steps, input_dim) with a ``(filter_length,
     input_dim, nb_filter)`` kernel (cast to the input's dtype), run as
     ``F.conv1d`` over a channels-first view; ``subsample_length`` is
-    the stride (the reference maps it to ``subsample``). A library
-    convolution, as the reference's ``lax.conv_general_dilated`` is."""
+    the stride (the reference maps it to ``subsample``); ``dilation``
+    and ``groups`` as the reference's. A library convolution, as the
+    reference's ``lax.conv_general_dilated`` is."""
 
     def __init__(self, nb_filter: int, filter_length: int,
                  init="glorot_uniform", activation=None,
                  border_mode: str = "valid", subsample_length: int = 1,
-                 w_regularizer=None, b_regularizer=None, bias: bool = True,
-                 input_shape=None, name=None, **kwargs):
+                 dilation=1, w_regularizer=None, b_regularizer=None,
+                 bias: bool = True, groups: int = 1, input_shape=None,
+                 name=None, **kwargs):
         subsample = kwargs.pop("subsample", subsample_length)
         super().__init__(input_shape=input_shape, name=name, **kwargs)
         if border_mode not in ("valid", "same"):
             raise ValueError(f"border_mode must be valid|same, "
                              f"got {border_mode}")
+        self.groups = _check_groups(groups, nb_filter)
         self.nb_filter = int(nb_filter)
         self.kernel_size = _norm_tuple(filter_length, 1, "kernel_size")
         self.subsample = _norm_tuple(subsample, 1, "subsample")
+        self.dilation = _norm_tuple(dilation, 1, "dilation")
         self.border_mode = border_mode
         self.kernel_init = initializers.get(init)
         self.activation = activations.get(activation)
@@ -84,20 +114,22 @@ class Convolution1D(KerasLayer):
 
     def build(self, generator, input_shape: Shape) -> dict:
         params = {"kernel": self.kernel_init(
-            generator, self.kernel_size + (input_shape[-1],
-                                           self.nb_filter))}
+            generator, self.kernel_size + (
+                _grouped_in(input_shape, self.groups), self.nb_filter))}
         if self.use_bias:
             params["bias"] = torch.zeros((self.nb_filter,))
         return params
 
     def call(self, params, x, *, training=False, rng=None):
-        (k,), (stride,) = self.kernel_size, self.subsample
+        (k,), (stride,), (d,) = (self.kernel_size, self.subsample,
+                                 self.dilation)
         xc = x.transpose(1, 2)
         if self.border_mode == "same":
-            lo, hi, _ = tf_same_pads(xc.shape[2], k, stride)
+            lo, hi, _ = tf_same_pads(xc.shape[2], (k - 1) * d + 1, stride)
             xc = F.pad(xc, (lo, hi))
         w = params["kernel"].to(x.dtype).permute(2, 1, 0)
-        y = F.conv1d(xc, w, stride=stride).transpose(1, 2)
+        y = F.conv1d(xc, w, stride=stride, dilation=d,
+                     groups=self.groups).transpose(1, 2)
         if self.use_bias:
             y = y + params["bias"].to(y.dtype)
         if self.activation is not None:
@@ -114,29 +146,32 @@ class Convolution1D(KerasLayer):
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
         return (_conv_out_len(input_shape[0], self.kernel_size[0],
-                              self.subsample[0], self.border_mode),
+                              self.subsample[0], self.border_mode,
+                              self.dilation[0]),
                 self.nb_filter)
 
 
 class Convolution2D(KerasLayer):
-    """2-D convolution over NHWC input with an HWIO kernel (cast to the
-    input's dtype)."""
+    """2-D convolution over NHWC input with an HWIO kernel ``(kh, kw,
+    in / groups, nb_filter)``, cast to the input's dtype."""
 
     def __init__(self, nb_filter: int, nb_row: int,
                  nb_col: Optional[int] = None, init="glorot_uniform",
                  activation=None, border_mode: str = "valid",
-                 subsample=1, w_regularizer=None, b_regularizer=None,
-                 bias: bool = True, input_shape=None, name=None,
-                 **kwargs):
+                 subsample=1, dilation=1, w_regularizer=None,
+                 b_regularizer=None, bias: bool = True, groups: int = 1,
+                 input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
         if border_mode not in ("valid", "same"):
             raise ValueError(f"border_mode must be valid|same, "
                              f"got {border_mode}")
+        self.groups = _check_groups(groups, nb_filter)
         self.nb_filter = int(nb_filter)
         self.kernel_size = _norm_tuple(
             nb_row if nb_col is None else (nb_row, nb_col), 2,
             "kernel_size")
         self.subsample = _norm_tuple(subsample, 2, "subsample")
+        self.dilation = _norm_tuple(dilation, 2, "dilation")
         self.border_mode = border_mode
         self.kernel_init = initializers.get(init)
         self.activation = activations.get(activation)
@@ -146,22 +181,25 @@ class Convolution2D(KerasLayer):
 
     def build(self, generator, input_shape: Shape) -> dict:
         params = {"kernel": self.kernel_init(
-            generator, self.kernel_size + (input_shape[-1],
-                                           self.nb_filter))}
+            generator, self.kernel_size + (
+                _grouped_in(input_shape, self.groups), self.nb_filter))}
         if self.use_bias:
             params["bias"] = torch.zeros((self.nb_filter,))
         return params
 
     def call(self, params, x, *, training=False, rng=None):
-        if max(self.subsample) > 1:
+        if (max(self.subsample) > 1 and self.groups == 1
+                and self.dilation == (1, 1)):
             y = conv_grad.conv2d(x, params["kernel"].to(x.dtype),
                                  stride=self.subsample,
                                  padding=self.border_mode)
         else:
-            xc, padding = pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
+            xc, padding = pad_nchw(x.permute(0, 3, 1, 2),
+                                   _dilated(self.kernel_size, self.dilation),
                                    self.subsample, self.border_mode)
             w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
-            y = F.conv2d(xc, w, stride=self.subsample, padding=padding)
+            y = F.conv2d(xc, w, stride=self.subsample, padding=padding,
+                         dilation=self.dilation, groups=self.groups)
             y = y.permute(0, 2, 3, 1)
         if self.use_bias:
             y = y + params["bias"].to(y.dtype)
@@ -178,9 +216,9 @@ class Convolution2D(KerasLayer):
         return out
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
-        out = tuple(_conv_out_len(s, k, st, self.border_mode)
-                    for s, k, st in zip(input_shape[:2], self.kernel_size,
-                                        self.subsample))
+        out = tuple(_conv_out_len(s, k, st, self.border_mode, d)
+                    for s, k, st, d in zip(input_shape[:2], self.kernel_size,
+                                           self.subsample, self.dilation))
         return out + (self.nb_filter,)
 
 

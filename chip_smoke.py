@@ -242,7 +242,30 @@ script exits non-zero and prints no result line:
    and held to the CPU port (scores at batch 8, two steps); the
    AnomalyDetector at its defaults on windows of 50 x 3 at batch 1024
    (samples/s), its predictions held to the CPU port;
-17. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+17. Seq2seq and SSD300-VGG16, no kernel of the eleven on the path
+   (every count 0): Seq2seq at 3+3 LSTM layers of 1024, a dense bridge,
+   one-hot input over 10,000 words and a softmax generator, sequence 30
+   (the scale of Sutskever et al. 2014's LSTMs), trained through
+   ``compile``/``fit`` (Adam, batch 64) in f32 and ``mixed_bfloat16``
+   (samples/s, ms per step, peak memory, a profile of 3 steps); greedy
+   ``infer`` and ``generate_tokens`` at batch 1 and 64 (ms per token,
+   tokens/s; the token loops under ``set_sync_debug_mode("error")``) and
+   ``infer_beam`` at beam 4; held to the CPU port: f32 probabilities at
+   batch 4 (1e-4, below half their spread, the generator scaled), two
+   f32 Adam steps (losses 1e-4 relative), and the greedy ids equal to a
+   host loop of full re-forwards on the card. SSD300-VGG16 at VOC's 21
+   classes served through ``ObjectDetector.detect`` at batch 1, 8 and 32
+   in f32 and bf16 (images/s, the network's time and
+   ``DetectionOutput``'s host time, device busy share); its flat output
+   at batch 2 held to the CPU port (f32 1e-3, bf16 5e-2 of max(1,
+   max|out|), below half the outputs' spread) with the same detections;
+   ``MultiBoxLoss`` at 8732 priors (value 1e-5 relative, gradient 1e-5
+   of its largest) and the device ``nms`` (``_nms_numpy``'s choice);
+   trained through ``compile_detection``/``fit`` (``mixed_bfloat16``,
+   SGD 1e-3 momentum 0.9, batch 32, 2 epochs of 5 steps: images/s, the
+   ledger's FLOPs per step and MFU, peak memory, a profile of 3 steps)
+   and one f32 step at batch 2 held to the CPU port (losses 1e-4);
+18. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -5271,6 +5294,12 @@ def compiled(build, policy, loss, optimizer="adam"):
     return m
 
 
+def rows(x) -> int:
+    """The sample count of ``x``, an array or a list of them (a
+    multi-input net's)."""
+    return len(x[0]) if isinstance(x, list) else len(x)
+
+
 def timed_fit(label, m, x, y, batch, epochs, card, unit="samples"):
     """``m.fit`` over ``x`` (whole batches) for ``epochs``: the losses
     (finite), the rate per epoch (history, host clock) with its min and
@@ -5286,7 +5315,7 @@ def timed_fit(label, m, x, y, batch, epochs, card, unit="samples"):
     wall = time.perf_counter() - t
     losses = [v for h in hist for v in h["losses"]]
     rates = [h["throughput"] for h in hist]
-    steps = len(x) // batch
+    steps = rows(x) // batch
     check(len(losses) == steps * epochs and np.isfinite(losses).all(),
           f"{label} losses {losses}")
     est = m.model.estimator
@@ -5315,36 +5344,43 @@ def timed_fit(label, m, x, y, batch, epochs, card, unit="samples"):
             "top": prof["top"][:8]}
 
 
-def no_sync_loop(lyr, params, x):
-    """One forward and backward of the recurrent layer ``lyr`` under
-    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
-    host sync: the time loop reads nothing back."""
+def no_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises at any host sync."""
     import torch
-    p = {k: v.detach().clone().requires_grad_(True)
-         for k, v in params.items()}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = lyr.call(p, x)
-        torch.autograd.grad(out.float().square().sum(), list(p.values()))
+        return fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def no_sync_loop(lyr, params, x):
+    """One forward and backward of the recurrent layer ``lyr`` under
+    :func:`no_sync`: the time loop reads nothing back."""
+    import torch
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    no_sync(lambda: torch.autograd.grad(
+        lyr.call(p, x).float().square().sum(), list(p.values())))
     torch.cuda.synchronize()
 
 
-def probs_held(label, got, want, rel):
+def probs_held(label, got, want, rel, what="probabilities"):
     """``got`` within ``rel`` of max(1, max|want|) of ``want``, a bound
-    that must lie below half the probabilities' spread over the inputs:
-    the largest column's max - min. Rows that ignore their input are
-    one row, which misses that column's max or min by half the spread
-    at least (the median column of 20 classes barely moves)."""
+    that must lie below half the outputs' spread over the inputs: the
+    largest column's max - min. Rows that ignore their input are one
+    row, which misses that column's max or min by half the spread at
+    least (the median column of 20 classes barely moves). ``what``
+    names the outputs."""
     check(got.shape == want.shape and np.isfinite(got).all(),
-          f"{label}: probabilities {got.shape}, want {want.shape}")
+          f"{label}: {what} {got.shape}, want {want.shape}")
     err = float(np.abs(got - want).max())
     tol = rel * max(1.0, float(np.abs(want).max()))
     spread = float(np.ptp(want, axis=0).max())
     print(f"  {label}: max|err| {err:.4e} (tol {tol:.4e}, below half the "
-          f"probabilities' spread {spread:.4e}; max p "
+          f"{what}' spread {spread:.4e}; max "
           f"{float(want.max()):.4e})", flush=True)
     check(tol < spread / 2, f"{label}: tol {tol} is not below half the "
           f"spread {spread}, so the check could not fail")
@@ -5495,7 +5531,7 @@ def two_steps_held(label, build, w, x, y):
         zoo.init_nncontext(seed=0, device=None if dev == "cuda" else dev)
         m = build()
         m.model.load_params(w)
-        hist = m.fit(x, y, batch_size=len(x), nb_epoch=2).history
+        hist = m.fit(x, y, batch_size=rows(x), nb_epoch=2).history
         losses[dev] = [h["loss"] for h in hist]
     zoo.init_nncontext(seed=0)
     lc, lp = losses["cuda"], losses["cpu"]
@@ -5667,6 +5703,507 @@ def text_path(card, detail):
     rec["seconds"] = time.perf_counter() - t0
     print(f"  phase 16 in {rec['seconds']:.1f} s", flush=True)
     detail["text"] = rec
+
+
+# Seq2seq at a production dialog model's widths: 3 LSTM layers of 1024
+# on each side, a dense bridge, one-hot input over 10,000 words, a
+# softmax generator, sequence 30 (``infer``'s default ``max_seq_len``);
+# the scale of Sutskever et al. 2014's translation LSTMs (4 layers of
+# 1000 cells), on seeded synthetic dialogs
+S2S = dict(rnn="lstm", layers=3, hidden=1024, vocab=10000, seq=30)
+S2S_SOS, S2S_EOS = 1, 2
+S2S_BATCH, S2S_STEPS, S2S_EPOCHS = 64, 3, 2
+S2S_SERVE = (1, 64)
+S2S_BEAM = 4
+# SSD300-VGG16 at VOC's 21 classes; the detections kept above 0.3 (the
+# default 0.01 passes every prior of every class at random weights)
+# the generator scaled so that the centred log-probabilities reach this
+S2S_LOGIT_MAX = 20.0
+SSD_SERVE = (1, 8, 32)
+SSD_CONF = 0.3
+SSD_BATCH, SSD_STEPS, SSD_EPOCHS = 32, 5, 2
+SSD_MAX_GT = 8
+
+
+def seq2seq_model():
+    from analytics_zoo_tpu_torch.models.seq2seq import (
+        Bridge, RNNDecoder, RNNEncoder, Seq2seq)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    c = S2S
+    shape = (c["seq"], c["vocab"])
+    return Seq2seq(encoder=RNNEncoder(c["rnn"], c["layers"], c["hidden"]),
+                   decoder=RNNDecoder(c["rnn"], c["layers"], c["hidden"]),
+                   input_shape=shape, output_shape=shape,
+                   bridge=Bridge("dense"),
+                   generator=Dense(c["vocab"], activation="softmax",
+                                   name="generator"))
+
+
+def one_hot(ids, vocab):
+    out = np.zeros(ids.shape + (vocab,), np.float32)
+    np.put_along_axis(out, ids[..., None], 1.0, axis=-1)
+    return out
+
+
+def dialogs(n, seed=18):
+    """``n`` seeded synthetic dialogs as the chatbot example carries
+    them: the utterance's ids (Zipf-like over the vocabulary), the reply
+    (the utterance reversed, then the end token) teacher-forced behind
+    the start token, one-hot ``(n, 30, 10000)`` each."""
+    rs = np.random.RandomState(seed)
+    v, t = S2S["vocab"], S2S["seq"]
+    p = 1.0 / (np.arange(3, v) + 10.0)
+    q = rs.choice(np.arange(3, v), (n, t), p=p / p.sum())
+    reply = np.concatenate([q[:, ::-1][:, :t - 1],
+                            np.full((n, 1), S2S_EOS)], axis=1)
+    dec = np.concatenate([np.full((n, 1), S2S_SOS), reply[:, :-1]], axis=1)
+    return one_hot(q, v), one_hot(dec, v), one_hot(reply, v)
+
+
+def scale_generator(net, x):
+    """Scale the generator (kernel and bias) so that the centred
+    log-probabilities on ``x`` reach :data:`S2S_LOGIT_MAX`, as phase 16
+    scales its heads: at random init the probabilities sit near 1/10000
+    and move by less than any bound. Returns the factor."""
+    import torch
+    p = net.predict(x, batch_size=rows(x)).astype(np.float64)
+    lp = np.log(p)
+    peak = float(np.abs(lp - lp.mean(axis=-1, keepdims=True)).max())
+    factor = S2S_LOGIT_MAX / peak
+    with torch.no_grad():
+        for v in net.generator.params().values():
+            v.mul_(factor)
+    return factor
+
+
+def host_timed(fn, warmup=1, iters=5):
+    """Median host seconds of ``fn()`` (synchronized both ends) with
+    its min and max, and the last result."""
+    import torch
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), min(times), max(times), out
+
+
+def seq2seq_run(card):
+    """Phase 17, part 1: Seq2seq trained through ``compile``/``fit``
+    (Adam, categorical cross-entropy, batch 64) in f32 and
+    ``mixed_bfloat16``; greedy ``infer`` and ``generate_tokens`` at
+    batch 1 and 64, their token loops under
+    ``set_sync_debug_mode("error")``; ``infer_beam`` at beam 4; then
+    held to the CPU port (f32 probabilities at batch 4, 1e-4 of max(1,
+    max|p|), the generator scaled; two f32 Adam steps, 1e-4 relative)
+    and the greedy ids to a host loop of full re-forwards on the
+    card."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    loss = "categorical_crossentropy"
+    v, t = S2S["vocab"], S2S["seq"]
+    ctx = zoo.init_nncontext(seed=0)
+    n = S2S_BATCH * S2S_STEPS
+    enc, dec, tgt = dialogs(n)
+    w0 = params_to_numpy(seq2seq_model().model.init_params())
+    n_params = sum(a.size for d in w0.values() for a in d.values())
+    print(f"  seq2seq: {S2S}, dense bridge, {n_params} parameters; "
+          f"{n} dialogs of one-hot {enc.shape[1:]} ({enc.nbytes} bytes "
+          "per input)", flush=True)
+    rec = {"params": n_params}
+    m = None
+    for policy in ("float32", "mixed_bfloat16"):
+        m = compiled(seq2seq_model, policy, loss)
+        m.model.load_params(w0)
+        torch.cuda.reset_peak_memory_stats()
+        rec[policy] = timed_fit(
+            f"seq2seq {policy} train (batch {S2S_BATCH}, T {t}, V {v})", m,
+            [enc, dec], tgt, S2S_BATCH, S2S_EPOCHS, card)
+        rec[policy]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated()
+        print(f"    peak device memory {torch.cuda.max_memory_allocated()}"
+              " bytes", flush=True)
+        if policy == "float32":
+            f32_model = m
+    del m
+    torch.cuda.empty_cache()
+
+    s2s, net = f32_model, f32_model.model
+    params = net.params()
+    start = np.eye(v, dtype=np.float32)[S2S_SOS]
+    for bs in S2S_SERVE:
+        q = enc[:bs]
+        q_dev = torch.from_numpy(q).to(ctx.device)
+        start_dev = torch.from_numpy(start).to(ctx.device)
+        with torch.inference_mode():
+            gen = no_sync(lambda: net.generate(params, q_dev, start_dev, t))
+            ids = no_sync(lambda: net.generate_tokens(params, q_dev, S2S_SOS,
+                                                      t))
+        med, lo, hi, out = host_timed(
+            lambda: s2s.infer(q, start, max_seq_len=t))
+        check(out.shape == (bs, 1 + t, v) and np.isfinite(out).all() and
+              gen[1].tolist() == [1 + t] * bs, f"infer {out.shape}")
+
+        def tokens():
+            with torch.inference_mode():
+                return net.generate_tokens(params, q_dev, S2S_SOS, t)
+
+        tmed, tlo, thi, _ = host_timed(tokens)
+        check(ids[1].tolist() == [1 + t] * bs, f"counts {ids[1].tolist()}")
+        prof = profile_steps(tokens, 1, ())
+        rec[f"serve_b{bs}"] = {
+            "infer_ms": med * 1e3, "infer_spread_ms": [lo * 1e3, hi * 1e3],
+            "infer_ms_per_token": med * 1e3 / t,
+            "infer_tokens_per_s": bs * t / med,
+            "generate_tokens_ms": tmed * 1e3,
+            "generate_tokens_spread_ms": [tlo * 1e3, thi * 1e3],
+            "generate_tokens_ms_per_token": tmed * 1e3 / t,
+            "generate_tokens_per_s": bs * t / tmed,
+            "device_busy_share": prof["device_busy_share"],
+            "device_rows": prof["device_rows_per_step"]}
+        print(f"  seq2seq greedy at batch {bs}, {t} tokens: infer (host "
+              f"in and out) {med * 1e3:.2f} ms ({lo * 1e3:.2f}-"
+              f"{hi * 1e3:.2f}), {med * 1e3 / t:.3f} ms per token, "
+              f"{bs * t / med:.1f} tokens/s; generate_tokens "
+              f"{tmed * 1e3:.2f} ms ({tlo * 1e3:.2f}-{thi * 1e3:.2f}), "
+              f"{tmed * 1e3 / t:.3f} ms per token, {bs * t / tmed:.1f} "
+              f"tokens/s, device busy {prof['device_busy_share']}; both "
+              "token loops ran under set_sync_debug_mode('error') on "
+              f"{card}", flush=True)
+
+    # the holds run on the untrained weights: six Adam steps on the
+    # Zipf-like dialogs teach every greedy stream one frequent token
+    net.load_params(w0)
+    x4, y4 = [enc[:4], dec[:4]], tgt[:4]
+    factor = scale_generator(net, x4)
+    params = net.params()
+    med, lo, hi, (beam_ids, score) = host_timed(
+        lambda: s2s.infer_beam(enc[0], S2S_SOS, beam_size=S2S_BEAM,
+                               max_seq_len=t, stop_token=S2S_EOS),
+        warmup=0, iters=1)
+    check(np.isfinite(score) and all(0 <= i < v for i in beam_ids),
+          f"beam {beam_ids} {score}")
+    rec["beam"] = {"ms": med * 1e3, "ids": beam_ids, "score": score}
+    print(f"  seq2seq infer_beam (beam {S2S_BEAM}, up to {t} tokens, "
+          f"untrained weights, generator x{factor:.4g}): "
+          f"{len(beam_ids)} ids, score "
+          f"{score:.4f}, {med * 1e3:.1f} ms on {card}", flush=True)
+
+    # greedy ids against a host loop of full re-forwards on the card
+    enc4 = torch.from_numpy(enc[:4]).to(ctx.device)
+    with torch.inference_mode():
+        ids, counts = no_sync(lambda: net.generate_tokens(
+            params, enc4, S2S_SOS, t))
+        seqs = torch.full((4, 1), S2S_SOS, device=ctx.device)
+        for _ in range(t):
+            d = torch.zeros((4, seqs.shape[1], v), device=ctx.device)
+            d.scatter_(2, seqs[..., None], 1.0)
+            nxt = net.call(params, [enc4, d])[:, -1].argmax(-1)
+            seqs = torch.cat([seqs, nxt[:, None]], dim=1)
+    same = ids.tolist() == seqs.tolist()
+    distinct = [len(set(r[1:])) for r in ids.tolist()]
+    print(f"  seq2seq greedy ids at batch 4 against {t} full re-forwards "
+          f"on the card: {'identical' if same else 'DIFFERENT'} "
+          f"(distinct tokens per row {distinct})", flush=True)
+    check(same, f"greedy ids {ids.tolist()} vs {seqs.tolist()}")
+    # a stream of one repeated token would hold the loop's state to
+    # little: the random decoder's streams vary
+    check(statistics.median(distinct) >= 4,
+          f"greedy streams of {distinct} distinct tokens, expected a "
+          "median of 4 or more")
+    rec["greedy_reforward_identical"] = same
+    rec["greedy_distinct_tokens"] = distinct
+
+    w_held = params_to_numpy(net)
+    got = net.predict(x4, batch_size=4)
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu = seq2seq_model().compile(optimizer="adam", loss=loss).model
+    cpu.load_params(w_held, device="cpu")
+    rec["held_f32"] = probs_held(
+        f"seq2seq f32 probabilities at batch 4 against the CPU port "
+        f"(generator x{factor:.4g})", got, cpu.predict(x4, batch_size=4),
+        1e-4)
+    del cpu, f32_model, s2s, net, params
+    zoo.init_nncontext(seed=0)
+    torch.cuda.empty_cache()
+    rec["f32_step"] = two_steps_held(
+        "seq2seq, f32 at batch 4, Adam",
+        lambda: seq2seq_model().compile(optimizer="adam", loss=loss),
+        w0, x4, y4)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_images(rs, n):
+    """``n`` seeded 300x300 images, mean-subtracted scale, brightness
+    stepping across the batch."""
+    scale = np.linspace(0.25, 2.0, n).astype(np.float32)
+    return (rs.rand(n, 300, 300, 3).astype(np.float32) - 0.5) * 255 * \
+        scale[:, None, None, None]
+
+
+def ssd_targets(rs, n):
+    """Packed ground truth: 1 to 4 boxes per image over VOC's 20
+    object classes."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    boxes, labels = [], []
+    for _ in range(n):
+        k = rs.randint(1, 5)
+        lo = rs.uniform(0.0, 0.6, (k, 2))
+        wh = rs.uniform(0.1, 0.4, (k, 2))
+        boxes.append(np.concatenate([lo, lo + wh], 1).astype(np.float32))
+        labels.append(rs.randint(0, 20, k).astype(np.int32))
+    return ObjectDetector.pack_targets(boxes, labels, max_gt=SSD_MAX_GT)
+
+
+def same_detections(a, b):
+    """The same detections per image: classes in order, boxes within
+    1e-4."""
+    if [len(d) for d in a] != [len(d) for d in b]:
+        return False
+    return all(x.class_id == y.class_id and
+               np.abs(np.asarray(x.box) - np.asarray(y.box)).max() <= 1e-4
+               for da, db in zip(a, b) for x, y in zip(da, db))
+
+
+def ssd_run(card):
+    """Phase 17, part 2: SSD300-VGG16 (21 classes) served through
+    ``ObjectDetector.detect`` at batch 1, 8 and 32 in f32 and bf16 (the
+    network and ``DetectionOutput``'s host time apart); its flat output
+    at batch 2 held to the CPU port (f32 1e-3, bf16 5e-2) with the same
+    detections; ``MultiBoxLoss`` at 8732 priors and the device ``nms``
+    held; trained through ``compile_detection``/``fit`` (SGD 1e-3
+    momentum 0.9, SSD's own schedule start, ``mixed_bfloat16``, batch
+    32, 2 epochs of 5 steps); one f32 step at batch 2 held to the CPU
+    port."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        DetectionOutput, MultiBoxLoss, ObjectDetector, bbox_util)
+    from analytics_zoo_tpu_torch.models.image.objectdetection.detection \
+        import _nms_numpy
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.estimator import MaxIteration
+    ctx = zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(19)
+    det = ObjectDetector("ssd-vgg16-300x300")
+    det.compile()
+    net = det.model
+    w0 = params_to_numpy(net.init_params())
+    priors = det.priors
+    p = priors.shape[0]
+    n_params = sum(a.size for d in w0.values() for a in d.values())
+    maps = tuple(s.feature_size for s in det._builder.specs)
+    check(p == 8732 and net.output_shape == (p * 25,),
+          f"SSD300 priors {p}, output {net.output_shape}")
+    print(f"  ssd300-vgg16: {n_params} parameters, {p} priors over maps "
+          f"{maps}, flat output {net.output_shape}", flush=True)
+    rec = {"params": n_params}
+    post = DetectionOutput(det.n_classes, conf_threshold=SSD_CONF,
+                           nms_threshold=det.config.nms_threshold)
+    x_all = ssd_images(rs, max(SSD_SERVE))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for bs in SSD_SERVE:
+            xd = torch.from_numpy(x_all[:bs]).to(ctx.device, dt)
+            nmed, nlo, nhi, flat = host_timed(
+                lambda: net.predict(xd, batch_size=bs), iters=10)
+            t = time.perf_counter()
+            dets = post.from_flat(flat, priors)
+            post_s = time.perf_counter() - t
+            dmed, dlo, dhi, dets2 = host_timed(
+                lambda: det.detect(xd, batch_size=bs,
+                                   conf_threshold=SSD_CONF), iters=5)
+            check(len(dets2) == bs and np.isfinite(flat).all(),
+                  f"detect at batch {bs}")
+            prof = profile_steps(
+                lambda: det.detect(xd, batch_size=bs,
+                                   conf_threshold=SSD_CONF), 3, ())
+            n_det = sum(len(d) for d in dets)
+            rec[f"serve_{name}_b{bs}"] = {
+                "images_per_s": bs / dmed, "detect_ms": dmed * 1e3,
+                "detect_spread_ms": [dlo * 1e3, dhi * 1e3],
+                "network_ms": nmed * 1e3,
+                "network_spread_ms": [nlo * 1e3, nhi * 1e3],
+                "post_host_ms": post_s * 1e3, "detections": n_det,
+                "device_busy_share": prof["device_busy_share"],
+                "device_ms": prof["device_ms_per_step"]}
+            print(f"  ssd300 {name} detect at batch {bs}: "
+                  f"{bs / dmed:.1f} images/s (median {dmed * 1e3:.2f} ms, "
+                  f"{dlo * 1e3:.2f}-{dhi * 1e3:.2f}): network and copy "
+                  f"back {nmed * 1e3:.2f} ms, DetectionOutput "
+                  f"{post_s * 1e3:.2f} host ms ({n_det} detections above "
+                  f"{SSD_CONF}); device busy {prof['device_busy_share']} "
+                  f"on {card}", flush=True)
+            del xd
+    torch.cuda.empty_cache()
+
+    # the flat output at batch 2 against the CPU port, and the detections
+    x2 = ssd_images(rs, 2)
+    got32 = net.predict(x2, batch_size=2)
+    got16 = net.predict(torch.from_numpy(x2).to(ctx.device, torch.bfloat16),
+                        batch_size=2)
+    zoo.init_nncontext(seed=0, device="cpu")
+    cpu = ObjectDetector("ssd-vgg16-300x300")
+    cpu.compile()
+    cpu.model.load_params(w0, device="cpu")
+    want = cpu.model.predict(x2, batch_size=2)
+    rec["held_f32"] = probs_held("ssd300 f32 flat output at batch 2 "
+                                 "against the CPU port", got32, want, 1e-3,
+                                 what="outputs")
+    rec["held_bf16"] = probs_held("ssd300 bf16 flat output at batch 2 "
+                                  "against the CPU port's f32", got16, want,
+                                  5e-2, what="outputs")
+    d_card, d_cpu = post.from_flat(got32, priors), post.from_flat(want,
+                                                                 priors)
+    same = same_detections(d_card, d_cpu)
+    print(f"  ssd300 f32 detections above {SSD_CONF} at batch 2: "
+          f"{[len(d) for d in d_card]} on the card, "
+          f"{[len(d) for d in d_cpu]} on the CPU port, "
+          f"{'the same' if same else 'DIFFERENT'} (classes, boxes within "
+          "1e-4)", flush=True)
+    check(same and sum(len(d) for d in d_card) > 0, "ssd300 detections")
+    rec["held_detections"] = [len(d) for d in d_card]
+
+    # MultiBoxLoss at 8732 priors on seeded predictions, value and grads
+    b = 8
+    loc = rs.randn(b, p, 4).astype(np.float32)
+    conf = rs.randn(b, p, det.n_classes).astype(np.float32)
+    y = ssd_targets(rs, b)
+    loss = MultiBoxLoss(det.n_classes).as_keras_loss(priors)
+    flat_pred = np.concatenate([loc.reshape(b, -1), conf.reshape(b, -1)], 1)
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        yp = torch.from_numpy(flat_pred).to(dev).requires_grad_(True)
+        val = loss(torch.from_numpy(y).to(dev), yp)
+        (g,) = torch.autograd.grad(val, yp)
+        vals[dev] = (val.item(), g.cpu().numpy())
+    rel = abs(vals["cuda"][0] - vals["cpu"][0]) / abs(vals["cpu"][0])
+    gerr = float(np.abs(vals["cuda"][1] - vals["cpu"][1]).max())
+    gtol = 1e-5 * float(np.abs(vals["cpu"][1]).max())
+    yp = torch.from_numpy(flat_pred).to(ctx.device).requires_grad_(True)
+    yt = torch.from_numpy(y).to(ctx.device)
+    lms = time_ms(lambda: torch.autograd.grad(loss(yt, yp), yp), iters=5)
+    print(f"  MultiBoxLoss at {p} priors, batch {b}: card "
+          f"{vals['cuda'][0]:.6f}, CPU port {vals['cpu'][0]:.6f} (rel "
+          f"{rel:.2e}, tol 1e-5); the gradient max|err| {gerr:.3e} (tol "
+          f"{gtol:.3e}); loss and gradient {lms:.3f} ms on the card",
+          flush=True)
+    check(rel <= 1e-5 and gerr <= gtol, "MultiBoxLoss against the CPU port")
+    rec["loss_held"] = {"rel": rel, "grad_err": gerr, "grad_tol": gtol,
+                        "ms": lms}
+
+    # the device nms against the host's _nms_numpy
+    boxes = bbox_util.clip_boxes(bbox_util.decode_boxes(
+        torch.from_numpy(loc[0] * 0.5), torch.from_numpy(priors))).numpy()
+    scores = rs.rand(p).astype(np.float32)
+    bd, sd = (torch.from_numpy(boxes).to(ctx.device),
+              torch.from_numpy(scores).to(ctx.device))
+    idx, valid = no_sync(lambda: bbox_util.nms(bd, sd, 0.45, 200))
+    kept = [i for i, ok in zip(idx.tolist(), valid.tolist()) if ok]
+    t = time.perf_counter()
+    host = _nms_numpy(boxes, scores, 0.45)
+    host_ms = (time.perf_counter() - t) * 1e3
+    nms_ms = time_ms(lambda: bbox_util.nms(bd, sd, 0.45, 200), iters=3)
+    print(f"  nms over {p} boxes, 200 outputs: the card's {len(kept)} "
+          f"kept {'equal' if kept == host[:200] else 'UNEQUAL'} to "
+          f"_nms_numpy's first 200 of {len(host)}; {nms_ms:.3f} ms on the "
+          f"card (no host sync in its loop), {host_ms:.1f} host ms for "
+          "_nms_numpy", flush=True)
+    check(kept == host[:200], "device nms against _nms_numpy")
+    rec["nms"] = {"ms": nms_ms, "host_ms": host_ms, "kept": len(kept)}
+    zoo.init_nncontext(seed=0)
+    del cpu, bd, sd, yp, yt
+    torch.cuda.empty_cache()
+
+    # training, mixed_bfloat16
+    n = SSD_BATCH * SSD_STEPS
+    x = ssd_images(rs, n)
+    y = ssd_targets(rs, n)
+
+    def build():
+        return ObjectDetector("ssd-vgg16-300x300").compile_detection(
+            optimizer=SGD(lr=1e-3, momentum=0.9))
+
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        m = build()
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    est = m.model.estimator
+    check(est.dtype_policy == "mixed_bfloat16", est.dtype_policy)
+    m.model.load_params(w0)
+    torch.cuda.reset_peak_memory_stats()
+    hist = m.fit(x, y, batch_size=SSD_BATCH, nb_epoch=SSD_EPOCHS).history
+    losses = [v for h in hist for v in h["losses"]]
+    rates = [h["throughput"] for h in hist]
+    gp = hist[-1]["goodput"]
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(len(losses) == SSD_STEPS * SSD_EPOCHS and
+          np.isfinite(losses).all(), f"ssd300 losses {losses}")
+    print(f"  ssd300 training (mixed_bfloat16, batch {SSD_BATCH}, SGD 1e-3 "
+          f"momentum 0.9): losses {[round(v, 4) for v in losses]}; images/s "
+          f"per epoch {[round(r, 1) for r in rates]}; the ledger: "
+          f"{gp['flops_per_step']:.6e} FLOPs per step, MFU {gp['mfu']} "
+          f"(peak {gp['peak_flops']:.3e}), shares {gp['shares']}; peak "
+          f"device memory {peak_mem} bytes on {card}", flush=True)
+    print("  profile ssd300 bf16 train, per step:", flush=True)
+    prof = profile_steps(
+        lambda: est.train(x, y, batch_size=SSD_BATCH,
+                          end_trigger=MaxIteration(est.step + 3)),
+        1, (), per=3)
+    rec["train"] = {"losses": losses, "images_per_s_epochs": rates,
+                    "flops_per_step": gp["flops_per_step"],
+                    "mfu": gp["mfu"], "shares": gp["shares"],
+                    "max_memory_allocated": peak_mem,
+                    "device_busy_share": prof["device_busy_share"],
+                    "device_ms_per_step": prof["device_ms_per_step"],
+                    "wall_ms_per_step": prof["wall_ms_per_step"],
+                    "top": prof["top"][:8]}
+    m.model._estimator = None
+    del m, est, x
+    torch.cuda.empty_cache()
+    rec["f32_step"] = two_steps_held(
+        "ssd300, f32 at batch 2, SGD 1e-3 momentum 0.9", build, w0,
+        ssd_images(rs, 2), ssd_targets(rs, 2))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq2seq_ssd_path(card, detail):
+    """Phase 17: Seq2seq and SSD300 on the card; no kernel of the
+    eleven on this path."""
+    import torch
+    t0 = time.perf_counter()
+    reset_launches()
+    rec, parts = {}, {}
+    for name, run in (("seq2seq", seq2seq_run), ("ssd300", ssd_run)):
+        t = time.perf_counter()
+        rec[name] = run(card)
+        parts[name] = time.perf_counter() - t
+    print(f"  phase 17 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
+    rec["seconds_by_part"] = parts
+    launches = all_launches()
+    print(f"  no kernel of the eleven on this path: launches {launches}",
+          flush=True)
+    check(not any(launches.values()), f"phase 17 launched {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17 in {rec['seconds']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}",
+          flush=True)
+    detail["seq2seq_ssd"] = rec
 
 
 def main() -> int:
@@ -5892,7 +6429,12 @@ def main() -> int:
           "(no kernel of the eleven on this path)", flush=True)
     text_path(card, detail)
 
-    print("[17] summary", flush=True)
+    print("[17] Seq2seq at a production dialog model's widths (3 LSTM "
+          "layers of 1024, 10,000 words) and SSD300-VGG16 object "
+          "detection (no kernel of the eleven on this path)", flush=True)
+    seq2seq_ssd_path(card, detail)
+
+    print("[18] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if surface.get(rec["name"]):
