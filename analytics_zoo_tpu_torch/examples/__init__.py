@@ -13,4 +13,7 @@ EXAMPLES = [
     "anomaly_detection",
     "chatbot",
     "object_detection",
+    "image_classification",
+    "resnet_imagenet",
+    "rdd_ingest",
 ]

@@ -194,12 +194,16 @@ class TextSet:
 
     # -- export -------------------------------------------------------------
     def to_feature_set(self, memory_type="dram"):
-        """Not ported yet: ``FeatureSet`` (its memory tiers and shards)
-        comes with the data path, ROADMAP A10. :meth:`to_arrays` gives
-        the arrays ``fit`` takes."""
-        raise NotImplementedError(
-            "TextSet.to_feature_set needs FeatureSet, which the port does "
-            "not have yet (ROADMAP A10); use to_arrays()")
+        """The generated samples as a :class:`~analytics_zoo_tpu_torch.
+        feature.feature_set.FeatureSet` in ``memory_type``'s tier."""
+        from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+        samples = []
+        for f in self.features:
+            s = f.get_sample()
+            if s is None:
+                raise ValueError("call generate_sample() first")
+            samples.append(s)
+        return FeatureSet.sample_rdd(samples, memory_type=memory_type)
 
     def to_arrays(self) -> "tuple[np.ndarray, Optional[np.ndarray]]":
         xs, ys = [], []

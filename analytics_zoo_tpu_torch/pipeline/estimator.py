@@ -1,8 +1,8 @@
 """Estimator: train, evaluate and predict a Keras-style net on the card
 (port of ``analytics_zoo_tpu/pipeline/estimator.py``, the single-card
-train loop with the reference's whole training surface; the fsdp/tp/ep
-modes, sharded checkpoints, training SLOs and on-device augmentation
-wait for later slices).
+train loop with the reference's whole training surface and its
+on-device augmentation; the fsdp/tp/ep modes, sharded checkpoints and
+training SLOs wait for later slices).
 
 A train step is the reference's, written eagerly: the net's ``apply``
 in training mode under autograd, the loss (in f32 under the
@@ -16,6 +16,22 @@ every step. Inputs may be one array or a list of them (BERT takes
 four). Each step hands the net a seed, ``fold_in(base, step)`` with
 ``base`` drawn from the context once per ``train`` call, from which the
 layers that draw noise (dropout) derive theirs (``ops/rng.py``).
+
+``Estimator(augment=fn)`` augments each training batch on its device
+inside the step, before the forward (``fn(seed, x)``, e.g. a
+``feature.image.device_transforms.augment_pipeline``); evaluation,
+prediction and validation never augment. The augment's seed is the
+step's seed folded once more with a fixed constant, so the net's own
+seed is the same with and without it. With an augment the training
+batches reach the step in f32, and the bf16 cast of ``mixed_bfloat16``
+comes after the augment, as in the reference. The net is built for the
+augmented shape (a crop from 257 x 257 to 224 x 224 feeds a 224 x 224
+net).
+
+Data reaches the loop as numpy arrays, a dataset with ``iter_batches``
+(a ``FeatureSet``), a TextSet or ImageSet (their ``to_arrays``), or an
+RDD or Spark DataFrame, which ``FeatureSet.from_rdd`` collects
+(:func:`to_dataset`).
 
 Input batches are prepared ahead of the step, as the reference does
 (``_prefetch_iter``): a worker thread named ``zoo-tpu-prefetch`` runs
@@ -87,6 +103,10 @@ logger = logging.getLogger("analytics_zoo_tpu_torch")
 # fsync or rename: a failure here leaves only the tmp file, never a torn
 # ckpt_*.pkl
 _CKPT_FAULT = faults.point("estimator/checkpoint_write")
+
+# folded into a step's seed for the augment's: the net's seed stays the
+# step's own
+_AUGMENT_STREAM = 0x617567
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +309,21 @@ def _whole_batches(batches):
 
 
 def to_dataset(data, y=None):
+    """The Estimator's view of ``data``, in the reference's order: a
+    dataset with ``iter_batches`` as it is; a TextSet or ImageSet through
+    its ``to_arrays`` (``y`` overrides its labels); an RDD-like or Spark
+    DataFrame collected into a ``FeatureSet`` (this process's share of
+    the partitions); arrays as an :class:`ArrayDataset`."""
     if hasattr(data, "iter_batches"):
         return data
+    if hasattr(data, "to_arrays"):
+        xs, ys = data.to_arrays()
+        return ArrayDataset(xs, ys if y is None else y)
+    from analytics_zoo_tpu_torch.feature.rdd import (is_rdd_like,
+                                                     is_spark_dataframe)
+    if is_rdd_like(data) or is_spark_dataframe(data):
+        from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+        return FeatureSet.from_rdd(data)
     return ArrayDataset(data, y)
 
 
@@ -546,7 +579,8 @@ class Estimator:
     def __init__(self, model, optimizer="adam", loss="mse",
                  metrics: Optional[List] = None,
                  ctx: Optional[NNContext] = None,
-                 dtype_policy: Optional[str] = None):
+                 dtype_policy: Optional[str] = None,
+                 augment: Optional[Callable] = None):
         # explicit, then ZOO_TPU_DTYPE_POLICY, then the default: the
         # reference defaults to bf16 activations on a TPU only, and the
         # card is not one
@@ -555,6 +589,8 @@ class Estimator:
         if dtype_policy not in ("float32", "mixed_bfloat16"):
             raise ValueError("dtype_policy must be float32|mixed_bfloat16")
         self.dtype_policy = dtype_policy
+        # train-only augmentation on the batch's device: fn(seed, x)
+        self.augment = augment
         self.model = model
         self.ctx = ctx or get_nncontext()
         if isinstance(loss, (list, tuple)):
@@ -734,14 +770,16 @@ class Estimator:
         return self.dtype_policy == "mixed_bfloat16"
 
     def _batches(self, ds, batch_size: int, shuffle: bool, seed: int = 0,
-                 drop_last: bool = True):
+                 drop_last: bool = True, cast: bool = True):
         """One pass over ``ds`` as placed batches ``(x, y, event)``,
         prefetched ``ZOO_TPU_PREFETCH`` ahead (the reference's
         ``_prefetch_iter`` over ``shard_batch``); returns the generator,
         which the caller closes, and the placer, whose ``take`` hands a
-        batch to the step."""
+        batch to the step. ``cast=False`` keeps the inputs' dtype under
+        ``mixed_bfloat16`` (the augmented train step casts them
+        itself)."""
         dev = self.model.device
-        fdt = torch.bfloat16 if self._mixed else None
+        fdt = torch.bfloat16 if self._mixed and cast else None
         depth = _prefetch_depth()
         if isinstance(ds, ArrayDataset):
             items = ((ds, sel) for sel in ds.iter_indices(
@@ -756,6 +794,12 @@ class Estimator:
 
     def _train_step(self, x, y, rng: Optional[int] = None
                     ) -> torch.Tensor:
+        if self.augment is not None:
+            # on the batch's device, in f32; then the policy's cast
+            with torch.no_grad():
+                x = self.augment(fold_in(rng or 0, _AUGMENT_STREAM), x)
+            if self._mixed:
+                x = _cast_floats(x, torch.bfloat16)
         params = self.model.params()
         leaves = self.trainable_leaves()
         for p in leaves:
@@ -858,8 +902,9 @@ class Estimator:
             for epoch in range(1, nb_epoch + 1):
                 pending: "list[tuple[int, torch.Tensor]]" = []
                 n_records = 0
-                batches, place = self._batches(ds, batch_size, shuffle=True,
-                                               seed=epoch)
+                batches, place = self._batches(
+                    ds, batch_size, shuffle=True, seed=epoch,
+                    cast=self.augment is None)
                 ep_span = obs.span("train/epoch", epoch=epoch,
                                    step=self.step)
                 with ep_span:

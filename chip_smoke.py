@@ -265,7 +265,27 @@ script exits non-zero and prints no result line:
    SGD 1e-3 momentum 0.9, batch 32, 2 epochs of 5 steps: images/s, the
    ledger's FLOPs per step and MFU, peak memory, a profile of 3 steps)
    and one f32 step at batch 2 held to the CPU port (losses 1e-4);
-18. a ``{"kernels": [...]}`` JSON line, then the card's name and power
+18. the image data path, with no PIL on it: 512 seeded 257x257x3
+   images as raw pixel bytes through ``ImagePixelBytesToMat``,
+   ``ImageHFlip``, ``ImageBrightness``, ``ImageSaturation``,
+   ``ImageChannelNormalize``, ``ImageMatToTensor`` and
+   ``ImageSetToSample`` (host images/s per stage), then
+   ``to_feature_set`` in the DRAM, DIRECT and PMEM tiers (each tier's
+   ``iter_batches`` images/s at batch 128; PMEM's arena removed after);
+   ``examples/resnet_imagenet.py``'s augment (random resized crop to
+   224x224, flip, brightness, saturation, normalisation) at batch 128,
+   one call under ``set_sync_debug_mode("error")``, its device ms (the
+   median of 21 CUDA-event timings), each op held to the CPU port's
+   ``apply`` on the same draws (the flip bit for bit, the rest within
+   1e-3); the recipe at full width (224, batch 128, 1000 classes, the s2d
+   stem, ``fused="defer"``, ``mixed_bfloat16``, 512 synthetic images, 2
+   epochs of 4 steps) with the augment and with ``augment=None`` on
+   host-cropped data (B1-B4's launches per step, 36/16/36/36 with 8
+   ``in_residual`` and 8 dr; images/s per epoch, the ledger's FLOPs per
+   step and MFU, peak memory; the augment's FLOPs equal to its two
+   products), ``fit`` from arrays against a ``FeatureSet`` in turns, and
+   the ``rdd_ingest`` and ``image_classification`` examples;
+19. a ``{"kernels": [...]}`` JSON line, then the card's name and power
    limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
@@ -6206,6 +6226,302 @@ def seq2seq_ssd_path(card, detail):
     detail["seq2seq_ssd"] = rec
 
 
+# -- the image data path (phase 18) ------------------------------------------
+
+# ImageNet's ingest size for a 224 crop (the recipe's 1.15x: 257 x 257),
+# 512 seeded images, batch 128
+IMG_INGEST, IMG_N, IMG_CROP = 257, 512, 224
+AUG_TIMINGS = 21
+# the recipe's ops that must match the CPU port bit for bit; the rest
+# within 1e-3 on the 0-255 scale
+AUG_EXACT = ("random_crop", "center_crop", "random_hflip", "cutout")
+
+
+def host_image_pipeline(card):
+    """Phase 18, part 1: 512 seeded 257x257x3 images as raw pixel bytes
+    through ImagePixelBytesToMat, ImageHFlip, ImageBrightness,
+    ImageSaturation, ImageChannelNormalize, ImageMatToTensor and
+    ImageSetToSample (host images/s per stage), then ``to_feature_set``
+    in the DRAM, DIRECT and PMEM tiers (each tier's ``iter_batches``
+    images/s over one shuffled epoch at batch 128; PMEM's arena removed
+    afterwards, its reads warm in the page cache)."""
+    import shutil
+
+    from analytics_zoo_tpu_torch.feature.image import (
+        ImageBrightness, ImageChannelNormalize, ImageFeature, ImageHFlip,
+        ImageMatToTensor, ImagePixelBytesToMat, ImageSaturation, ImageSet,
+        ImageSetToSample)
+    rs = np.random.RandomState(18)
+    pixels = rs.randint(0, 256, (IMG_N, IMG_INGEST, IMG_INGEST, 3),
+                        dtype=np.uint8)
+    labels = rs.randint(0, 1000, IMG_N)
+    iset = ImageSet([ImageFeature(pixels[i].tobytes(), label=int(labels[i]))
+                     for i in range(IMG_N)])
+    stages = [ImagePixelBytesToMat(IMG_INGEST, IMG_INGEST, 3),
+              ImageHFlip(seed=1), ImageBrightness(seed=2),
+              ImageSaturation(seed=3),
+              ImageChannelNormalize(123.68, 116.779, 103.939, 58.393, 57.12,
+                                    57.375),
+              ImageMatToTensor(), ImageSetToSample()]
+    rates = {}
+    for stage in stages:
+        t = time.perf_counter()
+        iset = iset.transform(stage)
+        rates[type(stage).__name__] = IMG_N / (time.perf_counter() - t)
+    check(len(iset) == IMG_N, f"the host pipeline kept {len(iset)} images")
+    print(f"  host stages, images/s on 1 thread: "
+          f"{ {k: round(v, 1) for k, v in rates.items()} } on {card}",
+          flush=True)
+    x0 = iset.features[0][ImageFeature.SAMPLE].feature
+    check(x0.shape == (IMG_INGEST, IMG_INGEST, 3) and x0.dtype == np.float32
+          and np.isfinite(x0).all(), f"sample {x0.shape} {x0.dtype}")
+    tiers = {}
+    for tier in ("dram", "direct", "pmem"):
+        t = time.perf_counter()
+        fs = iset.to_feature_set(tier)
+        build_s = time.perf_counter() - t
+        try:
+            t = time.perf_counter()
+            n = 0
+            for xb, yb in fs.iter_batches(TRAIN_BATCH, shuffle=True, seed=1):
+                check(xb.shape == (TRAIN_BATCH, IMG_INGEST, IMG_INGEST, 3)
+                      and yb.shape == (TRAIN_BATCH,),
+                      f"{tier} batch {xb.shape} {yb.shape}")
+                n += len(xb)
+            rate = n / (time.perf_counter() - t)
+        finally:
+            store = getattr(fs, "_store", None)
+            if store is not None:
+                del fs
+                shutil.rmtree(store.dir)
+        check(n == IMG_N, f"{tier}: {n} images batched")
+        tiers[tier] = {"build_s": build_s, "iter_images_per_s": rate}
+        print(f"  FeatureSet {tier}: built in {build_s:.2f} s, iter_batches "
+              f"{rate:.1f} images/s at batch {TRAIN_BATCH}"
+              f"{' (page cache warm)' if tier == 'pmem' else ''} on {card}",
+              flush=True)
+    return {"stage_images_per_s": rates, "tiers": tiers}, pixels
+
+
+def device_augment_run(pixels, card):
+    """Phase 18, part 2: the recipe's augment (``examples/resnet_imagenet.
+    py``'s ``device_augment``) at batch 128 from 257x257 to 224x224 on the
+    card: one call under ``set_sync_debug_mode("error")``, the median of
+    21 CUDA-event timings, then each op held to the CPU port's ``apply``
+    on the same drawn parameters (copied to the host untimed)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.examples.resnet_imagenet import \
+        device_augment
+    from analytics_zoo_tpu_torch.ops.rng import fold_in
+    x = torch.from_numpy(pixels[:TRAIN_BATCH]).to(DEV).float()
+    aug = device_augment(IMG_CROP)
+    aug(0, x)                     # each op's constants, copied once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = aug(1, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(tuple(out.shape) == (TRAIN_BATCH, IMG_CROP, IMG_CROP, 3) and
+          bool(torch.isfinite(out).all()), f"augment out {tuple(out.shape)}")
+    med, lo, hi = time_window(lambda: aug(2, x), iters=1, warmup=2,
+                              windows=AUG_TIMINGS)
+    print(f"  augment at batch {TRAIN_BATCH}, {IMG_INGEST}^2 -> {IMG_CROP}^2 "
+          f"(no host sync under set_sync_debug_mode('error')): {med:.4f} ms "
+          f"per batch (median of {AUG_TIMINGS} CUDA-event timings; "
+          f"{lo:.4f}-{hi:.4f}) on {card}", flush=True)
+    errs = {}
+    cur = x
+    for i, op in enumerate(aug.ops):
+        params = op.sample(fold_in(3, i), cur)
+        got = op.apply(cur, params)
+        want = op.apply(cur.cpu(), {k: v.cpu() for k, v in params.items()})
+        err = float((got.cpu() - want).abs().max())
+        tol = 0.0 if op.name in AUG_EXACT else 1e-3
+        errs[op.name] = err
+        check(err <= tol, f"{op.name} on the card vs the CPU port: {err}")
+        cur = got
+    print(f"  each op on the card vs the CPU port on the same draws, max "
+          f"|err|: {errs}", flush=True)
+    return {"device_ms": med, "device_ms_spread": [lo, hi],
+            "timings": AUG_TIMINGS, "op_errors": errs}
+
+
+def recipe_run(card, label, augment=True):
+    """``examples/resnet_imagenet.py``'s recipe at full width (224,
+    batch 128, 1000 classes, ``fused="defer"``, ``mixed_bfloat16``, 512
+    synthetic samples, 2 epochs of 4 steps), with its augment or with
+    ``augment=None`` on the host-cropped 224x224 data: the losses, the
+    kernels' launches, images/s per epoch, the ledger's FLOPs per step
+    and MFU, peak device memory."""
+    import torch
+
+    from analytics_zoo_tpu_torch.examples import resnet_imagenet
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    args = resnet_imagenet.parse_args(
+        ["--image-size", str(IMG_CROP), "--batch-per-device",
+         str(TRAIN_BATCH), "--classes", "1000", "--fused", "defer",
+         "--epochs", "2"])
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        est, x, y, batch = resnet_imagenet.recipe(args)
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    check(x.shape == (IMG_N, IMG_INGEST, IMG_INGEST, 3) and
+          est.dtype_policy == "mixed_bfloat16", f"recipe data {x.shape}")
+    if not augment:
+        est.augment = None
+        x = np.ascontiguousarray(x[:, :IMG_CROP, :IMG_CROP])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    hist = est.train(x, y, batch_size=batch, nb_epoch=args.epochs).history
+    torch.cuda.synchronize()
+    launches = all_launches()
+    residual = dict(cb.residual_launches)
+    steps = est.step
+    losses = [v for h in hist for v in h["losses"]]
+    check(steps == 8 and len(losses) == 8 and np.isfinite(losses).all(),
+          f"{label}: {steps} steps, losses {losses}")
+    check_train_launches(launches, steps, label)
+    check(residual == {"matmul_bn": 8 * steps, "matmul_bn_dx": 8 * steps},
+          f"{label}: in_residual/dr launches {residual}, expected "
+          f"{8 * steps} each")
+    rates = [h["throughput"] for h in hist]
+    mfus = [h["goodput"]["mfu"] for h in hist]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: losses {[round(v, 4) for v in losses]}; launches per "
+          f"step B1 {launches['matmul_bn'] // steps} ("
+          f"{residual['matmul_bn'] // steps} in_residual), B2 "
+          f"{launches['conv3x3_bn'] // steps}, B3 "
+          f"{launches['matmul_bn_dx'] // steps} ({residual['matmul_bn_dx'] // steps} "
+          f"dr), B4 {launches['matmul_bn_dw'] // steps}; images/s per epoch "
+          f"{[round(r, 1) for r in rates]}; FLOPs per step "
+          f"{est.flops_per_step:.6e}, MFU per epoch "
+          f"{[round(m, 5) for m in mfus]}; peak memory {peak} bytes on "
+          f"{card}", flush=True)
+    return {"losses": losses, "launches": launches,
+            "residual_launches": residual, "images_per_s_epochs": rates,
+            "flops_per_step": est.flops_per_step, "mfu_epochs": mfus,
+            "peak_bytes": peak}, est, x, y
+
+
+def feature_set_vs_arrays(est, x, y, card):
+    """Phase 18, part 4: the recipe's Estimator fed one epoch from arrays
+    and one from ``FeatureSet.array`` in turns (A B B A): images/s of
+    each (a FeatureSet's batches reach the placement as an ArrayDataset
+    each, ``_whole_batches``)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    fs = FeatureSet.array(x, y)
+    rates = {"arrays": [], "feature_set": []}
+    # no FLOP count in a run's first step: every call here is a run
+    os.environ["ZOO_TPU_GOODPUT_FLOPS"] = "0"
+    try:
+        for key in ("arrays", "feature_set", "feature_set", "arrays"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hist = est.train(fs if key == "feature_set" else x,
+                             None if key == "feature_set" else y,
+                             batch_size=TRAIN_BATCH, nb_epoch=1).history
+            torch.cuda.synchronize()
+            rates[key].append(len(x) / (time.perf_counter() - t))
+            check(np.isfinite(hist[-1]["losses"]).all(),
+                  f"{key}: losses {hist[-1]['losses']}")
+    finally:
+        os.environ.pop("ZOO_TPU_GOODPUT_FLOPS", None)
+    print(f"  fit from arrays {[round(r, 1) for r in rates['arrays']]} and "
+          f"from a FeatureSet {[round(r, 1) for r in rates['feature_set']]} "
+          f"images/s (epochs in turns A B B A, host clock) on {card}",
+          flush=True)
+    return rates
+
+
+def image_examples(card):
+    """Phase 18, part 5: ``examples/rdd_ingest.py`` at its defaults and
+    ``examples/image_classification.py``'s synthetic branch with
+    ResNet-50 at 224 and 1000 classes on the card."""
+    from analytics_zoo_tpu_torch.examples import (image_classification,
+                                                  rdd_ingest)
+    reset_launches()
+    metrics = rdd_ingest.main([])
+    check(all(np.isfinite(v) for v in metrics.values()) and
+          0 <= metrics["accuracy"] <= 1, f"rdd_ingest metrics {metrics}")
+    top_n = 3
+    results = image_classification.main(
+        ["--model", "resnet-50", "--image-size", str(IMG_CROP),
+         "--classes", "1000", "--top-n", str(top_n)])
+    check(len(results) == 4 and all(
+        len(top) == top_n and all(0 <= c < 1000 and np.isfinite(p)
+                                  for c, p in top) for _, top in results),
+          f"image_classification results {results}")
+    launches = {k: v for k, v in all_launches().items() if v}
+    print(f"  rdd_ingest metrics {metrics}; image_classification top-"
+          f"{top_n} of 4 images printed; launches {launches} on {card}",
+          flush=True)
+    return {"rdd_ingest": metrics, "image_classification": results,
+            "launches": launches}
+
+
+def image_data_path(card, detail):
+    """Phase 18: the image data path on the card; returns B1-B4's
+    launches over the recipe's augmented run."""
+    import torch
+    t0 = time.perf_counter()
+    rec, parts = {}, {}
+    t = time.perf_counter()
+    rec["host"], pixels = host_image_pipeline(card)
+    parts["host"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["augment"] = device_augment_run(pixels, card)
+    del pixels
+    parts["augment"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["recipe"], est, x, y = recipe_run(card, "recipe with augment")
+    parts["recipe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["feature_set_vs_arrays"] = feature_set_vs_arrays(est, x, y, card)
+    del est, x, y
+    torch.cuda.empty_cache()
+    parts["feature_set_vs_arrays"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec["recipe_plain"] = recipe_run(card, "recipe, augment=None",
+                                     augment=False)[0]
+    torch.cuda.empty_cache()
+    parts["recipe_plain"] = time.perf_counter() - t
+    aug_flops = (rec["recipe"]["flops_per_step"] -
+                 rec["recipe_plain"]["flops_per_step"])
+    # the resized crop's two products: (n, 224, 257) x (n, 257, 257 * 3),
+    # then (n, 224, 257) x (n, 257, 224 * 3)
+    want = (2 * TRAIN_BATCH * IMG_CROP * IMG_INGEST * IMG_INGEST * 3 +
+            2 * TRAIN_BATCH * IMG_CROP * IMG_INGEST * IMG_CROP * 3)
+    print(f"  FLOPs per step with the augment "
+          f"{rec['recipe']['flops_per_step']:.6e}, without "
+          f"{rec['recipe_plain']['flops_per_step']:.6e}: the augment's "
+          f"{aug_flops:.6e} (its two products {want:.6e}, "
+          f"{aug_flops / rec['recipe']['flops_per_step']:.4%} of the step); "
+          f"images/s with it {rec['recipe']['images_per_s_epochs']}, "
+          f"without {rec['recipe_plain']['images_per_s_epochs']} on {card}",
+          flush=True)
+    check(aug_flops == want, f"the augment's FLOPs {aug_flops}, expected "
+          f"{want}")
+    rec["augment_flops"] = aug_flops
+    t = time.perf_counter()
+    rec["examples"] = image_examples(card)
+    parts["examples"] = time.perf_counter() - t
+    check("PIL" not in sys.modules, "PIL was imported on phase 18's path")
+    rec["seconds_by_part"] = parts
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }; in "
+          f"{rec['seconds']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}", flush=True)
+    detail["image_data_path"] = rec
+    return rec["recipe"]["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6434,9 +6750,17 @@ def main() -> int:
           "detection (no kernel of the eleven on this path)", flush=True)
     seq2seq_ssd_path(card, detail)
 
-    print("[18] summary", flush=True)
+    print("[18] the image data path: ImageSet and the host transforms, "
+          "FeatureSet's tiers, the recipe's augment on the card, "
+          "examples/resnet_imagenet.py at full width, rdd_ingest and "
+          "image_classification", flush=True)
+    recipe = image_data_path(card, detail)
+
+    print("[19] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        if recipe.get(rec["name"]):
+            rec["launches_recipe"] = recipe[rec["name"]]
         if surface.get(rec["name"]):
             rec["launches_surface"] = surface[rec["name"]]
             # phase 14's cases at its path's shapes count in the worst

@@ -151,8 +151,13 @@ def test_word_index_with_an_existing_map_save_and_load(tmp_path):
         ttext.SequenceShaper(4, "middle")
     with pytest.raises(ValueError, match="no indices"):
         ttext.TextSet.from_texts(texts).tokenize().to_arrays()
-    with pytest.raises(NotImplementedError, match="A10"):
-        got.generate_sample().to_feature_set()
+    fs = got.generate_sample().to_feature_set()
+    want_fs = want.generate_sample().to_feature_set()
+    assert fs.num_samples == want_fs.num_samples == len(texts)
+    (xb, yb), = fs.iter_batches(len(texts), shuffle=False)
+    (wx, wy), = want_fs.iter_batches(len(texts), shuffle=False)
+    np.testing.assert_array_equal(xb, wx)
+    assert yb is None and wy is None
 
 
 def test_text_set_readers_match_jax(tmp_path):
