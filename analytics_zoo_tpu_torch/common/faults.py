@@ -49,9 +49,9 @@ and ``spec_step``), ``batcher/dispatch`` (the head of every
 rename).
 
 Every firing increments ``zoo_tpu_faults_injected_total{point,kind}``
-in :mod:`~analytics_zoo_tpu_torch.common.observability`. The reference
-also appends ``faults/armed`` and ``faults/injected`` records to its
-JSONL event log, which the port does not have yet.
+in :mod:`~analytics_zoo_tpu_torch.common.observability` and appends a
+``faults/injected`` event to the ``ZOO_TPU_EVENT_LOG`` file; every
+arming appends a ``faults/armed`` event.
 """
 
 from __future__ import annotations
@@ -195,6 +195,7 @@ class FaultPoint:
                     help="injected faults fired, by point and kind",
                     labels={"point": self.name,
                             "kind": spec.kind}).inc()
+        obs.event("faults/injected", point=self.name, kind=spec.kind)
 
     def _fire_armed(self, ctx):
         spec = self._take(ctx)
@@ -270,6 +271,7 @@ def arm(name: str, kind: str, seconds: float = 0.0,
         fp._spec = spec
         if old is not None:
             old.release.set()
+    obs.event("faults/armed", point=name, kind=kind)
     return fp
 
 

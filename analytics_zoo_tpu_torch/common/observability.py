@@ -1,5 +1,4 @@
-"""Telemetry core (port of ``analytics_zoo_tpu/common/observability.py``;
-its JSONL event log without the segment rotation).
+"""Telemetry core (port of ``analytics_zoo_tpu/common/observability.py``).
 
 Labelled counters, gauges, fixed-bucket histograms and wall-time spans
 in one process-global, thread-safe registry, read back with
@@ -44,15 +43,24 @@ Fault injection (``common/faults.py``):
 
 Structured events (:func:`event`) append one JSON line each to the file
 ``ZOO_TPU_EVENT_LOG`` names (nothing when it is unset): the
-``diagnostics/anomaly`` and ``perf/goodput_epoch`` events.
+``diagnostics/anomaly``, ``perf/goodput_epoch``, ``faults/armed``,
+``faults/injected`` and ``slo/recovered`` events. With
+``ZOO_TPU_EVENT_LOG_MAX_MB`` set the file rotates by size into
+``ZOO_TPU_EVENT_LOG_KEEP`` (default 3) gzipped segments ``<path>.N.gz``
+(``ZOO_TPU_EVENT_LOG_GZIP=0``: raw ``<path>.N``), counted in
+``zoo_tpu_event_log_rotations_total``; ``zoo_tpu_event_log_bytes`` is
+the live and rotated bytes on disk, which the capacity forecaster's
+``event_log`` resource reads.
 """
 
 from __future__ import annotations
 
 import bisect
+import gzip
 import json
 import os
 import re
+import shutil
 import threading
 import time
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -371,10 +379,97 @@ def to_prometheus() -> str:
 _event_lock = threading.Lock()
 _event_path: Optional[str] = None
 _event_fh = None
+_rotated_bytes = 0  # on-disk size of the rotated segments
+
+
+def _event_log_keep() -> int:
+    try:
+        return int(os.environ.get("ZOO_TPU_EVENT_LOG_KEEP", "3"))
+    except ValueError:
+        return 3
+
+
+def _gzip_segment(path: str) -> None:
+    """Compress a freshly rotated segment (``path`` → ``path.gz``). On
+    failure the raw segment stays and the partial ``.gz`` goes."""
+    try:
+        with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(path)
+    except OSError:
+        try:
+            os.remove(path + ".gz")
+        except OSError:
+            pass
+
+
+def _scan_rotated_bytes() -> int:
+    """On-disk size of the rotated segments (``.N.gz`` and the legacy
+    raw ``.N``) inside the keep window."""
+    if not _event_path:
+        return 0
+    total = 0
+    for i in range(1, _event_log_keep() + 1):
+        for ext in (".gz", ""):
+            try:
+                total += os.path.getsize(f"{_event_path}.{i}{ext}")
+            except OSError:
+                pass
+    return total
+
+
+def _rotate_locked() -> None:
+    """Size-based rotation: once the live file has reached
+    ``ZOO_TPU_EVENT_LOG_MAX_MB``, shift ``path.1 → path.2 → ...``
+    (keeping ``ZOO_TPU_EVENT_LOG_KEEP`` rotated files, default 3), gzip
+    the fresh ``path.1`` (``ZOO_TPU_EVENT_LOG_GZIP=0`` keeps it raw) and
+    reopen an empty ``path``. Each rotation counts in
+    ``zoo_tpu_event_log_rotations_total``. Called with ``_event_lock``
+    held, before a line is written, so no line is split or doubled
+    across the rename."""
+    global _event_fh, _rotated_bytes
+    raw = os.environ.get("ZOO_TPU_EVENT_LOG_MAX_MB")
+    if not raw or _event_fh is None:
+        return
+    try:
+        max_bytes = float(raw) * 1024 * 1024
+    except ValueError:
+        return
+    if max_bytes <= 0:
+        return
+    try:
+        if _event_fh.tell() < max_bytes:
+            return
+        _event_fh.close()
+    except (OSError, ValueError):
+        return
+    keep = _event_log_keep()
+    rotated = False
+    try:
+        for i in range(max(keep - 1, 0), 0, -1):
+            for ext in (".gz", ""):
+                src = f"{_event_path}.{i}{ext}"
+                if os.path.exists(src):
+                    os.replace(src, f"{_event_path}.{i + 1}{ext}")
+        if keep >= 1:
+            os.replace(_event_path, _event_path + ".1")
+            rotated = True
+            if os.environ.get("ZOO_TPU_EVENT_LOG_GZIP", "1") != "0":
+                _gzip_segment(_event_path + ".1")
+        else:
+            os.remove(_event_path)
+            rotated = True
+    except OSError:
+        pass  # rotation is best effort; logging goes on
+    _event_fh = open(_event_path, "a", encoding="utf-8")
+    _rotated_bytes = _scan_rotated_bytes()
+    if rotated:
+        counter("zoo_tpu_event_log_rotations_total",
+                help="event-log segment rotations").inc()
 
 
 def _close_event_log() -> None:
-    global _event_path, _event_fh
+    global _event_path, _event_fh, _rotated_bytes
     if _event_fh is not None:
         try:
             _event_fh.close()
@@ -382,13 +477,17 @@ def _close_event_log() -> None:
             pass
     _event_fh = None
     _event_path = None
+    _rotated_bytes = 0
 
 
 def event(name: str, **fields) -> None:
     """Append one structured JSON line ``{"ts", "event", **fields}`` to
     the ``ZOO_TPU_EVENT_LOG`` file (read on every call; nothing when it
-    is unset). Values JSON cannot hold are written as strings."""
-    global _event_path, _event_fh
+    is unset), rotating it first when it has outgrown
+    ``ZOO_TPU_EVENT_LOG_MAX_MB``. Values JSON cannot hold are written as
+    strings. ``zoo_tpu_event_log_bytes`` then holds the live file's and
+    the rotated segments' bytes on disk."""
+    global _event_path, _event_fh, _rotated_bytes
     path = os.environ.get("ZOO_TPU_EVENT_LOG")
     if not path:
         return
@@ -405,8 +504,16 @@ def event(name: str, **fields) -> None:
             _close_event_log()
             _event_fh = open(path, "a", encoding="utf-8")
             _event_path = path
+            _rotated_bytes = _scan_rotated_bytes()
+        _rotate_locked()
         _event_fh.write(line + "\n")
         _event_fh.flush()
+        try:
+            gauge("zoo_tpu_event_log_bytes",
+                  help="event-log bytes on disk (live segment + "
+                       "rotated)").set(_event_fh.tell() + _rotated_bytes)
+        except (OSError, ValueError):
+            pass
 
 
 def reset_metrics():

@@ -16,4 +16,7 @@ EXAMPLES = [
     "image_classification",
     "resnet_imagenet",
     "rdd_ingest",
+    "inference_serving",
+    "quantized_serving",
+    "streaming_inference",
 ]

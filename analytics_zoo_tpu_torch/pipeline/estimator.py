@@ -50,7 +50,8 @@ with its ``data_wait_s``, ``dispatch_s``, ``device_s`` (with
 the gauges ``zoo_tpu_train_first_step_seconds``,
 ``zoo_tpu_learning_rate`` and ``zoo_tpu_train_throughput_examples_per_
 sec``; a :class:`~analytics_zoo_tpu_torch.common.diagnostics.
-StepTimeWatcher` per run, the recompile monitor, the device-memory
+StepTimeWatcher` per run, the recompile monitor, the shipped training
+objectives of ``common/slo.py`` with the SLO ticker, the device-memory
 gauges per epoch; and the goodput ledger (``perf/goodput.py``), whose
 step FLOPs are counted inside the run's first step (``perf/flops.py``)
 and whose epoch summary goes into the history's ``goodput``.
@@ -82,6 +83,7 @@ import torch
 from analytics_zoo_tpu_torch.bridge import optax_leaves
 from analytics_zoo_tpu_torch.common import diagnostics, faults
 from analytics_zoo_tpu_torch.common import observability as obs
+from analytics_zoo_tpu_torch.common import slo as slo_lib
 from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.common.nncontext import (
     NNContext, get_nncontext)
@@ -887,6 +889,9 @@ class Estimator:
             help="host time each training step waited for its batch")
         watcher = diagnostics.StepTimeWatcher()
         diagnostics.install_recompile_monitor()
+        # the shipped training objectives and the SLO ticker
+        # (ZOO_TPU_SLO=0 disables)
+        slo_lib.ensure_default_slos("training")
         ledger = goodput_lib.ledger_for_backend(device=self.model.device)
         # ZOO_TPU_TRACE_SYNC=1: a card sync per step, so each step's
         # trace carries its device time (it stops the host running ahead)

@@ -698,6 +698,11 @@ class ContinuousBatcher:
         Idempotent."""
         if self._thread is not None and self._thread.is_alive():
             return self
+        # the page and queue gauges exist before the first request, so
+        # the capacity forecaster's rules see their families at once
+        self._pages_gauge().set(self.engine.free_pages)
+        with self._cond:
+            self._depth_gauge().set(len(self._q))
         diagnostics.install_recompile_monitor()
         with obs.span("decode/warm"), diagnostics.expected_compiles():
             self.engine.warm()

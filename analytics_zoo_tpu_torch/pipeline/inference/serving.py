@@ -33,12 +33,34 @@ a missing "inputs", uncoercible inputs or a bad prompt, 500
 is full, 504 when a queued request's deadline expires. Each counts in
 ``zoo_tpu_serving_errors_total{kind=...}``.
 
+The judgement layer (``common/slo.py``, ``timeseries.py``,
+``forecast.py``, ``federation.py``):
+
+GET  /debug/slo[?tick=0]  →  the SLO engine's objectives and their states
+     (ticks the engine first unless ``tick=0``)
+GET  /debug/metrics/history[?family=&window=&sample=0&fleet=1]  →
+     windowed series of one family, or the known families and the
+     store's stats; 400 for a window that is not a positive number
+GET  /debug/dashboard[?fleet=1]  →  a self-contained HTML page over the
+     two routes above
+POST /debug/profile {"dir", "ms"}  →  a ``torch.profiler`` capture (CPU
+     and, on the card, CUDA activity) of ``ms`` milliseconds written as
+     a Chrome trace into ``dir`` on a background thread; 503 while one
+     runs
+
+With a federation ``TelemetryCollector`` mounted as the batcher's
+``telemetry`` attribute: ``GET /metrics?fleet=1`` (merged Prometheus
+text), ``GET /debug/fleet/telemetry`` (the collector's state),
+``GET /debug/traces?fleet=1`` and a stitched ``GET /debug/trace/<id>``;
+without one the first two answer 404. :meth:`InferenceServer.start`
+installs the ``serving`` and ``forecast`` objectives (and the ``fleet``
+and ``fed`` ones when a collector is mounted), starts the SLO ticker
+and wires the capacity forecaster to the shared history.
+
 Not ported yet, so they answer 404 as unknown paths: the fleet's and
 disaggregation's routes (``/generate/prefill``, ``/generate/handoff``,
-``/debug/fleet*``, ``/debug/rollout``, ``?fleet=1``), ``/debug/slo``,
-``/debug/metrics/history``, ``/debug/dashboard`` and
-``/debug/profile``, with the native front end
-(``NativeInferenceServer``); ROADMAP A12.5 and A13.
+``/debug/fleet``, ``/debug/rollout``), with the native front end
+(``NativeInferenceServer``); ROADMAP A12.5, A13.3 and A13.4.
 """
 
 from __future__ import annotations
@@ -55,7 +77,10 @@ from urllib.parse import parse_qs, urlsplit
 import numpy as np
 
 from analytics_zoo_tpu_torch.common import diagnostics
+from analytics_zoo_tpu_torch.common import forecast as forecast_lib
 from analytics_zoo_tpu_torch.common import observability as obs
+from analytics_zoo_tpu_torch.common import slo as slo_lib
+from analytics_zoo_tpu_torch.common import timeseries
 from analytics_zoo_tpu_torch.common import tracing
 from analytics_zoo_tpu_torch.pipeline.inference.batching import (
     ContinuousBatcher, DeadlineExpiredError, DynamicBatcher,
@@ -64,7 +89,7 @@ from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
     InferenceModel
 
 __all__ = ["InferenceServer", "make_inference_server", "handle_predict",
-           "handle_generate"]
+           "handle_generate", "handle_profile"]
 
 
 def _error_body(code: int, message: str, **extra) -> dict:
@@ -251,11 +276,34 @@ def _health_payload(model: InferenceModel,
     return payload
 
 
-def _traces_payload(path: str) -> dict:
+def _fed_collector(batcher):
+    """The federation ``TelemetryCollector`` mounted as the batcher's
+    ``telemetry`` attribute (None when there is none: the fleet
+    telemetry routes then answer 404)."""
+    return getattr(batcher, "telemetry", None)
+
+
+def _fleet_metrics_text(path: str, batcher
+                        ) -> "Tuple[int, Optional[bytes]]":
+    """``GET /metrics?fleet=1``: the collector's merged Prometheus text
+    (one HELP/TYPE per family), after a tick unless ``tick=0``;
+    ``(404, None)`` when no collector is mounted."""
+    q = parse_qs(urlsplit(path).query)
+    tele = _fed_collector(batcher)
+    if tele is None:
+        _count_error("not_found")
+        return 404, None
+    if q.get("tick", ["1"])[0] != "0":
+        tele.tick()
+    return 200, tele.fleet_prometheus().encode()
+
+
+def _traces_payload(path: str, batcher=None) -> dict:
     """``GET /debug/traces[?n=20]``: the most recent traces from the
     ring, newest first; ``?since=<seq>`` returns the ring's cursor and
     every span recorded after ``seq`` (read under one lock: no loss, no
-    duplicate)."""
+    duplicate); ``?fleet=1`` with a collector mounted lists its stitched
+    traces."""
     q = parse_qs(urlsplit(path).query)
     try:
         n = int(q.get("n", ["20"])[0])
@@ -270,15 +318,28 @@ def _traces_payload(path: str) -> dict:
         seq, recs = tracing.get_store().records_since(since)
         return {"enabled": tracing.enabled(), "seq": seq,
                 "spans": [r.to_dict() for r in recs]}
+    tele = _fed_collector(batcher)
+    if q.get("fleet", ["0"])[0] == "1" and tele is not None:
+        return {"enabled": tracing.enabled(), "fleet": True,
+                "traces": tele.aggregator.recent(n)}
     return {"enabled": tracing.enabled(),
             "traces": tracing.get_store().recent(n)}
 
 
-def _trace_payload(route: str, path: str) -> "Tuple[int, dict]":
-    """``GET /debug/trace/<id>[?chrome=1]``: one trace's timeline from
-    the local ring; ``chrome=1`` renders Perfetto JSON."""
+def _trace_payload(route: str, path: str, batcher=None
+                   ) -> "Tuple[int, dict]":
+    """``GET /debug/trace/<id>[?chrome=1]``: one trace's timeline, from
+    the collector's aggregator (ticked first) when one is mounted and
+    holds the id, else from the local ring; ``chrome=1`` renders
+    Perfetto JSON with a lane per source process."""
     tid = route[len("/debug/trace/"):]
     chrome = parse_qs(urlsplit(path).query).get("chrome", ["0"])[0] == "1"
+    tele = _fed_collector(batcher)
+    if tele is not None:
+        tele.tick()  # pull the spans still sitting in the sources
+        agg = tele.aggregator
+        if agg.spans(tid):
+            return 200, (agg.chrome(tid) if chrome else agg.trace(tid))
     recs = tracing.get_store().spans(tid)
     if not recs:
         _count_error("not_found")
@@ -293,6 +354,318 @@ def _trace_payload(route: str, path: str) -> "Tuple[int, dict]":
                  "dur_s": round(t1 - t0, 6), "n_spans": len(recs),
                  "sources": ["router"],
                  "spans": [r.to_dict() for r in recs]}
+
+
+def _fleet_telemetry_payload(batcher) -> "Tuple[int, dict]":
+    """``GET /debug/fleet/telemetry``: the collector's state (sources
+    and scrape health, merge conflicts, per-replica window stats, skew
+    verdicts); 404 when no collector is mounted."""
+    tele = _fed_collector(batcher)
+    if tele is None:
+        _count_error("not_found")
+        return 404, _error_body(
+            404, "no fleet telemetry collector mounted")
+    return 200, tele.status()
+
+
+def _slo_payload(path: str) -> dict:
+    """``GET /debug/slo[?tick=0]``: the process-global SLO engine's
+    status, after a tick unless ``tick=0``."""
+    q = parse_qs(urlsplit(path).query)
+    engine = slo_lib.get_engine()
+    if q.get("tick", ["1"])[0] != "0":
+        return engine.tick()
+    return engine.status()
+
+
+def _history_payload(path: str, batcher=None) -> "Tuple[int, dict]":
+    """``GET /debug/metrics/history[?family=&window=&fleet=1]``: windowed
+    series from the process-global
+    :class:`~analytics_zoo_tpu_torch.common.timeseries.MetricHistory`
+    (sampled first unless ``sample=0``); without ``family``, the known
+    families and the store's stats. ``fleet=1`` reads the collector's
+    merged timeline instead (``tick=1`` ticks it first)."""
+    q = parse_qs(urlsplit(path).query)
+    fleet = q.get("fleet", ["0"])[0] == "1"
+    if fleet:
+        tele = _fed_collector(batcher)
+        if tele is None:
+            _count_error("not_found")
+            return 404, _error_body(
+                404, "no fleet telemetry collector mounted")
+        if q.get("tick", ["0"])[0] == "1":
+            tele.tick()
+        hist = tele.history
+    else:
+        hist = timeseries.get_history()
+        if q.get("sample", ["1"])[0] != "0":
+            hist.sample()
+    window_s = None
+    if q.get("window"):
+        try:
+            window_s = float(q["window"][0])
+        except ValueError:
+            _count_error("bad_request")
+            return 400, _error_body(
+                400, f"bad window {q['window'][0]!r} "
+                "(seconds expected)")
+        if window_s <= 0:
+            _count_error("bad_request")
+            return 400, _error_body(
+                400, "window must be positive seconds")
+    family = q.get("family", [None])[0]
+    if not family:
+        return 200, {"fleet": fleet,
+                     "families": hist.families(),
+                     "stats": hist.stats()}
+    return 200, dict(hist.series(family, window_s=window_s),
+                     fleet=fleet)
+
+
+# The live dashboard: one self-contained HTML page with no external
+# assets; its series come from /debug/metrics/history and its
+# sparklines are inline SVG built in the browser. The reference's page,
+# byte for byte.
+_DASHBOARD_PAGE = """<!doctype html>
+<html><head><meta charset="utf-8">
+<title>analytics-zoo-tpu dashboard</title>
+<style>
+body{font:13px/1.4 system-ui,sans-serif;margin:16px;
+     background:#0b0e14;color:#d6deeb}
+h1{font-size:16px;margin:0 0 2px}
+#meta{color:#7a88a8;margin-bottom:12px}
+#panels{display:grid;gap:10px;
+        grid-template-columns:repeat(auto-fill,minmax(290px,1fr))}
+.panel{background:#131824;border:1px solid #232b3d;
+       border-radius:6px;padding:8px 10px}
+.panel h2{font-size:12px;margin:0 0 4px;color:#9fb2d8;
+          font-weight:600}
+.row{display:flex;align-items:center;gap:8px;margin:2px 0}
+.lbl{color:#7a88a8;font-size:11px;white-space:nowrap;
+     overflow:hidden;text-overflow:ellipsis;max-width:45%}
+.val{margin-left:auto;font-variant-numeric:tabular-nums}
+.nodata{color:#53607c;font-style:italic}
+svg{flex:1 1 auto;min-width:60px}
+polyline{fill:none;stroke:#58a6ff;stroke-width:1.5}
+.bad polyline{stroke:#ff7b72}
+#slo .breach{color:#ff7b72}
+#slo .ok{color:#3fb950}
+#slo .no_data{color:#53607c}
+</style></head><body>
+<h1>analytics-zoo-tpu &mdash; live dashboard</h1>
+<div id="meta">loading&hellip;</div>
+<div id="panels"></div>
+<div class="panel" id="slo" style="margin-top:10px">
+<h2>SLO state &amp; recent anomalies</h2>
+<div id="slobody" class="nodata">loading&hellip;</div></div>
+<script>
+"use strict";
+var FLEET = new URLSearchParams(location.search)
+    .get("fleet") === "1";
+var SUFFIX = FLEET ? "&fleet=1" : "";
+var PANELS = [
+  {t: "QPS (requests/s)", f: "zoo_tpu_serving_requests_total",
+   k: "rate"},
+  {t: "p99 latency (s)", f: "zoo_tpu_serving_request_seconds",
+   k: "q99"},
+  {t: "queue depth", f: "zoo_tpu_serving_queue_depth",
+   k: "value"},
+  {t: "KV pages free", f: "zoo_tpu_serving_gen_free_pages",
+   k: "value"},
+  {t: "goodput share", f: "zoo_tpu_goodput_share", k: "value"},
+  {t: "MFU", f: "zoo_tpu_mfu", k: "value"},
+  {t: "forecast ETA (s)", f: "zoo_tpu_forecast_eta_s",
+   k: "value", bad: function (v) { return v < 600; }},
+  {t: "anomalies/s", f: "zoo_tpu_anomalies_total", k: "rate",
+   bad: function (v) { return v > 0; }}
+];
+function esc(s) {
+  return String(s).replace(/[&<>"]/g, function (c) {
+    return {"&": "&amp;", "<": "&lt;", ">": "&gt;",
+            '"': "&quot;"}[c];
+  });
+}
+function spark(vals) {
+  var w = 120, h = 26;
+  if (vals.length < 2) {
+    return '<svg width="' + w + '" height="' + h + '"></svg>';
+  }
+  var lo = Math.min.apply(null, vals);
+  var hi = Math.max.apply(null, vals);
+  var span = (hi - lo) || 1;
+  var pts = vals.map(function (v, i) {
+    var x = i * w / (vals.length - 1);
+    var y = h - 2 - (v - lo) / span * (h - 4);
+    return x.toFixed(1) + "," + y.toFixed(1);
+  }).join(" ");
+  return '<svg width="' + w + '" height="' + h +
+    '" viewBox="0 0 ' + w + " " + h +
+    '"><polyline points="' + pts + '"/></svg>';
+}
+function fmtv(v) {
+  if (v === null || v === undefined) { return "-"; }
+  if (v >= 1e8) { return "&#8734;"; }
+  if (Math.abs(v) >= 100) { return v.toFixed(0); }
+  return v.toPrecision(3);
+}
+function labelText(labels) {
+  var ks = Object.keys(labels);
+  if (!ks.length) { return "total"; }
+  return ks.map(function (k) {
+    return k + "=" + labels[k];
+  }).join(",");
+}
+function renderPanel(p, doc) {
+  var html = "<h2>" + esc(p.t) + "</h2>";
+  var series = (doc && doc.series) || [];
+  var rows = 0;
+  series.forEach(function (s) {
+    var vals = s.points.map(function (pt) {
+      return pt[p.k];
+    }).filter(function (v) {
+      return v !== null && v !== undefined;
+    });
+    if (!vals.length) { return; }
+    rows += 1;
+    var last = vals[vals.length - 1];
+    var bad = p.bad && p.bad(last);
+    html += '<div class="row' + (bad ? " bad" : "") +
+      '"><span class="lbl" title="' +
+      esc(labelText(s.labels)) + '">' +
+      esc(labelText(s.labels)) + "</span>" + spark(vals) +
+      '<span class="val">' + fmtv(last) + "</span></div>";
+  });
+  if (!rows) {
+    html += '<div class="nodata">no data</div>';
+  }
+  return html;
+}
+function refresh() {
+  PANELS.forEach(function (p, i) {
+    fetch("/debug/metrics/history?family=" + p.f + SUFFIX)
+      .then(function (r) { return r.json(); })
+      .then(function (doc) {
+        document.getElementById("p" + i).innerHTML =
+          renderPanel(p, doc);
+      }).catch(function () {});
+  });
+  fetch("/debug/metrics/history?" + (FLEET ? "fleet=1" : ""))
+    .then(function (r) { return r.json(); })
+    .then(function (doc) {
+      var st = doc.stats || {};
+      document.getElementById("meta").textContent =
+        (FLEET ? "fleet-merged timeline" : "local timeline") +
+        " \\u00b7 " + (st.raw_samples || 0) + " samples over " +
+        (st.span_s || 0).toFixed(0) + "s \\u00b7 " +
+        ((st.resident_bytes || 0) / 1024).toFixed(0) +
+        " KiB resident \\u00b7 " + new Date().toLocaleTimeString();
+    }).catch(function () {});
+  fetch("/debug/slo?tick=0")
+    .then(function (r) { return r.json(); })
+    .then(function (doc) {
+      var html = "";
+      (doc.objectives || []).forEach(function (o) {
+        html += '<div class="row"><span class="lbl">' +
+          esc(o.id) + '</span><span class="' + esc(o.state) +
+          '">' + esc(o.state) + "</span>" +
+          '<span class="val">' + fmtv(o.value) + "</span></div>";
+      });
+      document.getElementById("slobody").innerHTML =
+        html || '<div class="nodata">no objectives</div>';
+    }).catch(function () {});
+}
+var panels = document.getElementById("panels");
+PANELS.forEach(function (p, i) {
+  var d = document.createElement("div");
+  d.className = "panel";
+  d.id = "p" + i;
+  d.innerHTML = "<h2>" + esc(p.t) +
+    '</h2><div class="nodata">loading&hellip;</div>';
+  panels.appendChild(d);
+});
+refresh();
+setInterval(refresh, 5000);
+</script></body></html>
+"""
+
+
+def _dashboard_html() -> bytes:
+    """``GET /debug/dashboard``: the self-contained live page."""
+    return _DASHBOARD_PAGE.encode()
+
+
+# One profiler capture at a time per process.
+_profile_lock = threading.Lock()
+_profile_thread: "Optional[threading.Thread]" = None
+
+
+def _profiler_capture(out_dir: str, ms: float) -> str:
+    """Capture ``ms`` milliseconds of ``torch.profiler`` activity (the
+    CPU and, when the card is present, CUDA kernels launched by every
+    thread) and write it as a Chrome trace into ``out_dir``; returns
+    the file's path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        time.sleep(ms / 1e3)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(out_dir, f"zoo_tpu_profile_{os.getpid()}_"
+                        f"{int(time.time() * 1e3)}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def handle_profile(body: bytes) -> "Tuple[int, dict]":
+    """``POST /debug/profile {"dir": ..., "ms": 500}``: start a
+    ``torch.profiler`` capture on a background thread and answer at
+    once; 503 while a capture is already running. The capture appends a
+    ``serving/profile_capture`` event (with the trace file's path) or a
+    ``serving/profile_error`` event."""
+    global _profile_thread
+    try:
+        req = json.loads(body) if body else {}
+    except (ValueError, UnicodeDecodeError) as e:
+        _count_error("bad_json")
+        return 400, _error_body(400, f"malformed JSON body: {e}")
+    if not isinstance(req, dict) or not req.get("dir"):
+        _count_error("bad_request")
+        return 400, _error_body(
+            400, 'request must be a JSON object with a "dir" key '
+            '(profile output directory); optional "ms" duration')
+    out_dir = str(req["dir"])
+    try:
+        ms = float(req.get("ms", 500))
+    except (TypeError, ValueError):
+        _count_error("bad_request")
+        return 400, _error_body(400, '"ms" must be a number')
+    ms = max(1.0, min(ms, 60_000.0))
+    if not _profile_lock.acquire(blocking=False):
+        _count_error("profile_busy")
+        return 503, _error_body(
+            503, "a profiler capture is already running")
+
+    def _run():
+        try:
+            path = _profiler_capture(out_dir, ms)
+            obs.event("serving/profile_capture", dir=out_dir, ms=ms,
+                      path=path)
+        except Exception as e:
+            obs.event("serving/profile_error", dir=out_dir,
+                      error=f"{type(e).__name__}: {e}")
+        finally:
+            _profile_lock.release()
+
+    t = threading.Thread(target=_run, name="zoo-tpu-profiler",
+                         daemon=True)
+    _profile_thread = t
+    t.start()
+    return 200, {"status": "capturing", "dir": out_dir, "ms": ms}
 
 
 def _resolve_gen_batcher(model: InferenceModel, gen_batcher):
@@ -364,6 +737,7 @@ class InferenceServer:
                 _in_flight().inc()
                 status = 0
                 payload = None
+                raw = None  # (body, content type) of a non-JSON reply
                 route = self.path.split("?", 1)[0]
                 try:
                     if route == "/health":
@@ -371,6 +745,15 @@ class InferenceServer:
                         payload = _health_payload(
                             server.model, server.batcher,
                             server.gen_batcher)
+                    elif route == "/metrics" and "fleet=1" in self.path:
+                        status, body = _fleet_metrics_text(
+                            self.path, server.batcher)
+                        if body is None:
+                            payload = _error_body(
+                                404, "no fleet telemetry collector "
+                                "mounted")
+                        else:
+                            raw = (body, "text/plain; version=0.0.4")
                     elif route == "/metrics":
                         status = 200  # rendered after accounting
                         _refresh_vitals()
@@ -381,9 +764,24 @@ class InferenceServer:
                                    "metrics": obs.snapshot()}
                     elif route == "/debug/traces":
                         status = 200
-                        payload = _traces_payload(self.path)
+                        payload = _traces_payload(self.path,
+                                                  server.batcher)
                     elif route.startswith("/debug/trace/"):
-                        status, payload = _trace_payload(route, self.path)
+                        status, payload = _trace_payload(
+                            route, self.path, server.batcher)
+                    elif route == "/debug/slo":
+                        status = 200
+                        payload = _slo_payload(self.path)
+                    elif route == "/debug/fleet/telemetry":
+                        status, payload = _fleet_telemetry_payload(
+                            server.batcher)
+                    elif route == "/debug/metrics/history":
+                        status, payload = _history_payload(
+                            self.path, server.batcher)
+                    elif route == "/debug/dashboard":
+                        status = 200
+                        raw = (_dashboard_html(),
+                               "text/html; charset=utf-8")
                     else:
                         status = 404
                         _count_error("not_found")
@@ -396,9 +794,13 @@ class InferenceServer:
                     _in_flight().dec()
                     _record_request(self.path, status,
                                     time.perf_counter() - t0)
-                if payload is None:
-                    self._reply_raw(status, obs.to_prometheus().encode(),
-                                    "text/plain; version=0.0.4")
+                if raw is None and payload is None:
+                    # the local /metrics renders after accounting, so
+                    # the scrape sees itself counted
+                    raw = (obs.to_prometheus().encode(),
+                           "text/plain; version=0.0.4")
+                if raw is not None:
+                    self._reply_raw(status, raw[0], raw[1])
                 else:
                     self._reply(status, payload)
 
@@ -409,7 +811,8 @@ class InferenceServer:
                 trace_id = None
                 route = self.path.split("?", 1)[0]
                 try:
-                    if route not in ("/predict", "/generate"):
+                    if route not in ("/predict", "/generate",
+                                     "/debug/profile"):
                         status = 404
                         _count_error("not_found")
                         payload = _error_body(404, "not found",
@@ -423,21 +826,26 @@ class InferenceServer:
                             _count_error("bad_request")
                             payload = _error_body(400, str(e))
                         else:
-                            with tracing.trace(
-                                    "serving/request",
-                                    trace_id=self.headers.get(
-                                        tracing.TRACE_HEADER),
-                                    path=route) as tr:
-                                if route == "/generate":
-                                    status, payload = handle_generate(
-                                        server.model, body,
-                                        server.gen_batcher)
-                                else:
-                                    status, payload = handle_predict(
-                                        server.model, body,
-                                        batcher=server.batcher)
-                                tr.annotate(status=status)
-                            trace_id = tr.trace_id
+                            if route == "/debug/profile":
+                                status, payload = handle_profile(body)
+                            else:
+                                with tracing.trace(
+                                        "serving/request",
+                                        trace_id=self.headers.get(
+                                            tracing.TRACE_HEADER),
+                                        path=route) as tr:
+                                    if route == "/generate":
+                                        status, payload = \
+                                            handle_generate(
+                                                server.model, body,
+                                                server.gen_batcher)
+                                    else:
+                                        status, payload = \
+                                            handle_predict(
+                                                server.model, body,
+                                                batcher=server.batcher)
+                                    tr.annotate(status=status)
+                                trace_id = tr.trace_id
                 finally:
                     _in_flight().dec()
                     _record_request(route, status,
@@ -454,12 +862,23 @@ class InferenceServer:
         return self._httpd.server_address[1]
 
     def start(self, background: bool = True):
-        """Warm and start the batchers, then serve (on a thread of its
-        own unless ``background=False``)."""
+        """Warm and start the batchers, install the default objectives,
+        then serve (on a thread of its own unless
+        ``background=False``)."""
         if self.batcher is not None:
             self.batcher.start()
         if self.gen_batcher is not None:
             self.gen_batcher.start()
+        # the shipped serving and forecast objectives and the SLO
+        # ticker (ZOO_TPU_SLO=0 disables), whose samples of the shared
+        # history drive the capacity forecaster; a front door with a
+        # federation collector mounted adds the fleet's objectives
+        slo_lib.ensure_default_slos("serving")
+        slo_lib.ensure_default_slos("forecast")
+        forecast_lib.ensure_forecaster()
+        if _fed_collector(self.batcher) is not None:
+            slo_lib.ensure_default_slos("fleet")
+            slo_lib.ensure_default_slos("fed")
         if background:
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever, name="zoo-tpu-http",

@@ -285,8 +285,39 @@ script exits non-zero and prints no result line:
    step and MFU, peak memory; the augment's FLOPs equal to its two
    products), ``fit`` from arrays against a ``FeatureSet`` in turns, and
    the ``rdd_ingest`` and ``image_classification`` examples;
-19. a ``{"kernels": [...]}`` JSON line, then the card's name and power
-   limit, then the result line ``{"ok": true, "device": {...}}``.
+19. the observability plane's judgement layer, on one ``InferenceServer``
+   (ResNet-50 bf16 with ``fused=True`` behind a ``DynamicBatcher`` of
+   buckets up to 32, and a GPT-1-width generator) with the SLO ticker at
+   1 s, the event log rotating at 1 KB and the earlier phases' heap
+   frozen out of the garbage collector's scans: 100 ``/predict`` of one
+   image from one client leave every serving objective ``ok`` or
+   ``no_data``; 48 requests of 3 images from 8 clients are judged
+   against ``serving_latency_p99`` as shipped (a breach counted once,
+   its anomaly once, both unmoved over 5 further ticks; the engine's p99
+   in the bucket of the clients' p99 ranked as the engine ranks, over
+   the requests of its window); ``/debug/metrics/history``'s deltas and
+   counts equal the 48 requests exactly, and a bad window answers 400;
+   8 ``/generate`` of 1700 + 256 tokens (a B7 prefill each) drain the
+   page pool while the ``kv_pages`` ETA is finite, back to 1e9 once idle
+   (the forecaster's window 15 s); ``/debug/dashboard`` serves the
+   port's page; ``POST /debug/profile`` answers 200, then 503 during the
+   capture, and the ``torch.profiler`` trace names B5's and B6's CUDA
+   kernels; an armed ``batcher/dispatch`` fault gives one 500 with its
+   ``faults/armed`` and ``faults/injected`` records; a
+   ``TelemetryCollector`` over this server's URL merges its counters
+   (twice ``/metrics/json``'s: the router's source is this process),
+   advances the trace cursor with no span repeated and stitches a
+   traced request's spans; the host costs of an engine tick, a history
+   sample and a collector tick (medians of 21); the launches (B5/B6 36
+   and 16 per bucket execution, B11 12 per decode step, B7 12 per
+   prefill); then ``Estimator.train`` on the flagship (6 steps at batch
+   128: B1-B4 36/16/36/36 per step) installs the training objectives,
+   and the event log's segments and bytes gauge match the disk.
+   ``python3 chip_smoke.py --plane`` runs phases 1, 2 and 19 only;
+20. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
+   ``launches_plane`` and ``launches_plane_train``), then the card's
+   name and power limit, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
@@ -324,6 +355,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import gc
 import json
 import os
 import re
@@ -6522,6 +6554,683 @@ def image_data_path(card, detail):
     return rec["recipe"]["launches"]
 
 
+# -- the observability plane (phase 19) --------------------------------------
+
+# /predict requests of the light stage (one client, one image each: at
+# least 100, so that a p99 is not the slowest request) and of the load
+# stage (HTTP_CLIENTS clients, PLANE_LOAD_IMAGES images each: under
+# bench_serving's mix the p99 sits at 1.0 s, a bucket bound, where the
+# handler's time and the clients' fall on either side of it)
+PLANE_LIGHT, PLANE_LOAD, PLANE_LOAD_IMAGES = 100, 48, 3
+# /generate: one prompt of this many tokens per slot (a prefill at the
+# bucket of 2048 each, through B7), each with the batcher's largest
+# budget: 123 pages a request, 984 of the pool's 1024 in all
+PLANE_GEN_PROMPT, PLANE_GEN_NEW = 1700, 256
+PLANE_TRAIN_STEPS = 6
+PLANE_COST_N = 21          # the median of this many of each cost
+# the forecaster's trend window (ZOO_TPU_FORECAST_WINDOW_S; 120 s by
+# default): short enough that the pool's fall leaves it within the phase
+PLANE_FORECAST_WINDOW_S = "15"
+# the event log's rotation size (ZOO_TPU_EVENT_LOG_MAX_MB): a few events
+PLANE_EVENT_LOG_MAX_MB = "0.001"
+PLANE_TICK_S = "1"         # ZOO_TPU_SLO_TICK_S: the SLO ticker's period
+
+
+def plane_value(snap, name, **labels):
+    """Sum of the values of ``name``'s children whose labels hold
+    ``labels`` in a registry snapshot (None when the family is absent)."""
+    fam = snap.get(name)
+    if fam is None:
+        return None
+    return sum(v.get("value", 0.0) for v in fam["values"]
+               if all(v["labels"].get(k) == w for k, w in labels.items()))
+
+
+def plane_get(port, path):
+    """``(status, headers, body bytes)`` of one GET, errors included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def plane_objectives(port, tick=True):
+    """``{id: objective}`` from ``GET /debug/slo`` (a tick first)."""
+    status = get_json(port, "/debug/slo" if tick else "/debug/slo?tick=0")
+    return {o["id"]: o for o in status["objectives"]}
+
+
+def plane_points(payload, **labels):
+    """The points of the one series of a history payload whose labels
+    are ``labels``."""
+    got = [s["points"] for s in payload["series"] if s["labels"] == labels]
+    check(len(got) == 1, f"{payload['family']}: series {labels} found "
+          f"{len(got)} times")
+    return got[0]
+
+
+def plane_events(path):
+    """The records of the event log at ``path``: its rotated segments
+    (gzipped or raw) and the live file."""
+    import glob
+    import gzip
+    out = []
+    for seg in sorted(glob.glob(path + ".*")):
+        opener = gzip.open if seg.endswith(".gz") else open
+        with opener(seg, "rt", encoding="utf-8") as f:
+            out += [json.loads(x) for x in f.read().splitlines()]
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            out += [json.loads(x) for x in f.read().splitlines()]
+    return out
+
+
+def plane_median_ms(fn, n=PLANE_COST_N):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def plane_serve(card, rec, tmp, log_path):
+    """Phase 19, the server: ResNet-50 (bf16, fused) behind a
+    DynamicBatcher and a GPT-1-width generator on one InferenceServer
+    with the SLO ticker at 1 s; the light and load stages against the
+    shipped objectives, the history's exact deltas, the KV-page
+    forecast, the dashboard, a profile capture under traffic, an
+    injected dispatch fault and a federation collector over this
+    server; the costs. Returns the kernel launches of the run."""
+    import glob
+
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults, federation, forecast
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.common import slo, timeseries
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        DynamicBatcher, InferenceModel, InferenceServer, serving)
+    parts = rec["seconds_by_part"]
+    t = time.perf_counter()
+    rs = np.random.RandomState(19)
+    x8 = torch.from_numpy(rs.rand(8, *IMAGE).astype(np.float32))
+    im = InferenceModel(supported_concurrent_num=2).load_keras_net(
+        served_resnet(), example_inputs=[x8.to(DEV, torch.bfloat16)])
+    gnet = gpt_net()
+    params = gnet.build(torch.Generator().manual_seed(0), (GEN_T,))
+    params["tok_embed"] = params["tok_embed"] * GEN_EMBED_SCALE
+    im.load_generator(gnet, params, max_slots=GEN_SLOTS, max_context=GEN_T,
+                      page_size=GEN_PAGE)
+    del params
+    eng = im.generator
+    # one body per request size: the light stage's and the load
+    # stage's; the traced request's 3 rows pad to 4
+    bodies = {n: json.dumps({"inputs": np.round(rs.rand(n, *IMAGE), 3)
+                             .tolist()}).encode()
+              for n in sorted({1, PLANE_LOAD_IMAGES, 3})}
+    srv = InferenceServer(im, port=0, batcher=DynamicBatcher(
+        im, max_batch_size=BATCH, max_wait_ms=5, queue_depth=512))
+    srv.start()
+    port = srv.port
+    parts["build_and_warm"] = time.perf_counter() - t
+    buckets = []
+
+    def admit(reqs):            # records each prefill's bucket
+        n = max(len(r[0]) for r in reqs)
+        buckets.append(next(b for b in eng.prompt_buckets if b >= n))
+        return type(eng).admit(eng, reqs)
+    eng.admit = admit
+    # the host's full garbage collections while the server runs: (count,
+    # longest ms), a stall the clients' latencies would show
+    gc_pauses = [0, 0.0]
+    gc_t0 = [0.0]
+
+    def gc_watch(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_pauses[0] += 1
+            gc_pauses[1] = max(gc_pauses[1], round(
+                (time.perf_counter() - gc_t0[0]) * 1e3, 3))
+    gc.callbacks.append(gc_watch)
+    try:
+        engine = slo.get_engine()
+        want_ids = sorted(d["id"] for d in slo.DEFAULT_SERVING_SLOS +
+                          slo.DEFAULT_FORECAST_SLOS)
+        check(sorted(o["id"] for o in engine.status()["objectives"]) ==
+              want_ids and engine._thread is not None and
+              engine._interval_s == float(PLANE_TICK_S),
+              f"start() installed {engine.status()['objectives']}, ticker "
+              f"{engine._interval_s}")
+        check(forecast._on_sample in timeseries.get_history()._listeners,
+              "start() did not wire the forecaster to the history")
+        snap = obs.snapshot()
+        check(plane_value(snap, "zoo_tpu_serving_gen_free_pages") ==
+              eng.allocator.max_pages and plane_value(
+                  snap, "zoo_tpu_serving_gen_queue_depth") == 0,
+              "the generation gauges are not set before the first request")
+        reset_launches()
+        counts0 = served_counts()
+        steps0 = plane_value(snap, "zoo_tpu_serving_gen_steps_total") or 0
+
+        # -- light stage: the objectives as shipped stay healthy ----------
+        t = time.perf_counter()
+        lat_light = []
+        for _ in range(PLANE_LIGHT):
+            code, _, body, dt = post_json(port, "/predict", bodies[1])
+            out = np.asarray(body["outputs"], np.float32) if code == 200 \
+                else None
+            check(code == 200 and out.shape == (1, 1000) and
+                  np.isfinite(out).all(), f"light /predict {code}")
+            lat_light.append(dt)
+        objs = plane_objectives(port)
+        serving_ids = [d["id"] for d in slo.DEFAULT_SERVING_SLOS]
+        light = {k: (objs[k]["state"], objs[k]["value"]) for k in objs}
+        slowest = sorted(range(PLANE_LIGHT), key=lambda i: -lat_light[i])[:3]
+        print(f"  light stage ({PLANE_LIGHT} /predict of one image, one "
+              f"client): {light}; the clients' p50 "
+              f"{percentile_ms(lat_light, 50):.1f} ms, p99 "
+              f"{percentile_ms(lat_light, 99):.1f} ms, the slowest "
+              f"{[(i, round(lat_light[i] * 1e3, 1)) for i in slowest]} "
+              f"(request, ms); full garbage collections so far "
+              f"{gc_pauses} on {card}", flush=True)
+        for k in serving_ids:
+            check(objs[k]["state"] in ("ok", "no_data"),
+                  f"light stage: {k} is {objs[k]['state']}")
+        rec["light"] = {"objectives": light,
+                        "client_p50_ms": percentile_ms(lat_light, 50),
+                        "client_p99_ms": percentile_ms(lat_light, 99),
+                        "client_max_ms": max(lat_light) * 1e3}
+        parts["light"] = time.perf_counter() - t
+
+        # -- load stage: serving_latency_p99 as shipped -------------------
+        t = time.perf_counter()
+        fam_req = "zoo_tpu_serving_requests_total"
+        fam_lat = "zoo_tpu_serving_request_seconds"
+        base = get_json(port, f"/debug/metrics/history?family={fam_req}")
+        base_ts = plane_points(base, path="/predict",
+                               status="200")[-1]["ts"]
+        a0 = plane_value(obs.snapshot(), "zoo_tpu_anomalies_total",
+                         kind="slo_breach") or 0.0
+        sizes = [PLANE_LOAD_IMAGES] * PLANE_LOAD
+        replies = [None] * PLANE_LOAD
+
+        def client(c):
+            for i in range(c, PLANE_LOAD, HTTP_CLIENTS):
+                replies[i] = post_json(port, "/predict", bodies[sizes[i]])
+
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            for f in [pool.submit(client, c) for c in range(HTTP_CLIENTS)]:
+                f.result()
+        for i, r in enumerate(replies):
+            check(r[0] == 200 and np.asarray(r[2]["outputs"]).shape ==
+                  (sizes[i], 1000), f"load /predict {i}: {r[0]}")
+        client_p99 = float(np.percentile([r[3] for r in replies], 99))
+        objs = plane_objectives(port)
+        lat = objs["serving_latency_p99"]
+        check(lat["value"] is not None, f"load stage: no p99 {lat}")
+        # the clients' p99 as the engine ranks it: over the requests its
+        # 60 s window holds (the load stage and the light stage's latest;
+        # the history's first sample may follow the first requests), the
+        # ceil(0.99 n)-th smallest
+        n_win = int(lat["window_results"][0]["events"])
+        check(PLANE_LOAD < n_win <= PLANE_LIGHT + PLANE_LOAD, f"the "
+              f"engine's window holds {n_win} /predict requests of "
+              f"{PLANE_LIGHT + PLANE_LOAD} sent")
+        ranked = sorted((lat_light + [r[3] for r in replies])[-n_win:])
+        client_rank_p99 = ranked[-(-99 * n_win // 100) - 1]
+        snap = obs.snapshot()
+        breaches = plane_value(snap, "zoo_tpu_slo_breaches_total",
+                               slo="serving_latency_p99") or 0.0
+        a1 = plane_value(snap, "zoo_tpu_anomalies_total",
+                         kind="slo_breach") or 0.0
+        bounds = list(obs.DEFAULT_BUCKETS) + [float("inf")]
+        b_eng = next(i for i, b in enumerate(bounds) if lat["value"] <= b)
+        b_cli = next(i for i, b in enumerate(bounds)
+                     if client_rank_p99 <= b)
+        print(f"  load stage ({PLANE_LOAD} /predict of {sum(sizes)} images "
+              f"from {HTTP_CLIENTS} clients): serving_latency_p99 "
+              f"{lat['state']}, the engine's p99 {lat['value']:.4f} s "
+              f"(windows {[(w['window_s'], w['value']) for w in lat['window_results']]}), "
+              f"the clients' p99 {client_p99:.4f} s over the load stage "
+              f"and {client_rank_p99:.4f} s ranked as the engine ranks "
+              f"({n_win} requests), buckets up to {bounds[b_eng]} / "
+              f"{bounds[b_cli]}; breaches {breaches}, "
+              f"slo_breach anomalies {a0} -> {a1} on {card}", flush=True)
+        check(b_eng == b_cli, f"the engine's p99 {lat['value']} and the "
+              f"clients' {client_rank_p99} lie in different buckets")
+        if lat["state"] == "breach":
+            check(breaches == 1 and a1 == a0 + 1, f"one breach counted "
+                  f"{breaches} times, anomalies {a0} -> {a1}")
+            for k in range(5):
+                objs = plane_objectives(port)
+                snap = obs.snapshot()
+                check(objs["serving_latency_p99"]["state"] == "breach" and
+                      plane_value(snap, "zoo_tpu_slo_breaches_total",
+                                  slo="serving_latency_p99") == 1 and
+                      plane_value(snap, "zoo_tpu_anomalies_total",
+                                  kind="slo_breach") == a1,
+                      f"tick {k + 1} after the breach: "
+                      f"{objs['serving_latency_p99']['state']}, counters "
+                      "moved")
+        print(f"    full garbage collections so far {gc_pauses} (count, "
+              "longest ms)", flush=True)
+        rec["load"] = {"state": lat["state"], "engine_p99_s": lat["value"],
+                       "client_p99_s": client_p99,
+                       "client_rank_p99_s": client_rank_p99,
+                       "breaches": breaches,
+                       "images": sum(sizes)}
+
+        # -- history: exact deltas over the load stage --------------------
+        hist = get_json(port, f"/debug/metrics/history?family={fam_req}"
+                        "&window=600")
+        sent = sum(p["value"] for p in plane_points(
+            hist, path="/predict", status="200") if p["ts"] > base_ts)
+        hist = get_json(port, f"/debug/metrics/history?family={fam_lat}"
+                        "&window=600")
+        counted = sum(p["count"] for p in plane_points(
+            hist, path="/predict") if p["ts"] > base_ts)
+        check(sent == counted == PLANE_LOAD, f"history after the load "
+              f"stage: {sent} requests in the counter's deltas, {counted} "
+              f"in the histogram's summaries, {PLANE_LOAD} sent")
+        for q in ("window=0", "window=x"):
+            code = plane_get(port, "/debug/metrics/history?family="
+                             f"{fam_req}&{q}")[0]
+            check(code == 400, f"history {q}: {code}")
+        print(f"  history: the load stage's {PLANE_LOAD} requests in the "
+              f"counter's deltas ({sent:g}) and the histogram's counts "
+              f"({counted:g}); window=0 and window=x answer 400", flush=True)
+        parts["load_and_history"] = time.perf_counter() - t
+
+        # -- forecast: the page pool fills -------------------------------
+        t = time.perf_counter()
+
+        def eta_pages():
+            snap = obs.snapshot()
+            return (plane_value(snap, "zoo_tpu_forecast_eta_s",
+                                resource="kv_pages"),
+                    plane_value(snap, "zoo_tpu_serving_gen_free_pages"))
+
+        eta0, pages0 = eta_pages()
+        check(eta0 == forecast.NO_ETA and pages0 == eng.allocator.max_pages,
+              f"before /generate: ETA {eta0}, {pages0} pages free")
+        prompts = [rs.randint(1, GPT["vocab"], size=PLANE_GEN_PROMPT).tolist()
+                   for _ in range(GEN_SLOTS)]
+        readings, done = [], threading.Event()
+
+        def sampler():
+            while not done.is_set():
+                readings.append((time.perf_counter(), *eta_pages()))
+                time.sleep(0.1)
+
+        def gen_client(i):
+            time.sleep(0.4 * i)        # the pool falls over ~3 s
+            return post_json(port, "/generate", json.dumps(
+                {"prompt": prompts[i], "max_new_tokens": PLANE_GEN_NEW}
+            ).encode())
+
+        watcher = threading.Thread(target=sampler, daemon=True)
+        watcher.start()
+        with concurrent.futures.ThreadPoolExecutor(GEN_SLOTS) as pool:
+            gen = [f.result() for f in [pool.submit(gen_client, i)
+                                        for i in range(GEN_SLOTS)]]
+        done.set()
+        watcher.join()
+        for i, r in enumerate(gen):
+            check(r[0] == 200 and len(r[2]["tokens"]) == PLANE_GEN_NEW,
+                  f"/generate {i}: {r[0]} {str(r[2])[:200]}")
+        falling = [(e, p) for _, e, p in readings
+                   if p is not None and p < eng.allocator.max_pages]
+        finite = [e for e, p in falling if e < forecast.NO_ETA]
+        min_pages = min(p for _, p in falling)
+        check(finite, f"the kv_pages ETA never left {forecast.NO_ETA} while "
+              f"free pages fell to {min_pages}")
+        least = min(finite, default=None)
+        objs = plane_objectives(port)
+        kv_rule = objs["forecast_kv_pages_eta"]
+        pending = objs["forecast_capacity_pending"]
+        print(f"  forecast: free pages fell to {min_pages} of "
+              f"{eng.allocator.max_pages}; the kv_pages ETA finite in "
+              f"{len(finite)} of {len(falling)} readings while they fell, "
+              f"least {least} s; forecast_kv_pages_eta "
+              f"{kv_rule['state']} (breaches {kv_rule['breaches']}), "
+              f"forecast_capacity_pending {pending['state']}; "
+              f"{len(gen)} /generate of {PLANE_GEN_PROMPT} + "
+              f"{PLANE_GEN_NEW} tokens, prefills at {buckets} on {card}",
+              flush=True)
+        rec["forecast"] = {"min_free_pages": min_pages,
+                           "finite_readings": len(finite),
+                           "falling_readings": len(falling),
+                           "least_eta_s": least,
+                           "kv_pages_eta": kv_rule["state"],
+                           "kv_pages_eta_breaches": kv_rule["breaches"],
+                           "capacity_pending": pending["state"]}
+        parts["forecast"] = time.perf_counter() - t
+        t_idle = time.perf_counter()
+
+        # -- dashboard ----------------------------------------------------
+        code, hdrs, raw = plane_get(port, "/debug/dashboard")
+        check(code == 200 and hdrs["Content-Type"].startswith("text/html")
+              and raw == serving._dashboard_html(),
+              f"/debug/dashboard: {code} {hdrs['Content-Type']}, "
+              f"{len(raw)} bytes")
+
+        # -- profile under /predict traffic --------------------------------
+        t = time.perf_counter()
+        prof_dir = os.path.join(tmp, "profile")
+        stop = threading.Event()
+        side = {"ok": 0, "bad": []}
+
+        def traffic():
+            while not stop.is_set():
+                code = post_json(port, "/predict", bodies[1])[0]
+                if code == 200:
+                    side["ok"] += 1
+                else:
+                    side["bad"].append(code)
+
+        bg = threading.Thread(target=traffic, daemon=True)
+        bg.start()
+        while side["ok"] < 2 and not side["bad"]:
+            time.sleep(0.01)
+        body = json.dumps({"dir": prof_dir, "ms": 500}).encode()
+        first = post_json(port, "/debug/profile", body)
+        second = post_json(port, "/debug/profile", body)
+        serving._profile_thread.join(timeout=120)
+        stop.set()
+        bg.join()
+        check(first[0] == 200 and second[0] == 503 and not side["bad"],
+              f"/debug/profile {first[0]} then {second[0]}; traffic "
+              f"{side}")
+        files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+        check(len(files) == 1, f"profile traces {files}; events "
+              f"{[e for e in plane_events(log_path) if 'profile' in e['event']]}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        check(kernels, "the capture holds no CUDA kernel event")
+        found = {label: sum(bool(re.search(pat, n)) for n in kernels)
+                 for label, pat in SERVE_KERNEL_NAMES}
+        print(f"  profile: 200 then 503 during the capture; "
+              f"{len(events)} events, {len(kernels)} CUDA kernels, B5/B6 "
+              f"by name {found}; {side['ok']} /predict beside it on {card}",
+              flush=True)
+        check(all(found.values()), f"the capture misses {found}")
+        rec["profile"] = {"events": len(events), "kernels": len(kernels),
+                          "by_name": found}
+        parts["profile"] = time.perf_counter() - t
+
+        # -- an injected dispatch fault ------------------------------------
+        faults.arm("batcher/dispatch", "error", times=1)
+        failed = post_json(port, "/predict", bodies[1])
+        after = post_json(port, "/predict", bodies[1])
+        logged = [(e["event"], e.get("point")) for e in plane_events(log_path)
+                  if e["event"].startswith("faults/")]
+        check(failed[0] == 500 and after[0] == 200 and logged == [
+            ("faults/armed", "batcher/dispatch"),
+            ("faults/injected", "batcher/dispatch")],
+            f"armed fault: {failed[0]}, then {after[0]}; log {logged}")
+
+        # -- federation over this server ----------------------------------
+        t = time.perf_counter()
+        replica = type("Replica", (), {"name": "r0",
+                                       "url": f"http://127.0.0.1:{port}"})()
+        holder = type("Router", (), {})()
+        holder.pool = type("Pool", (), {"replicas": [replica]})()
+        col = federation.TelemetryCollector(holder, tick_s=0)
+        col.tick()
+        cursor0 = col.status()["sources"]["r0"]["trace_cursor"]
+        tid = "smoke-plane-fed"
+        code, hdrs, _, _ = post_json(port, "/predict", bodies[3],
+                                     {"X-Zoo-Trace-Id": tid})
+        check(code == 200 and hdrs["X-Zoo-Trace-Id"] == tid,
+              f"traced /predict {code}")
+        col.tick()
+        cursor1 = col.status()["sources"]["r0"]["trace_cursor"]
+        with col.aggregator._lock:
+            spans = list(col.aggregator._buf)
+        for src in ("router", "r0"):
+            ids = [s["span_id"] for s in spans if s["source"] == src]
+            check(len(ids) == len(set(ids)),
+                  f"{src}: {len(ids) - len(set(ids))} spans repeated")
+        stitched = col.aggregator.trace(tid)
+        names = {s["name"] for s in stitched["spans"]
+                 if s["source"] == "r0"}
+        check(cursor1 > cursor0 and {
+            "serving/request", "serving/queue_wait", "serving/pad",
+            "serving/predict", "serving/scatter"} <= names,
+            f"cursor {cursor0} -> {cursor1}; trace {tid} from r0 holds "
+            f"{names}")
+        col.tick()
+        merged, conflicts = col.merged_snapshot()
+        local = get_json(port, "/metrics/json")["metrics"]
+        compared = 0
+        for name, fam in local.items():
+            if fam["type"] != "counter" or \
+                    not name.startswith("zoo_tpu_serving_"):
+                continue
+            for child in fam["values"]:
+                if child["labels"].get("path") in ("/metrics/json",
+                                                   "/debug/traces"):
+                    continue        # the collector's own scrapes
+                got = plane_value(merged, name, **child["labels"])
+                # two sources, one registry: the router's own process
+                # and the replica's /metrics/json
+                check(got == 2 * child["value"], f"merged {name}"
+                      f"{child['labels']} {got}, /metrics/json "
+                      f"{child['value']}")
+                compared += 1
+        snap = obs.snapshot()
+        fed = {k: snap[k]["values"] for k in snap
+               if k.startswith("zoo_tpu_fed_")}
+        check(not conflicts and compared > 0 and
+              plane_value(snap, "zoo_tpu_fed_sources") == 2 and
+              plane_value(snap, "zoo_tpu_fed_scrapes_total", replica="r0",
+                          ok="1") == 3 and
+              "zoo_tpu_fed_latency_p99_seconds" in fed and
+              "zoo_tpu_fed_error_ratio" in fed,
+              f"federation: conflicts {conflicts}, {compared} counters, "
+              f"fed metrics {sorted(fed)}")
+        print(f"  federation: {compared} serving counters merged over the "
+              f"router and r0 equal twice /metrics/json's; trace cursor "
+              f"{cursor0} -> {cursor1}, no span repeated; {tid} stitched "
+              f"with {sorted(names)}; {sorted(fed)}", flush=True)
+        parts["federation"] = time.perf_counter() - t
+
+        # -- costs on the host --------------------------------------------
+        hist_store = timeseries.get_history()
+        costs = {"slo_tick_ms": plane_median_ms(engine.tick),
+                 "history_sample_ms": plane_median_ms(hist_store.sample),
+                 "collector_tick_ms": plane_median_ms(col.tick),
+                 "history_bytes": hist_store.stats()["resident_bytes"],
+                 "objectives": len(engine.status()["objectives"]),
+                 "families": len(obs.snapshot())}
+        print(f"  costs (host, the median of {PLANE_COST_N}): "
+              f"SLOEngine.tick() {costs['slo_tick_ms']:.3f} ms over "
+              f"{costs['objectives']} objectives and {costs['families']} "
+              f"families, MetricHistory.sample() (the forecaster "
+              f"riding it) {costs['history_sample_ms']:.3f} ms, collector "
+              f"tick (two HTTP scrapes and the merge) "
+              f"{costs['collector_tick_ms']:.3f} ms; the history "
+              f"{costs['history_bytes']} bytes resident "
+              f"({hist_store.stats()['raw_samples']} raw samples) on {card}",
+              flush=True)
+        rec["costs"] = costs
+
+        # -- the ETA back to its sentinel, idle ---------------------------
+        t = time.perf_counter()
+        while True:
+            eta, pages = eta_pages()
+            if eta == forecast.NO_ETA and pages == eng.allocator.max_pages:
+                break
+            check(time.perf_counter() - t_idle < 60, f"idle for "
+                  f"{time.perf_counter() - t_idle:.1f} s: ETA {eta}, "
+                  f"{pages} pages free")
+            time.sleep(0.25)
+        rec["forecast"]["idle_to_no_eta_s"] = time.perf_counter() - t_idle
+        print(f"  the kv_pages ETA back to {forecast.NO_ETA:g} "
+              f"{rec['forecast']['idle_to_no_eta_s']:.1f} s after the pool "
+              f"refilled", flush=True)
+        parts["idle_wait"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = all_launches()
+        counts1 = served_counts()
+        steps = (plane_value(obs.snapshot(),
+                             "zoo_tpu_serving_gen_steps_total") or 0) - steps0
+    finally:
+        gc.callbacks.remove(gc_watch)
+        del eng.admit
+        srv.stop()
+    rec["full_gc"] = gc_pauses
+    execs = counts1["batch_executions"] - counts0["batch_executions"]
+    n_b7 = sum(b >= 1024 for b in buckets)
+    nb = GPT["n_block"]
+    want = {"matmul_bn_apply": 36 * execs, "conv3x3_bn_apply": 16 * execs,
+            "flash_decode": nb * steps, "flash_fwd": nb * n_b7}
+    want.update({k: 0 for k in launches if k not in want})
+    print(f"  the server's launches {launches} in {execs} bucket "
+          f"executions, {steps:g} decode steps and {n_b7} prefills at "
+          f"buckets >= 1024", flush=True)
+    check(launches == want and n_b7 > 0 and steps > 0,
+          f"launches {launches}, expected {want}")
+    return launches
+
+
+def plane_train(card, rec):
+    """Phase 19, training: ``Estimator.train`` on bench.py's flagship
+    (s2d stem, ``fused="defer"``, batch 128, ``mixed_bfloat16``) installs
+    the training objectives; B1-B4 launch 36/16/36/36 per step."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common import slo
+    zoo.init_nncontext(seed=0)
+    n = PLANE_TRAIN_STEPS * TRAIN_BATCH
+    gen = np.random.default_rng(19)
+    x = gen.random((n, *IMAGE), dtype=np.float32)
+    y = gen.integers(0, 1000, size=(n, 1)).astype(np.int32)
+    net = flagship_model()
+    net.init_params()
+    compile_flagship(net)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = net.fit(x, y, batch_size=TRAIN_BATCH, nb_epoch=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    steps = PLANE_TRAIN_STEPS
+    want = {"matmul_bn": 36 * steps, "conv3x3_bn": 16 * steps,
+            "matmul_bn_dx": 36 * steps, "matmul_bn_dw": 36 * steps}
+    want.update({k: 0 for k in launches if k not in want})
+    losses = res.history[-1]["losses"]
+    check(launches == want and len(losses) == steps and
+          np.isfinite(losses).all(), f"train: launches {launches} (expected"
+          f" {want}), losses {losses}")
+    objs = {o["id"]: o for o in slo.get_engine().tick()["objectives"]}
+    rules = {d["id"]: (objs[d["id"]]["state"], objs[d["id"]]["value"])
+             for d in slo.DEFAULT_TRAINING_SLOS if d["id"] in objs}
+    check(len(rules) == 3, f"training objectives installed: {sorted(objs)}")
+    print(f"  Estimator.train, {steps} steps at batch {TRAIN_BATCH} in "
+          f"{wall:.2f} s: launches per step B1 {launches['matmul_bn'] / steps:g}"
+          f", B2 {launches['conv3x3_bn'] / steps:g}, B3 "
+          f"{launches['matmul_bn_dx'] / steps:g}, B4 "
+          f"{launches['matmul_bn_dw'] / steps:g}; the training objectives "
+          f"{rules} on {card}", flush=True)
+    rec["train"] = {"wall_s": wall, "rules": rules,
+                    "launches": {k: v for k, v in launches.items() if v}}
+    del net, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plane_path(card, detail):
+    """Phase 19: the observability plane's judgement layer on the card
+    (:func:`plane_serve`, :func:`plane_train`), then the event log's
+    rotation. Returns the serving and the training launches."""
+    import glob
+    import tempfile
+
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common import forecast, slo, timeseries
+    from analytics_zoo_tpu_torch.common import observability as obs
+    t0 = time.perf_counter()
+    rec = {"seconds_by_part": {}}
+    env = {"ZOO_TPU_SLO_TICK_S": PLANE_TICK_S,
+           "ZOO_TPU_FORECAST_WINDOW_S": PLANE_FORECAST_WINDOW_S,
+           "ZOO_TPU_EVENT_LOG_MAX_MB": PLANE_EVENT_LOG_MAX_MB}
+    saved = {k: os.environ.get(k) for k in list(env) + ["ZOO_TPU_EVENT_LOG"]}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out")
+                                     ) as tmp:
+        log_path = os.path.join(tmp, "events.jsonl")
+        env["ZOO_TPU_EVENT_LOG"] = log_path
+        # the earlier phases' servers left an engine ticking: start clean
+        for reset in (slo.reset_slo, forecast.reset_forecast,
+                      timeseries.reset_history, obs.reset_metrics):
+            reset()
+        # the earlier phases' heap out of the collector's sight, as a
+        # server's own process would start: a full collection of it took
+        # 234-377 ms and stalled one light-stage request
+        gc.collect()
+        gc.freeze()
+        print(f"  {gc.get_freeze_count()} objects of the earlier phases "
+              "frozen out of the garbage collector's scans", flush=True)
+        os.environ.update(env)
+        try:
+            zoo.init_nncontext(seed=0)
+            served = plane_serve(card, rec, tmp, log_path)
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            trained = plane_train(card, rec)
+            rec["seconds_by_part"]["train"] = time.perf_counter() - t
+            # the event log, with no writer left: rotated, and its bytes
+            # gauge the files on disk
+            slo.get_engine().stop()
+            rotated = sorted(os.path.basename(p)
+                             for p in glob.glob(log_path + ".*"))
+            on_disk = sum(os.path.getsize(p) for p in
+                          glob.glob(log_path + ".*") + [log_path])
+            gauge = plane_value(obs.snapshot(), "zoo_tpu_event_log_bytes")
+            rotations = plane_value(obs.snapshot(),
+                                    "zoo_tpu_event_log_rotations_total")
+            events = collections.Counter(e["event"]
+                                         for e in plane_events(log_path))
+            print(f"  event log: {rotations:g} rotations, segments "
+                  f"{rotated}, {gauge:g} bytes by the gauge and {on_disk} "
+                  f"on disk; kept records {dict(events)}", flush=True)
+            check("events.jsonl.1.gz" in rotated and gauge == on_disk,
+                  f"event log: segments {rotated}, gauge {gauge}, disk "
+                  f"{on_disk}")
+            rec["event_log"] = {"rotations": rotations, "segments": rotated,
+                                "bytes": on_disk, "kept": dict(events)}
+        finally:
+            gc.unfreeze()
+            for reset in (slo.reset_slo, forecast.reset_forecast,
+                          timeseries.reset_history, obs.reset_metrics):
+                reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 19 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in rec['seconds_by_part'].items()} };"
+          f" in {rec['seconds']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}", flush=True)
+    detail["plane"] = rec
+    return served, trained
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6612,6 +7321,13 @@ def main() -> int:
           f"H 12, D 64): chunk, chunks = "
           f"{fa.decode_plan(GEN_SLOTS, 12, GEN_T, 64, torch.float32)}",
           flush=True)
+
+    if sys.argv[1:] == ["--plane"]:
+        # phase 19 alone, on the built libraries; no result line
+        print("[19] the observability plane's judgement layer", flush=True)
+        plane_path(card, detail)
+        print(card)
+        return 0
 
     print("[3] kernels against their plain versions", flush=True)
     shapes_net = ImageClassifier("resnet-50", input_shape=IMAGE,
@@ -6756,9 +7472,21 @@ def main() -> int:
           "image_classification", flush=True)
     recipe = image_data_path(card, detail)
 
-    print("[19] summary", flush=True)
+    print("[19] the observability plane's judgement layer: the SLO "
+          "engine, metric history, capacity forecast, federation, the "
+          "event log's rotation and /debug/slo, /debug/metrics/history, "
+          "/debug/dashboard and /debug/profile on ResNet-50 and GPT-1 "
+          "widths, then the training objectives on bench.py's flagship",
+          flush=True)
+    plane_served, plane_trained = plane_path(card, detail)
+
+    print("[20] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        if plane_served.get(rec["name"]):
+            rec["launches_plane"] = plane_served[rec["name"]]
+        if plane_trained.get(rec["name"]):
+            rec["launches_plane_train"] = plane_trained[rec["name"]]
         if recipe.get(rec["name"]):
             rec["launches_recipe"] = recipe[rec["name"]]
         if surface.get(rec["name"]):

@@ -141,11 +141,14 @@ def test_bridge_round_trip_is_bit_exact(jax_served):
 
 
 def test_port_imports_no_jax():
-    # a fresh process builds and runs ResNet-50 through the port; JAX
-    # and the JAX package are never imported
+    # a fresh process builds and runs ResNet-50 through the port and
+    # imports the judgement layer; JAX and the JAX package are never
+    # imported
     code = (
         "import sys, numpy as np\n"
         "import analytics_zoo_tpu_torch as z\n"
+        "from analytics_zoo_tpu_torch.common import (federation, forecast,"
+        " slo, timeseries)\n"
         "from analytics_zoo_tpu_torch.models.image.imageclassification "
         "import resnet50\n"
         "from analytics_zoo_tpu_torch.pipeline.inference import "

@@ -11,7 +11,10 @@ a stride-2 ``FusedBottleneck`` with distinctive BatchNorm statistics, at
 Pallas interpret mode), identical greedy ``/generate`` tokens for
 ``prompt`` and ``prompts`` (a 2-block ``TransformerLayer``, hidden 32),
 the trace header echoed or minted with the batcher's spans under it,
-and the batcher's families in ``/metrics``.
+the batcher's families in ``/metrics``, and the judgement layer's
+routes: ``/debug/slo``'s objectives and states and
+``/debug/metrics/history``'s windowed deltas after the same requests,
+and the fleet routes' 404s while no collector is mounted.
 
 Each package's servers start once per module; every client call has a
 timeout and every server is stopped in a ``finally``.
@@ -40,6 +43,8 @@ from analytics_zoo_tpu.pipeline.inference import batching as jb
 from analytics_zoo_tpu.pipeline.inference import \
     InferenceModel as JInferenceModel
 from analytics_zoo_tpu.pipeline.inference import serving as jsv
+from analytics_zoo_tpu.common import forecast as jfc
+from analytics_zoo_tpu.common import slo as jslo
 from analytics_zoo_tpu_torch.models.image.imageclassification import \
     resnet as tr
 from analytics_zoo_tpu_torch.pipeline.api.keras import engine as te
@@ -50,6 +55,10 @@ from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
 from analytics_zoo_tpu_torch.pipeline.inference import batching as tb
 from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 from analytics_zoo_tpu_torch.pipeline.inference import serving as tsv
+from analytics_zoo_tpu_torch.common import forecast as tfc
+from analytics_zoo_tpu_torch.common import observability as tobs
+from analytics_zoo_tpu_torch.common import slo as tslo
+from analytics_zoo_tpu_torch.common import timeseries as tts
 
 SIDES = ("port", "jax")
 TIMEOUT = 60
@@ -144,6 +153,22 @@ class _StubModel:
         if self.fail:
             raise RuntimeError("stub model exploded")
         return np.asarray(xs[0] if isinstance(xs, list) else xs) * 2.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _manual_slo_ticks():
+    """Every server of this module starts its SLO engine with no
+    background ticker: ``/debug/slo`` ticks it by hand."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("ZOO_TPU_SLO_TICK_S", "0")
+    tslo.reset_slo()
+    try:
+        yield
+    finally:
+        mp.undo()
+        tslo.reset_slo()
+        tts.reset_history()
+        tfc.reset_forecast()
 
 
 @pytest.fixture(scope="module")
@@ -517,9 +542,101 @@ def test_routes_not_ported_answer_404(servers):
     port = servers["port"]["main"].port
     for method, path in (("POST", "/generate/prefill"),
                          ("POST", "/generate/handoff"),
-                         ("POST", "/debug/profile"),
-                         ("GET", "/debug/slo"), ("GET", "/debug/fleet"),
-                         ("GET", "/debug/dashboard")):
+                         ("GET", "/debug/fleet"),
+                         ("GET", "/debug/rollout")):
         code, _, body = _call(port, method, path,
                               b"{}" if method == "POST" else None)
         assert code == 404 and body["error"]["path"] == path
+
+
+# -- the judgement layer's routes (these reset both registries: last) ---------
+
+def _fresh_judgement_plane():
+    """Both packages' registries, histories, engines and forecasters
+    emptied, then the serving and forecast objectives installed in each,
+    as ``InferenceServer.start`` installs them."""
+    from analytics_zoo_tpu.common import observability as jobs
+    from analytics_zoo_tpu.common import timeseries as jts
+    for obs, slo, fc, ts in ((tobs, tslo, tfc, tts), (jobs, jslo, jfc, jts)):
+        obs.reset_metrics()
+        slo.reset_slo()
+        fc.reset_forecast()
+        ts.reset_history()
+        slo.ensure_default_slos("serving")
+        slo.ensure_default_slos("forecast")
+        fc.ensure_forecaster()
+
+
+def test_debug_slo_matches_jax(servers):
+    _fresh_judgement_plane()
+    first = _both(servers, "main", "GET", "/debug/slo")
+    x = json.dumps({"inputs": [[0.25] * 16]}).encode()
+    for side in SIDES:
+        port = servers[side]["main"].port
+        for _ in range(10):
+            assert _post(port, "/predict", x)[0] == 200
+        for _ in range(2):
+            assert _call(port, "GET", "/nope")[0] == 404
+    second = _both(servers, "main", "GET", "/debug/slo")
+    passive = _both(servers, "main", "GET", "/debug/slo?tick=0")
+    for got in (first, second, passive):
+        assert got["port"][0] == got["jax"][0] == 200
+    assert passive["port"][2]["ticks"] == second["port"][2]["ticks"] == 2
+
+    def judged(status):
+        return [{k: v for k, v in o.items()
+                 if k not in ("value", "window_results", "since")}
+                for o in status["objectives"]]
+
+    assert judged(first["port"][2]) == judged(first["jax"][2])
+    assert judged(second["port"][2]) == judged(second["jax"][2])
+    rules = {o["id"]: o for o in second["port"][2]["objectives"]}
+    jrules = {o["id"]: o for o in second["jax"][2]["objectives"]}
+    # 2 of 13 requests failed: burn 15.4 against the budget of 1%
+    assert rules["serving_error_rate"]["state"] == "breach"
+    assert rules["serving_error_rate"]["value"] == \
+        jrules["serving_error_rate"]["value"] == 2 / 13
+    assert rules["serving_latency_p99"]["state"] == "no_data"
+    assert rules["forecast_kv_pages_eta"]["state"] == "ok"
+
+
+def test_metrics_history_matches_jax(servers):
+    _fresh_judgement_plane()
+    path = "/debug/metrics/history?family=zoo_tpu_serving_requests_total"
+    x = json.dumps({"inputs": [[0.5] * 16]}).encode()
+    # a label set's first sample is its baseline: make it before the
+    # history's first sample, so every request below counts in a delta
+    for side in SIDES:
+        assert _post(servers[side]["main"].port, "/predict", x)[0] == 200
+    _both(servers, "main", "GET", path)
+    for side in SIDES:
+        for _ in range(6):
+            assert _post(servers[side]["main"].port, "/predict", x)[0] == 200
+    got = _both(servers, "main", "GET", path + "&window=600")
+
+    def sums(payload):
+        return {json.dumps(s["labels"], sort_keys=True):
+                sum(p["value"] for p in s["points"])
+                for s in payload["series"]}
+
+    assert got["port"][0] == got["jax"][0] == 200
+    assert sums(got["port"][2]) == sums(got["jax"][2])
+    assert sums(got["port"][2])[json.dumps(
+        {"path": "/predict", "status": "200"}, sort_keys=True)] == 6
+    fams = _both(servers, "main", "GET", "/debug/metrics/history")
+    assert {f["family"] for f in fams["port"][2]["families"]} >= {
+        "zoo_tpu_serving_requests_total", "zoo_tpu_serving_queue_depth",
+        "zoo_tpu_serving_request_seconds"}
+    for q in ("window=0", "window=x", "window=-1"):
+        bad = _both(servers, "main", "GET", path + "&" + q)
+        assert bad["port"][0] == bad["jax"][0] == 400
+        assert bad["port"][2] == bad["jax"][2]
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/metrics?fleet=1"), ("GET", "/debug/fleet/telemetry"),
+    ("GET", "/debug/metrics/history?fleet=1")])
+def test_fleet_routes_answer_404_like_jax(servers, method, path):
+    got = _both(servers, "main", method, path)
+    assert got["port"][0] == got["jax"][0] == 404
+    assert got["port"][2] == got["jax"][2]
