@@ -8,7 +8,7 @@ where every kernel wrapper runs its plain PyTorch version).
 
 from analytics_zoo_tpu_torch.common.nncontext import (
     get_nncontext, init_nncontext, reset_nncontext)
+from analytics_zoo_tpu_torch.version import __version__
 
-__version__ = "0.1.0"
-
-__all__ = ["get_nncontext", "init_nncontext", "reset_nncontext"]
+__all__ = ["get_nncontext", "init_nncontext", "reset_nncontext",
+           "__version__"]

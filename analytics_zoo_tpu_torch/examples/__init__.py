@@ -19,4 +19,9 @@ EXAMPLES = [
     "inference_serving",
     "quantized_serving",
     "streaming_inference",
+    "nnframes_classification",
+    "bert_finetune",
+    "transformer_sentiment",
+    "autograd_custom",
+    "vae_mnist",
 ]

@@ -9,10 +9,10 @@ import sys
 from analytics_zoo_tpu_torch.examples import EXAMPLES
 
 
-def _hook(name: str) -> str:
-    """The first sentence of the example's docstring, read from its
-    source (listing imports no example)."""
-    path = os.path.join(os.path.dirname(__file__), name + ".py")
+def hook(main_file: str, name: str) -> str:
+    """The first sentence of the docstring of the module ``name`` beside
+    ``main_file``, read from its source (listing imports no module)."""
+    path = os.path.join(os.path.dirname(main_file), name + ".py")
     with open(path) as f:
         doc = ast.get_docstring(ast.parse(f.read())) or ""
     first = " ".join(doc.split("\n\n")[0].split())
@@ -26,7 +26,7 @@ def main(argv=None):
         print("usage: python -m analytics_zoo_tpu_torch.examples "
               "<name> [args...]\n\nexamples:")
         for e in EXAMPLES:
-            print(f"  {e:24s} {_hook(e)}")
+            print(f"  {e:24s} {hook(__file__, e)}")
         return 0
     name = argv[0].replace("-", "_")
     if name not in EXAMPLES:

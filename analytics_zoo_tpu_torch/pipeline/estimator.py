@@ -827,8 +827,9 @@ class Estimator:
             self._merge_updates(params, state_upd)
         return loss.detach()
 
-    def _forward_eval(self, x):
-        out = self.model.call(self.model.params(), x, training=False)
+    def _forward_eval(self, x, params=None):
+        out = self.model.call(self.model.params() if params is None
+                              else params, x, training=False)
         return _cast_floats(out, torch.float32) if self._mixed else out
 
     def _sync(self) -> None:
@@ -1126,15 +1127,18 @@ class Estimator:
         return total, n
 
     @torch.no_grad()
-    def predict(self, data, batch_size: int = 32):
+    def predict(self, data, batch_size: int = 32, params=None):
         """Outputs over every sample: an array, or one array per output
-        of a multi-output model."""
+        of a multi-output model. ``params`` (a tree of the net's
+        structure on its device) runs other weights than the net's own
+        (an ``NNModel``'s)."""
         ds = to_dataset(data)
         self._ensure_initialized()
         batches, place = self._batches(ds, batch_size, shuffle=False,
                                        drop_last=False)
         try:
-            outs = [to_numpy(self._forward_eval(place.take(batch)[0]))
+            outs = [to_numpy(self._forward_eval(place.take(batch)[0],
+                                                params))
                     for batch in batches]
         finally:
             batches.close()

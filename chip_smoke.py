@@ -314,10 +314,30 @@ script exits non-zero and prints no result line:
    128: B1-B4 36/16/36/36 per step) installs the training objectives,
    and the event log's segments and bytes gauge match the disk.
    ``python3 chip_smoke.py --plane`` runs phases 1, 2 and 19 only;
-20. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
-   ``launches_plane`` and ``launches_plane_train``), then the card's
-   name and power limit, then the result line
-   ``{"ok": true, "device": {...}}``.
+20. nnframes: BASELINE's metric, "nnframes ResNet-50 images/sec/chip",
+   on bench.py's flagship (s2d stem, ``fused="defer"``, batch 128,
+   ``mixed_bfloat16``, SGD 0.1 momentum 0.9): 512 rows of seeded uint8
+   images in a pandas DataFrame, normalised by ``ArrayToTensor >>
+   FnPreprocessing``, ``NNClassifier.fit`` for 2 epochs of 4 steps
+   (B1-B4 36/16/36/36 per step, 8 ``in_residual`` and 8 dr) and
+   ``NNClassifierModel.transform`` at batch 128 (B5/B6 36/16 per
+   forward); the rows' host ms to a ``FeatureSet``, the median step's
+   images/s and MFU from the Estimator's own ``train/step`` traces
+   (host clock, ``ZOO_TPU_TRACE_SYNC=1``: a card sync per step),
+   transform images/s; the prediction column held to the argmax
+   of ``Estimator.predict`` with the same weights, and the fit's weights
+   to ``Estimator.train`` of the same initial weights over the same
+   arrays (2e-2 of max(1, max|w|); it reads bit for bit). Then the
+   dogs-vs-cats app at BASELINE's configuration (Inception-v1 at 224, 2
+   classes, every layer but the head frozen, ``--in-memory``): the
+   frozen weights bit for bit, fit and transform images/s; then the
+   slice's apps and examples at their defaults (``bert_finetune`` at
+   BERT-base widths, T 128), each held to its CPU test's assertion.
+   ``python3 chip_smoke.py --nnframes`` runs phases 1, 2 and 20 only;
+21. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
+   ``launches_plane`` and ``launches_plane_train``, phase 20's as
+   ``launches_nnframes``), then the card's name and power limit, then
+   the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
@@ -7231,6 +7251,344 @@ def plane_path(card, detail):
     return served, trained
 
 
+# -- nnframes (phase 20) ------------------------------------------------------
+
+# BASELINE's metric, "nnframes ResNet-50 images/sec/chip", on bench.py's
+# flagship: 512 rows, 2 epochs of 4 steps at batch 128
+NN_ROWS, NN_EPOCHS = 512, 2
+# dogs-vs-cats (BASELINE's second configuration): Inception-v1 at 224,
+# 2 classes, everything but the head frozen; 64 images a class
+DOGS_PER_CLASS, DOGS_BATCH, DOGS_EPOCHS = 64, 32, 2
+# the nnframes fit against Estimator.train in bf16 (mixed_bfloat16)
+NN_BF16_BOUND = 2e-2
+
+
+def scale_pixels(a):
+    """The flagship's input normalisation as a preprocessing stage."""
+    return (a - 127.5) / 127.5
+
+
+def step_traces():
+    """The seconds of each training step that starts before ``close()``,
+    read from the Estimator's own ``train/step`` traces with
+    ``ZOO_TPU_TRACE_SYNC=1`` (a card sync closes each step, so a span is
+    the step's time on the host clock, the host not running ahead); for
+    the Estimator that ``fit`` makes itself."""
+    from analytics_zoo_tpu_torch.common import tracing
+    store = tracing.get_store()
+    mark = store.latest_seq()
+    prev = os.environ.get("ZOO_TPU_TRACE_SYNC")
+    os.environ["ZOO_TPU_TRACE_SYNC"] = "1"
+
+    def close():
+        if prev is None:
+            os.environ.pop("ZOO_TPU_TRACE_SYNC", None)
+        else:
+            os.environ["ZOO_TPU_TRACE_SYNC"] = prev
+        _, recs = store.records_since(mark)
+        return [r.dur_s for r in recs if r.name == "train/step"]
+
+    return close
+
+
+def nn_step_rates(step_s, batch, flop_per_image=None, dtype="bfloat16"):
+    """The median step's images/s and, given the model's FLOPs per
+    image, its MFU against ``dtype``'s peak; the first step (the builds
+    and the FLOP count) left out."""
+    med = statistics.median(step_s[1:])
+    rate = batch / med
+    out = {"step_s": step_s, "median_step_ms": med * 1e3,
+           "images_per_s": rate}
+    if flop_per_image is not None:
+        out["mfu"] = rate * flop_per_image / PEAK_FLOPS[dtype]
+    return out
+
+
+def nnframes_resnet(card, rec):
+    """Phase 20, part 1: ``NNClassifier.fit`` of bench.py's flagship from
+    rows of uint8 images normalised by a preprocessing chain, then
+    ``NNClassifierModel.transform``; the launches, the step rate and MFU,
+    the prediction column against ``Estimator.predict`` and the trained
+    weights against ``Estimator.train`` of the same initial weights over
+    the same arrays. Returns the fit's and the transform's launches."""
+    import torch
+
+    import pandas as pd
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.feature.common import (ArrayToTensor,
+                                                        FnPreprocessing)
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import tree_leaves
+    from analytics_zoo_tpu_torch.pipeline.estimator import (Estimator,
+                                                            _leaf_paths)
+    from analytics_zoo_tpu_torch.pipeline.nnframes import NNClassifier
+    zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(20)
+    images = rs.randint(0, 256, (NN_ROWS, *IMAGE)).astype(np.uint8)
+    labels = rs.randint(0, 1000, NN_ROWS)
+    df = pd.DataFrame({"features": list(images), "label": labels})
+    print(f"  pandas {pd.__version__}: {NN_ROWS} rows in a DataFrame",
+          flush=True)
+    pre = ArrayToTensor(IMAGE) >> FnPreprocessing(scale_pixels)
+    net = flagship_model()
+    net.init_params()
+    compile_flagship(net)
+    w0 = params_to_numpy(net)
+    clf = (NNClassifier(net, "softmax_cross_entropy", pre)
+           .set_batch_size(TRAIN_BATCH).set_max_epoch(NN_EPOCHS)
+           .set_optim_method(SGD(lr=0.1, momentum=0.9)))
+    t = time.perf_counter()
+    fs = clf._df_to_feature_set(df)
+    host_ms = (time.perf_counter() - t) * 1e3
+    check(fs.num_samples == NN_ROWS, f"FeatureSet of {fs.num_samples} rows")
+    del fs
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        close = step_traces()
+        t = time.perf_counter()
+        try:
+            model = clf.fit(df)
+        finally:
+            step_s = close()
+        fit_wall = time.perf_counter() - t
+        fit_launches = all_launches()
+        residual = dict(cb.residual_launches)
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    steps = model.estimator.step
+    check(steps == NN_EPOCHS * NN_ROWS // TRAIN_BATCH and
+          len(step_s) == steps, f"fit: {steps} steps, {len(step_s)} timed")
+    check(model.estimator.dtype_policy == "mixed_bfloat16",
+          f"fit's policy {model.estimator.dtype_policy}")
+    check_train_launches(fit_launches, steps, "nnframes fit")
+    check(residual == {"matmul_bn": 8 * steps, "matmul_bn_dx": 8 * steps},
+          f"nnframes fit: in_residual/dr launches {residual}")
+    rates = nn_step_rates(step_s, TRAIN_BATCH, TRAIN_FLOP_PER_IMAGE)
+    print(f"  rows to FeatureSet {host_ms:.1f} ms on the host ({NN_ROWS} "
+          f"rows of {IMAGE} uint8 through ArrayToTensor >> scale); fit "
+          f"{steps} steps in {fit_wall:.2f} s: median step "
+          f"{rates['median_step_ms']:.2f} ms (host clock, a card sync "
+          f"per step), {rates['images_per_s']:.1f} images/s, model-FLOPs MFU "
+          f"{rates['mfu']:.4f} (against 989 TFLOP/s); steps (s) "
+          f"{[round(s, 4) for s in step_s]}; launches per step B1 "
+          f"{fit_launches['matmul_bn'] / steps:g} "
+          f"({residual['matmul_bn'] / steps:g} in_residual), B2 "
+          f"{fit_launches['conv3x3_bn'] / steps:g}, B3 "
+          f"{fit_launches['matmul_bn_dx'] / steps:g} "
+          f"({residual['matmul_bn_dx'] / steps:g} dr), B4 "
+          f"{fit_launches['matmul_bn_dw'] / steps:g} on {card}", flush=True)
+
+    # transform: B5/B6 per forward, 4 forwards at batch 128
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    out = model.transform(df)
+    pred = out["prediction"].to_numpy()
+    torch.cuda.synchronize()
+    tr_wall = time.perf_counter() - t
+    tr_launches = all_launches()
+    check(list(out.columns) == ["features", "label", "prediction"],
+          f"transform columns {list(out.columns)}")
+    fwd = -(-NN_ROWS // TRAIN_BATCH)
+    want = {k: 0 for k in tr_launches}
+    want.update({"matmul_bn_apply": 36 * fwd, "conv3x3_bn_apply": 16 * fwd})
+    check(tr_launches == want, f"transform launches {tr_launches}, "
+          f"expected {want}")
+    print(f"  transform of {NN_ROWS} rows at batch {TRAIN_BATCH}: "
+          f"{tr_wall:.2f} s, {NN_ROWS / tr_wall:.1f} images/s (host clock, "
+          f"the preprocessing included); launches per forward B5 "
+          f"{tr_launches['matmul_bn_apply'] / fwd:g}, B6 "
+          f"{tr_launches['conv3x3_bn_apply'] / fwd:g}", flush=True)
+
+    # the same weights through Estimator.predict on the stacked arrays
+    x = scale_pixels(images.astype(np.float32))
+    trained = params_to_numpy(model.params)
+    net.load_params(trained)
+    os.environ["ZOO_TPU_DTYPE_POLICY"] = "mixed_bfloat16"
+    try:
+        plain = Estimator(net, optimizer=SGD(lr=0.1, momentum=0.9),
+                          loss="softmax_cross_entropy")
+    finally:
+        os.environ.pop("ZOO_TPU_DTYPE_POLICY", None)
+    want_pred = np.argmax(plain.predict(x, batch_size=TRAIN_BATCH), -1)
+    check(np.array_equal(pred, want_pred.astype(np.float64)),
+          f"prediction column differs from Estimator.predict's argmax in "
+          f"{int((pred != want_pred).sum())} rows")
+    # Estimator.train of the same initial weights over the same arrays
+    net.load_params(w0)
+    plain.opt_state = None
+    plain.train(x, labels.reshape(-1, 1).astype(np.float32),
+                batch_size=TRAIN_BATCH, nb_epoch=NN_EPOCHS)
+    got = params_to_numpy(net)
+    worst, where = 0.0, None
+    for path, a, b in zip(_leaf_paths(trained), tree_leaves(trained),
+                          tree_leaves(got)):
+        err = float(np.abs(a.astype(np.float64) - b).max()) / max(
+            1.0, float(np.abs(b).max()))
+        if err > worst:
+            worst, where = err, "/".join(path)
+    diff = (f"largest difference {worst:.3e} of max(1, max|w|) at {where}"
+            if where else "bit for bit")
+    print(f"  fit against Estimator.train from the same weights over the "
+          f"same arrays: {diff} (bound {NN_BF16_BOUND}); the prediction "
+          f"column is Estimator.predict's argmax in all {NN_ROWS} rows",
+          flush=True)
+    check(worst <= NN_BF16_BOUND, f"fit differs from Estimator.train by "
+          f"{worst} at {where}")
+    rec["resnet"] = {"host_ms_rows_to_feature_set": host_ms,
+                     "fit_wall_s": fit_wall, "transform_wall_s": tr_wall,
+                     "transform_images_per_s": NN_ROWS / tr_wall,
+                     "fit_vs_train_max_rel": worst, **rates,
+                     "launches_fit": {k: v for k, v in fit_launches.items()
+                                      if v},
+                     "launches_transform": {k: v for k, v in
+                                            tr_launches.items() if v}}
+    del net, model, plain, x, images, df, out
+    torch.cuda.empty_cache()
+    return fit_launches, tr_launches
+
+
+def nnframes_dogs(card, rec):
+    """Phase 20, part 2: the dogs-vs-cats app at BASELINE's
+    configuration: Inception-v1 at 224 with 2 classes and every layer but
+    the head frozen, through ``NNClassifier`` on seeded synthetic images
+    kept as arrays (``--in-memory``): the frozen layers' weights bit for
+    bit, the fit's and the transform's images/s."""
+    import torch
+
+    from analytics_zoo_tpu_torch.apps import dogs_vs_cats
+    torch.cuda.synchronize()
+    close = step_traces()
+    try:
+        r = dogs_vs_cats.main(
+            ["--in-memory", "--arch", "inception-v1", "--image-size",
+             str(IMAGE[0]), "--per-class", str(DOGS_PER_CLASS),
+             "--batch-size", str(DOGS_BATCH), "--epochs", str(DOGS_EPOCHS)])
+    finally:
+        step_s = close()
+    n = r["images"]
+    rates = nn_step_rates(step_s, DOGS_BATCH)
+    print(f"  dogs-vs-cats, Inception-v1 at {IMAGE[0]}: fit "
+          f"{DOGS_EPOCHS} epochs of {n} images, "
+          f"{DOGS_EPOCHS * n / r['fit_s']:.1f} images/s on the host clock "
+          f"(the rows' preprocessing and the first step's builds included), "
+          f"median step {rates['median_step_ms']:.2f} ms, "
+          f"{rates['images_per_s']:.1f} images/s (host clock, a card sync "
+          f"per step); "
+          f"transform {n / r['transform_s']:.1f} images/s; frozen weights "
+          f"unchanged bit for bit: {r['frozen_unchanged']}; train accuracy "
+          f"{r['accuracy']:.3f} on {card}", flush=True)
+    check(r["frozen_unchanged"], "a frozen layer's weights moved")
+    check(len(step_s) == DOGS_EPOCHS * (n // DOGS_BATCH) and
+          0.0 <= r["accuracy"] <= 1.0, f"dogs-vs-cats: {len(step_s)} steps, "
+          f"accuracy {r['accuracy']}")
+    rec["dogs"] = {"fit_images_per_s_host": DOGS_EPOCHS * n / r["fit_s"],
+                   "transform_images_per_s": n / r["transform_s"],
+                   **{k: v for k, v in r.items()}, **rates}
+    torch.cuda.empty_cache()
+
+
+# the apps and examples of phase 20, part 3: (kind, name, arguments)
+NN_RUNS = [
+    ("apps", "dogs_vs_cats", []),
+    ("examples", "nnframes_classification", []),
+    ("apps", "recommendation_ncf", []),
+    ("apps", "recommendation_wide_n_deep", []),
+    ("examples", "transformer_sentiment", []),
+    ("examples", "autograd_custom", []),
+    ("examples", "vae_mnist", []),
+    ("examples", "bert_finetune", ["--hidden", "768", "--blocks", "12",
+                                   "--seq-len", "128", "--epochs", "1"]),
+]
+
+
+def _result_line(r):
+    if isinstance(r, dict):
+        return {k: (round(float(v), 4) if np.ndim(v) == 0 and
+                    isinstance(v, (int, float, np.floating)) else
+                    f"<{type(v).__name__} {np.shape(v)}>"
+                    if isinstance(v, np.ndarray) else
+                    f"<{len(v)} items>" if isinstance(v, list) else v)
+                for k, v in r.items()}
+    return r
+
+
+NN_CHECKS = {
+    "dogs_vs_cats": lambda r: r["frozen_unchanged"] and
+    0.0 <= r["accuracy"] <= 1.0,
+    "nnframes_classification": lambda r: 0.0 <= r <= 1.0,
+    "recommendation_ncf": lambda r: bool(
+        np.isfinite(r["loss"]) and r["recommend_for_user"] and
+        r["recommend_for_item"]),
+    "recommendation_wide_n_deep": lambda r: bool(np.isfinite(r["loss"])),
+    "transformer_sentiment": lambda r: bool(np.isfinite(r["loss"])),
+    "autograd_custom": lambda r: r["mae"] < 0.2,
+    "vae_mnist": lambda r: bool(np.isfinite(r["loss"]) and
+                                r["samples"].shape == (4, 784)),
+    "bert_finetune": lambda r: bool(np.isfinite(r["loss"]) and
+                                    0 <= r["accuracy"] <= 1),
+}
+
+
+def nnframes_apps(card, rec):
+    """Phase 20, part 3: the apps and examples of the slice at their
+    defaults on the card (``bert_finetune`` at BERT-base widths), each
+    with its result and wall time, each held to its check
+    (:data:`NN_CHECKS`, the CPU tests' assertions). The dogs-vs-cats
+    app's default writes and decodes a synthetic PNG folder (Pillow)."""
+    import importlib
+
+    import torch
+    out = {}
+    for kind, name, argv in NN_RUNS:
+        mod = importlib.import_module(
+            f"analytics_zoo_tpu_torch.{kind}.{name}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        line = _result_line(r)
+        print(f"  {kind}/{name} {' '.join(argv)}: {line} in {wall:.2f} s",
+              flush=True)
+        check(NN_CHECKS[name](r), f"{name}: result {line}")
+        out[name] = {"result": line, "wall_s": wall}
+        torch.cuda.empty_cache()
+    rec["apps"] = out
+
+
+def nnframes_path(card, detail):
+    """Phase 20: nnframes on the card (:func:`nnframes_resnet`,
+    :func:`nnframes_dogs`, :func:`nnframes_apps`). Returns B1-B4's
+    launches over the fit and B5/B6's over the transform."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {"seconds_by_part": {}}
+    t = time.perf_counter()
+    fit_launches, tr_launches = nnframes_resnet(card, rec)
+    rec["seconds_by_part"]["resnet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nnframes_dogs(card, rec)
+    rec["seconds_by_part"]["dogs"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nnframes_apps(card, rec)
+    rec["seconds_by_part"]["apps"] = time.perf_counter() - t
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 20 seconds by part: "
+          f"{ {k: round(v, 1) for k, v in rec['seconds_by_part'].items()} };"
+          f" in {rec['seconds']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}", flush=True)
+    detail["nnframes"] = rec
+    launches = {k: v for k, v in fit_launches.items() if v}
+    launches.update({k: v for k, v in tr_launches.items() if v})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7326,6 +7684,12 @@ def main() -> int:
         # phase 19 alone, on the built libraries; no result line
         print("[19] the observability plane's judgement layer", flush=True)
         plane_path(card, detail)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--nnframes"]:
+        # phase 20 alone, on the built libraries; no result line
+        print("[20] nnframes", flush=True)
+        print(f"  {nnframes_path(card, detail)}", flush=True)
         print(card)
         return 0
 
@@ -7480,13 +7844,21 @@ def main() -> int:
           flush=True)
     plane_served, plane_trained = plane_path(card, detail)
 
-    print("[20] summary", flush=True)
+    print("[20] nnframes: NNClassifier.fit and transform of bench.py's "
+          "flagship (BASELINE's nnframes ResNet-50 metric), the dogs-vs-cats "
+          "app with Inception-v1 at 224, the recommendation apps and the "
+          "slice's examples (bert_finetune at BERT-base widths)", flush=True)
+    nnframes = nnframes_path(card, detail)
+
+    print("[21] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
         if plane_served.get(rec["name"]):
             rec["launches_plane"] = plane_served[rec["name"]]
         if plane_trained.get(rec["name"]):
             rec["launches_plane_train"] = plane_trained[rec["name"]]
+        if nnframes.get(rec["name"]):
+            rec["launches_nnframes"] = nnframes[rec["name"]]
         if recipe.get(rec["name"]):
             rec["launches_recipe"] = recipe[rec["name"]]
         if surface.get(rec["name"]):
