@@ -7,4 +7,5 @@ APPS = [
     "dogs_vs_cats",
     "recommendation_ncf",
     "recommendation_wide_n_deep",
+    "web_service_sample",
 ]

@@ -1,19 +1,31 @@
-"""Serving of the port: predict, int8, generation and the HTTP front
-end."""
+"""Serving of the port: predict, int8, generation, the HTTP front end,
+the replicated fleet with its registry and canary rollout, and
+disaggregated prefill/decode."""
 
 from analytics_zoo_tpu_torch.pipeline.inference.batching import (
     ContinuousBatcher, DeadlineExpiredError, DynamicBatcher,
     QueueFullError)
+from analytics_zoo_tpu_torch.pipeline.inference.fleet import (
+    DisaggReplica, DisaggRouter, FleetRouter, FleetSaturatedError,
+    HttpDisaggReplica, HttpReplica, Replica, ReplicaContext, ReplicaPool,
+    ReplicaUnavailableError, make_fleet_server)
 from analytics_zoo_tpu_torch.pipeline.inference.generation import (
     GenerationEngine, resolve_kv_dtype)
 from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
     InferenceModel
 from analytics_zoo_tpu_torch.pipeline.inference.quantize import \
     QuantizedModel
+from analytics_zoo_tpu_torch.pipeline.inference.registry import (
+    ModelRegistry, ModelVersion, RolloutController)
 from analytics_zoo_tpu_torch.pipeline.inference.serving import (
     InferenceServer, make_inference_server)
 
-__all__ = ["ContinuousBatcher", "DeadlineExpiredError", "DynamicBatcher",
-           "GenerationEngine", "InferenceModel", "InferenceServer",
-           "QuantizedModel", "QueueFullError", "make_inference_server",
+__all__ = ["ContinuousBatcher", "DeadlineExpiredError", "DisaggReplica",
+           "DisaggRouter", "DynamicBatcher", "FleetRouter",
+           "FleetSaturatedError", "GenerationEngine", "HttpDisaggReplica",
+           "HttpReplica", "InferenceModel", "InferenceServer",
+           "ModelRegistry", "ModelVersion", "QuantizedModel",
+           "QueueFullError", "Replica", "ReplicaContext", "ReplicaPool",
+           "ReplicaUnavailableError", "RolloutController",
+           "make_fleet_server", "make_inference_server",
            "resolve_kv_dtype"]

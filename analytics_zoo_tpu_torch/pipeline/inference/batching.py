@@ -181,7 +181,8 @@ class DynamicBatcher:
                  max_wait_ms: Optional[float] = None,
                  queue_depth: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
-                 buckets: Optional[Sequence[int]] = None):
+                 buckets: Optional[Sequence[int]] = None,
+                 labels: Optional[dict] = None):
         env = os.environ
         if max_batch_size is None:
             max_batch_size = int(env.get("ZOO_TPU_SERVING_MAX_BATCH", 32))
@@ -211,6 +212,9 @@ class DynamicBatcher:
         self._compiled: dict = {}
         self._compile_lock = threading.Lock()
         self._model_gen = getattr(model, "generation", 0)
+        # metric labels: a fleet tags each replica's batcher with
+        # {"replica": name}, so the gauges stay per queue
+        self._labels = dict(labels) if labels else None
         self._ema_batch_s = 0.01  # retry-after estimator seed
         # touch the gauges so /metrics carries them from the start
         self._depth_gauge().set(0)
@@ -229,11 +233,13 @@ class DynamicBatcher:
     # -- metrics handles ----------------------------------------------------
     def _depth_gauge(self):
         return obs.gauge("zoo_tpu_serving_queue_depth",
-                         help="requests waiting in the batcher queue")
+                         help="requests waiting in the batcher queue",
+                         labels=self._labels)
 
     def _warmed_gauge(self):
         return obs.gauge("zoo_tpu_serving_warmed_buckets",
-                         help="bucket executables compiled and ready")
+                         help="bucket executables compiled and ready",
+                         labels=self._labels)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "DynamicBatcher":
@@ -595,6 +601,14 @@ class DynamicBatcher:
     def warmed_buckets(self) -> int:
         with self._compile_lock:
             return len(self._compiled)
+
+    def retry_hint_s(self) -> float:
+        """The Retry-After a ``QueueFullError`` raised now would carry
+        (queued entries times the EMA batch time); the fleet router
+        hints the minimum of these when every replica is full."""
+        with self._cond:
+            depth = len(self._q)
+        return max(0.05, depth * self._ema_batch_s)
 
     def stats(self) -> dict:
         """JSON-able summary for ``GET /health``."""

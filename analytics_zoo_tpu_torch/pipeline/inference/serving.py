@@ -49,18 +49,31 @@ POST /debug/profile {"dir", "ms"}  →  a ``torch.profiler`` capture (CPU
      runs
 
 With a federation ``TelemetryCollector`` mounted as the batcher's
-``telemetry`` attribute: ``GET /metrics?fleet=1`` (merged Prometheus
-text), ``GET /debug/fleet/telemetry`` (the collector's state),
+``telemetry`` attribute (a started ``FleetRouter`` makes one):
+``GET /metrics?fleet=1`` (merged Prometheus text),
+``GET /debug/fleet/telemetry`` (the collector's state),
 ``GET /debug/traces?fleet=1`` and a stitched ``GET /debug/trace/<id>``;
 without one the first two answer 404. :meth:`InferenceServer.start`
-installs the ``serving`` and ``forecast`` objectives (and the ``fleet``
-and ``fed`` ones when a collector is mounted), starts the SLO ticker
-and wires the capacity forecaster to the shared history.
+installs the ``serving`` and ``forecast`` objectives (the ``fleet`` ones
+on a fleet's front door, and the ``fed`` ones when it has a collector),
+starts the SLO ticker and wires the capacity forecaster to the shared
+history.
 
-Not ported yet, so they answer 404 as unknown paths: the fleet's and
-disaggregation's routes (``/generate/prefill``, ``/generate/handoff``,
-``/debug/fleet``, ``/debug/rollout``), with the native front end
-(``NativeInferenceServer``); ROADMAP A12.5, A13.3 and A13.4.
+The fleet (``fleet.py``, ``registry.py``):
+
+GET  /debug/fleet    →  the ``FleetRouter``'s (or the ``DisaggRouter``'s)
+     topology and each replica's lifecycle state; 404 on a server that
+     no fleet fronts
+GET  /debug/rollout  →  the rollout state machine and the canary split;
+     404 on a server that no fleet fronts
+POST /generate/prefill {"prompt": [ids]}  →  {"handoff": wire blob}: the
+     disaggregated prefill pool's ingress; 501 without a prefill-capable
+     generation batcher
+POST /generate/handoff {"handoff": blob}  →  {"tokens": [...]}: the
+     decode pool's ingress; 501 without one, 400 on a bad blob
+
+Not ported yet: the native front end (``NativeInferenceServer``,
+ROADMAP A13.3).
 """
 
 from __future__ import annotations
@@ -89,7 +102,8 @@ from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
     InferenceModel
 
 __all__ = ["InferenceServer", "make_inference_server", "handle_predict",
-           "handle_generate", "handle_profile"]
+           "handle_generate", "handle_prefill", "handle_handoff",
+           "handle_profile"]
 
 
 def _error_body(code: int, message: str, **extra) -> dict:
@@ -249,6 +263,106 @@ def handle_generate(model: InferenceModel, body: bytes,
         return 500, _error_body(500, str(e), kind="internal")
 
 
+def handle_prefill(model: InferenceModel, body: bytes,
+                   gen_batcher=None) -> "Tuple[int, dict]":
+    """``POST /generate/prefill``, the disaggregated prefill pool's
+    ingress. Request: ``{"prompt": [ids...]}`` with optional
+    ``max_new_tokens`` and ``temperature``. The prompt runs to its first
+    sampled token, then the sequence's KV pages leave the cache as a
+    handoff blob: ``{"handoff": {...}}`` in the base64 wire form
+    (``ops/kv_cache.handoff_to_wire``), ready for a decode replica's
+    ``/generate/handoff``. 501 unless the generation batcher can
+    prefill."""
+    sub = getattr(gen_batcher, "submit_prefill", None)
+    if sub is None:
+        _count_error("no_generator")
+        return 501, _error_body(
+            501, "this server has no prefill-capable generation "
+            "batcher mounted (disaggregated prefill pool only)")
+    try:
+        req = json.loads(body)
+    except (ValueError, UnicodeDecodeError) as e:
+        _count_error("bad_json")
+        return 400, _error_body(400, f"malformed JSON body: {e}")
+    if not isinstance(req, dict) or "prompt" not in req:
+        _count_error("bad_request")
+        return 400, _error_body(
+            400, 'request must be a JSON object with a "prompt" '
+            'token-id list')
+    try:
+        prompt = [int(t) for t in req["prompt"]]
+        max_new = int(req.get("max_new_tokens", 32))
+        temperature = float(req.get("temperature", 0.0))
+    except (TypeError, ValueError) as e:
+        _count_error("bad_request")
+        return 400, _error_body(
+            400, f"prompt must be a list of token ids: {e}")
+    from analytics_zoo_tpu_torch.ops.kv_cache import handoff_to_wire
+    try:
+        blob = sub(prompt, max_new_tokens=max_new,
+                   temperature=temperature).result()
+        return 200, {"handoff": handoff_to_wire(blob)}
+    except QueueFullError as e:
+        return 503, _error_body(
+            503, str(e), retry_after_s=round(e.retry_after_s, 3))
+    except ValueError as e:
+        _count_error("bad_request")
+        return 400, _error_body(400, str(e))
+    except Exception as e:  # serving boundary: report, not die
+        _count_error("internal")
+        return 500, _error_body(500, str(e), kind="internal")
+
+
+def handle_handoff(model: InferenceModel, body: bytes,
+                   gen_batcher=None) -> "Tuple[int, dict]":
+    """``POST /generate/handoff``, the decode pool's ingress. Request:
+    ``{"handoff": {...}}`` (a prefill replica's wire blob) with optional
+    ``max_new_tokens`` and ``eos_id``. The blob's pages are written into
+    this replica's cache with no forward pass and the sequence decodes
+    on; the answer ``{"tokens": [...]}`` is the whole new-token stream,
+    the prefill's first token included, equal to what a colocated
+    ``/generate`` returns. 501 unless the generation batcher admits
+    handoffs; 400 on a bad blob."""
+    sub = getattr(gen_batcher, "submit_handoff", None)
+    if sub is None:
+        _count_error("no_generator")
+        return 501, _error_body(
+            501, "this server has no handoff-capable generation "
+            "batcher mounted (disaggregated decode pool only)")
+    try:
+        req = json.loads(body)
+    except (ValueError, UnicodeDecodeError) as e:
+        _count_error("bad_json")
+        return 400, _error_body(400, f"malformed JSON body: {e}")
+    if not isinstance(req, dict) or \
+            not isinstance(req.get("handoff"), dict):
+        _count_error("bad_request")
+        return 400, _error_body(
+            400, 'request must be a JSON object with a "handoff" '
+            'wire blob (POST /generate/prefill produces one)')
+    from analytics_zoo_tpu_torch.ops.kv_cache import handoff_from_wire
+    try:
+        max_new = int(req.get("max_new_tokens", 32))
+        eos_id = req.get("eos_id")
+        eos_id = None if eos_id is None else int(eos_id)
+        blob = handoff_from_wire(req["handoff"])
+    except (TypeError, ValueError, KeyError) as e:
+        _count_error("bad_request")
+        return 400, _error_body(400, f"bad handoff blob: {e}")
+    try:
+        toks = sub(blob, max_new_tokens=max_new, eos_id=eos_id).result()
+        return 200, {"tokens": [int(t) for t in toks]}
+    except QueueFullError as e:
+        return 503, _error_body(
+            503, str(e), retry_after_s=round(e.retry_after_s, 3))
+    except ValueError as e:  # blob and engine geometry disagree
+        _count_error("bad_request")
+        return 400, _error_body(400, str(e))
+    except Exception as e:
+        _count_error("internal")
+        return 500, _error_body(500, str(e), kind="internal")
+
+
 def _refresh_vitals() -> None:
     """The process vitals and build-info gauges, refreshed before each
     scrape renders (RSS, uptime, open fds, provenance)."""
@@ -366,6 +480,34 @@ def _fleet_telemetry_payload(batcher) -> "Tuple[int, dict]":
         return 404, _error_body(
             404, "no fleet telemetry collector mounted")
     return 200, tele.status()
+
+
+def _fleet_payload(batcher, gen_batcher=None) -> "Tuple[int, dict]":
+    """``GET /debug/fleet``: the ``FleetRouter``'s topology and each
+    replica's lifecycle state, or on a disaggregated generation front
+    door the ``DisaggRouter``'s role-tagged replicas and each pool's
+    page headroom; 404 on a server that no fleet fronts."""
+    status_fn = getattr(batcher, "fleet_status", None)
+    if status_fn is None:
+        status_fn = getattr(gen_batcher, "fleet_status", None)
+    if status_fn is None:
+        _count_error("not_found")
+        return 404, _error_body(
+            404, "no fleet router mounted on this server")
+    return 200, status_fn()
+
+
+def _rollout_payload(batcher) -> "Tuple[int, dict]":
+    """``GET /debug/rollout``: the rollout state machine, the
+    replicas' versions, the swap log and the canary split; 404 on a
+    server that no fleet fronts, ``{"state": "idle"}`` on a fleet that
+    never rolled."""
+    status_fn = getattr(batcher, "rollout_status", None)
+    if status_fn is None:
+        _count_error("not_found")
+        return 404, _error_body(
+            404, "no fleet router mounted on this server")
+    return 200, status_fn()
 
 
 def _slo_payload(path: str) -> dict:
@@ -671,22 +813,34 @@ def handle_profile(body: bytes) -> "Tuple[int, dict]":
 def _resolve_gen_batcher(model: InferenceModel, gen_batcher):
     """``"auto"`` → a :class:`ContinuousBatcher` over the model's
     generator (None when it has none or ``ZOO_TPU_GEN_BATCH=0``:
-    /generate then runs the sequential path); ``None`` or an instance
-    pass through."""
+    /generate then runs the sequential path; a ``FleetRouter`` standing
+    for the model has none). ``ZOO_TPU_DISAGG=1`` makes it a
+    ``DisaggRouter`` carved out of the generator instead
+    (``ZOO_TPU_DISAGG_PREFILL_REPLICAS`` / ``_DECODE_REPLICAS``), for a
+    ``role="both"`` engine only: a pool worker's role engine keeps its
+    plain batcher. ``None`` or an instance pass through."""
     if gen_batcher == "auto":
         engine = getattr(model, "generator", None)
         if engine is None or os.environ.get("ZOO_TPU_GEN_BATCH",
                                             "1") == "0":
             return None
+        if os.environ.get("ZOO_TPU_DISAGG", "0") not in ("", "0") \
+                and getattr(engine, "role", "both") == "both":
+            from analytics_zoo_tpu_torch.pipeline.inference.fleet import \
+                DisaggRouter
+            return DisaggRouter.for_engine(engine)
         return ContinuousBatcher(engine)
     return gen_batcher
 
 
 def _resolve_batcher(model: InferenceModel, batcher):
     """``"auto"`` → the environment's batcher (None when
-    ``ZOO_TPU_SERVING_BATCH=0``); ``None`` → per-request serving; a
-    DynamicBatcher passes through."""
+    ``ZOO_TPU_SERVING_BATCH=0``), or the model itself when it is a
+    ``FleetRouter`` (it is both surfaces); ``None`` → per-request
+    serving; a DynamicBatcher passes through."""
     if batcher == "auto":
+        if hasattr(model, "fleet_status"):
+            return model
         return DynamicBatcher.from_env(model)
     return batcher
 
@@ -775,6 +929,12 @@ class InferenceServer:
                     elif route == "/debug/fleet/telemetry":
                         status, payload = _fleet_telemetry_payload(
                             server.batcher)
+                    elif route == "/debug/fleet":
+                        status, payload = _fleet_payload(
+                            server.batcher, server.gen_batcher)
+                    elif route == "/debug/rollout":
+                        status, payload = _rollout_payload(
+                            server.batcher)
                     elif route == "/debug/metrics/history":
                         status, payload = _history_payload(
                             self.path, server.batcher)
@@ -812,6 +972,8 @@ class InferenceServer:
                 route = self.path.split("?", 1)[0]
                 try:
                     if route not in ("/predict", "/generate",
+                                     "/generate/prefill",
+                                     "/generate/handoff",
                                      "/debug/profile"):
                         status = 404
                         _count_error("not_found")
@@ -834,7 +996,17 @@ class InferenceServer:
                                         trace_id=self.headers.get(
                                             tracing.TRACE_HEADER),
                                         path=route) as tr:
-                                    if route == "/generate":
+                                    if route == "/generate/prefill":
+                                        status, payload = \
+                                            handle_prefill(
+                                                server.model, body,
+                                                server.gen_batcher)
+                                    elif route == "/generate/handoff":
+                                        status, payload = \
+                                            handle_handoff(
+                                                server.model, body,
+                                                server.gen_batcher)
+                                    elif route == "/generate":
                                         status, payload = \
                                             handle_generate(
                                                 server.model, body,
@@ -871,14 +1043,16 @@ class InferenceServer:
             self.gen_batcher.start()
         # the shipped serving and forecast objectives and the SLO
         # ticker (ZOO_TPU_SLO=0 disables), whose samples of the shared
-        # history drive the capacity forecaster; a front door with a
-        # federation collector mounted adds the fleet's objectives
+        # history drive the capacity forecaster; a fleet's front door
+        # adds the fleet's objectives, and the federated ones when it
+        # has a collector mounted
         slo_lib.ensure_default_slos("serving")
         slo_lib.ensure_default_slos("forecast")
         forecast_lib.ensure_forecaster()
-        if _fed_collector(self.batcher) is not None:
+        if hasattr(self.batcher, "fleet_status"):
             slo_lib.ensure_default_slos("fleet")
-            slo_lib.ensure_default_slos("fed")
+            if _fed_collector(self.batcher) is not None:
+                slo_lib.ensure_default_slos("fed")
         if background:
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever, name="zoo-tpu-http",
@@ -904,7 +1078,8 @@ def make_inference_server(model: InferenceModel, port: int = 0,
                           batcher="auto", gen_batcher="auto"):
     """The stdlib front end (the reference's native C++ one is not
     ported). ``batcher``: ``"auto"`` (environment-configured dynamic
-    batching), ``None`` (per request) or a :class:`DynamicBatcher`;
+    batching, or the model itself for a ``FleetRouter``), ``None`` (per
+    request) or a :class:`DynamicBatcher`;
     ``gen_batcher``: the same for /generate (``"auto"`` mounts a
     :class:`ContinuousBatcher` when the model has a generator)."""
     return InferenceServer(model, port=port, batcher=batcher,

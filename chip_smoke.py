@@ -334,10 +334,52 @@ script exits non-zero and prints no result line:
    slice's apps and examples at their defaults (``bert_finetune`` at
    BERT-base widths, T 128), each held to its CPU test's assertion.
    ``python3 chip_smoke.py --nnframes`` runs phases 1, 2 and 20 only;
-21. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
+21. the serving fleet (``pipeline/inference/fleet.py``,
+   ``registry.py``): two in-process ResNet-50 bf16 replicas (seed 0,
+   buckets up to 32) behind ``make_fleet_server``, the two sharing the
+   one card: 64 ``/predict`` of 1-4 images from 8 clients, each reply
+   bit for bit its bucket's rows, each bucket bit for bit its replica's
+   ``predict`` at that bucket (and the other replica's), each reply
+   within 5e-2 of max(1, max|logit|) of the request predicted alone; the
+   router's host ms per dispatch (median of 21); one payload on one
+   replica under ``hash``; ``fleet/replica_predict`` armed to kill r0
+   mid-wave (all 200 and held, ``/debug/fleet`` shows r0 down, one
+   ``tick`` re-admits it after healing, its probe one batch-8 forward,
+   and it serves); both queues full behind wedged dispatchers (503,
+   ``Retry-After``, the hint the minimum of the replicas'
+   ``retry_hint_s``); the same load on one ``InferenceServer`` over the
+   same model (p50/p99 beside the fleet's). Then a canary rollout from
+   an in-memory ``ModelRegistry`` (v1 seed 0, v2 seed 1) under a load
+   loop: an error burst on the canary rolls back, a clean re-roll
+   promotes after its bake on the router's injected clock, the loop
+   sees no failure, ``/debug/rollout`` reports both endings, and both
+   replicas then serve a direct v2 forward's logits bit for bit. Then
+   two ResNet-50 worker processes (``chip_smoke.py --fleet-worker
+   resnet``, on the libraries phase 2 built) as ``HttpReplica``s: the
+   collector's merged acked-request counter equals the router's own
+   plus each worker's ``/metrics/json`` exactly, a worker SIGKILLed
+   during a traced wave leaves every request 200 and within the bound,
+   and a trace stitches the router's process and a worker's. Then
+   ``DisaggRouter.for_engine`` on phase 8's GPT-1 (1 prefill, 2 decode
+   engines): 8 greedy requests of 1024-1700-token prompts and 64 new
+   tokens byte for byte a colocated ``ContinuousBatcher``'s, again with
+   a decode replica poisoned mid-wave (no page leaked, every pool back
+   to its total), TTFT and tokens/s beside the colocated ones, blob
+   bytes and the splice; then the same over HTTP through 1 prefill and
+   2 decode worker processes (``/generate/prefill``,
+   ``/generate/handoff``), the prefill worker SIGKILLed mid-wave: every
+   completed stream byte-exact, every failure a retryable transport
+   error. The launches: B5/B6 36/16 per bucket execution of each
+   in-process replica (and per probe forward), B7 12 per prefill, B11
+   12 per decode step. Then ``apps/web_service_sample`` at its
+   defaults. Every worker is SIGKILLed and reaped on every exit path,
+   and exits when its parent does.
+   ``python3 chip_smoke.py --fleet`` runs phases 1, 2 and 21 only;
+22. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
    ``launches_plane`` and ``launches_plane_train``, phase 20's as
-   ``launches_nnframes``), then the card's name and power limit, then
-   the result line ``{"ok": true, "device": {...}}``.
+   ``launches_nnframes``, phase 21's as ``launches_fleet``), then the
+   card's name and power limit, then the result line ``{"ok": true,
+   "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
@@ -1068,15 +1110,21 @@ def served_resnet():
     context's card, its weights from the context's seed, with
     distinctive BatchNorm statistics and affine params (seed 1) so every
     fold matters."""
-    import torch
-
     from analytics_zoo_tpu_torch.models.image.imageclassification import \
         ImageClassifier
 
     net = ImageClassifier("resnet-50", input_shape=IMAGE, classes=1000,
                           fused=True).model
     net.init_params()
-    g = torch.Generator().manual_seed(1)
+    return distinct_bn(net, 1)
+
+
+def distinct_bn(net, seed):
+    """``net`` with its BatchNorm statistics and affine params drawn
+    from ``torch.Generator().manual_seed(seed)``, so every fold
+    matters."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for pname, buf in net.named_buffers():
             n = buf.shape[0]
@@ -7589,12 +7637,1089 @@ def nnframes_path(card, detail):
     return launches
 
 
+# -- the serving fleet (phase 21) ---------------------------------------------
+
+# the in-process fleet: two ResNet-50 replicas on the one card (the
+# reference's ReplicaPool(replicas=[...]); replica_device_slices seats
+# one replica per card), bench_serving's batcher settings, 64 requests
+# of 1-4 images from 8 clients
+FLEET_CLIENTS, FLEET_REQUESTS, FLEET_KILL_REQUESTS = 8, 64, 16
+# the worker-process fleet's two waves (two JSON hops per request)
+FLEET_PROC_REQUESTS = 8
+FLEET_BATCHER = dict(max_batch_size=BATCH, max_wait_ms=5, queue_depth=512)
+# the serving bound of a bf16 row against a forward at another bucket
+FLEET_TOL = 5e-2
+# the rollout: bake time on the injected clock, the canary's error burst
+FLEET_BAKE_S, FLEET_BURST = 30.0, 3
+# disaggregated generation: 8 greedy requests of 1024-1700-token prompts
+# and 64 new tokens on GPT-1 at T 2048, one prefill and two decode pools
+DISAGG_REQUESTS, DISAGG_NEW, DISAGG_PREFILL, DISAGG_DECODE = 8, 64, 1, 2
+FLEET_WORKER_S = 300    # a worker process's start-up limit
+
+
+def fleet_resnet(seed, device=DEV):
+    """ResNet-50 as the fleet serves it, the same in every process:
+    ``ImageClassifier("resnet-50", fused=True)`` at 224x224 and 1000
+    classes, initialised from ``torch.Generator().manual_seed(seed)``,
+    with distinctive BatchNorm statistics and affine params drawn from
+    seed + 1 (:func:`distinct_bn`)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+
+    net = ImageClassifier("resnet-50", input_shape=IMAGE, classes=1000,
+                          fused=True).model
+    net.init_params(torch.Generator().manual_seed(seed), device=device)
+    return distinct_bn(net, seed + 1)
+
+
+def fleet_example():
+    """The declared bf16 example (8 images): every replica serves bf16."""
+    import torch
+    x8 = np.random.RandomState(12).rand(8, *IMAGE).astype(np.float32)
+    return torch.from_numpy(x8).to(DEV, torch.bfloat16)
+
+
+def fleet_gpt(role="both"):
+    """The generation model of phase 8 (GPT-1 widths, T 2048, seeded
+    weights, the embedding scaled by GEN_EMBED_SCALE) behind an
+    ``InferenceModel`` of ``role``: 8 slots of 16-token pages, an f32
+    pool, whole-prompt prefill."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    net = gpt_net()
+    params = net.build(torch.Generator().manual_seed(0), (GEN_T,))
+    params["tok_embed"] = params["tok_embed"] * GEN_EMBED_SCALE
+    im = InferenceModel().load_generator(
+        net, params, max_slots=GEN_SLOTS, max_context=GEN_T,
+        page_size=GEN_PAGE, prefill_chunk=0, role=role)
+    return net, im
+
+
+def fleet_worker(kind) -> int:
+    """``chip_smoke.py --fleet-worker {resnet,prefill,decode}``: one
+    replica process on the card, on the libraries phase 2 built. Serves
+    the fleet's ResNet-50 (bf16, a DynamicBatcher of FLEET_BATCHER) or a
+    GPT-1 pool engine of that role behind ``InferenceServer`` on a free
+    port, prints ``{"port": N}`` and serves until its parent goes."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        DynamicBatcher, InferenceModel, InferenceServer)
+    parent = os.getppid()
+    zoo.init_nncontext(seed=0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "resnet":
+        im = InferenceModel().load_keras_net(
+            fleet_resnet(0), example_inputs=[fleet_example()])
+        srv = InferenceServer(im, port=0, batcher=DynamicBatcher(
+            im, **FLEET_BATCHER), gen_batcher=None)
+    elif kind in ("prefill", "decode"):
+        _, im = fleet_gpt(kind)
+        srv = InferenceServer(im, port=0, batcher=None)
+    else:
+        print(f"chip_smoke: unknown fleet worker {kind!r}", file=sys.stderr)
+        return 2
+    srv.start()
+    print(json.dumps({"port": srv.port}), flush=True)
+    while os.getppid() == parent:
+        time.sleep(0.5)
+    os._exit(0)
+
+
+def fleet_worker_argv(kind):
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+            "--fleet-worker", kind]
+
+
+class FleetWorkers:
+    """The phase's replica processes: started together, each one's port
+    read from its first line; :meth:`kill` SIGKILLs one, :meth:`close`
+    every one still running, and reaps them all."""
+
+    def __init__(self, kinds):
+        log_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(log_dir, exist_ok=True)
+        self.procs, self.logs, self.ports = [], [], []
+        for i, kind in enumerate(kinds):
+            log = open(os.path.join(log_dir, f"fleet_worker_{i}_{kind}.log"),
+                       "w")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                fleet_worker_argv(kind), stdout=subprocess.PIPE,
+                stderr=log, text=True, cwd=ROOT))
+        self.kinds = list(kinds)
+
+    def wait_ports(self):
+        with concurrent.futures.ThreadPoolExecutor(len(self.procs)) as pool:
+            lines = [pool.submit(p.stdout.readline) for p in self.procs]
+            for kind, fut in zip(self.kinds, lines):
+                line = fut.result(timeout=FLEET_WORKER_S)
+                check(bool(line), f"fleet worker {kind} exited before it "
+                      "served (its log is in chiprun_out)")
+                self.ports.append(json.loads(line)["port"])
+        return self.ports
+
+    def url(self, i):
+        return f"http://127.0.0.1:{self.ports[i]}"
+
+    def kill(self, i):
+        import signal
+        self.procs[i].send_signal(signal.SIGKILL)
+        self.procs[i].wait(timeout=30)
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        for f in self.logs:
+            f.close()
+
+
+def fleet_bodies(rs, n):
+    """``n`` /predict bodies of 1-4 images (3 decimals, as a client sends
+    them) and their float32 images."""
+    sizes = rs.randint(1, 5, size=n)
+    images = [np.round(rs.rand(int(k), *IMAGE), 3) for k in sizes]
+    bodies = [json.dumps({"inputs": x.tolist()}).encode() for x in images]
+    return bodies, [x.astype(np.float32) for x in images]
+
+
+def fleet_wave(port, bodies, clients=FLEET_CLIENTS, headers=None,
+               during=None):
+    """Post ``bodies`` to ``/predict`` from ``clients`` threads; returns
+    each reply ``(status, headers, body, seconds)``. ``during(i)`` runs
+    after reply ``i`` arrives (a fault armed mid-wave)."""
+    replies = [None] * len(bodies)
+
+    def client(c):
+        for i in range(c, len(bodies), clients):
+            replies[i] = post_json(port, "/predict", bodies[i],
+                                   headers(i) if headers else None)
+            if during is not None:
+                during(i)
+
+    with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+        for f in [pool.submit(client, c) for c in range(clients)]:
+            f.result()
+    return replies
+
+
+def fleet_held(what, images, replies, runs, models):
+    """Each reply held against the bucket execution that served it, bit
+    for bit (``runs``: (replica, rows, n, bucket, outputs) of every
+    execution), each execution against its replica's ``predict`` of the
+    same padded bucket, bit for bit, and each reply within FLEET_TOL of
+    max(1, max|logit|) of the request predicted alone. Returns the
+    worst error over its bound and the executions per replica."""
+    codes = [r[0] for r in replies]
+    check(codes == [200] * len(replies), f"{what}: statuses {codes}")
+    for name, xs, n, bucket, out in runs:
+        padded = np.concatenate(
+            [xs, np.zeros((bucket - n,) + xs.shape[1:], xs.dtype)])
+        check(np.array_equal(models[name].predict(padded)[:n], out),
+              f"{what}: {name}'s bucket of {bucket} ({n} rows) differs from "
+              "predict of the same padded bucket")
+    where = {}
+    for name, xs, n, _, out in runs:
+        for r in range(n):
+            where.setdefault(xs[r].ravel()[:64].tobytes(), []).append(
+                (xs, out, r))
+    any_model = next(iter(models.values()))
+    worst = 0.0
+    for i, (x, reply) in enumerate(zip(images, replies)):
+        got = np.asarray(reply[2]["outputs"], np.float32)
+        hits = [(out, r) for xs, out, r in
+                where.get(x[0].ravel()[:64].tobytes(), [])
+                if np.array_equal(xs[r:r + len(x)], x)]
+        check(len(hits) >= 1, f"{what}: request {i} found in no bucket "
+              "execution")
+        check(any(np.array_equal(got, out[r:r + len(x)]) for out, r in hits),
+              f"{what}: request {i}'s reply is not its bucket's rows")
+        alone = any_model.predict(x)
+        err = float(np.abs(got - alone).max())
+        tol = FLEET_TOL * max(1.0, float(np.abs(alone).max()))
+        check(err <= tol, f"{what}: request {i} {err} from predict alone "
+              f"(tol {tol})")
+        worst = max(worst, err / tol)
+    per = collections.Counter(name for name, *_ in runs)
+    return worst, dict(per)
+
+
+def fleet_recording(name, runs):
+    """A replica's ``DynamicBatcher`` (FLEET_BATCHER, labelled by
+    replica) that appends each bucket execution to ``runs``."""
+    from analytics_zoo_tpu_torch.pipeline.inference import DynamicBatcher
+
+    class Recording(DynamicBatcher):
+        def _pad_and_run(self, sig, xs, n):
+            outs, multi = super()._pad_and_run(sig, xs, n)
+            bucket = next(b for b in self.buckets if b >= n)
+            runs.append((name, xs[0], n, bucket, outs[0]))
+            return outs, multi
+    return Recording
+
+
+def fleet_launches_held(what, launches, execs, forwards=0):
+    """B5/B6 launched 36/16 per bucket execution (and per direct
+    forward), nothing else."""
+    n = execs + forwards
+    for kname in KERNELS:
+        want = {"matmul_bn_apply": 36 * n, "conv3x3_bn_apply": 16 * n
+                }.get(kname, 0)
+        check(launches.get(kname, 0) == want, f"{what}: {kname} launched "
+              f"{launches.get(kname, 0)} times in {execs} bucket executions "
+              f"and {forwards} forwards, expected {want}")
+
+
+def fleet_inprocess(card, rec, clock, workers):
+    """Phase 21, part a: two in-process ResNet-50 replicas behind
+    ``make_fleet_server``: the main wave held bit for bit, hash affinity,
+    a replica killed mid-wave and re-admitted by one tick, saturation's
+    503, the router's dispatch cost, and the same load on one
+    ``InferenceServer`` over the same model. Returns the router, its
+    server, the replicas' models and the launches of the held waves."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.parallel import place_inference_params
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        FleetRouter, InferenceModel, InferenceServer, Replica, ReplicaPool,
+        make_fleet_server)
+    import copy
+    x8 = fleet_example()
+    template = fleet_resnet(0)
+    runs, models, nets, replicas = [], {}, {}, []
+    for name in ("r0", "r1"):
+        # each replica its own copy of the net and of every tensor
+        net = copy.deepcopy(template)
+        net.load_params(place_inference_params(template.params(), [DEV]))
+        im = InferenceModel().load_keras_net(net, example_inputs=[x8])
+        models[name], nets[name] = im, net
+        r = Replica(name, im, clock=clock, batcher=fleet_recording(
+            name, runs)(im, labels={"replica": name}, **FLEET_BATCHER))
+        r.version = "v1"
+        replicas.append(r)
+    shared = {t.data_ptr() for t in nets["r0"].parameters()} & \
+        {t.data_ptr() for t in nets["r1"].parameters()}
+    check(not shared, f"the replicas share {len(shared)} tensors")
+    router = FleetRouter(ReplicaPool(replicas=replicas, clock=clock),
+                         probe_interval_s=0, eject_after=1, max_retries=2)
+    srv = make_fleet_server(router)
+    t0 = time.perf_counter()
+    srv.start()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    health = get_json(srv.port, "/health")["batcher"]
+    check(health["fleet"] and health["replicas_admitting"] == 2 and all(
+        p["warmed_buckets"] == 6 for p in health["per_replica"].values()),
+        f"fleet /health after warm-up {health}")
+    # the worker processes started with the phase: no timed wave runs
+    # while they are still starting on the host's cores
+    t0 = time.perf_counter()
+    workers.wait_ports()
+    rec["worker_wait_s"] = time.perf_counter() - t0
+    rs = np.random.RandomState(21)
+
+    # the main wave
+    bodies, images = fleet_bodies(rs, FLEET_REQUESTS)
+    obs.reset_metrics()
+    reset_launches()
+    del runs[:]
+    t0 = time.perf_counter()
+    replies = fleet_wave(srv.port, bodies)
+    window = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(all_launches())
+    main_runs = list(runs)
+    fleet_launches_held("fleet main wave", launches, len(main_runs))
+    worst, per = fleet_held("fleet main wave", images, replies, main_runs,
+                            models)
+    check(len(per) == 2, f"the main wave ran on {per} only")
+    # one replica's bucket against the other's predict, bit for bit
+    name, xs, n, bucket, out = main_runs[0]
+    other = "r1" if name == "r0" else "r0"
+    padded = np.concatenate(
+        [xs, np.zeros((bucket - n,) + xs.shape[1:], xs.dtype)])
+    cross = bool(np.array_equal(models[other].predict(padded)[:n], out))
+    check(cross, f"{name}'s bucket differs from {other}'s predict")
+    lat = [r[3] for r in replies]
+    rows = sum(len(x) for x in images)
+    rec["main_wave"] = {
+        "requests": FLEET_REQUESTS, "images": rows, "window_s": window,
+        "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+        "bucket_executions": per, "worst_err_over_tol": worst,
+        "bit_exact": "each reply equals its bucket's rows and each bucket "
+                     "its replica's predict at that bucket (and the other "
+                     "replica's); across buckets within the bound",
+        "warm_s": warm_s}
+    print(f"  fleet main wave: {FLEET_REQUESTS} requests ({rows} images) "
+          f"from {FLEET_CLIENTS} clients in {window:.3f} s, request p50 "
+          f"{rec['main_wave']['p50_ms']:.1f} p99 "
+          f"{rec['main_wave']['p99_ms']:.1f} ms, bucket executions {per}; "
+          f"replies bit for bit their buckets' rows, buckets bit for bit "
+          f"predict at the same bucket (r0 against r1 too), worst "
+          f"{worst:.3f} of the bound against predict alone; two replicas "
+          f"sharing one card, {card}", flush=True)
+
+    # the router's host cost of one dispatch: submit() alone, 21 times
+    x1 = images[0][:1]
+    dispatch = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        fut = router.submit([x1])
+        dispatch.append(time.perf_counter() - t0)
+        fut.result(60)
+    rec["dispatch_ms_median_of_21"] = statistics.median(dispatch) * 1e3
+    print(f"  router host ms per dispatch (submit, median of 21): "
+          f"{rec['dispatch_ms_median_of_21']:.3f} on {card}", flush=True)
+
+    # hash affinity: one payload, one replica; payloads spread
+    hrouter = FleetRouter(router.pool, policy="hash", probe_interval_s=0)
+    before = {r.name: r.dispatches_total for r in router.pool.replicas}
+    for _ in range(8):
+        hrouter.submit([images[1]]).result(60)
+    moved = {r.name: r.dispatches_total - before[r.name]
+             for r in router.pool.replicas}
+    home = hrouter._pick(len(images[1]), hrouter._affinity_key(
+        [images[1]]), set()).name
+    homes = {hrouter._pick(1, hrouter._affinity_key([x[:1]]), set()).name
+             for x in images}
+    check(moved[home] == 8 and sum(moved.values()) == 8 and len(homes) == 2,
+          f"hash: dispatches {moved}, home {home}, homes {homes}")
+    print(f"  hash policy: 8 requests of one payload all on {home}; "
+          f"{len(images)} payloads over {sorted(homes)}", flush=True)
+
+    # r0 killed mid-wave: every request still 200 and held, r0 down
+    bodies, images = fleet_bodies(rs, FLEET_KILL_REQUESTS)
+    armed = threading.Event()
+
+    def kill_after(i):
+        if i >= FLEET_KILL_REQUESTS // 4 and not armed.is_set():
+            armed.set()
+            faults.arm("fleet/replica_predict", "kill",
+                       where={"replica": "r0"})
+
+    del runs[:]
+    reset_launches()
+    replies = fleet_wave(srv.port, bodies, during=kill_after)
+    torch.cuda.synchronize()
+    launches_kill = dict(all_launches())
+    kill_runs = list(runs)
+    fleet_launches_held("fleet kill wave", launches_kill, len(kill_runs))
+    worst_k, per_k = fleet_held("fleet kill wave", images, replies,
+                                kill_runs, models)
+    fleet = get_json(srv.port, "/debug/fleet")
+    states = {r["name"]: r["state"] for r in fleet["replicas"]}
+    check(states == {"r0": "down", "r1": "admitting"},
+          f"/debug/fleet after the kill: {states}")
+    faults.disarm_all()
+    r0 = router._replica("r0")
+    reset_launches()
+    router.tick(now=r0.next_probe_at + 0.01)
+    torch.cuda.synchronize()
+    probe = dict(all_launches())
+    check(r0.state == "admitting", f"r0 after one tick: {r0.state}")
+    fleet_launches_held("the re-admission probe", probe, 0, forwards=1)
+    before = r0.dispatches_total
+    for x in images[:4]:
+        router.submit([x]).result(60)
+    check(r0.dispatches_total > before, "r0 took no request after "
+          "re-admission")
+    rec["kill_wave"] = {"requests": FLEET_KILL_REQUESTS,
+                        "bucket_executions": per_k,
+                        "worst_err_over_tol": worst_k,
+                        "retries": plane_value(
+                            obs.snapshot(),
+                            "zoo_tpu_fleet_retries_total") or 0,
+                        "r0_failed_dispatches": plane_value(
+                            obs.snapshot(),
+                            "zoo_tpu_fleet_replica_errors_total",
+                            replica="r0") or 0,
+                        "states_after": states}
+    print(f"  r0 killed after {FLEET_KILL_REQUESTS // 4} of "
+          f"{FLEET_KILL_REQUESTS} requests: all 200 and held (worst "
+          f"{worst_k:.3f} of the bound), executions {per_k}, "
+          f"{rec['kill_wave']['r0_failed_dispatches']:g} dispatches to r0 "
+          f"failed over to r1 and {rec['kill_wave']['retries']:g} retried "
+          f"after a failed execution, /debug/fleet "
+          f"{states}; healed, one tick re-admitted r0 (its probe one "
+          f"batch-8 forward), and r0 serves again", flush=True)
+
+    # saturation: both queues of depth 1 full behind wedged dispatchers.
+    # One request at a time: each dispatcher takes one (and wedges in
+    # it), then each queue holds one; the next request finds both full
+    for r in router.pool.replicas:
+        r.batcher.queue_depth = 1
+    faults.arm("batcher/dispatch", "wedge", seconds=60.0)
+    one = json.dumps({"inputs": images[0][:1].tolist()}).encode()
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+    held = []
+
+    def settle(cond):
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not cond():
+            time.sleep(0.002)
+        check(cond(), "saturation: the queues did not reach their state")
+
+    try:
+        for n_taken in (1, 2):
+            held.append(pool.submit(post_json, srv.port, "/predict", one))
+            settle(lambda n=n_taken: sum(
+                r.outstanding_rows == 1 and not r.batcher._q
+                for r in router.pool.replicas) == n)
+        for n_queued in (1, 2):
+            held.append(pool.submit(post_json, srv.port, "/predict", one))
+            settle(lambda n=n_queued: sum(
+                len(r.batcher._q) == 1
+                for r in router.pool.replicas) == n)
+        hints = [r.retry_hint_s() for r in router.pool.replicas]
+        code, hdrs, body, _ = post_json(srv.port, "/predict", one)
+    finally:
+        faults.disarm_all()
+        for r in router.pool.replicas:
+            r.batcher.queue_depth = FLEET_BATCHER["queue_depth"]
+    codes = sorted(f.result(60)[0] for f in held)
+    pool.shutdown()
+    got = body.get("error", {}).get("retry_after_s")
+    check(code == 503 and hdrs.get("Retry-After") is not None and
+          got == round(min(hints), 3) and codes == [200] * 4,
+          f"saturation: {code} {body}, Retry-After "
+          f"{hdrs.get('Retry-After')}, hints {hints}, held {codes}")
+    rec["saturation"] = {"status": code, "retry_after_s": got,
+                         "replica_hints": hints,
+                         "retry_after_header": hdrs.get("Retry-After")}
+    print(f"  both queues full: 503, Retry-After {hdrs.get('Retry-After')}, "
+          f"retry_after_s {got} = min of the replicas' hints {hints}; the "
+          "held requests then 200", flush=True)
+
+    # the same load on one InferenceServer over the same model
+    bodies, images = fleet_bodies(np.random.RandomState(21), FLEET_REQUESTS)
+    single_im = InferenceModel().load_keras_net(template,
+                                                example_inputs=[x8])
+    single = InferenceServer(single_im, port=0, batcher=fleet_recording(
+        "single", [])(single_im, **FLEET_BATCHER), gen_batcher=None)
+    single.start()
+    try:
+        replies = fleet_wave(single.port, bodies)
+    finally:
+        single.stop()
+    codes = [r[0] for r in replies]
+    check(codes == [200] * FLEET_REQUESTS, f"single server: {codes}")
+    lat = [r[3] for r in replies]
+    rec["single_server"] = {"p50_ms": percentile_ms(lat, 50),
+                            "p99_ms": percentile_ms(lat, 99)}
+    print(f"  the same {FLEET_REQUESTS} requests on one InferenceServer "
+          f"over the same model: p50 {rec['single_server']['p50_ms']:.1f} "
+          f"p99 {rec['single_server']['p99_ms']:.1f} ms, against the fleet's "
+          f"{rec['main_wave']['p50_ms']:.1f} / "
+          f"{rec['main_wave']['p99_ms']:.1f} ms (two replicas sharing one "
+          f"card, no second card's capacity), {card}", flush=True)
+    del single_im
+    total = collections.Counter(launches)
+    total.update(launches_kill)
+    return router, srv, models, nets, template, dict(total)
+
+
+def fleet_rollout(card, rec, router, srv, models, nets, template, clock):
+    """Phase 21, part b: v1 (seed 0, served) and v2 (seed 1) as loader
+    versions of an in-memory ``ModelRegistry``; ``rollout(v2,
+    canary_pct=50)`` under a continuous load loop rolls back on an error
+    burst injected on the canary, a clean re-roll promotes after the
+    bake (the router's clock advanced, one tick), the loop sees no
+    failure, and every replica then serves v2's logits bit for bit."""
+    import torch
+
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.parallel import place_inference_params
+    from analytics_zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                            ModelRegistry)
+    x8 = fleet_example()
+    trees = {"v1": params_to_numpy(template), "v2": params_to_numpy(
+        fleet_resnet(1))}
+
+    net_of = {id(models[name]): net for name, net in nets.items()}
+
+    def loader(version):
+        def load(model):
+            model.load_keras_net(net_of[id(model)],
+                                 params=place_inference_params(
+                                     trees[version], [DEV]),
+                                 example_inputs=[x8])
+        return load
+
+    reg = ModelRegistry(root=None)
+    reg.register("resnet-50", "v1", loader=loader("v1"))
+    v2 = reg.register("resnet-50", "v2", loader=loader("v2"))
+    router.eject_after = FLEET_BURST  # the burst, not one error, ejects
+    stop, failures, served = threading.Event(), [], [0]
+    one = json.dumps({"inputs": np.round(np.random.RandomState(3).rand(
+        2, *IMAGE), 3).tolist()}).encode()
+
+    def load_loop():
+        while not stop.is_set():
+            code, _, body, _ = post_json(srv.port, "/predict", one)
+            out = np.asarray(body.get("outputs", []), np.float32)
+            if code != 200 or out.shape != (2, 1000) or \
+                    not np.isfinite(out).all():
+                failures.append((code, body.get("error")))
+            served[0] += 1
+
+    def wait_served(n):
+        target = served[0] + n
+        deadline = time.monotonic() + 120
+        while served[0] < target and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    loop = [threading.Thread(target=load_loop) for _ in range(2)]
+    for t in loop:
+        t.start()
+    endings = []
+    t0 = time.perf_counter()
+    try:
+        wait_served(4)
+        ctl = router.rollout(v2, canary_pct=50, bake_s=FLEET_BAKE_S,
+                             max_canary_errors=FLEET_BURST)
+        check(ctl.state == "canary", f"rollout began in {ctl.state}")
+        canary = ctl.canary_replicas[0]
+        faults.arm("fleet/replica_predict", "error",
+                   where={"replica": canary})
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and plane_value(
+                obs.snapshot(), "zoo_tpu_rollout_errors_total",
+                version="v2") < FLEET_BURST:
+            time.sleep(0.01)
+        router.tick(now=clock[0])
+        faults.disarm_all()
+        endings.append(get_json(srv.port, "/debug/rollout"))
+        check(ctl.state == "rolled_back" and "error burst" in ctl.reason,
+              f"rollout after the burst: {ctl.state} {ctl.reason}")
+        wait_served(4)
+        ctl = router.rollout(v2, canary_pct=50, bake_s=FLEET_BAKE_S,
+                             max_canary_errors=FLEET_BURST)
+        wait_served(8)
+        clock[0] += FLEET_BAKE_S + 1.0
+        router.tick(now=clock[0])
+        endings.append(get_json(srv.port, "/debug/rollout"))
+        check(ctl.state == "promoted", f"the re-roll ended {ctl.state}")
+        wait_served(4)
+    finally:
+        stop.set()
+        faults.disarm_all()
+        for t in loop:
+            t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(not failures, f"the load loop saw {len(failures)} failures: "
+          f"{failures[:3]}")
+    states = [[t["state"] for t in e["transitions"]] for e in endings]
+    check(states == [["rolling", "canary", "rolling_back", "rolled_back"],
+                     ["rolling", "canary", "promoting", "promoted"]] and
+          set(endings[1]["replica_versions"].values()) == {"v2"},
+          f"/debug/rollout endings {states}, versions "
+          f"{endings[1]['replica_versions']}")
+    # every replica's logits against a direct v2 forward, bit for bit
+    direct = InferenceModel().load_keras_net(
+        fleet_resnet(1), example_inputs=[x8])
+    x = np.random.RandomState(5).rand(4, *IMAGE).astype(np.float32)
+    want = direct.predict(x)
+    for name, im in models.items():
+        check(np.array_equal(im.predict(x), want),
+              f"{name} after promotion differs from a direct v2 forward")
+    rec["rollout"] = {"requests_in_loop": served[0], "failures": 0,
+                      "endings": [{"state": e["state"],
+                                   "reason": e.get("reason"),
+                                   "transitions": s}
+                                  for e, s in zip(endings, states)],
+                      "seconds": seconds}
+    print(f"  rollout under load: {served[0]} requests, 0 failures; an "
+          f"error burst on {canary} rolled v2 back ({endings[0]['reason']}),"
+          f" the clean re-roll promoted after a {FLEET_BAKE_S:g} s bake on "
+          f"the router's clock; /debug/rollout {states}; both replicas' "
+          f"logits bit for bit a direct v2 forward; {seconds:.1f} s",
+          flush=True)
+    del direct
+    torch.cuda.empty_cache()
+
+
+def fleet_processes(card, rec, workers, template):
+    """Phase 21, part c: two ResNet-50 worker processes behind a router
+    front door as ``HttpReplica``s with its ``TelemetryCollector``: the
+    merged acked-request counter equals the router's own plus each
+    worker's ``/metrics/json`` exactly; then one worker SIGKILLed during
+    a traced wave, every request still 200 and within the bound, and a
+    trace stitched from the router's process and a worker's."""
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        FleetRouter, HttpReplica, InferenceModel, ReplicaPool,
+        make_fleet_server)
+    obs.reset_metrics()
+    router = FleetRouter(ReplicaPool(replicas=[
+        HttpReplica(workers.url(i), name=f"w{i}") for i in range(2)]),
+        probe_interval_s=0, max_retries=2)
+    srv = make_fleet_server(router)  # its collector ticks by hand here
+    srv.start()
+    rs = np.random.RandomState(22)
+    # the workers serve v1 (seed 0): the template's weights
+    any_model = InferenceModel().load_keras_net(
+        template, example_inputs=[fleet_example()])
+
+    def held(what, images, replies):
+        codes = [r[0] for r in replies]
+        check(codes == [200] * len(replies), f"{what}: statuses {codes}")
+        worst = 0.0
+        for i, (x, reply) in enumerate(zip(images, replies)):
+            got = np.asarray(reply[2]["outputs"], np.float32)
+            alone = any_model.predict(x)
+            err = float(np.abs(got - alone).max())
+            tol = FLEET_TOL * max(1.0, float(np.abs(alone).max()))
+            check(err <= tol, f"{what}: request {i} {err} (tol {tol})")
+            worst = max(worst, err / tol)
+        return worst
+
+    try:
+        bodies, images = fleet_bodies(rs, FLEET_PROC_REQUESTS)
+        t0 = time.perf_counter()
+        replies = fleet_wave(srv.port, bodies)
+        window = time.perf_counter() - t0
+        worst = held("process fleet", images, replies)
+        per = []
+        for i in range(2):
+            snap = get_json(workers.ports[i], "/metrics/json")["metrics"]
+            per.append(plane_value(snap, "zoo_tpu_serving_requests_total",
+                                   path="/predict", status="200"))
+        text = urllib_text(srv.port, "/metrics?fleet=1")
+        merged, _ = router.telemetry.merged_snapshot()
+        fed = plane_value(merged, "zoo_tpu_serving_requests_total",
+                          path="/predict", status="200")
+        own = plane_value(obs.snapshot(), "zoo_tpu_serving_requests_total",
+                          path="/predict", status="200")
+        m = re.search(r'^zoo_tpu_serving_requests_total\{[^}]*path="/predict"'
+                      r'[^}]*status="200"[^}]*\} (\S+)', text, re.M)
+        n = FLEET_PROC_REQUESTS
+        check(fed == own + sum(per) and own == n and sum(per) == n and
+              all(per) and m is not None and float(m.group(1)) == fed,
+              f"federated acked requests {fed}, router {own}, workers "
+              f"{per}, text {m.group(1) if m else None}")
+        lat = [r[3] for r in replies]
+        # the traced wave: worker 1 SIGKILLed after a quarter
+        bodies, images = fleet_bodies(rs, n)
+        killed = threading.Event()
+
+        def kill_after(i):
+            if i >= n // 4 and not killed.is_set():
+                killed.set()
+                workers.kill(1)
+
+        replies = fleet_wave(srv.port, bodies,
+                             headers=lambda i: {"X-Zoo-Trace-Id":
+                                                f"fleet-proc-{i}"},
+                             during=kill_after)
+        worst_k = held("process fleet kill", images, replies)
+        # a request the surviving worker served: its trace stitches the
+        # router's spans and w0's (w1's died with it)
+        trace = {"sources": [], "spans": []}
+        for i in reversed(range(n)):
+            trace = get_json(srv.port, f"/debug/trace/fleet-proc-{i}")
+            if "w0" in trace["sources"]:
+                break
+        names = {s["name"] for s in trace["spans"]}
+        check("router" in trace["sources"] and "w0" in trace["sources"] and
+              {"fleet/remote_predict", "serving/request"} <= names,
+              f"stitched trace: sources {trace['sources']}, spans "
+              f"{sorted(names)}")
+        fleet = get_json(srv.port, "/debug/fleet")
+        states = {r["name"]: r["state"] for r in fleet["replicas"]}
+        w1_failed = plane_value(obs.snapshot(),
+                                "zoo_tpu_fleet_replica_errors_total",
+                                replica="w1") or 0
+    finally:
+        srv.stop()
+    rec["processes"] = {
+        "acked": {"federated": fed, "router": own, "workers": per},
+        "p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+        "window_s": window, "worst_err_over_tol": worst,
+        "kill_worst_err_over_tol": worst_k, "states_after_kill": states,
+        "w1_failed_dispatches": w1_failed,
+        "trace_sources": trace["sources"]}
+    print(f"  two worker processes: {n} requests in {window:.3f} s (p50 "
+          f"{rec['processes']['p50_ms']:.1f} p99 "
+          f"{rec['processes']['p99_ms']:.1f} ms), federated acked requests "
+          f"{fed:g} = router {own:g} + workers {per}; worker 1 SIGKILLed "
+          f"mid-wave: {n} of {n} 200 (worst {worst_k:.3f} of the bound; "
+          f"{w1_failed:g} dispatches to w1 failed over), /debug/fleet "
+          f"{states}, a trace stitched from "
+          f"{trace['sources']}; {card}", flush=True)
+
+
+def urllib_text(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.read().decode()
+
+
+def disagg_requests():
+    """8 greedy requests: prompts of 1024-1700 tokens (B7 prefills at
+    bucket 2048) from numpy seed 21, 64 new tokens each."""
+    rs = np.random.RandomState(21)
+    lens = rs.randint(1024, 1701, size=DISAGG_REQUESTS)
+    return [rs.randint(1, GPT["vocab"], size=int(n)).tolist() for n in lens]
+
+
+def disagg_serve(submit, prompts, between=None):
+    """Submit the prompts through ``submit``, all at once, or with
+    ``between`` given the first half, then ``between()`` once the first
+    request has resolved (a fault mid-wave), then the rest. Returns each
+    request's tokens or its exception, and the window's seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    half = len(prompts) // 2 if between is not None else len(prompts)
+    futs = [submit(p) for p in prompts[:half]]
+    if between is not None:
+        futs[0].exception(600)
+        between()
+        futs += [submit(p) for p in prompts[half:]]
+    out = []
+    for f in futs:
+        try:
+            out.append([int(t) for t in f.result(600)])
+        except Exception as e:
+            out.append(e)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pool_calls(plogs, dlogs):
+    """How many prefill admits and decode steps the pools' engines have
+    made so far."""
+    return (sum(len(p.calls["admit"]) for p in plogs),
+            sum(len(d.calls["step"]) for d in dlogs))
+
+
+def pool_calls_held(what, launches, plogs, dlogs, nb, since=(0, 0)):
+    """The pools' engines run on threads of their own, so a call's
+    counter difference can hold a sibling engine's launches: the window
+    is held as a whole, B7 ``nb`` per prefill admit (every prompt at
+    bucket 2048) and B11 ``nb`` per decode step, nothing else."""
+    admits, steps = pool_calls(plogs, dlogs)
+    admits, steps = admits - since[0], steps - since[1]
+    want = {k: v for k, v in (("flash_fwd", nb * admits),
+                              ("flash_decode", nb * steps)) if v}
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"{what}: launched {got} in {admits} prefill "
+          f"admits and {steps} decode steps, expected {want}")
+    errors = [c["error"] for lg in plogs + dlogs for calls in
+              lg.calls.values() for c in calls if c["error"]]
+    check(not errors, f"{what}: pool engine calls raised {errors}")
+
+
+def fleet_disagg(card, rec, workers):
+    """Phase 21, part d: disaggregated generation on GPT-1 at T 2048.
+    A colocated ``ContinuousBatcher`` over the template engine sets the
+    streams; ``DisaggRouter.for_engine`` (1 prefill, 2 decode engines)
+    reproduces them byte for byte, again with a decode replica poisoned
+    mid-wave (no page leaked, every pool back to its total); then the
+    same requests through worker processes over ``/generate/prefill``
+    and ``/generate/handoff``, the prefill worker SIGKILLed mid-wave:
+    every stream that completes is byte-exact and every failure a
+    retryable transport error. Returns the launches (B7 per prefill, B11
+    per decode step) of the in-process legs."""
+    import http.client
+    from concurrent.futures import Future
+
+    import torch
+
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.ops import kv_cache as kvc
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        ContinuousBatcher, DisaggRouter, HttpDisaggReplica, QueueFullError)
+    nb = GPT["n_block"]
+    net, im = fleet_gpt()
+    template = im.generator
+    template.warm()
+    prompts = disagg_requests()
+    new = DISAGG_NEW
+
+    # colocated: the template engine behind one ContinuousBatcher
+    ttft_co = []
+
+    class Colocated(ContinuousBatcher):
+        def _token_out(self, e, tok, now):
+            if not e.tokens:
+                ttft_co.append(now - e.t_enq)
+            return super()._token_out(e, tok, now)
+
+    log = LaunchLog(template, ("admit", "step"))
+    cb = Colocated(template).start()
+    reset_launches()
+    try:
+        colocated, co_s = disagg_serve(
+            lambda p: cb.submit(p, max_new_tokens=new), prompts)
+    finally:
+        cb.stop()
+        log.close()
+    co_launch = dict(all_launches())
+    calls_launch(log.calls, "admit", lambda c: {"flash_fwd": nb},
+                 "colocated prefill")
+    calls_launch(log.calls, "step", lambda c: {"flash_decode": nb},
+                 "colocated decode")
+    check(all(isinstance(s, list) and len(s) == new for s in colocated),
+          f"colocated streams {[type(s).__name__ for s in colocated]}")
+
+    # disaggregated, in process
+    obs.reset_metrics()
+    router = DisaggRouter.for_engine(template, n_prefill=DISAGG_PREFILL,
+                                     n_decode=DISAGG_DECODE, eject_after=1)
+    router.start()
+    engines = [r.engine for r in router.prefill + router.decode]
+    for eng in engines:
+        check(eng.prefill_chunk == 0, f"{eng.role} engine chunks")
+    plogs = [LaunchLog(r.engine, ("admit", "export_handoff"))
+             for r in router.prefill]
+    dlogs = [LaunchLog(r.engine, ("step", "admit_from_handoff"))
+             for r in router.decode]
+    # each prefill leg's blob size and time (the disaggregated TTFT:
+    # the first token is known when the blob is), over the first wave
+    blob_bytes, ttft_dis, blobs, first_wave = [], [], [], [True]
+    for r in router.prefill:
+        orig = r.prefill
+
+        def prefill(ids, mx, temp, orig=orig):
+            t_sub = time.perf_counter()
+            f = orig(ids, mx, temp)
+
+            def done(f, t_sub=t_sub):
+                if f.exception() is None and first_wave[0]:
+                    ttft_dis.append(time.perf_counter() - t_sub)
+                    blob_bytes.append(kvc.handoff_nbytes(f.result()))
+                    if not blobs:
+                        blobs.append(f.result())
+            f.add_done_callback(done)
+            return f
+        r.prefill = prefill
+    reset_launches()
+    submit = lambda p: router.submit(p, max_new_tokens=new)  # noqa: E731
+    try:
+        disagg, dis_s = disagg_serve(submit, prompts)
+        dis_launch = dict(all_launches())
+        pool_calls_held("disaggregated wave", dis_launch, plogs, dlogs, nb)
+        exact = disagg == colocated
+        check(exact, "disaggregated streams differ from the colocated "
+              f"ones at requests {[i for i, (a, b) in enumerate(zip(disagg, colocated)) if a != b]}")
+        first_wave[0] = False
+        # a decode replica poisoned mid-wave: the one the router would
+        # pick next (the most free pages)
+        victims = []
+
+        def dying(blob, mx, eos):
+            f = Future()
+            f.set_exception(ConnectionError("poisoned decode replica"))
+            return f
+
+        def poison():
+            victim = max(router.decode, key=lambda r: r.free_pages())
+            victim.decode = dying
+            victims.append(victim.name)
+
+        counts = pool_calls(plogs, dlogs)
+        reset_launches()
+        poisoned, _ = disagg_serve(submit, prompts, between=poison)
+        poison_launch = dict(all_launches())
+        pool_calls_held("poisoned wave", poison_launch, plogs, dlogs, nb,
+                        since=counts)
+        check(poisoned == colocated, "streams after the poisoned decode "
+              "replica differ from the colocated ones")
+        check(router.drain(), "the disaggregated fleet did not drain")
+        leaked = plane_value(obs.snapshot(),
+                             "zoo_tpu_serving_gen_handoff_pages_leaked") or 0
+        retries = plane_value(
+            obs.snapshot(), "zoo_tpu_serving_gen_handoff_retries_total") or 0
+        check(retries >= 1, f"no handoff retried after {victims} was "
+              "poisoned")
+        for eng in engines:
+            pools_full(eng, f"{eng.role} pool after the drain")
+        check(leaked == 0, f"{leaked} handoff pages leaked")
+        st = router.fleet_status()
+        lat = {r["name"]: r for r in st["replicas"]}
+        splice_ms = statistics.median(
+            [c["s"] for d in dlogs for c in d.calls["admit_from_handoff"]]
+        ) * 1e3
+        prefills = sum(len(p.calls["admit"]) for p in plogs)
+        steps = sum(len(d.calls["step"]) for d in dlogs)
+    finally:
+        for lg in plogs + dlogs:
+            lg.close()
+        router.stop()
+    tokens = DISAGG_REQUESTS * new
+    rec["disagg"] = {
+        "exact": True, "requests": DISAGG_REQUESTS, "new_tokens": new,
+        "prompt_lens": sorted(len(p) for p in prompts),
+        "colocated": {"seconds": co_s, "tokens_per_s": tokens / co_s,
+                      "ttft_median_ms": statistics.median(ttft_co) * 1e3},
+        "disaggregated": {"seconds": dis_s, "tokens_per_s": tokens / dis_s,
+                          "ttft_median_ms": statistics.median(ttft_dis)
+                          * 1e3},
+        "blob_bytes": [min(blob_bytes), max(blob_bytes)],
+        "splice_ms_median": splice_ms, "handoff_retries": retries,
+        "leaked": leaked, "poisoned": victims, "prefill_calls": prefills,
+        "decode_steps": steps,
+        "states_after": {k: v["state"] for k, v in lat.items()}}
+    print(f"  disaggregated (1 prefill, 2 decode engines) against colocated: "
+          f"{DISAGG_REQUESTS} greedy requests (prompts "
+          f"{rec['disagg']['prompt_lens']}, {new} new tokens) byte for byte "
+          f"equal; TTFT median {rec['disagg']['disaggregated']['ttft_median_ms']:.1f}"
+          f" ms (prefill leg) against {rec['disagg']['colocated']['ttft_median_ms']:.1f}"
+          f" ms, {tokens / dis_s:.1f} against {tokens / co_s:.1f} tokens/s; "
+          f"blobs {min(blob_bytes)}-{max(blob_bytes)} bytes, a splice "
+          f"{splice_ms:.2f} ms; a decode replica poisoned mid-wave: streams "
+          f"exact, {retries:g} re-prefills, {leaked:g} pages leaked, every "
+          f"pool back to its total; {card}", flush=True)
+    launches = collections.Counter(co_launch)
+    launches.update(dis_launch)
+    launches.update(poison_launch)
+
+    # the same over HTTP: worker processes behind the pools' routes
+    hrouter = DisaggRouter(
+        [HttpDisaggReplica(workers.url(2), "prefill", name="wprefill")],
+        [HttpDisaggReplica(workers.url(3), "decode", name="wdecode0"),
+         HttpDisaggReplica(workers.url(4), "decode", name="wdecode1")],
+        eject_after=1)
+    hrouter.start()
+    try:
+        # one wave: the first half, the prefill worker SIGKILLed once the
+        # first of them has resolved, then the second half
+        served, http_s = disagg_serve(
+            lambda p: hrouter.submit(p, max_new_tokens=new), prompts,
+            between=lambda: workers.kill(2))
+    finally:
+        hrouter.stop()
+    ok = [i for i, s in enumerate(served) if isinstance(s, list)]
+    failed = [s for s in served if not isinstance(s, list)]
+    check(ok and all(served[i] == colocated[i] for i in ok),
+          f"streams over HTTP: {len(ok)} completed, not all the colocated "
+          "ones")
+    check(all(isinstance(e, (OSError, http.client.HTTPException,
+                             QueueFullError)) for e in failed),
+          f"non-retryable failures {[type(e).__name__ for e in failed]}")
+    # the wire codec of one blob, once (seconds of host time each)
+    blob = blobs[0]
+    t0 = time.perf_counter()
+    kvc.handoff_from_wire(json.loads(json.dumps(kvc.handoff_to_wire(blob))))
+    codec_ms = (time.perf_counter() - t0) * 1e3
+    rec["disagg"]["http"] = {
+        "wave_s": http_s, "exact": len(ok),
+        "failed": [type(e).__name__ for e in failed],
+        "wire_ms_one_run": codec_ms,
+        "wire_blob_bytes": kvc.handoff_nbytes(blob),
+        "wire_seq_len": int(blob["seq_len"])}
+    print(f"  over HTTP (1 prefill, 2 decode worker processes), the prefill "
+          f"worker SIGKILLed mid-wave: {len(ok)} of {DISAGG_REQUESTS} "
+          f"streams byte for byte the colocated ones, {len(failed)} failed "
+          f"with {sorted({type(e).__name__ for e in failed})} (retryable), "
+          f"in {http_s:.2f} s; the wire codec (encode, JSON, decode) of a "
+          f"{int(blob['seq_len'])}-token blob of {kvc.handoff_nbytes(blob)} "
+          f"bytes {codec_ms:.1f} ms (host, one run); {card}", flush=True)
+    del router, hrouter, template, im
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def fleet_path(card, detail):
+    """Phase 21: the serving fleet on the card. The replica processes
+    start first, in parallel with the in-process parts' set-up; every
+    process is SIGKILLed and reaped on every exit path. Returns the
+    launches of the held windows (B5/B6 per bucket execution of the
+    in-process replicas, B7 per prefill and B11 per decode step of the
+    colocated and disaggregated legs)."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.apps import web_service_sample
+    from analytics_zoo_tpu_torch.common import slo
+    t0 = time.perf_counter()
+    rec = {"seconds_by_part": {}}
+    saved = {k: os.environ.get(k) for k in ("ZOO_TPU_SLO_TICK_S",
+                                            "ZOO_TPU_FED_TICK_S")}
+    os.environ.update({"ZOO_TPU_SLO_TICK_S": "0", "ZOO_TPU_FED_TICK_S": "0"})
+    slo.reset_slo()
+    zoo.init_nncontext(seed=0)
+    workers = FleetWorkers(["resnet", "resnet", "prefill", "decode",
+                            "decode"])
+    clock = [1000.0]
+    router = srv = None
+    try:
+        t = time.perf_counter()
+        router, srv, models, nets, template, launches = fleet_inprocess(
+            card, rec, lambda: clock[0], workers)
+        rec["seconds_by_part"]["inprocess"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fleet_rollout(card, rec, router, srv, models, nets, template,
+                      clock)
+        rec["seconds_by_part"]["rollout"] = time.perf_counter() - t
+        srv.stop()
+        srv = None
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fleet_processes(card, rec, workers, template)
+        rec["seconds_by_part"]["processes"] = time.perf_counter() - t
+        del models, nets, template
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        gen = fleet_disagg(card, rec, workers)
+        rec["seconds_by_part"]["disagg"] = time.perf_counter() - t
+        for k, v in gen.items():
+            launches[k] = launches.get(k, 0) + v
+        t = time.perf_counter()
+        r = web_service_sample.main([])
+        check(r["errors"] == 0 and r["health"]["status"] == "ok",
+              f"web_service_sample: {r}")
+        rec["seconds_by_part"]["web_service_sample"] = \
+            time.perf_counter() - t
+        print(f"  apps/web_service_sample at its defaults: {r['requests']} "
+              f"concurrent requests served, 0 errors", flush=True)
+    finally:
+        if srv is not None:
+            srv.stop()
+        workers.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        slo.reset_slo()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    print(f"  phase 21 launches {rec['launches']}; seconds by part "
+          f"{ {k: round(v, 1) for k, v in rec['seconds_by_part'].items()} }"
+          f" (the in-process fleet waited {rec.get('worker_wait_s', 0):.1f} s"
+          f" for the workers once warm); in {rec['seconds']:.1f} s, peak "
+          f"device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}", flush=True)
+    detail["fleet"] = rec
+    return rec["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--fleet-worker"] and len(sys.argv) == 3:
+        return fleet_worker(sys.argv[2])
     from analytics_zoo_tpu_torch.models.image.imageclassification import (
         ImageClassifier, resnet50)
     from analytics_zoo_tpu_torch.ops import conv_bn as cb
@@ -7690,6 +8815,16 @@ def main() -> int:
         # phase 20 alone, on the built libraries; no result line
         print("[20] nnframes", flush=True)
         print(f"  {nnframes_path(card, detail)}", flush=True)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--fleet"]:
+        # phase 21 alone, on the built libraries; no result line
+        print("[21] the serving fleet", flush=True)
+        fleet_path(card, detail)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_fleet.json"),
+                  "w") as f:
+            json.dump(detail, f, indent=1, default=str)
         print(card)
         return 0
 
@@ -7850,9 +8985,18 @@ def main() -> int:
           "slice's examples (bert_finetune at BERT-base widths)", flush=True)
     nnframes = nnframes_path(card, detail)
 
-    print("[21] summary", flush=True)
+    print("[21] the serving fleet: two ResNet-50 replicas behind a "
+          "FleetRouter (hash affinity, a kill, saturation), a canary "
+          "rollout from a ModelRegistry, a fleet of worker processes with "
+          "its collector, and disaggregated GPT-1 generation in process "
+          "and over HTTP; apps/web_service_sample", flush=True)
+    fleet = fleet_path(card, detail)
+
+    print("[22] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        if fleet.get(rec["name"]):
+            rec["launches_fleet"] = fleet[rec["name"]]
         if plane_served.get(rec["name"]):
             rec["launches_plane"] = plane_served[rec["name"]]
         if plane_trained.get(rec["name"]):

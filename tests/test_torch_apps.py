@@ -2,7 +2,7 @@
 the nnframes slice on the CPU, with the reference's own tiny arguments
 and assertions (``tests/test_apps.py``, ``tests/test_examples.py``);
 ``bert_finetune`` trains on one device, and ``--devices 2`` raises
-naming the data-parallel item it waits for. The dispatchers list 3 apps
+naming the data-parallel item it waits for. The dispatchers list 4 apps
 and 20 examples."""
 
 import numpy as np
@@ -53,6 +53,10 @@ CASES = {
         "apps", ["--samples", "1024", "--epochs", "2", "--batch-size",
                  "256", "--users", "50", "--items", "40"],
         lambda r: r["accuracy"] > 0.25 or pytest.fail(r)),
+    "web_service_sample": (
+        "apps", ["--requests", "4", "--concurrency", "2"],
+        lambda r: (r["errors"] == 0 and r["health"]["status"] == "ok")
+        or pytest.fail(r)),
     "nnframes_classification": (
         "examples", ["--samples", "64", "--epochs", "2"],
         lambda acc: 0.0 <= acc <= 1.0 or pytest.fail(acc)),
@@ -95,9 +99,11 @@ def test_bert_finetune_refuses_more_than_one_device():
 
 
 def test_dispatchers_list_3_apps_and_20_examples(capsys):
+    """The app list (four apps since the web-service sample) and the
+    twenty examples; the name is kept from when it held three."""
     assert apps_main(["list"]) == 0
     out = capsys.readouterr().out
-    assert len(APPS) == 3 and all(f"  {a} " in out for a in APPS)
+    assert len(APPS) == 4 and all(f"  {a} " in out for a in APPS)
     assert "Dogs-vs-cats transfer learning" in out
     assert apps_main(["nope"]) == 2
     assert examples_main(["list"]) == 0

@@ -279,11 +279,28 @@ class _Holder:
 
 
 def test_start_with_a_collector_installs_the_fleet_objectives():
+    """A fleet's front door (a ``FleetRouter``, whose ``start`` mounts a
+    collector) installs the ``fleet`` and ``fed`` objectives beside the
+    serving ones; a plain batcher with a collector mounted installs
+    neither, as the reference keys them on ``fleet_status``."""
     from analytics_zoo_tpu_torch.pipeline.inference import (
-        DynamicBatcher, InferenceServer)
+        DynamicBatcher, FleetRouter, InferenceServer, Replica, ReplicaPool)
     from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
         InferenceModel
     im = InferenceModel()
+    router = FleetRouter(ReplicaPool(replicas=[Replica("r0", im,
+                                                       batcher=None)]),
+                         probe_interval_s=0)
+    router.telemetry = tfed.TelemetryCollector(_Holder(), tick_s=0)
+    srv = InferenceServer(router, port=0).start()
+    try:
+        ids = [o["id"] for o in tslo.get_engine().status()["objectives"]]
+    finally:
+        srv.stop()
+    assert ids == sorted(d["id"] for d in tslo.DEFAULT_SERVING_SLOS
+                         + tslo.DEFAULT_FORECAST_SLOS
+                         + tslo.DEFAULT_FLEET_SLOS + tslo.DEFAULT_FED_SLOS)
+    tslo.reset_slo()
     batcher = DynamicBatcher(im, max_batch_size=2)
     batcher.telemetry = tfed.TelemetryCollector(_Holder(), tick_s=0)
     srv = InferenceServer(im, port=0, batcher=batcher).start()
@@ -292,8 +309,7 @@ def test_start_with_a_collector_installs_the_fleet_objectives():
     finally:
         srv.stop()
     assert ids == sorted(d["id"] for d in tslo.DEFAULT_SERVING_SLOS
-                         + tslo.DEFAULT_FORECAST_SLOS
-                         + tslo.DEFAULT_FLEET_SLOS + tslo.DEFAULT_FED_SLOS)
+                         + tslo.DEFAULT_FORECAST_SLOS)
 
 
 # -- the serving examples -----------------------------------------------------

@@ -14,7 +14,10 @@ the trace header echoed or minted with the batcher's spans under it,
 the batcher's families in ``/metrics``, and the judgement layer's
 routes: ``/debug/slo``'s objectives and states and
 ``/debug/metrics/history``'s windowed deltas after the same requests,
-and the fleet routes' 404s while no collector is mounted.
+the fleet telemetry routes' 404s while no collector is mounted, and the
+fleet's own routes (``/debug/fleet``, ``/debug/rollout``, the
+disaggregated pools' ``/generate/prefill`` and ``/generate/handoff``) on
+single-model servers.
 
 Each package's servers start once per module; every client call has a
 timeout and every server is stopped in a ``finally``.
@@ -539,14 +542,81 @@ def test_trace_disabled_sends_no_header(servers, monkeypatch):
 
 
 def test_routes_not_ported_answer_404(servers):
-    port = servers["port"]["main"].port
-    for method, path in (("POST", "/generate/prefill"),
-                         ("POST", "/generate/handoff"),
-                         ("GET", "/debug/fleet"),
-                         ("GET", "/debug/rollout")):
-        code, _, body = _call(port, method, path,
-                              b"{}" if method == "POST" else None)
-        assert code == 404 and body["error"]["path"] == path
+    """The fleet's routes on single-model servers answer as the JAX
+    package's: ``/debug/fleet`` and ``/debug/rollout`` 404 (no fleet
+    fronts them); ``/generate/prefill`` and ``/generate/handoff`` 501
+    without a generation batcher and 400 on a body without a prompt or
+    a blob where one is mounted."""
+    cases = [("main", "GET", "/debug/fleet", None, 404),
+             ("main", "GET", "/debug/rollout", None, 404),
+             ("plain", "GET", "/debug/fleet", None, 404),
+             ("plain", "GET", "/debug/rollout", None, 404),
+             ("plain", "POST", "/generate/prefill", b'{"prompt": [1]}', 501),
+             ("plain", "POST", "/generate/handoff", b'{"handoff": {}}', 501),
+             ("main", "POST", "/generate/prefill", b"{}", 400),
+             ("main", "POST", "/generate/handoff", b'{"handoff": 1}', 400),
+             ("main", "POST", "/generate/handoff", b'{"handoff": {}}', 400)]
+    for which, method, path, body, want in cases:
+        got = _both(servers, which, method, path, body)
+        assert got["port"][0] == got["jax"][0] == want, (which, path)
+        assert got["port"][2] == got["jax"][2], (which, path)
+
+
+class _FrontDoor:
+    """A duck-typed fleet front door: ``fleet_status`` and the batcher
+    surface, with no requests ever batched."""
+
+    def __init__(self, telemetry=None):
+        if telemetry is not None:
+            self.telemetry = telemetry
+
+    def fleet_status(self):
+        return {"replicas": []}
+
+    def start(self):
+        return self
+
+    def stop(self):
+        pass
+
+    def batchable(self, xs):
+        return False
+
+    def stats(self):
+        return {"enabled": True, "fleet": True}
+
+
+class _Collector:
+    def start(self):
+        return self
+
+    def stop(self):
+        pass
+
+
+def test_start_installs_fleet_objectives_like_jax():
+    """``InferenceServer.start`` installs the ``fleet`` objectives on a
+    front door with ``fleet_status`` and the ``fed`` ones only when it
+    also has a collector mounted, as the JAX package does."""
+    got = {}
+    for side, sv, slo in (("port", tsv, tslo), ("jax", jsv, jslo)):
+        for mounted in (False, True):
+            slo.reset_slo()
+            srv = sv.InferenceServer(
+                _StubModel(), port=0,
+                batcher=_FrontDoor(_Collector() if mounted else None),
+                gen_batcher=None).start()
+            try:
+                ids = {o["id"] for o in
+                       slo.get_engine().status()["objectives"]}
+            finally:
+                srv.stop()
+            got[side, mounted] = ids
+            assert "fleet_replicas_admitting" in ids
+            assert ("fed_latency_p99" in ids) == mounted
+        slo.reset_slo()
+    assert got["port", False] == got["jax", False]
+    assert got["port", True] == got["jax", True]
 
 
 # -- the judgement layer's routes (these reset both registries: last) ---------
