@@ -39,6 +39,19 @@ for a CUDA tensor it launches its kernel or raises, and counts the
 launch in :data:`launches` (B1's and B3's given an in_residual in
 :data:`residual_launches` as well).
 
+The eval folds B5 and B6 are torch operators,
+``zoo_torch::matmul_bn_apply`` and ``zoo_torch::conv3x3_bn_apply``
+(``torch.library.custom_op``): ``torch.export`` records them as nodes of
+a serving program (``InferenceModel.export_compiled``), and everything
+that needs the tensors' pointers (the vectors' alignment copies, the
+route and tile choice, the launch count, the FLOP record) runs inside
+their implementation, so a loaded program launches and counts the
+kernels as the eager path does. The public functions hand fake tensors
+(a trace) to the operator and real ones to its implementation directly:
+the dispatcher's round trip cost about 3 ms of host per ResNet-50
+forward on the card (PERF.md). Tracing a card tensor into any other
+kernel raises (:func:`untraceable`).
+
 dtype rules (the reference's): the 1x1 fold casts the prologue output
 to the WEIGHT's type and multiplies in it, so bf16 activations with f32
 weights give an f32 product (two or three tf32 passes, f32-accurate,
@@ -255,7 +268,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a tracer's fake tensor (``torch.export``), not
+    data. A plain tensor, every eager call's, is answered at once without
+    ``is_fake``'s checks."""
+    if type(x) is torch.Tensor:
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
+
+
+def untraceable(name: str, x: torch.Tensor) -> None:
+    """Raise where ``torch.export`` traces a card tensor into a kernel
+    that is no operator: its ctypes launch needs real pointers, and a
+    program must not quietly record the plain version instead. Only B5
+    and B6 are operators (``zoo_torch::matmul_bn_apply``,
+    ``zoo_torch::conv3x3_bn_apply``)."""
+    if x.device.type == "cuda" and _traced(x):
+        raise NotImplementedError(
+            f"{name}: no program exports through this kernel on the card "
+            "(only B5 and B6 are operators; ROADMAP A13.7)")
+
+
 def _device_kind(name: str, x: torch.Tensor) -> str:
+    untraceable(name, x)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
     return x.device.type
@@ -315,9 +351,29 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def _matmul_fold(x4, w, stride, residual, in_scale=None, in_shift=None,
                  relu_in=False, out_scale=None, out_shift=None,
                  relu_out=False):
-    """The 1x1 fold over NHWC ``x4``, every ``stride``-th pixel."""
+    """The 1x1 fold over NHWC ``x4``, every ``stride``-th pixel: B5,
+    the op ``zoo_torch::matmul_bn_apply`` under tracing."""
+    _check_1x1("matmul_bn_apply", x4, w)
+    args = (x4, w, in_scale, in_shift, out_scale, out_shift, residual,
+            int(stride), bool(relu_in), bool(relu_out))
+    if _traced(x4):
+        return torch.ops.zoo_torch.matmul_bn_apply.default(*args)
+    return _matmul_fold_op(*args)
+
+
+def _matmul_fold_op(x4: torch.Tensor, w: torch.Tensor,
+                    in_scale: Optional[torch.Tensor],
+                    in_shift: Optional[torch.Tensor],
+                    out_scale: Optional[torch.Tensor],
+                    out_shift: Optional[torch.Tensor],
+                    residual: Optional[torch.Tensor], stride: int,
+                    relu_in: bool, relu_out: bool) -> torch.Tensor:
+    """``zoo_torch::matmul_bn_apply`` on real tensors: B5 on a CUDA
+    tensor (or raise), the plain version on a CPU one. The FLOP record,
+    the vectors' alignment copies, the route and the launch count run
+    here, so a loaded program does them as the eager path does."""
     name = "matmul_bn_apply"
-    k, n = _check_1x1(name, x4, w)
+    k, n = w.shape
     b, h, wd, _ = x4.shape
     ho, wo = -(-h // stride), -(-wd // stride)
     with _counted(name, b * ho * wo, k, n):
@@ -426,10 +482,29 @@ def conv3x3_bn_apply(x: torch.Tensor, w: torch.Tensor,
                      stride: int = 1) -> torch.Tensor:
     """Inference fold of the 3x3 SAME conv on NHWC ``x`` with HWIO
     ``w`` at stride 1 or 2, any extent: prologue, conv, this BN's fold
-    and ReLU in the epilogue. Cin and Cout multiples of 64."""
-    name = "conv3x3_bn_apply"
+    and ReLU in the epilogue. Cin and Cout multiples of 64. B6, the op
+    ``zoo_torch::conv3x3_bn_apply`` under tracing."""
     stride = int(stride)
-    cin, cout = _check_3x3(name, x, w, stride)
+    _check_3x3("conv3x3_bn_apply", x, w, stride)
+    args = (x, w, in_scale, in_shift, out_scale, out_shift, stride,
+            bool(relu_in), bool(relu_out))
+    if _traced(x):
+        return torch.ops.zoo_torch.conv3x3_bn_apply.default(*args)
+    return _conv3x3_fold_op(*args)
+
+
+def _conv3x3_fold_op(x: torch.Tensor, w: torch.Tensor,
+                     in_scale: Optional[torch.Tensor],
+                     in_shift: Optional[torch.Tensor],
+                     out_scale: Optional[torch.Tensor],
+                     out_shift: Optional[torch.Tensor], stride: int,
+                     relu_in: bool, relu_out: bool) -> torch.Tensor:
+    """``zoo_torch::conv3x3_bn_apply`` on real tensors: B6 on a CUDA
+    tensor (or raise), the plain version on a CPU one, with the FLOP
+    record, the alignment copies, the tile choice and the launch count
+    inside."""
+    name = "conv3x3_bn_apply"
+    cin, cout = w.shape[2], w.shape[3]
     affine_in = in_scale is not None or in_shift is not None
     s = _vec(in_scale, cin, 1.0, x) if affine_in else None
     t = _vec(in_shift, cin, 0.0, x) if affine_in else None
@@ -496,6 +571,32 @@ def conv3x3_apply_tile(b: int, h: int, w: int, cin: int, cout: int,
             bn = 128
     return (stride == 1 and _window_smem(bn, cin, w) <= _SMEM_PER_BLOCK,
             bn)
+
+
+def _fold_1x1_fake(x4, w, in_scale, in_shift, out_scale, out_shift,
+                   residual, stride, relu_in, relu_out):
+    b, h, wd, _ = x4.shape
+    return x4.new_empty((b, -(-h // stride), -(-wd // stride), w.shape[1]))
+
+
+def _fold_3x3_fake(x, w, in_scale, in_shift, out_scale, out_shift, stride,
+                   relu_in, relu_out):
+    b, h, wd, _ = x.shape
+    return x.new_empty((b, -(-h // stride), -(-wd // stride), w.shape[3]))
+
+
+# B5 and B6 as opaque operators, so that ``torch.export`` records them as
+# nodes of a program (``InferenceModel.export_compiled``) and a loaded
+# program launches the kernels: the CUDA and CPU implementation is the
+# wrapper above; the fake one gives the output's shape and dtype from the
+# inputs' (a symbolic batch included). They have no autograd formula: the
+# folds serve inference only.
+torch.library.custom_op("zoo_torch::matmul_bn_apply", _matmul_fold_op,
+                        mutates_args=(), device_types=("cpu", "cuda")
+                        ).register_fake(_fold_1x1_fake)
+torch.library.custom_op("zoo_torch::conv3x3_bn_apply", _conv3x3_fold_op,
+                        mutates_args=(), device_types=("cpu", "cuda")
+                        ).register_fake(_fold_3x3_fake)
 
 
 # ---------------------------------------------------------------------------

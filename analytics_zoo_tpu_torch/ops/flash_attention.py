@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from analytics_zoo_tpu_torch.ops import cuda_build
+from analytics_zoo_tpu_torch.ops.conv_bn import untraceable
 from analytics_zoo_tpu_torch.perf import flops as _flops
 
 _NEG_INF = -1e30
@@ -299,6 +300,7 @@ def flash_bwd_dq_ref(q, k, v, dout, key_mask, m, l, delta, causal: bool,
 # ---------------------------------------------------------------------------
 
 def _device_kind(name: str, t: torch.Tensor) -> str:
+    untraceable(name, t)
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return t.device.type

@@ -1,4 +1,5 @@
-"""Serving of the port: predict, int8, generation, the HTTP front end,
+"""Serving of the port: predict, int8, generation, compiled serving
+artifacts, the HTTP front ends (stdlib and native C++),
 the replicated fleet with its registry and canary rollout, and
 disaggregated prefill/decode."""
 
@@ -18,13 +19,14 @@ from analytics_zoo_tpu_torch.pipeline.inference.quantize import \
 from analytics_zoo_tpu_torch.pipeline.inference.registry import (
     ModelRegistry, ModelVersion, RolloutController)
 from analytics_zoo_tpu_torch.pipeline.inference.serving import (
-    InferenceServer, make_inference_server)
+    InferenceServer, NativeInferenceServer, make_inference_server)
 
 __all__ = ["ContinuousBatcher", "DeadlineExpiredError", "DisaggReplica",
            "DisaggRouter", "DynamicBatcher", "FleetRouter",
            "FleetSaturatedError", "GenerationEngine", "HttpDisaggReplica",
            "HttpReplica", "InferenceModel", "InferenceServer",
-           "ModelRegistry", "ModelVersion", "QuantizedModel",
+           "ModelRegistry", "ModelVersion", "NativeInferenceServer",
+           "QuantizedModel",
            "QueueFullError", "Replica", "ReplicaContext", "ReplicaPool",
            "ReplicaUnavailableError", "RolloutController",
            "make_fleet_server", "make_inference_server",

@@ -1821,16 +1821,20 @@ class DisaggRouter:
                 f"decode={len(self.decode)})")
 
 
-def make_fleet_server(pool_or_router, port: int = 0):
-    """Serve a fleet behind the stdlib front end: a
+def make_fleet_server(pool_or_router, port: int = 0,
+                      prefer_native: bool = True):
+    """Serve a fleet behind the standard front ends
+    (:func:`~analytics_zoo_tpu_torch.pipeline.inference.serving.
+    make_inference_server`: the native one where its library builds): a
     :class:`ReplicaPool` is wrapped in a :class:`FleetRouter` (pass a
     router to choose its policy and retries), mounted as both the model
     and the batcher (``/predict``, ``/health``, ``/metrics``,
-    ``/debug/fleet``, ``/debug/rollout`` and the rest). The reference's
-    native front end is not ported (ROADMAP A13.3)."""
+    ``/debug/fleet``, ``/debug/rollout`` and the rest)."""
     from analytics_zoo_tpu_torch.pipeline.inference.serving import \
         make_inference_server
     router = pool_or_router
     if isinstance(router, ReplicaPool):
         router = FleetRouter(router)
-    return make_inference_server(router, port=port, batcher=router)
+    return make_inference_server(router, port=port,
+                                 prefer_native=prefer_native,
+                                 batcher=router)

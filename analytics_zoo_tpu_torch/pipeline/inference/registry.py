@@ -31,12 +31,12 @@ Every transition appends a ``rollout/state`` event and counts in
 (``rollout/swap_replica`` and the rest) and ``GET /debug/rollout`` shows
 the state.
 
-An artifact version (an ``export_compiled`` zip in the reference) is
-registered and persisted as opaque bytes; loading one needs
-``InferenceModel.load_compiled``, which is not ported yet (ROADMAP
-A13.5), so :meth:`ModelVersion.load_into` and
-:meth:`ModelRegistry.register_export` raise ``NotImplementedError`` for
-it. Loader versions work as in the reference.
+A version is an ``InferenceModel.export_compiled`` artifact (a zip,
+persisted under the registry's root) or an in-memory loader callable:
+:meth:`ModelVersion.load_into` loads the first through
+``InferenceModel.load_compiled`` and calls the second, and
+:meth:`ModelRegistry.register_export` exports a live model into the
+registry.
 """
 
 from __future__ import annotations
@@ -113,21 +113,17 @@ class ModelVersion:
     def load_into(self, model) -> None:
         """Warm-swap this version into a live
         :class:`~analytics_zoo_tpu_torch.pipeline.inference.
-        inference_model.InferenceModel`: a loader version calls its
-        callable, which must bump ``model.generation`` (a
-        ``load_keras_net`` does), so the batchers serving it make their
-        bucket callables anew. An artifact version raises
-        ``NotImplementedError``: ``load_compiled`` is not ported yet
-        (ROADMAP A13.5)."""
-        if self.loader is None:
-            raise NotImplementedError(
-                f"version {self.model_name}:{self.name} is a compiled "
-                f"artifact ({self.artifact}); InferenceModel."
-                f"load_compiled is not ported yet (ROADMAP A13.5): "
-                f"register a loader= version instead")
+        inference_model.InferenceModel`: an artifact version through
+        ``load_compiled`` (its programs, no model code), a loader version
+        by calling its callable, which must bump ``model.generation`` (a
+        ``load_keras_net`` does). Either way the batchers serving the
+        model make their bucket callables anew."""
         with obs.span("rollout/swap", model=self.model_name,
                       version=self.name):
-            self.loader(model)
+            if self.loader is not None:
+                self.loader(model)
+            else:
+                model.load_compiled(self.artifact)
         obs.event("rollout/version_loaded", model=self.model_name,
                   version=self.name)
 
@@ -257,14 +253,24 @@ class ModelRegistry:
                         model, metadata: Optional[dict] = None,
                         warm_buckets: Optional[List[int]] = None
                         ) -> ModelVersion:
-        """Export a live model's compiled serving program into the
-        registry: needs ``InferenceModel.export_compiled``, which is not
-        ported yet (ROADMAP A13.5), so it raises
-        ``NotImplementedError``."""
-        raise NotImplementedError(
-            "register_export needs InferenceModel.export_compiled, not "
-            "ported yet (ROADMAP A13.5); register a loader= version, or "
-            "an artifact file with register(artifact=...)")
+        """Export a live :class:`InferenceModel`'s serving program
+        (``export_compiled``) straight into the registry (which needs a
+        ``root``). The warm-bucket manifest defaults to the bucket ladder
+        a replica would warm for it (``ZOO_TPU_SERVING_MAX_BATCH``)."""
+        if not self.root:
+            raise ValueError(
+                "register_export needs a registry root directory")
+        if warm_buckets is None:
+            from analytics_zoo_tpu_torch.pipeline.inference.batching \
+                import bucket_ladder
+            cap = int(os.environ.get("ZOO_TPU_SERVING_MAX_BATCH", 32))
+            warm_buckets = list(bucket_ladder(cap))
+        vdir = os.path.join(self.root, str(model_name), str(version))
+        os.makedirs(vdir, exist_ok=True)
+        artifact = os.path.join(vdir, _ARTIFACT_FILE)
+        model.export_compiled(artifact)
+        return self.register(model_name, version, artifact=artifact,
+                             metadata=metadata, warm_buckets=warm_buckets)
 
     # -- lookup --------------------------------------------------------------
     def get(self, model_name: str, version: str) -> ModelVersion:

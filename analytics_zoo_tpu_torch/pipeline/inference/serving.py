@@ -72,8 +72,14 @@ POST /generate/prefill {"prompt": [ids]}  →  {"handoff": wire blob}: the
 POST /generate/handoff {"handoff": blob}  →  {"tokens": [...]}: the
      decode pool's ingress; 501 without one, 400 on a bad blob
 
-Not ported yet: the native front end (``NativeInferenceServer``,
-ROADMAP A13.3).
+:class:`NativeInferenceServer` serves the same routes behind the C++
+front end (``native/src/serving_http.cpp``): accept, HTTP parsing, the
+request queue and ``GET /health`` run in C++, off the GIL; worker
+threads pull requests through the C interface and run the same handlers.
+Its replies close the connection, and a 503 carries ``retry_after_s`` in
+its body but no ``Retry-After`` header. :func:`make_inference_server`
+prefers it and falls back to :class:`InferenceServer` where the library
+cannot be built.
 """
 
 from __future__ import annotations
@@ -101,7 +107,8 @@ from analytics_zoo_tpu_torch.pipeline.inference.batching import (
 from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
     InferenceModel
 
-__all__ = ["InferenceServer", "make_inference_server", "handle_predict",
+__all__ = ["InferenceServer", "NativeInferenceServer",
+           "make_inference_server", "handle_predict",
            "handle_generate", "handle_prefill", "handle_handoff",
            "handle_profile"]
 
@@ -1074,13 +1081,213 @@ class InferenceServer:
             self.gen_batcher.stop()
 
 
+class NativeInferenceServer:
+    """The routes of :class:`InferenceServer` behind the C++ front end
+    (``native/src/serving_http.cpp``, the reference's
+    ``NativeInferenceServer``): socket accept, HTTP parsing, queueing and
+    ``GET /health`` run in C++; ``workers`` threads (the model's
+    concurrency by default) pull each request's path, body and trace
+    header over the C interface, run the handlers and post the reply.
+    ``/health`` is refreshed after every request, so it reports the
+    capacity after that request, and is answered while every worker is
+    busy."""
+
+    def __init__(self, model: InferenceModel, port: int = 0,
+                 workers: Optional[int] = None, batcher="auto",
+                 gen_batcher="auto"):
+        from analytics_zoo_tpu_torch.native import NativeHttpServer
+        self._srv = NativeHttpServer(port=port)
+        self.model = model
+        self.batcher = _resolve_batcher(model, batcher)
+        self.gen_batcher = _resolve_gen_batcher(model, gen_batcher)
+        self._workers = workers or model.supported_concurrent_num
+        self._threads: "list[threading.Thread]" = []
+        self._stopping = False
+
+    @property
+    def port(self) -> int:
+        return self._srv.port
+
+    def _route(self, route: str, path: str, body: bytes,
+               trace_hdr: Optional[str]):
+        """``(status, reply bytes or None, trace id)`` of one request;
+        None stands for the local ``/metrics``, rendered after the
+        request is counted."""
+        if route == "/metrics" and "fleet=1" in path:
+            status, text = _fleet_metrics_text(path, self.batcher)
+            return status, text if text is not None else json.dumps(
+                _error_body(404, "no fleet telemetry collector mounted")
+            ).encode(), None
+        if route == "/metrics":
+            _refresh_vitals()
+            return 200, None, None
+        if route == "/debug/dashboard":
+            return 200, _dashboard_html(), None
+        if route == "/metrics/json":
+            _refresh_vitals()
+            return 200, json.dumps({"ts": time.time(),
+                                    "metrics": obs.snapshot()}).encode(), \
+                None
+        gets = {
+            "/debug/traces": lambda: (200, _traces_payload(path,
+                                                           self.batcher)),
+            "/debug/slo": lambda: (200, _slo_payload(path)),
+            "/debug/fleet/telemetry": lambda: _fleet_telemetry_payload(
+                self.batcher),
+            "/debug/fleet": lambda: _fleet_payload(self.batcher,
+                                                   self.gen_batcher),
+            "/debug/rollout": lambda: _rollout_payload(self.batcher),
+            "/debug/metrics/history": lambda: _history_payload(
+                path, self.batcher),
+            "/debug/profile": lambda: handle_profile(body),
+        }
+        if route in gets:
+            status, payload = gets[route]()
+        elif route.startswith("/debug/trace/"):
+            status, payload = _trace_payload(route, path, self.batcher)
+        elif route not in ("/predict", "/generate", "/generate/prefill",
+                           "/generate/handoff"):
+            _count_error("not_found")
+            status, payload = 404, _error_body(404, "not found",
+                                               path=route)
+        else:
+            with tracing.trace("serving/request", trace_id=trace_hdr,
+                               path=route) as tr:
+                if route == "/generate/prefill":
+                    status, payload = handle_prefill(
+                        self.model, body, self.gen_batcher)
+                elif route == "/generate/handoff":
+                    status, payload = handle_handoff(
+                        self.model, body, self.gen_batcher)
+                elif route == "/generate":
+                    status, payload = handle_generate(
+                        self.model, body, self.gen_batcher)
+                else:
+                    status, payload = handle_predict(
+                        self.model, body, batcher=self.batcher)
+                tr.annotate(status=status)
+            return status, json.dumps(payload).encode(), tr.trace_id
+        return status, json.dumps(payload).encode(), None
+
+    def _serve_one(self, rid: int, path: str, body: bytes,
+                   trace_hdr: Optional[str] = None):
+        t0 = time.perf_counter()
+        _in_flight().inc()
+        status, out, trace_id = 0, b"", None
+        route = path.split("?", 1)[0]
+        try:
+            status, out, trace_id = self._route(route, path, body,
+                                                trace_hdr)
+        except Exception as e:
+            status = 500
+            out = json.dumps(_error_body(500, str(e),
+                                         kind="internal")).encode()
+        finally:
+            # account before replying: a client that scrapes /metrics
+            # right after its response sees its request counted (and
+            # in-flight back at 0)
+            _in_flight().dec()
+            _record_request(route, status, time.perf_counter() - t0)
+        if out is None:
+            out = obs.to_prometheus().encode()
+        try:
+            self._srv.respond(rid, status, out, trace_id=trace_id)
+        except Exception:
+            pass  # the client is gone: nothing to tell it
+        # after the slot is back: /health reports the capacity after
+        # this request and the batcher's queue now
+        self._srv.set_health(json.dumps(_health_payload(
+            self.model, self.batcher, self.gen_batcher)))
+
+    def _loop(self):
+        from analytics_zoo_tpu_torch.common.nncontext import logger
+        while not self._stopping:
+            try:
+                got = self._srv.next_request(timeout_ms=200)
+            except StopIteration:
+                return
+            except Exception as e:  # transient: keep the worker alive
+                if self._stopping:
+                    return
+                logger.warning("native serving worker error: %s", e)
+                continue
+            if got is not None:
+                self._serve_one(*got)
+
+    def start(self, background: bool = True):
+        """Warm and start the batchers, install the default objectives
+        (as :meth:`InferenceServer.start`), publish ``/health`` and start
+        the worker threads (and join them unless ``background``)."""
+        if self.batcher is not None:
+            self.batcher.start()
+        if self.gen_batcher is not None:
+            self.gen_batcher.start()
+        slo_lib.ensure_default_slos("serving")
+        slo_lib.ensure_default_slos("forecast")
+        forecast_lib.ensure_forecaster()
+        if hasattr(self.batcher, "fleet_status"):
+            slo_lib.ensure_default_slos("fleet")
+            if _fed_collector(self.batcher) is not None:
+                slo_lib.ensure_default_slos("fed")
+        self._srv.set_health(json.dumps(_health_payload(
+            self.model, self.batcher, self.gen_batcher)))
+        for i in range(self._workers):
+            t = threading.Thread(target=self._loop,
+                                 name=f"zoo-tpu-native-{i}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        if not background:
+            for t in self._threads:
+                t.join()
+        return self
+
+    def stop(self):
+        """Let the workers drain (each polls every 200 ms; an in-flight
+        request finishes) for up to 60 s, stop the batchers, then free
+        the native server. A worker still busy after that keeps the
+        handle alive: it is leaked, never freed under the worker."""
+        self._stopping = True
+        deadline = time.monotonic() + 60.0
+        for t in self._threads:
+            t.join(timeout=max(deadline - time.monotonic(), 0.1))
+        if self.batcher is not None:
+            self.batcher.stop()
+        if self.gen_batcher is not None:
+            self.gen_batcher.stop()
+        if any(t.is_alive() for t in self._threads):
+            from analytics_zoo_tpu_torch.common.nncontext import logger
+            logger.warning(
+                "native serving: a worker is still busy after 60 s; "
+                "leaking the native server handle instead of freeing it "
+                "under the worker")
+            return
+        self._srv.close()
+
+
 def make_inference_server(model: InferenceModel, port: int = 0,
-                          batcher="auto", gen_batcher="auto"):
-    """The stdlib front end (the reference's native C++ one is not
-    ported). ``batcher``: ``"auto"`` (environment-configured dynamic
-    batching, or the model itself for a ``FleetRouter``), ``None`` (per
-    request) or a :class:`DynamicBatcher`;
-    ``gen_batcher``: the same for /generate (``"auto"`` mounts a
-    :class:`ContinuousBatcher` when the model has a generator)."""
+                          prefer_native: bool = True, batcher="auto",
+                          gen_batcher="auto"):
+    """The native C++ front end where its library builds, else the
+    stdlib one (with one logged warning), the same routes either way;
+    ``prefer_native=False`` asks for the stdlib one. ``batcher``:
+    ``"auto"`` (environment-configured dynamic batching, or the model
+    itself for a ``FleetRouter``), ``None`` (per request) or a
+    :class:`DynamicBatcher`; ``gen_batcher``: the same for /generate
+    (``"auto"`` mounts a :class:`ContinuousBatcher` when the model has a
+    generator)."""
+    if prefer_native:
+        try:
+            return NativeInferenceServer(model, port=port, batcher=batcher,
+                                         gen_batcher=gen_batcher)
+        except (RuntimeError, OSError) as e:
+            global _native_warned
+            if not _native_warned:
+                _native_warned = True
+                from analytics_zoo_tpu_torch.common.nncontext import logger
+                logger.warning("native front end unavailable, serving "
+                               "with the stdlib one: %s", e)
     return InferenceServer(model, port=port, batcher=batcher,
                            gen_batcher=gen_batcher)
+
+
+_native_warned = False

@@ -336,7 +336,8 @@ script exits non-zero and prints no result line:
    ``python3 chip_smoke.py --nnframes`` runs phases 1, 2 and 20 only;
 21. the serving fleet (``pipeline/inference/fleet.py``,
    ``registry.py``): two in-process ResNet-50 bf16 replicas (seed 0,
-   buckets up to 32) behind ``make_fleet_server``, the two sharing the
+   buckets up to 32) behind ``make_fleet_server`` (the stdlib front
+   end, ``prefer_native=False``), the two sharing the
    one card: 64 ``/predict`` of 1-4 images from 8 clients, each reply
    bit for bit its bucket's rows, each bucket bit for bit its replica's
    ``predict`` at that bucket (and the other replica's), each reply
@@ -375,11 +376,35 @@ script exits non-zero and prints no result line:
    defaults. Every worker is SIGKILLed and reaped on every exit path,
    and exits when its parent does.
    ``python3 chip_smoke.py --fleet`` runs phases 1, 2 and 21 only;
-22. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
+22. the serving artifacts and the native front end
+   (``InferenceModel.export_compiled``/``load_compiled``,
+   ``ModelRegistry.register_export``, ``NativeInferenceServer``): the
+   fleet's ResNet-50 (seed 0, distinctive BatchNorm statistics) exported
+   in f32 and, through a ``ModelRegistry``, in bf16 (v1) and with seed 1
+   (v2), each with a batch-32 example (bytes and seconds printed, beside
+   ``load_keras_net`` and a first predict in process); a second process
+   (``chip_smoke.py --artifact-worker``, on the libraries phase 2 built)
+   loads the f32 and bf16 artifacts (timed), predicts batch 32 through
+   ``program.pt2`` and batches 1, 8 and 32 through ``program_dyn.pt2``,
+   each held to this process's eager predict (f32 1e-5, bf16 2e-2 of
+   max(1, max|logit|); whether bit for bit printed), B5/B6 36/16 per
+   forward counted there, each program's graph 36 and 16 operator nodes
+   and nothing but aten and ``zoo_torch`` ops, and the f32 card artifact
+   once on the CPU (1e-3); two replicas loaded from v1's artifact roll to
+   v2's under a load loop (canary 50%, the bake on the router's clock)
+   with no failure, each then v2's artifact's logits bit for bit;
+   ``make_inference_server`` over the bf16 artifact must give a
+   ``NativeInferenceServer``, driven with phase 12's HTTP load beside
+   ``InferenceServer`` on the same model (p50/p99, images/s), ``/health``
+   timed idle and with every worker held by a wedged dispatch, a trace id
+   echoed, ``/metrics`` counting the requests. The worker is SIGKILLed
+   and reaped on every exit path.
+   ``python3 chip_smoke.py --artifact`` runs phases 1, 2 and 22 only;
+23. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
    ``launches_plane`` and ``launches_plane_train``, phase 20's as
-   ``launches_nnframes``, phase 21's as ``launches_fleet``), then the
-   card's name and power limit, then the result line ``{"ok": true,
-   "device": {...}}``.
+   ``launches_nnframes``, phase 21's as ``launches_fleet``, phase 22's
+   second process's as ``launches_artifact``), then the card's name and
+   power limit, then the result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
@@ -426,6 +451,7 @@ import subprocess
 import sys
 import threading
 import time
+import zipfile
 
 import numpy as np
 
@@ -7915,7 +7941,9 @@ def fleet_inprocess(card, rec, clock, workers):
     check(not shared, f"the replicas share {len(shared)} tensors")
     router = FleetRouter(ReplicaPool(replicas=replicas, clock=clock),
                          probe_interval_s=0, eject_after=1, max_retries=2)
-    srv = make_fleet_server(router)
+    # the stdlib front end, which this phase measures and whose
+    # Retry-After it reads (the native one sends none)
+    srv = make_fleet_server(router, prefer_native=False)
     t0 = time.perf_counter()
     srv.start()
     torch.cuda.synchronize()
@@ -8268,7 +8296,8 @@ def fleet_processes(card, rec, workers, template):
     router = FleetRouter(ReplicaPool(replicas=[
         HttpReplica(workers.url(i), name=f"w{i}") for i in range(2)]),
         probe_interval_s=0, max_retries=2)
-    srv = make_fleet_server(router)  # its collector ticks by hand here
+    # the stdlib front end, as above; its collector ticks by hand here
+    srv = make_fleet_server(router, prefer_native=False)
     srv.start()
     rs = np.random.RandomState(22)
     # the workers serve v1 (seed 0): the template's weights
@@ -8712,6 +8741,472 @@ def fleet_path(card, detail):
     return rec["launches"]
 
 
+# -- artifacts and the native front end (phase 22) ----------------------------
+
+# the artifact worker's time limit (its start, two loads and the forwards)
+ARTIFACT_WORKER_S = 600
+ARTIFACT_BATCHES = (1, 8, BATCH)
+ARTIFACT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def artifact_worker(d) -> int:
+    """``chip_smoke.py --artifact-worker DIR``: the second process. On
+    the libraries phase 2 built, ``load_compiled`` each artifact that
+    ``DIR/request.json`` names (timed), a first predict at batch 32
+    (``program.pt2``), then batches 1, 8 and 32 of ``DIR/x<b>.npy``
+    through ``program_dyn.pt2``; the f32 artifact once more on the CPU
+    (its program moved there) at batch 1. Writes the logits to
+    ``DIR/worker_out.npz`` and prints one JSON line: the seconds, each
+    program's operator nodes and the launches of its forwards."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.ops import conv_bn as cb
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import to_numpy
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    zoo.init_nncontext(seed=0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(d, "request.json")) as f:
+        req = json.load(f)
+    images = {b: np.load(os.path.join(d, f"x{b}.npy"))
+              for b in ARTIFACT_BATCHES}
+    out = {"load_s": {}, "first_predict_s": {}, "graph": {},
+           "forwards": 0}
+    arrays = {}
+    reset_launches()
+    for dname, art in req["artifacts"].items():
+        t0 = time.perf_counter()
+        im = InferenceModel(2).load_compiled(art)
+        out["load_s"][dname] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arrays[f"{dname}_b{BATCH}_static"] = im.predict(images[BATCH])
+        out["first_predict_s"][dname] = time.perf_counter() - t0
+        out["forwards"] += 1
+        for pname, gm in im.programs.items():
+            targets = [str(n.target) for n in gm.graph.nodes
+                       if n.op == "call_function"]
+            out["graph"][f"{dname}/{pname}"] = {
+                "matmul_bn_apply": targets.count(
+                    "zoo_torch.matmul_bn_apply.default"),
+                "conv3x3_bn_apply": targets.count(
+                    "zoo_torch.conv3x3_bn_apply.default"),
+                "nodes": len(targets),
+                "foreign": sorted({t for t in targets if not (
+                    t.startswith(("aten.", "zoo_torch.")) or
+                    t == "<built-in function getitem>")})}
+        dyn = im.programs["program_dyn.pt2"]
+        cast = torch.bfloat16 if dname == "bfloat16" else torch.float32
+        with torch.inference_mode():
+            for b in ARTIFACT_BATCHES:
+                x = torch.from_numpy(images[b]).to(DEV).to(cast)
+                arrays[f"{dname}_b{b}"] = to_numpy(dyn(x))
+                out["forwards"] += 1
+        torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in all_launches().items() if v}
+    t0 = time.perf_counter()
+    cpu_im = InferenceModel().load_compiled(req["artifacts"]["float32"],
+                                            device="cpu")
+    arrays["float32_b1_cpu"] = cpu_im.predict(images[1])
+    out["cpu_load_and_predict_s"] = time.perf_counter() - t0
+    out["inductor_imported"] = "torch._inductor" in sys.modules
+    np.savez(os.path.join(d, "worker_out.npz"), **arrays)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def artifact_export(card, rec, tmp, nets, images):
+    """Phase 22, part a: ``export_compiled`` of ResNet-50 in f32 and,
+    through ``ModelRegistry.register_export``, in bf16 (v1, seed 0) and
+    v2 (seed 1), each with a batch-32 example; the eager model's own
+    predict at batches 1, 8 and 32 (and its load and first predict
+    timed) for the worker to be held to."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                            ModelRegistry)
+    reg = ModelRegistry(root=os.path.join(tmp, "registry"))
+    arts, eager, rec["export"] = {}, {}, {}
+    for dname, seed in (("float32", 0), ("bfloat16", 0), ("v2", 1)):
+        dt = torch.float32 if dname == "float32" else torch.bfloat16
+        x32 = torch.from_numpy(images[BATCH]).to(DEV, dt)
+        t0 = time.perf_counter()
+        im = InferenceModel(2).load_keras_net(nets[seed],
+                                              example_inputs=[x32])
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = im.predict(images[BATCH])
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if dname == "float32":
+            arts[dname] = im.export_compiled(os.path.join(tmp, "f32.zip"))
+        else:
+            version = "v1" if dname == "bfloat16" else "v2"
+            arts[dname] = reg.register_export(
+                "resnet-50", version, im,
+                metadata={"seed": seed}).artifact
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(arts[dname])
+        with zipfile.ZipFile(arts[dname]) as z:
+            members = sorted(z.namelist())
+        check(members == ["meta.json", "program.pt2", "program_dyn.pt2"],
+              f"{dname}: the artifact holds {members}")
+        rec["export"][dname] = {"bytes": size, "export_s": export_s,
+                                "load_keras_net_s": load_s,
+                                "first_predict_s": first_s}
+        print(f"  export {dname} (seed {seed}): {size} bytes in "
+              f"{export_s:.2f} s; in-process load_keras_net "
+              f"{load_s:.3f} s, first predict {first_s:.3f} s, on {card}",
+              flush=True)
+        if dname != "v2":
+            eager[dname] = {b: im.predict(images[b]) if b != BATCH
+                            else first for b in ARTIFACT_BATCHES}
+    return reg, arts, eager
+
+
+def artifact_in_worker(card, rec, tmp, arts, eager, images):
+    """Phase 22, part b: the artifacts served by a second process
+    (``--artifact-worker``), held to the eager model of this one."""
+    import signal
+    with open(os.path.join(tmp, "request.json"), "w") as f:
+        json.dump({"artifacts": {k: arts[k] for k in ("float32",
+                                                      "bfloat16")}}, f)
+    for b in ARTIFACT_BATCHES:
+        np.save(os.path.join(tmp, f"x{b}.npy"), images[b])
+    log_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(log_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(log_dir, "artifact_worker.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--artifact-worker", tmp], stdout=subprocess.PIPE, stderr=log,
+            text=True, cwd=ROOT)
+        try:
+            stdout, _ = proc.communicate(timeout=ARTIFACT_WORKER_S)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=30)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the artifact worker exited "
+          f"{proc.returncode} (its log: chiprun_out/artifact_worker.log)")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    got = np.load(os.path.join(tmp, "worker_out.npz"))
+    held = {}
+    for dname in ("float32", "bfloat16"):
+        for b in ARTIFACT_BATCHES:
+            want = eager[dname][b]
+            tol = ARTIFACT_TOL[dname] * max(1.0, float(np.abs(want).max()))
+            for key in (f"{dname}_b{b}",) + (
+                    (f"{dname}_b{b}_static",) if b == BATCH else ()):
+                y = got[key]
+                err = float(np.abs(y - want).max())
+                held[key] = {"bit_for_bit": bool(np.array_equal(y, want)),
+                             "max_abs_err": err, "tol": tol}
+                check(y.shape == want.shape and err <= tol,
+                      f"{key}: the worker's logits {err} from the eager "
+                      f"ones (tol {tol})")
+    want = eager["float32"][1]
+    cpu_err = float(np.abs(got["float32_b1_cpu"] - want).max())
+    cpu_tol = 1e-3 * max(1.0, float(np.abs(want).max()))
+    check(cpu_err <= cpu_tol, f"the f32 artifact on the CPU: {cpu_err} "
+          f"from the card's eager logits (tol {cpu_tol})")
+    n = out["forwards"]
+    launches = out["launches"]
+    check(launches == {"matmul_bn_apply": 36 * n,
+                       "conv3x3_bn_apply": 16 * n},
+          f"the worker launched {launches} in {n} forwards, expected "
+          "B5/B6 36/16 per forward")
+    for key, g in out["graph"].items():
+        check(g["matmul_bn_apply"] == 36 and g["conv3x3_bn_apply"] == 16
+              and not g["foreign"], f"{key}: the loaded graph holds {g}")
+    rec["worker"] = dict(out, held=held, wall_s=wall,
+                         cpu_max_abs_err=cpu_err)
+    print(f"  second process ({wall:.2f} s in all): load_compiled "
+          f"{ {k: round(v, 3) for k, v in out['load_s'].items()} } s, "
+          f"first predict "
+          f"{ {k: round(v, 3) for k, v in out['first_predict_s'].items()} }"
+          f" s; {n} forwards launched {launches}; graphs "
+          f"{ {k: (g['matmul_bn_apply'], g['conv3x3_bn_apply']) for k, g in out['graph'].items()} }"
+          f"; torch._inductor imported: {out['inductor_imported']}; on "
+          f"{card}", flush=True)
+    for key, h in held.items():
+        print(f"    {key}: bit for bit {h['bit_for_bit']}, max|err| "
+              f"{h['max_abs_err']:.4e} (tol {h['tol']:.4e})", flush=True)
+    print(f"    the f32 card artifact on the CPU at batch 1: max|err| "
+          f"{cpu_err:.4e} (tol {cpu_tol:.4e}), load and predict "
+          f"{out['cpu_load_and_predict_s']:.2f} s", flush=True)
+    return launches
+
+
+def artifact_rollout(card, rec, reg):
+    """Phase 22, part c: two replicas loaded from v1's artifact behind a
+    ``FleetRouter`` roll to v2's (``rollout(canary_pct=50)``, the bake on
+    the router's clock) under a load loop with no failure; each then
+    serves v2's artifact's own logits bit for bit."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        DynamicBatcher, FleetRouter, InferenceModel, Replica, ReplicaPool)
+    clock = [1000.0]
+    v1, v2 = reg.get("resnet-50", "v1"), reg.get("resnet-50", "v2")
+    replicas, models = [], {}
+    for name in ("r0", "r1"):
+        im = InferenceModel()
+        v1.load_into(im)
+        models[name] = im
+        r = Replica(name, im, clock=lambda: clock[0],
+                    batcher=DynamicBatcher(im, labels={"replica": name},
+                                           **FLEET_BATCHER))
+        r.version = "v1"
+        replicas.append(r)
+    router = FleetRouter(ReplicaPool(replicas=replicas,
+                                     clock=lambda: clock[0]),
+                         probe_interval_s=0).start()
+    x2 = np.random.RandomState(3).rand(2, *IMAGE).astype(np.float32)
+    stop, failures, served = threading.Event(), [], [0]
+
+    def load_loop():
+        while not stop.is_set():
+            try:
+                out = np.asarray(router.submit([x2]).result(timeout=120))
+                if out.shape != (2, 1000) or not np.isfinite(out).all():
+                    failures.append(f"bad output {out.shape}")
+            except Exception as e:
+                failures.append(repr(e))
+            served[0] += 1
+
+    def wait_served(n):
+        target, deadline = served[0] + n, time.monotonic() + 120
+        while served[0] < target and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    loop = [threading.Thread(target=load_loop) for _ in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for t in loop:
+            t.start()
+        wait_served(4)
+        ctl = router.rollout(v2, canary_pct=50, bake_s=FLEET_BAKE_S)
+        wait_served(8)
+        clock[0] += FLEET_BAKE_S + 1.0
+        router.tick(now=clock[0])
+        wait_served(4)
+    finally:
+        stop.set()
+        for t in loop:
+            t.join(timeout=600)
+        router.stop()
+    seconds = time.perf_counter() - t0
+    check(ctl.state == "promoted", f"the rollout ended {ctl.state} "
+          f"({ctl.reason})")
+    check(not failures, f"the load loop saw {len(failures)} failures: "
+          f"{failures[:3]}")
+    status = router.rollout_status()
+    check(set(status["replica_versions"].values()) == {"v2"},
+          f"replica versions {status['replica_versions']}")
+    direct = InferenceModel().load_compiled(v2.artifact)
+    x = np.random.RandomState(5).rand(4, *IMAGE).astype(np.float32)
+    want = direct.predict(x)
+    for name, im in models.items():
+        check(np.array_equal(im.predict(x), want),
+              f"{name} after the rollout differs from v2's artifact")
+    states = [t["state"] for t in status["transitions"]]
+    rec["rollout"] = {"requests_in_loop": served[0], "failures": 0,
+                      "transitions": states, "seconds": seconds}
+    print(f"  rollout v1 -> v2 from the registry's artifacts under load: "
+          f"{served[0]} requests, 0 failures, {states}; both replicas "
+          f"serve v2's artifact's logits bit for bit; {seconds:.1f} s",
+          flush=True)
+    del direct, models
+    torch.cuda.empty_cache()
+
+
+def artifact_http(card, rec, art):
+    """Phase 22, part d: ``make_inference_server`` over the bf16 artifact
+    (loaded here) must be the native front end; phase 12's HTTP load
+    (HTTP_REQUESTS JSON requests of bench_serving's mix from
+    HTTP_CLIENTS threads, a DynamicBatcher of max batch 32, 5 ms, queue
+    512) on it and on ``InferenceServer`` over the same model, in turns;
+    ``/health`` answered while every worker is held in a wedged
+    dispatch; a trace id echoed; ``/metrics`` counting the requests."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common import observability as obs
+    from analytics_zoo_tpu_torch.pipeline.inference import (
+        DynamicBatcher, InferenceModel, InferenceServer,
+        NativeInferenceServer, make_inference_server)
+    # one native worker per client: the native front end serves as many
+    # requests at once as the model's concurrency
+    im = InferenceModel(HTTP_CLIENTS).load_compiled(art)
+    rs = np.random.RandomState(12)
+    sizes = [HTTP_MIX[i % len(HTTP_MIX)] for i in range(HTTP_REQUESTS)]
+    images = [np.round(rs.rand(n, *IMAGE), 3) for n in sizes]
+    bodies = [json.dumps({"inputs": x.tolist()}).encode() for x in images]
+    alone = [im.predict(x.astype(np.float32)) for x in images]
+
+    def batcher():
+        return DynamicBatcher(im, max_batch_size=BATCH, max_wait_ms=5,
+                              queue_depth=512)
+
+    def served_count(port):
+        text = urllib_text(port, "/metrics")
+        key = 'zoo_tpu_serving_requests_total{path="/predict",status="200"}'
+        return sum(float(line.split()[-1]) for line in text.splitlines()
+                   if line.startswith(key + " "))
+
+    def wave(srv, label):
+        replies = [None] * HTTP_REQUESTS
+
+        def client(c):
+            for i in range(c, HTTP_REQUESTS, HTTP_CLIENTS):
+                replies[i] = post_json(srv.port, "/predict", bodies[i])
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            for f in [pool.submit(client, c) for c in range(HTTP_CLIENTS)]:
+                f.result()
+        window = time.perf_counter() - t0
+        worst = 0.0
+        for i, r in enumerate(replies):
+            check(r[0] == 200, f"{label}: request {i} answered {r[0]}")
+            got = np.asarray(r[2]["outputs"], np.float32)
+            tol = TOL["bfloat16"] * max(1.0, float(np.abs(alone[i]).max()))
+            err = float(np.abs(got - alone[i]).max())
+            check(err <= tol, f"{label}: request {i} {err} from predict "
+                  f"alone (tol {tol})")
+            worst = max(worst, err / tol)
+        lat = [r[3] for r in replies]
+        return {"images_per_s": sum(sizes) / window, "window_s": window,
+                "p50_ms": percentile_ms(lat, 50),
+                "p99_ms": percentile_ms(lat, 99),
+                "worst_err_over_tol": worst}
+
+    out = {}
+    srv = make_inference_server(im, batcher=batcher())
+    check(isinstance(srv, NativeInferenceServer),
+          f"make_inference_server gave {type(srv).__name__}")
+    try:
+        srv.start()
+        before = served_count(srv.port)
+        out["native"] = wave(srv, "native")
+        after = served_count(srv.port)
+        check(after - before == HTTP_REQUESTS,
+              f"/metrics counted {after - before} of {HTTP_REQUESTS} "
+              "requests")
+        idle_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            get_json(srv.port, "/health")
+            idle_ms.append((time.perf_counter() - t0) * 1e3)
+        out["health_idle_ms"] = idle_ms
+        tid = "smoke-native-artifact"
+        code, hdrs, _, _ = post_json(srv.port, "/predict", bodies[0],
+                                     {"X-Zoo-Trace-Id": tid})
+        check(code == 200 and hdrs["X-Zoo-Trace-Id"] == tid,
+              f"the traced request {code}, header "
+              f"{hdrs.get('X-Zoo-Trace-Id')}")
+        # every worker held in a request the wedged dispatcher keeps
+        faults.arm("batcher/dispatch", "wedge", seconds=60)
+        held = [threading.Thread(target=post_json, args=(
+            srv.port, "/predict", bodies[0])) for _ in range(HTTP_CLIENTS)]
+        for t in held:
+            t.start()
+        deadline = time.monotonic() + 60
+        while (plane_value(obs.snapshot(), "zoo_tpu_serving_in_flight")
+               or 0) < HTTP_CLIENTS and time.monotonic() < deadline:
+            time.sleep(0.01)
+        # the handlers decode their bodies under the GIL first (tens of
+        # ms an image: phase 12's JSON decode), which a client in this
+        # process waits for too
+        time.sleep(2.0)
+        health_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            health = get_json(srv.port, "/health")
+            health_ms.append((time.perf_counter() - t0) * 1e3)
+        busy = plane_value(obs.snapshot(), "zoo_tpu_serving_in_flight")
+        faults.disarm_all()
+        for t in held:
+            t.join(timeout=120)
+        check(busy == HTTP_CLIENTS and health["status"] == "ok",
+              f"/health with {busy} of {HTTP_CLIENTS} workers busy: "
+              f"{health}")
+        out["health_while_busy_ms"] = health_ms
+    finally:
+        faults.disarm_all()
+        srv.stop()
+    srv = InferenceServer(im, port=0, batcher=batcher())
+    try:
+        srv.start()
+        out["stdlib"] = wave(srv, "stdlib")
+    finally:
+        srv.stop()
+    rec["http"] = out
+    for label in ("native", "stdlib"):
+        r = out[label]
+        print(f"  ResNet-50 bf16 from the artifact over HTTP, {label} front"
+              f" end: {HTTP_REQUESTS} requests ({sum(sizes)} images) from "
+              f"{HTTP_CLIENTS} clients: {r['images_per_s']:.2f} images/s, "
+              f"p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, worst "
+              f"error {r['worst_err_over_tol']:.3f} of its bound, on {card}",
+              flush=True)
+    print(f"  native /health: median "
+          f"{statistics.median(out['health_while_busy_ms']):.2f} ms of 5 "
+          f"with all {HTTP_CLIENTS} workers held (idle "
+          f"{statistics.median(out['health_idle_ms']):.2f} ms); the trace "
+          f"id echoed; /metrics counted {HTTP_REQUESTS} of {HTTP_REQUESTS}",
+          flush=True)
+    del im
+    torch.cuda.empty_cache()
+
+
+def artifact_path(card, detail):
+    """Phase 22: full-width ResNet-50 (seed-0 weights, distinctive
+    BatchNorm statistics) exported, served from its artifact by a second
+    process, rolled between registry versions and behind the native
+    front end. The artifacts go to a temporary directory, removed at the
+    end; the worker is SIGKILLed and reaped on every exit path. Returns
+    the worker's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common import slo
+    t0 = time.perf_counter()
+    rec = {}
+    saved = os.environ.get("ZOO_TPU_SLO_TICK_S")
+    os.environ["ZOO_TPU_SLO_TICK_S"] = "0"
+    slo.reset_slo()
+    zoo.init_nncontext(seed=0)
+    tmp = tempfile.mkdtemp(prefix="zoo_artifacts_")
+    try:
+        rs = np.random.RandomState(22)
+        images = {b: rs.rand(b, *IMAGE).astype(np.float32)
+                  for b in ARTIFACT_BATCHES}
+        nets = {0: fleet_resnet(0), 1: fleet_resnet(1)}
+        reg, arts, eager = artifact_export(card, rec, tmp, nets, images)
+        del nets
+        torch.cuda.empty_cache()
+        launches = artifact_in_worker(card, rec, tmp, arts, eager, images)
+        artifact_rollout(card, rec, reg)
+        artifact_http(card, rec, arts["bfloat16"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("ZOO_TPU_SLO_TICK_S", None)
+        else:
+            os.environ["ZOO_TPU_SLO_TICK_S"] = saved
+        slo.reset_slo()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"  phase 22 in {rec['seconds']:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}", flush=True)
+    detail["artifact"] = rec
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8720,6 +9215,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--fleet-worker"] and len(sys.argv) == 3:
         return fleet_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--artifact-worker"] and len(sys.argv) == 3:
+        return artifact_worker(sys.argv[2])
     from analytics_zoo_tpu_torch.models.image.imageclassification import (
         ImageClassifier, resnet50)
     from analytics_zoo_tpu_torch.ops import conv_bn as cb
@@ -8824,6 +9321,16 @@ def main() -> int:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_fleet.json"),
                   "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        print(card)
+        return 0
+    if sys.argv[1:] == ["--artifact"]:
+        # phase 22 alone, on the built libraries; no result line
+        print("[22] artifacts and the native front end", flush=True)
+        artifact_path(card, detail)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_artifact.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         print(card)
         return 0
@@ -8992,9 +9499,17 @@ def main() -> int:
           "and over HTTP; apps/web_service_sample", flush=True)
     fleet = fleet_path(card, detail)
 
-    print("[22] summary", flush=True)
+    print("[22] artifacts and the native front end: ResNet-50 (f32, bf16) "
+          "exported, served by a second process from its artifact (B5/B6 "
+          "as torch operators), rolled between registry versions, and "
+          "behind the native C++ front end", flush=True)
+    artifact = artifact_path(card, detail)
+
+    print("[23] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        if artifact.get(rec["name"]):
+            rec["launches_artifact"] = artifact[rec["name"]]
         if fleet.get(rec["name"]):
             rec["launches_fleet"] = fleet[rec["name"]]
         if plane_served.get(rec["name"]):

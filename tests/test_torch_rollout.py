@@ -8,10 +8,10 @@ Held: registration, lookup and the on-disk layout (each package reads
 the other's registry root), the rollout's state sequences and its
 ``/debug/rollout`` payloads (equal but for their time fields), the
 cohort split's buckets, the error-burst and SLO-breach rollbacks, and
-zero failed requests through a swap. An artifact version's ``load_into``
-raises in the port, naming ROADMAP A13.5 (``load_compiled`` is not
-ported). No test waits out ``bake_s``: the controller ticks on the
-router's clock.
+zero failed requests through a swap; an artifact version loaded and
+served, and ``register_export`` into each package's registry (the same
+``meta.json``, the same warm buckets, outputs within 1e-5). No test
+waits out ``bake_s``: the controller ticks on the router's clock.
 """
 
 import json
@@ -140,15 +140,93 @@ def test_registry_persistence_roundtrip(tmp_path, writer):
     assert J.reg.ModelRegistry(root=root).versions("toy") == ["v1"]
 
 
-def test_artifact_version_load_raises_naming_a13_5(tmp_path):
-    src = tmp_path / "export.zip"
-    src.write_bytes(b"opaque")
+def _bridged_dense_models():
+    """The same Dense 4→8→2 weights behind an ``InferenceModel`` of each
+    package, loaded with an 8-row example; and the rows to predict."""
+    import jax
+    import jax.numpy as jnp
+
+    import analytics_zoo_tpu_torch as tzoo
+    from analytics_zoo_tpu import init_nncontext as jinit
+    from analytics_zoo_tpu.pipeline.api.keras import Sequential as JSeq
+    from analytics_zoo_tpu.pipeline.api.keras import layers as JL
+    from analytics_zoo_tpu.pipeline.inference import \
+        InferenceModel as JIM
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as TL
+    from analytics_zoo_tpu_torch.pipeline.api.keras.models import \
+        Sequential as TSeq
+    from analytics_zoo_tpu_torch.pipeline.inference import \
+        InferenceModel as TIM
+
+    def net(seq, lib):
+        m = seq()
+        m.add(lib.Dense(8, activation="relu", input_shape=(4,)))
+        m.add(lib.Dense(2))
+        return m
+    tzoo.init_nncontext(seed=0, device="cpu")
+    jinit(seed=0)
+    jm = net(JSeq, JL)
+    params = jax.device_get(jm.init_params(jax.random.key(0)))
+    x = np.random.RandomState(0).randn(8, 4).astype(np.float32)
+    models = {
+        "port": TIM(2).load_keras_net(net(TSeq, TL), params=params,
+                                      example_inputs=[x]),
+        "jax": JIM(2).load_keras_net(
+            jm, params=jax.tree_util.tree_map(jnp.asarray, params),
+            example_inputs=[x]),
+    }
+    return models, {"port": TIM, "jax": JIM}, x
+
+
+def test_artifact_version_loads_and_serves(tmp_path):
+    models, fresh, x = _bridged_dense_models()
+    src = str(tmp_path / "export.zip")
+    models["port"].export_compiled(src)
     reg = treg.ModelRegistry(root=str(tmp_path / "registry"))
-    mv = reg.register("toy", "v1", artifact=str(src))
-    with pytest.raises(NotImplementedError, match="A13.5"):
-        mv.load_into(object())
-    with pytest.raises(NotImplementedError, match="A13.5"):
-        reg.register_export("toy", "v2", object())
+    mv = reg.register("toy", "v1", artifact=src)
+    assert mv.artifact != src and os.path.isfile(mv.artifact)
+    im = fresh["port"](2)
+    mv.load_into(im)
+    assert im.generation == 1 and im.concurrent_slots_free == 2
+    assert np.array_equal(im.predict(x), models["port"].predict(x))
+    swaps = tobs.snapshot()["zoo_tpu_rollout_swap_seconds"]["values"]
+    assert sum(v["count"] for v in swaps) == 1
+
+
+def test_register_export_roundtrip_matches_reference(tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setenv("ZOO_TPU_SERVING_MAX_BATCH", "16")
+    models, fresh, x = _bridged_dense_models()
+    metas, outs = {}, {}
+    for lib in LIBS:
+        root = str(tmp_path / lib.name)
+        reg = lib.reg.ModelRegistry(root=root)
+        mv = reg.register_export("toy", "v1", models[lib.name],
+                                 metadata={"mfu": 0.5})
+        assert mv.artifact == os.path.join(root, "toy", "v1",
+                                           "artifact.zip")
+        with open(os.path.join(root, "toy", "v1", "meta.json")) as f:
+            metas[lib.name] = {k: v for k, v in json.load(f).items()
+                               if k != "created_at"}
+        # a fresh registry over the same root finds it and loads it
+        again = lib.reg.ModelRegistry(root=root).get("toy", "v1")
+        assert again.warm_buckets == [1, 2, 4, 8, 16]
+        im = fresh[lib.name](2)
+        again.load_into(im)
+        outs[lib.name] = np.asarray(im.predict(x))
+        want = np.asarray(models[lib.name].predict(x))
+        if lib is T:
+            assert np.array_equal(outs[lib.name], want)
+        else:
+            np.testing.assert_allclose(outs[lib.name], want, rtol=1e-6,
+                                       atol=1e-7)
+        with pytest.raises(ValueError, match="root"):
+            lib.reg.ModelRegistry().register_export("toy", "v2",
+                                                    models[lib.name])
+    assert metas["port"] == metas["jax"]
+    np.testing.assert_allclose(outs["port"], outs["jax"], rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(np.abs(
+                                   outs["jax"]).max())))
 
 
 # -- fleet fixtures -----------------------------------------------------------

@@ -220,7 +220,8 @@ def servers():
         out["port"] = {
             "main": tsv.InferenceServer(tim, port=0, batcher=tb.DynamicBatcher(
                 tim, max_batch_size=8, max_wait_ms=2)).start(),
-            "plain": tsv.make_inference_server(tplain, batcher=None).start(),
+            "plain": tsv.make_inference_server(
+                tplain, prefer_native=False, batcher=None).start(),
             "resnet": tsv.InferenceServer(
                 tres_im, port=0, batcher=tb.DynamicBatcher(
                     tres_im, max_batch_size=4, max_wait_ms=2)).start()}
