@@ -11,4 +11,11 @@ from analytics_zoo_tpu_torch.common.nncontext import (
 from analytics_zoo_tpu_torch.version import __version__
 
 __all__ = ["get_nncontext", "init_nncontext", "reset_nncontext",
-           "__version__"]
+           "__version__", "Net"]
+
+
+def __getattr__(name):
+    if name == "Net":  # lazy: pulls in the layer machinery
+        from analytics_zoo_tpu_torch.pipeline.api.net_load import Net
+        return Net
+    raise AttributeError(name)

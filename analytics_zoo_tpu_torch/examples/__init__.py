@@ -24,4 +24,5 @@ EXAMPLES = [
     "transformer_sentiment",
     "autograd_custom",
     "vae_mnist",
+    "onnx_import",
 ]

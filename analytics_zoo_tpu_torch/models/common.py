@@ -63,6 +63,13 @@ class ZooModel:
         return self.model.predict_classes(
             x, batch_size=batch_size, zero_based_label=zero_based_label)
 
+    def summary(self):
+        """The net's :meth:`~KerasNet.summary`, with param counts once
+        it is compiled and built."""
+        est = getattr(self.model, "_estimator", None)
+        params = est.params if est is not None else None
+        return self.model.summary(params)
+
     def _initialized_estimator(self):
         est = self.model.estimator
         if est.params is None:
@@ -164,6 +171,29 @@ def _check_params_compatible(model: KerasNet, saved: dict) -> None:
             "checkpoint does not match model architecture; missing "
             f"layers {sorted(expected - got)}, unexpected "
             f"{sorted(got - expected)}")
+
+
+class ImportedZooModel(ZooModel):
+    """The ZooModel surface over a net imported from an external
+    artifact (a BigDL ``.model``: the artifact defines the
+    architecture). ``build_model`` imports ``artifact`` again, so
+    ``save_model``/``load_model`` round trips work while the artifact
+    stays in place (the saved weights are shape-checked against the
+    imported net)."""
+
+    def __init__(self, artifact: str, model_name: str = "imported",
+                 net: Optional[KerasNet] = None):
+        super().__init__()
+        self.artifact = str(artifact)
+        self.model_name = str(model_name)
+        self._model = net
+
+    def build_model(self) -> KerasNet:
+        from analytics_zoo_tpu_torch.pipeline.api.net_load import Net
+        return Net.load_bigdl(self.artifact)
+
+    def hyper_parameters(self) -> dict:
+        return {"artifact": self.artifact, "model_name": self.model_name}
 
 
 class Ranker:

@@ -12,10 +12,12 @@ Weights come from local files only, found in this order:
    silently untrained "pretrained" model is a correctness trap.
 
 ``.npz`` weights are shape-checked against the built architecture
-(``ZooModel.load_weights``). A ``.model`` artifact needs the BigDL
-loader (``Net.load_bigdl``), which the port does not have yet: such a
-file raises ``NotImplementedError`` naming it, and never falls back to
-random weights.
+(``ZooModel.load_weights``). A ``.model`` artifact defines the model
+(the reference's ``ZooModel.loadModel``): it is imported whole through
+``Net.load_bigdl`` and returned as the reference returns it, adopted by
+an ``ImageClassifier``/``ObjectDetector`` of a known architecture or an
+``ImportedZooModel`` otherwise; a file that does not parse raises, and
+never falls back to random weights.
 """
 
 from __future__ import annotations
@@ -53,6 +55,30 @@ def _missing_weights_error(kind: str, name: str) -> FileNotFoundError:
         f"allow_random=True for an untrained architecture")
 
 
+def _load_bigdl_artifact(kind: str, arch: str, path: str,
+                         ignored_args: dict, wrapper=None):
+    """Import a reference ``.model`` artifact whole through
+    ``Net.load_bigdl``: adopted by ``wrapper`` (a model of a known
+    architecture, keeping its surface) or, for other architectures,
+    returned as an ``ImportedZooModel``. Arguments the artifact's own
+    architecture overrides are logged."""
+    from analytics_zoo_tpu_torch.pipeline.api.net_load import Net
+    dropped = {k: v for k, v in ignored_args.items() if v is not None}
+    if dropped:
+        logger.warning(
+            "%s: %s resolves to a .model artifact whose saved "
+            "architecture takes precedence — ignoring %s", kind, arch,
+            dropped)
+    logger.info("%s: %s loaded from reference artifact %s",
+                kind, arch, path)
+    net = Net.load_bigdl(path)
+    if wrapper is not None:
+        wrapper._model = net
+        return wrapper
+    from analytics_zoo_tpu_torch.models.common import ImportedZooModel
+    return ImportedZooModel(path, model_name=arch, net=net)
+
+
 def _strip_published_name(name: str) -> str:
     """Accept the reference's full published names
     (``analytics-zoo_<arch>_<dataset>_<version>``) as well as bare
@@ -85,11 +111,17 @@ class ImageClassificationConfig:
             raise _missing_weights_error("ImageClassificationConfig",
                                          name)
         if wp is not None and wp.endswith(".model"):
-            raise NotImplementedError(
-                f"ImageClassificationConfig: {wp} is a BigDL .model "
-                "artifact, which needs the BigDL loader (Net.load_bigdl, "
-                "ROADMAP A16e) that this package does not have yet; pass "
-                "a .npz weight file instead")
+            wrapper = None
+            if arch in ImageClassifier.ARCHS:
+                wrapper = ImageClassifier(model_name=arch,
+                                          input_shape=input_shape,
+                                          classes=classes)
+            return _load_bigdl_artifact(
+                "ImageClassificationConfig", arch, wp,
+                {"input_shape": (None if tuple(input_shape) == (224, 224, 3)
+                                 else input_shape),
+                 "classes": None if classes == 1000 else classes},
+                wrapper=wrapper)
         model = ImageClassifier(model_name=arch, input_shape=input_shape,
                                 classes=classes)
         model.compile()
@@ -125,11 +157,15 @@ class ObjectDetectionConfig:
         if wp is None and not allow_random:
             raise _missing_weights_error("ObjectDetectionConfig", name)
         if wp is not None and wp.endswith(".model"):
-            raise NotImplementedError(
-                f"ObjectDetectionConfig: {wp} is a BigDL .model artifact, "
-                "which needs the BigDL loader (Net.load_bigdl, ROADMAP "
-                "A16e) that this package does not have yet; pass a .npz "
-                "weight file instead")
+            wrapper = None
+            if arch in ObjectDetectionConfig.names():
+                wrapper = ObjectDetector(model_name=arch,
+                                         n_classes=n_classes,
+                                         img_size=img_size)
+            return _load_bigdl_artifact(
+                "ObjectDetectionConfig", arch, wp,
+                {"n_classes": n_classes, "img_size": img_size},
+                wrapper=wrapper)
         model = ObjectDetector(model_name=arch, n_classes=n_classes,
                                img_size=img_size)
         model.compile()

@@ -67,24 +67,30 @@ class ParamTree(nn.Module):
     def __init__(self, tree: dict, state: bool = False):
         super().__init__()
         self._keys = list(tree)
+        # a key that is no module attribute name (an imported graph's
+        # "conv1.weight") is registered under a stand-in name
+        self._attrs = {k: k if k and "." not in k and not hasattr(self, k)
+                       else f"_key{i}" for i, k in enumerate(self._keys)}
         for k, v in tree.items():
+            a = self._attrs[k]
             if isinstance(v, dict):
-                self.add_module(k, ParamTree(v, state or k == "_state"))
+                self.add_module(a, ParamTree(v, state or k == "_state"))
             elif state:
-                self.register_buffer(k, v)
+                self.register_buffer(a, v)
             else:
                 self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                    a, nn.Parameter(v, requires_grad=False))
 
     def tree(self) -> dict:
         out = {}
         for k in self._keys:
-            if k in self._modules:
-                out[k] = self._modules[k].tree()
-            elif k in self._parameters:
-                out[k] = self._parameters[k]
+            a = self._attrs[k]
+            if a in self._modules:
+                out[k] = self._modules[a].tree()
+            elif a in self._parameters:
+                out[k] = self._parameters[a]
             else:
-                out[k] = self._buffers[k]
+                out[k] = self._buffers[a]
         return out
 
 

@@ -1,7 +1,8 @@
-"""Convolution1D, Convolution2D and DepthwiseConvolution2D (port of
-``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``): channels-last
-activations (NWC, NHWC), WIO and HWIO kernels, TF "SAME" or "VALID"
-padding.
+"""Convolution1D, Convolution2D and DepthwiseConvolution2D, and the
+shape layers ZeroPadding1D/2D, Cropping1D/2D and UpSampling1D/2D/3D
+(port of ``analytics_zoo_tpu/pipeline/api/keras/layers/conv.py``):
+channels-last activations (NWC, NHWC) by default, WIO and HWIO kernels,
+TF "SAME" or "VALID" padding.
 
 PyTorch pads symmetrically, but TF "SAME" puts the odd extra row and
 column at the high end (the stem 7x7/s2 on 224 pads (2, 3)), so an
@@ -61,11 +62,12 @@ def _check_groups(groups, nb_filter):
     return groups
 
 
-def _grouped_in(input_shape, groups):
-    if input_shape[-1] % groups:
-        raise ValueError(f"input channels {input_shape[-1]} must divide "
+def _grouped_in(input_shape, groups, channels_first=False):
+    c = input_shape[0] if channels_first else input_shape[-1]
+    if c % groups:
+        raise ValueError(f"input channels {c} must divide "
                          f"by groups {groups}")
-    return input_shape[-1] // groups
+    return c // groups
 
 
 def pad_nchw(x, kernel, strides, border_mode):
@@ -152,19 +154,26 @@ class Convolution1D(KerasLayer):
 
 
 class Convolution2D(KerasLayer):
-    """2-D convolution over NHWC input with an HWIO kernel ``(kh, kw,
-    in / groups, nb_filter)``, cast to the input's dtype."""
+    """2-D convolution over NHWC input (``dim_ordering="tf"``) or NCHW
+    input (``"th"``, the layout of the Caffe, BigDL and torch importers)
+    with an HWIO kernel ``(kh, kw, in / groups, nb_filter)``, cast to
+    the input's dtype. ``nb_row`` may be a ``(kh, kw)`` pair, as the
+    importers pass it."""
 
-    def __init__(self, nb_filter: int, nb_row: int,
-                 nb_col: Optional[int] = None, init="glorot_uniform",
-                 activation=None, border_mode: str = "valid",
-                 subsample=1, dilation=1, w_regularizer=None,
+    def __init__(self, nb_filter: int, nb_row, nb_col: Optional[int] = None,
+                 init="glorot_uniform", activation=None,
+                 border_mode: str = "valid", subsample=1, dilation=1,
+                 dim_ordering: str = "tf", w_regularizer=None,
                  b_regularizer=None, bias: bool = True, groups: int = 1,
                  input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
         if border_mode not in ("valid", "same"):
             raise ValueError(f"border_mode must be valid|same, "
                              f"got {border_mode}")
+        if dim_ordering not in ("tf", "th"):
+            raise ValueError("dim_ordering must be 'tf' (channels-last) or "
+                             "'th' (channels-first)")
+        self.dim_ordering = dim_ordering
         self.groups = _check_groups(groups, nb_filter)
         self.nb_filter = int(nb_filter)
         self.kernel_size = _norm_tuple(
@@ -182,27 +191,31 @@ class Convolution2D(KerasLayer):
     def build(self, generator, input_shape: Shape) -> dict:
         params = {"kernel": self.kernel_init(
             generator, self.kernel_size + (
-                _grouped_in(input_shape, self.groups), self.nb_filter))}
+                _grouped_in(input_shape, self.groups,
+                            self.dim_ordering == "th"), self.nb_filter))}
         if self.use_bias:
             params["bias"] = torch.zeros((self.nb_filter,))
         return params
 
     def call(self, params, x, *, training=False, rng=None):
-        if (max(self.subsample) > 1 and self.groups == 1
+        tf = self.dim_ordering == "tf"
+        if (tf and max(self.subsample) > 1 and self.groups == 1
                 and self.dilation == (1, 1)):
             y = conv_grad.conv2d(x, params["kernel"].to(x.dtype),
                                  stride=self.subsample,
                                  padding=self.border_mode)
         else:
-            xc, padding = pad_nchw(x.permute(0, 3, 1, 2),
+            xc, padding = pad_nchw(x.permute(0, 3, 1, 2) if tf else x,
                                    _dilated(self.kernel_size, self.dilation),
                                    self.subsample, self.border_mode)
             w = params["kernel"].to(x.dtype).permute(3, 2, 0, 1)
             y = F.conv2d(xc, w, stride=self.subsample, padding=padding,
                          dilation=self.dilation, groups=self.groups)
-            y = y.permute(0, 2, 3, 1)
+            if tf:
+                y = y.permute(0, 2, 3, 1)
         if self.use_bias:
-            y = y + params["bias"].to(y.dtype)
+            b = params["bias"].to(y.dtype)
+            y = y + (b if tf else b.reshape(1, -1, 1, 1))
         if self.activation is not None:
             y = self.activation(y)
         return y.contiguous()
@@ -216,10 +229,12 @@ class Convolution2D(KerasLayer):
         return out
 
     def compute_output_shape(self, input_shape: Shape) -> Shape:
+        tf = self.dim_ordering == "tf"
         out = tuple(_conv_out_len(s, k, st, self.border_mode, d)
-                    for s, k, st, d in zip(input_shape[:2], self.kernel_size,
-                                           self.subsample, self.dilation))
-        return out + (self.nb_filter,)
+                    for s, k, st, d in zip(
+                        input_shape[:2] if tf else input_shape[1:3],
+                        self.kernel_size, self.subsample, self.dilation))
+        return out + (self.nb_filter,) if tf else (self.nb_filter,) + out
 
 
 class DepthwiseConvolution2D(KerasLayer):
@@ -301,6 +316,170 @@ class DepthwiseConvolution2D(KerasLayer):
         if self.b_regularizer is not None:
             out.append(("bias", self.b_regularizer))
         return out
+
+
+def _pad(x, pads, value=0.0):
+    """Constant-pad ``x`` by ``pads``, one ``(before, after)`` pair per
+    axis (batch included), as ``jnp.pad`` takes them."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [int(lo), int(hi)]
+    return F.pad(x, flat, value=value)
+
+
+class ZeroPadding1D(KerasLayer):
+    """Zero-pad the steps axis of ``(steps, features)``."""
+
+    def __init__(self, padding=1, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.padding = _norm_tuple(padding, 2, "padding") \
+            if not isinstance(padding, int) else (padding, padding)
+
+    def call(self, params, x, *, training=False, rng=None):
+        return _pad(x, ((0, 0), self.padding, (0, 0)))
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0] + sum(self.padding),) + tuple(input_shape[1:])
+
+
+class ZeroPadding2D(KerasLayer):
+    """Pad the two spatial axes, ``(pad_h, pad_w)`` each side or the
+    asymmetric ``((top, bottom), (left, right))``. ``value`` (default 0)
+    sets the pad constant: ``-inf`` (as a torch padded MaxPool2d is
+    imported) pads with the dtype's lowest finite value, as the
+    reference does."""
+
+    def __init__(self, padding=(1, 1), dim_ordering="tf", input_shape=None,
+                 name=None, value=0.0, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        if (isinstance(padding, (tuple, list)) and len(padding) == 2
+                and all(isinstance(q, (tuple, list)) and len(q) == 2
+                        for q in padding)):
+            self.padding = (tuple(int(v) for v in padding[0]),
+                            tuple(int(v) for v in padding[1]))
+        else:
+            p = _norm_tuple(padding, 2, "padding")
+            self.padding = ((p[0], p[0]), (p[1], p[1]))
+        self.dim_ordering = dim_ordering
+        self.value = value
+
+    def call(self, params, x, *, training=False, rng=None):
+        if self.dim_ordering == "tf":
+            pads = ((0, 0),) + self.padding + ((0, 0),)
+        else:
+            pads = ((0, 0), (0, 0)) + self.padding
+        val = self.value
+        if val == float("-inf"):
+            val = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
+                   else torch.iinfo(x.dtype).min)
+        return _pad(x, pads, val)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        h, w = (0, 1) if self.dim_ordering == "tf" else (1, 2)
+        s[h] += sum(self.padding[0])
+        s[w] += sum(self.padding[1])
+        return tuple(s)
+
+
+class Cropping1D(KerasLayer):
+    """Crop ``(start, end)`` steps off ``(steps, features)``."""
+
+    def __init__(self, cropping=(1, 1), input_shape=None, name=None,
+                 **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.cropping = _norm_tuple(cropping, 2, "cropping")
+
+    def call(self, params, x, *, training=False, rng=None):
+        a, b = self.cropping
+        return x[:, a:x.shape[1] - b, :]
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0] - sum(self.cropping),) + \
+            tuple(input_shape[1:])
+
+
+class Cropping2D(KerasLayer):
+    """Crop ``((top, bottom), (left, right))`` off the spatial axes."""
+
+    def __init__(self, cropping=((0, 0), (0, 0)), dim_ordering="tf",
+                 input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        if isinstance(cropping, int):
+            cropping = ((cropping, cropping), (cropping, cropping))
+        self.cropping = tuple(tuple(int(v) for v in c) for c in cropping)
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, x, *, training=False, rng=None):
+        (t, b), (l, r) = self.cropping
+        if self.dim_ordering == "tf":
+            return x[:, t:x.shape[1] - b, l:x.shape[2] - r, :]
+        return x[:, :, t:x.shape[2] - b, l:x.shape[3] - r]
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        (t, b), (l, r) = self.cropping
+        h, w = (0, 1) if self.dim_ordering == "tf" else (1, 2)
+        s[h] -= t + b
+        s[w] -= l + r
+        return tuple(s)
+
+
+class UpSampling1D(KerasLayer):
+    """Repeat each step ``length`` times."""
+
+    def __init__(self, length=2, input_shape=None, name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.length = int(length)
+
+    def call(self, params, x, *, training=False, rng=None):
+        return torch.repeat_interleave(x, self.length, dim=1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0] * self.length,) + tuple(input_shape[1:])
+
+
+class UpSampling2D(KerasLayer):
+    """Repeat rows and columns ``size`` times (nearest upsampling)."""
+
+    def __init__(self, size=(2, 2), dim_ordering="tf", input_shape=None,
+                 name=None, **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.size = _norm_tuple(size, 2, "size")
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, x, *, training=False, rng=None):
+        h = 1 if self.dim_ordering == "tf" else 2
+        y = torch.repeat_interleave(x, self.size[0], dim=h)
+        return torch.repeat_interleave(y, self.size[1], dim=h + 1)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        h = 0 if self.dim_ordering == "tf" else 1
+        s[h] *= self.size[0]
+        s[h + 1] *= self.size[1]
+        return tuple(s)
+
+
+class UpSampling3D(KerasLayer):
+    """Repeat the three leading non-batch axes ``size`` times."""
+
+    def __init__(self, size=(2, 2, 2), input_shape=None, name=None,
+                 **kwargs):
+        super().__init__(input_shape=input_shape, name=name, **kwargs)
+        self.size = _norm_tuple(size, 3, "size")
+
+    def call(self, params, x, *, training=False, rng=None):
+        y = x
+        for i, s in enumerate(self.size):
+            y = torch.repeat_interleave(y, s, dim=i + 1)
+        return y
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        for i in range(3):
+            s[i] *= self.size[i]
+        return tuple(s)
 
 
 # Keras-2 names of the same layers

@@ -53,9 +53,12 @@ def bn_fold(mean, var, gamma, beta, epsilon):
 
 
 class BatchNormalization(KerasLayer):
-    """BatchNorm over the trailing (channel) axis; epsilon 1e-3."""
+    """BatchNorm over the channel axis, the trailing one
+    (``dim_ordering="tf"``) or axis 1 (``"th"``, as the importers build
+    it); epsilon 1e-3."""
 
     def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
+                 beta_init="zero", gamma_init="one", dim_ordering="tf",
                  center: bool = True, scale: bool = True,
                  input_shape=None, name=None, **kwargs):
         super().__init__(input_shape=input_shape, name=name, **kwargs)
@@ -63,9 +66,18 @@ class BatchNormalization(KerasLayer):
         self.momentum = float(momentum)
         self.center = center
         self.scale = scale
+        self.dim_ordering = dim_ordering
+
+    def _feature_axis(self, ndim_with_batch: int) -> int:
+        return ndim_with_batch - 1 if self.dim_ordering == "tf" else 1
+
+    def _reshape_stat(self, stat, x):
+        shape = [1] * x.dim()
+        shape[self._feature_axis(x.dim())] = stat.shape[0]
+        return stat.reshape(shape)
 
     def build(self, generator, input_shape: Shape) -> dict:
-        n = input_shape[-1]
+        n = input_shape[-1] if self.dim_ordering == "tf" else input_shape[0]
         params = {}
         if self.scale:
             params["gamma"] = torch.ones((n,))
@@ -79,9 +91,11 @@ class BatchNormalization(KerasLayer):
         state = params["_state"]
         if training:
             # one pass over x for both sums, shifted by the moving mean
-            dims = tuple(range(x.dim() - 1))
-            xf = x.float() - state["moving_mean"].detach()
-            count = float(math.prod(x.shape[:-1]))
+            axis = self._feature_axis(x.dim())
+            dims = tuple(i for i in range(x.dim()) if i != axis)
+            xf = x.float() - self._reshape_stat(
+                state["moving_mean"].detach(), x)
+            count = float(math.prod(x.shape[i] for i in dims))
             mean, var, updates = bn_batch_stats(
                 xf.sum(dims), torch.square(xf).sum(dims), count, state,
                 self.momentum)
@@ -91,7 +105,8 @@ class BatchNormalization(KerasLayer):
         scale, shift = bn_fold(
             mean, var, params["gamma"] if self.scale else None,
             params["beta"] if self.center else None, self.epsilon)
-        return x * scale.to(x.dtype) + shift.to(x.dtype), updates
+        return (x * self._reshape_stat(scale, x).to(x.dtype)
+                + self._reshape_stat(shift, x).to(x.dtype)), updates
 
     def call(self, params, x, *, training=False, rng=None):
         return self.apply(params, x, training=training)[0]

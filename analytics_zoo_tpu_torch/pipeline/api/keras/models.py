@@ -370,6 +370,36 @@ class KerasNet(KerasLayer):
         self.estimator.params = new
         return self
 
+    # -- introspection ------------------------------------------------------
+    def summary(self, params: Optional[dict] = None,
+                line_length: int = 76) -> str:
+        """A printable per-layer table: name (type), output shape and
+        param count (``?`` without ``params``), and the total; printed
+        and returned."""
+        from analytics_zoo_tpu_torch.pipeline.api.keras.engine import \
+            tree_leaves
+        rows = [("Layer (type)", "Output Shape", "Param #")]
+        total = 0
+        for lyr in self.layers:
+            n = (sum(int(t.numel()) for t in
+                     tree_leaves(params.get(lyr.name, {})))
+                 if params else 0)
+            total += n
+            rows.append((f"{lyr.name} ({type(lyr).__name__})",
+                         str(lyr.output_shape), str(n) if params else "?"))
+        widths = [max(len(r[i]) for r in rows) + 2 for i in range(3)]
+        lines = ["=" * line_length]
+        for i, r in enumerate(rows):
+            lines.append("".join(c.ljust(w) for c, w in zip(r, widths)))
+            if i == 0:
+                lines.append("-" * line_length)
+        lines.append("=" * line_length)
+        if params:
+            lines.append(f"Total params: {total}")
+        text = "\n".join(lines)
+        print(text)
+        return text
+
     # -- inference ----------------------------------------------------------
     def forward(self, inputs):
         return self.call(self.params(), inputs)

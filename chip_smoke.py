@@ -400,11 +400,33 @@ script exits non-zero and prints no result line:
    echoed, ``/metrics`` counting the requests. The worker is SIGKILLed
    and reaped on every exit path.
    ``python3 chip_smoke.py --artifact`` runs phases 1, 2 and 22 only;
-23. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
+23. model import (``pipeline/api/onnx``, ``net_load.py``): the unfused
+   ResNet-50 (seed 0, distinctive BatchNorm statistics, its head scaled
+   so the logits reach 10) written as an ONNX file with the port's
+   ``helper`` (opset 13, NCHW; Conv, BatchNormalization, Relu, MaxPool,
+   Add, GlobalAveragePool, Flatten, Gemm; ~100 MB) and loaded with
+   ``OnnxLoader.load_model``; served through ``InferenceModel.
+   load_keras_net`` at batches 1, 8 and 32 from two threads in f32, each
+   within 1e-3 of max|logit| of the native net on the same weights and
+   images (NHWC there), the batch-32 request timed beside the native
+   unfused graph's; one f32 SGD step (0.01, momentum 0.9) at batch 8 held
+   to the CPU's (the loss within 1e-4, the fc and the last block's
+   initializers within 1e-5 of max|param| or twice the 1e-6 jitter), then
+   three steps at batch 32 in f32 and under ``mixed_bfloat16`` (finite
+   losses, the first bf16 loss within 2e-2 of the f32 one; ms per step
+   and the device's busy share profiled); a Caffe LeNet-5 (prototxt and
+   caffemodel), a BigDL ``.model`` and a ``torch.nn.Sequential`` conv
+   net, each loaded through ``Net`` and served on the card within 1e-5 of
+   its CPU run; ``ConvInteger``, ``MatMulInteger``, ``QLinearConv`` and
+   ``QLinearMatMul`` on the card bit for bit the CPU's. No kernel of the
+   eleven runs (``launches_import``, all 0).
+   ``python3 chip_smoke.py --import`` runs phases 1, 2 and 23 only;
+24. a ``{"kernels": [...]}`` JSON line (phase 19's launches as
    ``launches_plane`` and ``launches_plane_train``, phase 20's as
    ``launches_nnframes``, phase 21's as ``launches_fleet``, phase 22's
-   second process's as ``launches_artifact``), then the card's name and
-   power limit, then the result line ``{"ok": true, "device": {...}}``.
+   second process's as ``launches_artifact``, phase 23's as
+   ``launches_import``), then the card's name and power limit, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the flash kernels (B7-B10) against their plain
 versions at both BERT routes' shapes in f32 and bf16, and at dead key
@@ -9207,6 +9229,521 @@ def artifact_path(card, detail):
     return launches
 
 
+# -- phase 23: model import ---------------------------------------------------
+
+IMPORT_BATCHES = (1, 8, BATCH)
+IMPORT_STEPS = 3
+# the imported graph's convolutions, products and reductions by library
+# kernel family (cuDNN, cuBLAS and PyTorch's own)
+IMPORT_KERNEL_NAMES = (
+    ("convolutions (cuDNN)", r"(?i)conv|xmma|implicit|winograd|dgrad|wgrad"),
+    ("products (cuBLAS)", r"(?i)gemm|sm90_xmma_gemm|cutlass"),
+    ("reductions", r"(?i)reduce|norm"),
+    ("elementwise", r"(?i)elementwise|vectorized|unrolled"),
+)
+
+
+def resnet_onnx(net, image=IMAGE):
+    """The unfused ResNet-50 ``net`` (``ImageClassifier("resnet-50",
+    fused=False)``) as an ONNX ``ModelProto`` built with the port's
+    ``helper``: opset 13, NCHW, Conv (TF "SAME" as explicit pads),
+    BatchNormalization, Relu, MaxPool, Add, GlobalAveragePool, Flatten
+    and Gemm, its weights the net's. Walks the net's own graph."""
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.ops.conv_bn import tf_same_pads
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import \
+        _InputLayer
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import helper
+    from analytics_zoo_tpu_torch.pipeline.api.onnx.onnx_pb import \
+        TensorProto
+
+    params = params_to_numpy(net)
+    nodes, inits, names = [], [], {}
+
+    def init(name, arr):
+        inits.append(helper.make_tensor(name, np.ascontiguousarray(
+            arr, np.float32)))
+        return name
+
+    def same_pads(v, kernel, stride):
+        h, w = v.shape[0], v.shape[1]
+        (t, b, _), (l, r, _) = (tf_same_pads(h, kernel[0], stride[0]),
+                                tf_same_pads(w, kernel[1], stride[1]))
+        return [t, l, b, r]
+
+    for v in net._order:
+        lyr = v.layer
+        if isinstance(lyr, _InputLayer):
+            names[id(v)] = "image"
+            continue
+        ins = [names[id(p)] for p in v.parents]
+        out = lyr.name
+        p = params.get(lyr.name, {})
+        if isinstance(lyr, L.Convolution2D):
+            check(lyr.border_mode == "same" and not lyr.use_bias and
+                  lyr.groups == 1, f"{lyr.name}: unexpected conv")
+            w = init(f"{out}.weight", p["kernel"].transpose(3, 2, 0, 1))
+            nodes.append(helper.make_node(
+                "Conv", [ins[0], w], [out],
+                kernel_shape=list(lyr.kernel_size),
+                strides=list(lyr.subsample),
+                pads=same_pads(v.parents[0], lyr.kernel_size,
+                               lyr.subsample)))
+        elif isinstance(lyr, L.BatchNormalization):
+            st = p["_state"]
+            nodes.append(helper.make_node(
+                "BatchNormalization",
+                [ins[0], init(f"{out}.gamma", p["gamma"]),
+                 init(f"{out}.beta", p["beta"]),
+                 init(f"{out}.mean", st["moving_mean"]),
+                 init(f"{out}.var", st["moving_var"])], [out],
+                epsilon=lyr.epsilon))
+        elif isinstance(lyr, L.Activation):
+            nodes.append(helper.make_node("Relu", ins, [out]))
+        elif isinstance(lyr, L.MaxPooling2D):
+            nodes.append(helper.make_node(
+                "MaxPool", ins, [out], kernel_shape=list(lyr.pool_size),
+                strides=list(lyr.strides),
+                pads=same_pads(v.parents[0], lyr.pool_size, lyr.strides)))
+        elif isinstance(lyr, L.Add):
+            nodes.append(helper.make_node("Add", ins, [out]))
+        elif isinstance(lyr, L.GlobalAveragePooling2D):
+            nodes.append(helper.make_node("GlobalAveragePool", ins,
+                                          [out + ".pool"]))
+            nodes.append(helper.make_node("Flatten", [out + ".pool"], [out],
+                                          axis=1))
+        elif isinstance(lyr, L.Dense):
+            nodes.append(helper.make_node(
+                "Gemm", [ins[0], init(f"{out}.weight", p["kernel"]),
+                         init(f"{out}.bias", p["bias"])], [out]))
+        else:
+            raise AssertionError(f"no ONNX mapping for {lyr.name}")
+        names[id(v)] = out
+    h, w, c = image
+    graph = helper.make_graph(
+        nodes, "resnet50",
+        [helper.make_tensor_value_info("image", TensorProto.FLOAT,
+                                       ["N", c, h, w])],
+        [helper.make_tensor_value_info(names[id(net.outputs[0])],
+                                       TensorProto.FLOAT, ["N", 1000])],
+        inits)
+    return helper.make_model(graph, opset_version=13)
+
+
+def onnx_steps(device, proto, x, y, steps, policy="float32"):
+    """``steps`` SGD steps (0.01, momentum 0.9, softmax cross entropy)
+    of ``proto`` imported on ``device`` at batch ``len(x) // steps``:
+    the losses, the params after them, the Estimator."""
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.bridge import params_to_numpy
+    from analytics_zoo_tpu_torch.ops.optimizers import SGD
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import OnnxLoader
+    from analytics_zoo_tpu_torch.pipeline.estimator import (Estimator,
+                                                            MaxIteration)
+    ctx = zoo.init_nncontext(seed=0, device=device)
+    net = OnnxLoader.load_model(proto)
+    net.init_params()
+    est = Estimator(net, optimizer=SGD(lr=0.01, momentum=0.9),
+                    loss="softmax_cross_entropy", dtype_policy=policy,
+                    ctx=ctx)
+    res = est.train(x, y, batch_size=len(x) // steps,
+                    end_trigger=MaxIteration(steps))
+    losses = [float(v) for h in res.history for v in h["losses"]]
+    return losses, params_to_numpy(net)[net.layers[0].name]["w"], est
+
+
+IMPORT_LENET_PROTOTXT = '''
+name: "LeNet"
+input: "data"
+input_dim: 1 input_dim: 1 input_dim: 28 input_dim: 28
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+        convolution_param { num_output: 20 kernel_size: 5 stride: 1 } }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+        pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "conv2" type: "Convolution" bottom: "pool1" top: "conv2"
+        convolution_param { num_output: 50 kernel_size: 5 } }
+layer { name: "bn2" type: "BatchNorm" bottom: "conv2" top: "conv2" }
+layer { name: "sc2" type: "Scale" bottom: "conv2" top: "conv2" }
+layer { name: "pool2" type: "Pooling" bottom: "conv2" top: "pool2"
+        pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "ip1" type: "InnerProduct" bottom: "pool2" top: "ip1"
+        inner_product_param { num_output: 500 } }
+layer { name: "relu1" type: "ReLU" bottom: "ip1" top: "ip1" }
+layer { name: "ip2" type: "InnerProduct" bottom: "ip1" top: "ip2"
+        inner_product_param { num_output: 10 } }
+layer { name: "prob" type: "Softmax" bottom: "ip2" top: "prob" }
+'''
+
+
+def caffe_lenet_files(tmp, rs):
+    """Caffe's LeNet-5 (20 and 50 filters of 5x5, 500 hidden, 10
+    classes) as a prototxt and a binary caffemodel with seeded weights."""
+    from analytics_zoo_tpu_torch.pipeline.api import caffe_load as cl
+    w = lambda *s: (rs.randn(*s) * 0.1).astype(np.float32)  # noqa: E731
+
+    def layer(name, *arrays):
+        return cl.CaffeLayerParameter(name=name, blobs=[
+            cl.BlobProto(shape=cl.BlobShape(dim=list(a.shape)),
+                         data=a.reshape(-1).tolist()) for a in arrays])
+    model = cl.NetParameter(name="LeNet", layer=[
+        layer("conv1", w(20, 1, 5, 5), w(20)),
+        layer("conv2", w(50, 20, 5, 5), w(50)),
+        layer("bn2", w(50), rs.rand(50).astype(np.float32) + 0.5,
+              np.array([1.0], np.float32)),
+        layer("sc2", rs.rand(50).astype(np.float32) + 0.5, w(50)),
+        layer("ip1", w(500, 800), w(500)), layer("ip2", w(10, 500), w(10))])
+    proto = os.path.join(tmp, "lenet.prototxt")
+    with open(proto, "w") as f:
+        f.write(IMPORT_LENET_PROTOTXT)
+    weights = os.path.join(tmp, "lenet.caffemodel")
+    with open(weights, "wb") as f:
+        f.write(model.SerializeToString())
+    return proto, weights
+
+
+def bigdl_model_file(tmp, rs):
+    """A BigDL ``.model`` of LeNet-5 at the reference fixture's widths
+    (a Reshape to 1x28x28, 6 and 12 filters of 5x5 with a BatchNorm,
+    100 hidden, 5 classes, a LogSoftMax head), seeded weights."""
+    from analytics_zoo_tpu_torch.pipeline.api import bigdl_pb as pb
+    nn_ = "com.intel.analytics.bigdl.nn."
+    w = lambda *s: (rs.randn(*s) * 0.2).astype(np.float32)  # noqa: E731
+
+    def tensor(a):
+        a = np.asarray(a, np.float32)
+        return pb.BigDLTensor(
+            datatype=pb.DT_FLOAT, size=list(a.shape), offset=1,
+            dimension=a.ndim, nElements=a.size,
+            storage=pb.TensorStorage(datatype=pb.DT_FLOAT,
+                                     float_data=a.reshape(-1).tolist()))
+
+    def module(kind, name, weight=None, bias=None, subs=(), extra=(), **kw):
+        attrs = [pb.AttrEntry(key=k, value=pb.AttrValue(
+            arrayValue=pb.ArrayValue(i32=list(v)))
+            if isinstance(v, list) else pb.AttrValue(int32Value=v))
+            for k, v in kw.items()] + list(extra)
+        return pb.BigDLModule(
+            name=name, moduleType=nn_ + kind, subModules=list(subs),
+            weight=None if weight is None else tensor(weight),
+            bias=None if bias is None else tensor(bias), attr=attrs)
+    stats = [pb.AttrEntry(key="runningMean", value=pb.AttrValue(
+        tensorValue=tensor(w(6)))),
+        pb.AttrEntry(key="runningVar", value=pb.AttrValue(
+            tensorValue=tensor(rs.rand(6) + 0.5)))]
+    root = module("Sequential", "lenet", subs=[
+        module("Reshape", "reshape", size=[1, 28, 28]),
+        module("SpatialConvolution", "conv1", w(6, 1, 5, 5), w(6),
+               nOutputPlane=6, kernelW=5, kernelH=5),
+        module("SpatialBatchNormalization", "bn1", rs.rand(6) + 0.5, w(6),
+               extra=stats),
+        module("Tanh", "tanh1"),
+        module("SpatialMaxPooling", "pool1", kW=2, kH=2, dW=2, dH=2),
+        module("SpatialConvolution", "conv2", w(12, 6, 5, 5), w(12),
+               nOutputPlane=12, kernelW=5, kernelH=5),
+        module("Tanh", "tanh2"),
+        module("SpatialMaxPooling", "pool2", kW=2, kH=2, dW=2, dH=2),
+        module("Reshape", "flat", size=[12 * 4 * 4]),
+        module("Linear", "fc1", w(100, 192), w(100), outputSize=100),
+        module("Tanh", "tanh3"),
+        module("Linear", "fc2", w(5, 100), w(5), outputSize=5),
+        module("LogSoftMax", "out")])
+    path = os.path.join(tmp, "lenet.model")
+    with open(path, "wb") as f:
+        f.write(root.SerializeToString())
+    return path
+
+
+def torch_convnet():
+    """A torch conv net of the importer's modules (seeded; BatchNorm
+    statistics from three training batches)."""
+    import torch
+    import torch.nn as nn
+    torch.manual_seed(0)
+    m = nn.Sequential(
+        nn.Conv2d(3, 32, 3, padding=1), nn.BatchNorm2d(32), nn.ReLU(),
+        nn.MaxPool2d(3, stride=2, ceil_mode=True),
+        nn.Conv2d(32, 64, 3, stride=2, padding=1, groups=4), nn.ELU(),
+        nn.AvgPool2d(2), nn.Conv2d(64, 64, 1), nn.LeakyReLU(0.1),
+        nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(64, 10))
+    m.train()
+    with torch.no_grad():
+        for _ in range(3):
+            m(torch.randn(16, 3, 32, 32))
+    return m.eval()
+
+
+def import_others(card, rec, tmp):
+    """The Caffe, BigDL and torch importers and the four integer ONNX
+    ops, each on the card against its own CPU run."""
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch import Net
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import helper
+    from analytics_zoo_tpu_torch.pipeline.api.onnx.onnx_loader import \
+        run_node
+    rs = np.random.RandomState(23)
+    caffe = caffe_lenet_files(tmp, rs)
+    bigdl = bigdl_model_file(tmp, rs)
+    tm = torch_convnet()
+    cases = {
+        "caffe LeNet-5": (lambda: Net.load_caffe(*caffe),
+                          rs.randn(64, 1, 28, 28).astype(np.float32)),
+        "BigDL LeNet-5 (.model)": (lambda: Net.load_bigdl(bigdl),
+                                   rs.randn(64, 784).astype(np.float32)),
+        "torch conv net": (lambda: Net.load_torch(tm, (3, 32, 32)),
+                           rs.randn(64, 3, 32, 32).astype(np.float32)),
+    }
+    out = {}
+    for label, (load, x) in cases.items():
+        zoo.init_nncontext(seed=0)
+        t = time.perf_counter()
+        net = load()
+        load_s = time.perf_counter() - t
+        check(net.device.type == "cuda", f"{label}: on {net.device}")
+        got = net.predict(x, batch_size=32)
+        zoo.init_nncontext(seed=0, device="cpu")
+        want = load().predict(x, batch_size=32)
+        err = float(np.abs(got - want).max())
+        tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+        print(f"  {label}: loaded on the card in {load_s:.3f} s; served "
+              f"{got.shape} against the CPU: max|err| {err:.3e} (tol "
+              f"{tol:.1e})", flush=True)
+        check(np.isfinite(got).all() and err <= tol,
+              f"{label}: card vs CPU {err} > {tol}")
+        out[label] = {"max_abs_err": err, "tol": tol, "load_s": load_s}
+        if label == "torch conv net":
+            with torch.no_grad():
+                ref = tm(torch.from_numpy(x)).numpy()
+            err_m = float(np.abs(got - ref).max())
+            print(f"    against the module's own CPU forward: max|err| "
+                  f"{err_m:.3e}", flush=True)
+            check(err_m <= 1e-4 * max(1.0, float(np.abs(ref).max())),
+                  f"{label}: vs module {err_m}")
+            out[label]["vs_module"] = err_m
+    zoo.init_nncontext(seed=0)
+    u8 = lambda *s: rs.randint(0, 256, s).astype(np.uint8)  # noqa: E731
+    s32 = lambda v: np.array(v, np.float32)  # noqa: E731
+    z8 = lambda v: np.array(v, np.uint8)  # noqa: E731
+    x8, w8 = u8(8, 64, 56, 56), u8(64, 64, 3, 3)
+    a8, b8 = u8(4, 512, 1024), u8(1024, 256)
+    wscale = (rs.rand(64) * 0.02).astype(np.float32)
+    ops = {
+        "ConvInteger": (helper.make_node(
+            "ConvInteger", ["x", "w", "xz", "wz"], ["y"],
+            kernel_shape=[3, 3], pads=[1, 1, 1, 1]),
+            [x8, w8, z8(120), z8(128)]),
+        "MatMulInteger": (helper.make_node(
+            "MatMulInteger", ["a", "b", "az", "bz"], ["y"]),
+            [a8, b8, z8(7), z8(9)]),
+        "QLinearConv": (helper.make_node(
+            "QLinearConv", ["x", "xs", "xz", "w", "ws", "wz", "ys", "yz",
+                            "b"], ["y"], kernel_shape=[3, 3],
+            pads=[1, 1, 1, 1], strides=[2, 2]),
+            [x8, s32(0.02), z8(120), w8, wscale, z8(128), s32(0.5), z8(100),
+             rs.randint(-5000, 5000, (64,)).astype(np.int32)]),
+        "QLinearMatMul": (helper.make_node(
+            "QLinearMatMul", ["a", "sa", "za", "b", "sb", "zb", "sy", "zy"],
+            ["y"]), [a8, s32(0.02), z8(120), b8, s32(0.03), z8(130),
+                     s32(5.0), z8(128)]),
+    }
+    for name, (node, inputs) in ops.items():
+        got = run_node(node, inputs, device="cuda")[0]
+        want = run_node(node, inputs, device="cpu")[0]
+        same = got.dtype == want.dtype and np.array_equal(got, want)
+        print(f"  {name} {tuple(got.shape)} {got.dtype}: card bit for bit "
+              f"the CPU's: {same}", flush=True)
+        check(same, f"{name}: the card's result differs from the CPU's")
+        out[name] = {"shape": list(got.shape), "bit_for_bit": same}
+    rec["others"] = out
+
+
+def import_path(card, detail):
+    """Phase 23: full-width ResNet-50 imported from an ONNX file, served
+    and fine-tuned on the card; the Caffe, BigDL and torch importers and
+    the integer ONNX ops against the CPU. Returns the kernel launches."""
+    import tempfile
+
+    import torch
+
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.onnx import (OnnxLoader,
+                                                           onnx_pb)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = detail.setdefault("import", {})
+    reset_launches()
+    zoo.init_nncontext(seed=0)
+    rs = np.random.RandomState(0)
+    images = {bs: rs.rand(bs, *IMAGE).astype(np.float32)
+              for bs in IMPORT_BATCHES}
+    native = ImageClassifier("resnet-50", input_shape=IMAGE, classes=1000,
+                             fused=False).model
+    native.init_params()
+    distinct_bn(native, 1)
+    factor = scale_head(native, images[8])
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        proto = resnet_onnx(native)
+        path = os.path.join(tmp, "resnet50.onnx")
+        onnx_pb.save_model(proto, path)
+        built_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        net = OnnxLoader.load_model(path)
+        parse_s = time.perf_counter() - t
+        net.init_params()
+        load_s = time.perf_counter() - t
+        n_nodes = len(proto.graph.node)
+        ops = sorted({n.op_type for n in proto.graph.node})
+        print(f"  ResNet-50 as ONNX (opset 13, {n_nodes} nodes: "
+              f"{', '.join(ops)}; head scaled by {factor:.3g}): "
+              f"{size / 1e6:.1f} MB written in {built_s:.2f} s, loaded "
+              f"onto {net.device} in {load_s:.2f} s (the file read and "
+              f"parsed in {parse_s:.2f} s, then the shape pass and the "
+              "weights' copy)", flush=True)
+        check(net.device.type == "cuda", f"imported net on {net.device}")
+        rec.update(onnx_bytes=size, build_s=built_s, load_s=load_s,
+                   parse_s=parse_s, nodes=n_nodes, ops=ops)
+
+        im = InferenceModel(supported_concurrent_num=2).load_keras_net(net)
+        ref_im = InferenceModel(
+            supported_concurrent_num=2).load_keras_net(native)
+        requests = [(bs, rep) for bs in IMPORT_BATCHES for rep in range(2)]
+        nchw = {bs: torch.from_numpy(images[bs].transpose(0, 3, 1, 2)
+                                     .copy()).to("cuda")
+                for bs in IMPORT_BATCHES}
+        torch.cuda.synchronize()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(im.predict, nchw[bs])
+                       for bs, _ in requests]
+            outs = [f.result() for f in futures]
+        checks = {}
+        for (bs, rep), got in zip(requests, outs):
+            want = native.predict(images[bs], batch_size=BATCH)
+            err = float(np.abs(got - want).max())
+            tol = 1e-3 * float(np.abs(want).max())
+            checks[f"b{bs}_r{rep}"] = (err, tol)
+            print(f"  served batch {bs} (request {rep}) against the native "
+                  f"net: max|err| {err:.4e} (tol {tol:.4e}, 1e-3 of "
+                  f"max|logit| {float(np.abs(want).max()):.3f})",
+                  flush=True)
+            check(got.shape == (bs, 1000) and np.isfinite(got).all() and
+                  err <= tol, f"imported batch {bs}: {err} > {tol}")
+        rec["logit_checks"] = checks
+        # the graph's shape arithmetic stays on the host: one forward
+        # under the sync debug mode, which raises on a device read
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.inference_mode():
+                net.call(net.params(), nchw[BATCH])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("  a batch-32 forward of the imported graph ran under "
+              "torch.cuda.set_sync_debug_mode('error'): no device read "
+              f"between its {n_nodes} nodes", flush=True)
+        x32 = torch.from_numpy(images[BATCH]).to("cuda")
+        rates = {}
+        for label, model, x in (("imported", im, nchw[BATCH]),
+                                ("native", ref_im, x32),
+                                ("imported again", im, nchw[BATCH])):
+            med, lo, hi = median_request_s(model, x)
+            rates[label] = {"ms": med * 1e3, "ms_spread": [lo * 1e3,
+                                                           hi * 1e3],
+                            "images_per_s": BATCH / med}
+            print(f"  {label} f32 batch {BATCH}: median {med * 1e3:.3f} ms "
+                  f"per request ({lo * 1e3:.3f}-{hi * 1e3:.3f}), "
+                  f"{BATCH / med:.1f} images/s on {card}", flush=True)
+        rec["serving"] = rates
+        rec["profile_serving"] = profile_steps(
+            lambda: im.predict(nchw[BATCH]), 3, IMPORT_KERNEL_NAMES)
+        # fine-tuning starts from the head as drawn: scaled, the first
+        # steps' gradients would be the head's scale times larger
+        head = native.graph_layers["fc"].params()["kernel"]
+        with torch.no_grad():
+            head.div_(factor)
+        proto = resnet_onnx(native)
+        del im, ref_im, native, head
+        torch.cuda.empty_cache()
+
+        # fine-tune: one f32 step at batch 8 on the card and on the CPU
+        x8 = images[8].transpose(0, 3, 1, 2).copy()
+        y8 = rs.randint(0, 1000, (8,)).astype(np.int32)
+        lc, pc, _ = onnx_steps("cuda", proto, x8, y8, 1)
+        lj, pj, _ = onnx_steps("cuda", proto, x8 * (1.0 + 1e-6), y8, 1)
+        torch.cuda.empty_cache()
+        lp, pp, _ = onnx_steps("cpu", proto, x8, y8, 1)
+        zoo.init_nncontext(seed=0)
+        rel = abs(lc[0] - lp[0]) / abs(lp[0])
+        print(f"  one f32 step at batch 8: loss card {lc[0]:.6f}, CPU "
+              f"{lp[0]:.6f} (rel {rel:.2e}, tol 1e-4)", flush=True)
+        check(np.isfinite(lc[0]) and rel <= 1e-4,
+              f"imported step loss {lc[0]} vs {lp[0]}")
+        step = {"loss_card": lc[0], "loss_cpu": lp[0], "loss_rel": rel}
+        for leaf in ("fc.weight", "fc.bias", "s3b2_c3.weight",
+                     "s3b2_c3_bn.gamma"):
+            err = float(np.abs(pc[leaf] - pp[leaf]).max())
+            jit = float(np.abs(pj[leaf] - pc[leaf]).max())
+            peak = float(np.abs(pp[leaf]).max())
+            tol = max(1e-5 * peak, 2.0 * jit)
+            print(f"    {leaf} after the step: max|card - CPU| {err:.4e} "
+                  f"(tol {tol:.4e}: 1e-5 of max|param| {peak:.4e}, or "
+                  f"twice the card's 1e-6 jitter {jit:.4e})", flush=True)
+            check(err <= tol, f"imported {leaf}: {err} > {tol}")
+            step[leaf] = (err, tol)
+        rec["f32_step"] = step
+        del pc, pj, pp
+
+        # three steps at batch 32, f32 and mixed_bfloat16
+        xs = rs.rand(IMPORT_STEPS * BATCH, *IMAGE).astype(np.float32) \
+            .transpose(0, 3, 1, 2).copy()
+        ys = rs.randint(0, 1000, (len(xs),)).astype(np.int32)
+        fit = {}
+        for policy in ("float32", "mixed_bfloat16"):
+            losses, _, est = onnx_steps("cuda", proto, xs, ys,
+                                        IMPORT_STEPS, policy)
+            print(f"  {policy}: {IMPORT_STEPS} steps at batch {BATCH}, "
+                  f"losses {[round(v, 5) for v in losses]}", flush=True)
+            check(len(losses) == IMPORT_STEPS and
+                  all(np.isfinite(v) for v in losses),
+                  f"{policy} losses {losses}")
+            from analytics_zoo_tpu_torch.pipeline.estimator import \
+                MaxIteration
+            print(f"  profile {policy} train, {IMPORT_STEPS} steps:",
+                  flush=True)
+            prof = profile_steps(
+                lambda: est.train(xs, ys, batch_size=BATCH,
+                                  end_trigger=MaxIteration(
+                                      est.step + IMPORT_STEPS)),
+                1, IMPORT_KERNEL_NAMES, per=IMPORT_STEPS)
+            print(f"  {policy} step: {prof['wall_ms_per_step']:.2f} ms, "
+                  f"device busy share {prof['device_busy_share']:.3f} on "
+                  f"{card}", flush=True)
+            fit[policy] = {"losses": losses, "profile": prof}
+            del est
+            torch.cuda.empty_cache()
+        f32, bf = fit["float32"]["losses"][0], \
+            fit["mixed_bfloat16"]["losses"][0]
+        rel16 = abs(bf - f32) / abs(f32)
+        print(f"  first loss bf16 {bf:.5f} vs f32 {f32:.5f}: rel "
+              f"{rel16:.2e} (tol {TOL['bfloat16']})", flush=True)
+        check(rel16 <= TOL["bfloat16"], f"bf16 loss {bf} vs f32 {f32}")
+        rec["fit"] = fit
+        import_others(card, rec, tmp)
+    launches = all_launches()
+    print(f"  launches in phase 23: {launches}", flush=True)
+    check(not any(launches.values()),
+          f"the import path launched a kernel of the eleven: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9331,6 +9868,17 @@ def main() -> int:
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out",
                                "chip_smoke_artifact.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        print(card)
+        return 0
+
+    if sys.argv[1:] == ["--import"]:
+        # phase 23 alone, on the built libraries; no result line
+        print("[23] model import", flush=True)
+        import_path(card, detail)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out",
+                               "chip_smoke_import.json"), "w") as f:
             json.dump(detail, f, indent=1, default=str)
         print(card)
         return 0
@@ -9505,9 +10053,16 @@ def main() -> int:
           "behind the native C++ front end", flush=True)
     artifact = artifact_path(card, detail)
 
-    print("[23] summary", flush=True)
+    print("[23] model import: ResNet-50 from an ONNX file served and "
+          "fine-tuned (f32, bf16), the Caffe, BigDL and torch importers "
+          "and the integer ONNX ops against the CPU (no kernel of the "
+          "eleven on this path)", flush=True)
+    imported = import_path(card, detail)
+
+    print("[24] summary", flush=True)
     summary = kernels_summary(records, launches)
     for rec in summary:
+        rec["launches_import"] = imported.get(rec["name"], 0)
         if artifact.get(rec["name"]):
             rec["launches_artifact"] = artifact[rec["name"]]
         if fleet.get(rec["name"]):

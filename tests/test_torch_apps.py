@@ -3,7 +3,7 @@ the nnframes slice on the CPU, with the reference's own tiny arguments
 and assertions (``tests/test_apps.py``, ``tests/test_examples.py``);
 ``bert_finetune`` trains on one device, and ``--devices 2`` raises
 naming the data-parallel item it waits for. The dispatchers list 4 apps
-and 20 examples."""
+and 21 examples."""
 
 import numpy as np
 import pytest
@@ -100,7 +100,8 @@ def test_bert_finetune_refuses_more_than_one_device():
 
 def test_dispatchers_list_3_apps_and_20_examples(capsys):
     """The app list (four apps since the web-service sample) and the
-    twenty examples; the name is kept from when it held three."""
+    twenty-one examples (since onnx_import); the name is kept from when
+    they held three and twenty."""
     assert apps_main(["list"]) == 0
     out = capsys.readouterr().out
     assert len(APPS) == 4 and all(f"  {a} " in out for a in APPS)
@@ -108,4 +109,4 @@ def test_dispatchers_list_3_apps_and_20_examples(capsys):
     assert apps_main(["nope"]) == 2
     assert examples_main(["list"]) == 0
     out = capsys.readouterr().out
-    assert len(EXAMPLES) == 20 and all(f"  {e} " in out for e in EXAMPLES)
+    assert len(EXAMPLES) == 21 and all(f"  {e} " in out for e in EXAMPLES)

@@ -217,14 +217,17 @@ class _StubReplicaModel:
         return np.asarray(xs[0] if isinstance(xs, list) else xs) * 2.0
 
 
-def _stub_fleet(lib, n=2, queue_depth=4, **router_kw):
+def _stub_fleet(lib, n=2, queue_depth=4, clock=time.monotonic,
+                **router_kw):
+    """A started router over ``n`` stub replicas; ``clock`` is handed to
+    the replicas and the pool (the router reads the pool's)."""
     models = [_StubReplicaModel() for _ in range(n)]
     replicas = [lib.fleet.Replica(f"r{i}", m, batcher_kwargs={
-        "max_wait_ms": 1, "queue_depth": queue_depth})
+        "max_wait_ms": 1, "queue_depth": queue_depth}, clock=clock)
         for i, m in enumerate(models)]
     router_kw.setdefault("probe_interval_s", 0)
-    router = lib.fleet.FleetRouter(lib.fleet.ReplicaPool(replicas=replicas),
-                                   **router_kw)
+    router = lib.fleet.FleetRouter(
+        lib.fleet.ReplicaPool(replicas=replicas, clock=clock), **router_kw)
     return router.start(), models
 
 
@@ -433,7 +436,11 @@ def test_fleet_saturation_returns_min_retry_hint():
 
 
 def test_no_admitting_replica_is_unavailable_not_crash():
-    fleets = {lib.name: _stub_fleet(lib, 2) for lib in LIBS}
+    # one fixed clock for both packages: the message carries the
+    # soonest probe's delay, which would otherwise read the real clock
+    # at two different moments
+    fleets = {lib.name: _stub_fleet(lib, 2, clock=lambda: 1000.0)
+              for lib in LIBS}
     try:
         x = np.ones((1, 3), np.float32)
         msgs = {}
@@ -587,6 +594,10 @@ def test_trace_id_spans_router_and_replica_inprocess():
             with lib.tracing.trace("client/request") as tr:
                 router.submit([x]).result(timeout=TIMEOUT)
                 tid = tr.trace_id
+            # the batcher records serving/scatter after it resolves the
+            # request's future: wait for its thread to write the span
+            _wait(lambda: "serving/scatter" in {
+                s.name for s in lib.tracing.get_store().spans(tid)})
             names[lib.name] = {s.name for s in
                                lib.tracing.get_store().spans(tid)}
         finally:
